@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py                 # every phase (needs one card)
+    python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+  1. the card's name and power limit, torch/CUDA versions; build the
+     hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+  2. each kernel against its plain PyTorch version on the card at the
+     full-width shapes of qwen3-next-gdn (Hk=16, Hv=32, d=128, bf16 q/k/v,
+     fp32 state), with its time (the kernel's own duration as the
+     profiler records it, mean of 30 launches, each after a 256 MiB read
+     that evicts the L2; CUDA events around each launch beside it), its
+     bound, the plain version's time (CUDA events);
+  3. full-width qwen3-next-gdn (48 layers, random bf16 weights drawn on the
+     card from a seed): one ``decode_step`` with the kernels against one
+     through the plain path;
+  4. serving through ``DecodeEngine`` with the kernels (4 slots, max_len
+     1024, prefill chunk 64, decode block 8): 6 requests, prompts of
+     100-400 tokens, 32 new tokens each, one at temperature 0.8 / top-k
+     40.  The kernels' launch counters are zeroed just before and read
+     just after this run.
+
+The second line before the last is a JSON object with one entry per
+kernel; the line before the last is the card's name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# datasheet peaks of the H100 SXM (dense): HBM bandwidth, the fp32 rate
+# outside the tensor cores and the bf16 tensor-core rate (fp32 accumulate)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
+
+CFG = dict(B=4, Hk=16, Hv=32, d=128)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check(name, got, want, rtol, atol):
+    err = (got.float() - want.float()).abs()
+    lim = atol + rtol * want.float().abs()
+    bad = int((err > lim).sum())
+    print(f"  {name}: max|diff| {float(err.max()):.3e} "
+          f"(rtol {rtol}, atol {atol})")
+    if bad or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: {bad} elements outside tolerance")
+    return float(err.max())
+
+
+# ---------------------------------------------------------------- phase 2
+
+def decode_phase(ref, kdecode, time_launches):
+    """gdn_decode at B=4, Hk=16, Hv=32, d=128; o is bf16 (one rounding:
+    rtol = atol = 2e-2), the fp32 state differs only in summation order
+    (rtol = atol = 1e-4)."""
+    B, Hk, Hv, d = CFG["B"], CFG["Hk"], CFG["Hv"], CFG["d"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = rnd(B, Hk, d).to(torch.bfloat16)
+    k = torch.nn.functional.normalize(rnd(B, Hk, d), dim=-1).to(
+        torch.bfloat16)
+    v = rnd(B, Hv, d).to(torch.bfloat16)
+    S = rnd(B, Hv, d, d) * 0.2
+    g = torch.sigmoid(rnd(B, Hv))
+    beta = torch.sigmoid(rnd(B, Hv))
+    errs = []
+    for delta_rule in (True, False):
+        S_k = S.clone()
+        o_k, _ = kdecode.gdn_decode(q, k, v, S_k, g, beta,
+                                    delta_rule=delta_rule)
+        o_p, S_p = ref.gdn_decode_ref(q, k, v, S, g, beta,
+                                      delta_rule=delta_rule)
+        torch.cuda.synchronize()
+        errs.append(check(f"gdn_decode delta_rule={delta_rule} o", o_k, o_p,
+                          2e-2, 2e-2))
+        errs.append(check(f"gdn_decode delta_rule={delta_rule} S", S_k, S_p,
+                          1e-4, 1e-4))
+    S_t = S.clone()
+    ev_ms, ms = time_launches(
+        lambda: kdecode.gdn_decode(q, k, v, S_t, g, beta),
+        "gdn_decode_kernel")
+    plain_ms, _ = time_launches(
+        lambda: ref.gdn_decode_ref(q, k, v, S, g, beta))
+    print(f"  gdn_decode: CUDA events around one launch {ev_ms * 1e3:.2f} "
+          f"us, the kernel's own duration {ms * 1e3:.2f} us")
+    state = B * Hv * d * d * 4
+    nbytes = 2 * state + (2 * B * Hk * d + 2 * B * Hv * d) * 2 + 2 * B * Hv * 4
+    flops = B * Hv * (7 * d * d + 8 * d)    # [k;q]S, S update, o
+    return dict(name="gdn_decode", route="cuda",
+                source="src/repro_torch/csrc/gdn_decode.cu",
+                replaces="src/repro/kernels/gdn_decode.py:66",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                **bound("gdn_decode", nbytes, flops), library_ms=None)
+
+
+def bound(name, nbytes, fp32_flops, tc_flops=0):
+    """The least time for the work: the larger of the bytes over the HBM
+    rate and the operations over their peak rate — ``fp32_flops`` at the
+    CUDA-core fp32 rate, ``tc_flops`` (bf16 x bf16 products accumulated in
+    fp32) at the bf16 tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = fp32_flops / FP32_FLOPS_PER_S * 1e3
+    t_tc = tc_flops / BF16_TC_FLOPS_PER_S * 1e3
+    t_ops = t_fp32 + t_tc
+    print(f"  {name} bound: bytes {t_bytes * 1e3:.3f} us, operations "
+          f"{t_ops * 1e3:.3f} us (fp32 {t_fp32 * 1e3:.3f} us + bf16 "
+          f"tensor-core {t_tc * 1e3:.3f} us)")
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def prefill_inputs(B, T, gen):
+    Hk, Hv, d = CFG["Hk"], CFG["Hv"], CFG["d"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = rnd(B, T, Hk, d).to(torch.bfloat16)
+    k = torch.nn.functional.normalize(rnd(B, T, Hk, d), dim=-1).to(
+        torch.bfloat16)
+    v = rnd(B, T, Hv, d).to(torch.bfloat16)
+    log_g = -torch.nn.functional.softplus(rnd(B, T, Hv))
+    beta = torch.sigmoid(rnd(B, T, Hv))
+    S0 = rnd(B, Hv, d, d) * 0.1
+    return q, k, v, log_g, beta, S0
+
+
+def prefill_phase(ops, ref, kprefill, time_launches):
+    """gdn_prefill at BH = 4*32 rows, T in {16, 64} (chunk = T), ragged
+    valid_len per batch row including 0 and T.  The kernel's chunkwise UT
+    transform with forward substitution and the plain sequential scan are
+    two factorizations of one fp32 recurrence at d = 128: the state within
+    rtol = atol = 1e-4; O is bf16 (2e-2)."""
+    Hk, Hv, d = CFG["Hk"], CFG["Hv"], CFG["d"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    errs = []
+    for T in (16, 64):
+        B = CFG["B"]
+        q, k, v, lg, beta, S0 = prefill_inputs(B, T, gen)
+        valid = torch.tensor([T, 0, T // 2 + 1, 3], dtype=torch.int32,
+                             device="cuda")
+        S_k = S0.clone()
+        O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=T,
+                                 valid_len=valid)
+        rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
+                .contiguous() for x in (q, k, v, lg, beta)]
+        vl = torch.repeat_interleave(valid, Hv)
+        O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * Hv, d, d), vl,
+                                       n_rep=Hv // Hk)
+        torch.cuda.synchronize()
+        errs.append(check(f"gdn_prefill T={T} S", S_k.reshape(B * Hv, d, d),
+                          S_p, 1e-4, 1e-4))
+        if not torch.equal(S_k[1], S0[1]):
+            raise AssertionError("valid_len=0 row changed its state")
+        O_k = O_k.transpose(1, 2).reshape(B * Hv, T, d)
+        mask = (torch.arange(T, device="cuda")[None, :] < vl[:, None])
+        errs.append(check(f"gdn_prefill T={T} O (valid rows)",
+                          O_k[mask], O_p[mask], 2e-2, 2e-2))
+    # time at the main path's shape: one staged prompt (B=1), a full
+    # 64-token chunk, through the kernel's own wrapper (rows laid out by
+    # ops.gdn_prefill)
+    T = 64
+    q, k, v, lg, beta, S0 = prefill_inputs(1, T, gen)
+    rows_qk = [x.transpose(1, 2).reshape(Hk, T, d).contiguous()
+               for x in (q, k)]
+    v_r = v.transpose(1, 2).reshape(Hv, T, d).contiguous()
+    lg_r, b_r = (x.transpose(1, 2).reshape(Hv, T).contiguous()
+                 for x in (lg, beta))
+    S_r = S0.reshape(Hv, d, d).clone()
+    vl = torch.full((Hv,), T, dtype=torch.int32, device="cuda")
+    ev_ms, ms = time_launches(
+        lambda: kprefill.gdn_prefill(*rows_qk, v_r, lg_r, b_r, S_r, vl,
+                                     chunk=T, n_rep=Hv // Hk),
+        "gdn_prefill_kernel")
+    S_p0 = S0.reshape(Hv, d, d)
+    plain_ms, _ = time_launches(
+        lambda: ref.gdn_prefill_ref(*rows_qk, v_r, lg_r, b_r, S_p0, vl,
+                                    n_rep=Hv // Hk), reps=5, warmup=1)
+    print(f"  gdn_prefill: CUDA events around one launch {ev_ms * 1e3:.2f} "
+          f"us, the kernel's own duration {ms * 1e3:.2f} us")
+    C, dk, dv = T, d, d
+    # per row and chunk: A = tril(K K^T) and M = tril(Q K^T) multiply the
+    # bf16 q/k, which the tensor cores do exactly in fp32 accumulation;
+    # K S, Q S, the state update, the triangular solve and M U take fp32
+    # operands
+    tc_row = 2 * C * C * dk
+    fp32_row = 6 * C * dk * dv + 2 * C * C * dv
+    if q.dtype != torch.bfloat16:
+        fp32_row, tc_row = fp32_row + tc_row, 0
+    nbytes = (2 * Hk * T * d + 2 * Hv * T * d) * 2 + 2 * Hv * T * 4 \
+        + 2 * Hv * d * d * 4 + Hv * 4
+    return dict(name="gdn_prefill", route="cuda",
+                source="src/repro_torch/csrc/gdn_prefill.cu",
+                replaces="src/repro/kernels/gdn_prefill.py:116",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                **bound("gdn_prefill", nbytes, Hv * fp32_row, Hv * tc_row),
+                library_ms=None)
+
+
+# ---------------------------------------------------------------- phase 3
+
+def _one_step(cfg, params, lm, toks, tok):
+    """Logits of one decode step with the kernels and one through the
+    plain path, each from its own copy of the caches a 64-token plain
+    prefill left."""
+    plain = cfg.replace(use_pallas_serving=False)
+    caches = lm.init_caches(plain, toks.shape[0], 1024, device="cuda")
+    lm.prefill_chunk(params, plain, caches, tokens=toks)
+    twin = [[type(c)(*(t.clone() for t in c)) for c in g] for g in caches]
+    lk, caches = lm.decode_step(params, cfg, tok, caches)
+    lp, _ = lm.decode_step(params, plain, tok, twin)
+    torch.cuda.synchronize()
+    for t in [lk] + [t for g in caches for c in g for t in c]:
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError("non-finite logits or caches (kernels)")
+    return lk, lp
+
+
+def model_phase(cfg, params, lm):
+    """One full-width decode step with the kernels against the plain path.
+
+    fp32 activations (the same weights upcast): the paths differ only in
+    summation order, so the logits agree to 1e-3 and the argmax is equal.
+    bf16 activations (the serving dtype): a one-ulp difference of a bf16
+    rounding grows through 48 layers of a random model, so the stated
+    tolerance is relative to bf16 itself — the kernel path may be no
+    further from the fp32 logits than twice the plain bf16 path is, and
+    the argmax must agree wherever the plain top-two gap exceeds the
+    plain path's own error."""
+    from repro_torch.tree import tree_map
+    B = CFG["B"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(1, cfg.vocab, (B, 64), generator=gen,
+                         device="cuda")
+    tok = torch.randint(1, cfg.vocab, (B,), generator=gen, device="cuda")
+    cfg32 = cfg.replace(act_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    k32, truth = _one_step(cfg32, p32, lm, toks, tok)
+    del p32
+    err32 = max_err(k32, truth)
+    same32 = bool((k32.argmax(-1) == truth.argmax(-1)).all())
+    print(f"  fp32 decode_step logits: max|diff| {err32:.3e} (atol 1e-3), "
+          f"argmax equal {same32}")
+    if err32 > 1e-3 or not same32:
+        raise AssertionError("fp32 decode_step: kernel path disagrees")
+    lk, lp = _one_step(cfg, params, lm, toks, tok)
+    if lk.shape != (B, cfg.vocab):
+        raise AssertionError(f"logits shape {tuple(lk.shape)}")
+    err_k, err_p = max_err(lk, truth), max_err(lp, truth)
+    top2 = lp.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = lk.argmax(-1) == lp.argmax(-1)
+    print(f"  bf16 decode_step logits: max|kernel - plain| "
+          f"{max_err(lk, lp):.3e}; from fp32: kernel {err_k:.3e}, plain "
+          f"{err_p:.3e} (limit 2x plain); argmax equal {same.tolist()}, "
+          f"plain top-2 gaps {[round(float(x), 4) for x in gap]}")
+    if err_k > 2 * err_p or not bool((same | (gap <= err_p)).all()):
+        raise AssertionError("bf16 decode_step: kernel path disagrees")
+
+
+# ---------------------------------------------------------------- phase 4
+
+def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card):
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
+              seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+
+    def requests(n, lo, hi, new):
+        out = []
+        for i in range(n):
+            stoch = i == 2
+            out.append(Request(
+                rid=i, prompt=rng.integers(1, cfg.vocab,
+                                           size=int(rng.integers(lo, hi + 1))),
+                max_new_tokens=new, temperature=0.8 if stoch else 0.0,
+                top_k=40 if stoch else 0))
+        return out
+
+    warm = Engine(cfg, params, **kw)        # first-call set-up, not timed
+    for r in requests(2, 100, 130, 4):
+        warm.submit(r)
+    warm.run_until_done()
+    del warm
+
+    eng = Engine(cfg, params, **kw)
+    reqs = requests(6, 100, 400, 32)
+    kdecode.launches = kprefill.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gdn_decode": kdecode.launches,
+                "gdn_prefill": kprefill.launches}
+    m = eng.metrics()
+    n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
+    print(f"  prompts {[r.prompt_len for r in reqs]}, "
+          f"{m['tokens']} tokens in {wall:.3f} s")
+    for r in reqs:
+        if len(r.output) != 32 or not all(0 <= t < cfg.vocab
+                                          for t in r.output):
+            raise AssertionError(f"request {r.rid}: bad output {r.output}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if launches["gdn_decode"] != n_gdn * eng.decode_steps:
+        raise AssertionError(
+            f"gdn_decode launches {launches['gdn_decode']} != {n_gdn} x "
+            f"{eng.decode_steps} decode steps")
+    print(f"  launches {launches} = {n_gdn} GDN layers x "
+          f"{eng.decode_steps} decode steps (+ prefill chunks)")
+    print(f"  serve [{card}]: decode {m['decode_us_per_token']:.1f} "
+          f"us/token ({m['decoded_tokens']} tokens over {m['ticks']} ticks), "
+          f"mean TTFT {m['mean_ttft_s'] * 1e3:.1f} ms, "
+          f"{m['tokens'] / wall:.1f} tok/s overall, "
+          f"{m['mean_tokens_per_s']:.1f} tok/s per request")
+    print("  streams (first 8 tokens): "
+          + "; ".join(f"{r.rid}:{r.output[:8]}" for r in reqs))
+    return launches
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build the kernels, hold them against their plain "
+                         "versions and stop")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from repro_torch import configs
+        from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import gdn_decode as kdecode
+        from repro_torch.kernels import gdn_prefill as kprefill
+        from repro_torch.launch.profile_decode import time_launches
+        from repro_torch.models import lm
+        from repro_torch.serving import engine as engine_mod
+    except ImportError as e:
+        print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    _build.build_all()
+    print(f"  built {sorted(_build.build_log) or 'nothing new'} in "
+          f"{_build.build_seconds:.1f} s")
+    for name, log in sorted(_build.build_log.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
+    rows = [decode_phase(ref, kdecode, time_launches),
+            prefill_phase(ops, ref, kprefill, time_launches)]
+    for r in rows:
+        print(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us)")
+    if args.kernels_only:
+        print(json.dumps({"kernels": rows}))
+        return 0
+
+    cfg = configs.get_arch("qwen3-next-gdn").replace(use_pallas_serving=True)
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[3] full-width {cfg.name}: {lm.param_count(params) / 1e9:.3f} B "
+          f"params ({cfg.act_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    model_phase(cfg, params, lm)
+
+    print(f"[4] serving through DecodeEngine [{card}]")
+    launches = serve_phase(cfg, params, engine_mod, kdecode, kprefill,
+                           card)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,233 @@
+"""GQA / sliding-window attention over a rolling KV cache (port of the
+serving half of ``repro.models.attention``).
+
+  * ``attn_prefill``       — causal attention over a fresh prompt, fills the
+                             cache;
+  * ``attn_prefill_chunk`` — one prompt chunk continuing from the cache
+                             (RoPE/visibility resume at ``cache.length``,
+                             ragged ``valid_len`` tails);
+  * ``attn_decode_xla``    — one token against the cache (the reference's
+                             plain-XLA decode; its name is kept).
+
+KV cache layout: (B, Hkv, Tmax, hd) + lengths (B,) int32.  A rolling (SWA)
+cache of ``size`` slots holds token p at slot p mod size.  The functions
+write the new keys/values and lengths into the cache tensors in place and
+return the cache.  Score and value products accumulate in fp32 from the
+activation-dtype cache, as the reference's ``preferred_element_type``.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models import layers
+
+_NEG = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, Hkv, Tmax, hd)
+    v: torch.Tensor       # (B, Hkv, Tmax, hd)
+    length: torch.Tensor  # (B,) int32 — tokens seen (may exceed Tmax when
+                          # the cache rolls)
+
+
+def init_attention(generator, d_model, n_heads, n_kv_heads, head_dim,
+                   dtype, device, reps):
+    s = d_model ** -0.5
+    r = layers.randn
+    return {
+        "wq": r(generator, (reps, d_model, n_heads, head_dim), s, dtype,
+                device),
+        "wk": r(generator, (reps, d_model, n_kv_heads, head_dim), s, dtype,
+                device),
+        "wv": r(generator, (reps, d_model, n_kv_heads, head_dim), s, dtype,
+                device),
+        "wo": r(generator, (reps, n_heads, head_dim, d_model),
+                (n_heads * head_dim) ** -0.5, dtype, device),
+    }
+
+
+def _proj_heads(x, w):
+    d, H, k = w.shape
+    return layers.dot(x, w.reshape(d, H * k)).reshape(*x.shape[:-1], H, k)
+
+
+def _qkv(p, x, positions, rope_theta):
+    q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, rope_theta)
+    k = layers.apply_rope(_proj_heads(x, p["wk"]), positions, rope_theta)
+    return q, k, _proj_heads(x, p["wv"])
+
+
+def _apply_head_mask(o, head_mask):
+    """Zero the TP-padding heads (see ArchConfig.head_mask)."""
+    if head_mask is None:
+        return o
+    shape = (1,) * (o.dim() - 2) + (o.shape[-2], 1)
+    return o * head_mask.reshape(shape).to(o.dtype)
+
+
+def _out(o, wo):
+    H, hd, d = wo.shape
+    return layers.dot(o.reshape(*o.shape[:-2], H * hd), wo.reshape(H * hd, d))
+
+
+def _f32_matmul(a, b):
+    """fp32 product of activation-dtype operands (bf16 x bf16 products are
+    exact in fp32, so this is the reference's fp32-accumulated dot)."""
+    return torch.matmul(a.float(), b.float())
+
+
+def attn_prefill(p, x, cache: KVCache, *, rope_theta=10000.0, window=None,
+                 head_mask=None):
+    """Causal (optionally windowed) attention over the prompt; fills the
+    cache.  All rows share length T; rolling caches keep the last ``size``
+    tokens at slot p mod size."""
+    B, T, _ = x.shape
+    pos = torch.arange(T, device=x.device)
+    q, k, v = _qkv(p, x, pos.expand(B, T), rope_theta)
+    Hq, hd = q.shape[2], q.shape[3]
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4)   # (B,Hkv,G,T,hd)
+    kh = k.permute(0, 2, 1, 3)                                 # (B,Hkv,T,hd)
+    vh = v.permute(0, 2, 1, 3)
+    s = (1.0 / math.sqrt(hd)) * _f32_matmul(
+        qg, kh.unsqueeze(2).transpose(-1, -2))
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask = mask & ((pos[:, None] - pos[None, :]) < window)
+    s = torch.where(mask, s, torch.full((), _NEG, device=x.device))
+    pr = torch.softmax(s, dim=-1)
+    o = _f32_matmul(pr.to(v.dtype), vh.unsqueeze(2))           # (B,Hkv,G,T,hd)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, hd).to(x.dtype)
+    size = cache.k.shape[2]
+    if T >= size:
+        cache.k.copy_(torch.roll(kh[:, :, -size:], T % size, dims=2))
+        cache.v.copy_(torch.roll(vh[:, :, -size:], T % size, dims=2))
+    else:
+        cache.k[:, :, :T] = kh.to(cache.k.dtype)
+        cache.v[:, :, :T] = vh.to(cache.v.dtype)
+    cache.length.add_(T)
+    return _out(_apply_head_mask(o, head_mask), p["wo"]), cache
+
+
+def attn_prefill_chunk(p, x, cache: KVCache, *, rope_theta=10000.0,
+                       window=None, head_mask=None, valid_len=None):
+    """One prompt chunk continuing from the cache — exactly equivalent to
+    decoding it token by token.  A pre-chunk slot is visible to the query
+    at position ``pos`` iff occupied and among the ``size`` most recent
+    positions at ``pos``; in-chunk visibility is causal.  With
+    ``valid_len`` (int or (B,) tensor) only the first valid_len tokens of
+    each row are real: padded positions are not inserted into the rolling
+    buffer and ``length`` advances by valid_len only.
+    x: (B, C, d) with C <= cache size.  Returns (out (B, C, d), cache)."""
+    B, C, _ = x.shape
+    size = cache.k.shape[2]
+    if C > size:
+        raise ValueError(f"prefill chunk of {C} tokens exceeds the rolling "
+                         f"KV buffer ({size}); lower the chunk size")
+    dev = x.device
+    length = cache.length.long()
+    ar = torch.arange(C, device=dev)
+    pos = length[:, None] + ar[None, :]                         # (B, C)
+    q, k, v = _qkv(p, x, pos, rope_theta)
+    Hq, hd = q.shape[2], q.shape[3]
+    Hkv = cache.k.shape[1]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, C, Hkv, G, hd).permute(0, 2, 3, 1, 4)     # (B,Hkv,G,C,hd)
+    neg = torch.full((), _NEG, device=dev)
+
+    # scores against the pre-chunk cache
+    t_idx = torch.arange(size, device=dev)
+    Lc = length[:, None]
+    p_t = (Lc - 1) - torch.remainder(Lc - 1 - t_idx[None, :], size)
+    occupied = t_idx[None, :] < Lc
+    vis = occupied[:, None, :] & (p_t[:, None, :] > pos[:, :, None] - size)
+    s_cache = scale * _f32_matmul(qg, cache.k.unsqueeze(2).transpose(-1, -2))
+    s_cache = torch.where(vis[:, None, None], s_cache, neg)
+
+    # in-chunk causal scores
+    kc = k.permute(0, 2, 1, 3)                                  # (B,Hkv,C,hd)
+    vc = v.permute(0, 2, 1, 3)
+    s_chunk = scale * _f32_matmul(qg, kc.unsqueeze(2).transpose(-1, -2))
+    causal = ar[:, None] >= ar[None, :]
+    s_chunk = torch.where(causal, s_chunk, neg)
+
+    # two-part online-softmax combine (as the reference)
+    m_cache = s_cache.amax(-1)
+    e_cache = torch.exp(s_cache - m_cache[..., None])
+    l_cache = e_cache.sum(-1)
+    o_cache = _f32_matmul(e_cache.to(cache.v.dtype), cache.v.unsqueeze(2))
+    m_chunk = s_chunk.amax(-1)
+    e_chunk = torch.exp(s_chunk - m_chunk[..., None])
+    l_chunk = e_chunk.sum(-1)
+    o_chunk = _f32_matmul(e_chunk.to(vc.dtype), vc.unsqueeze(2))
+    m = torch.maximum(m_cache, m_chunk)
+    w_cache = torch.exp(m_cache - m)
+    w_chunk = torch.exp(m_chunk - m)
+    l_tot = w_cache * l_cache + w_chunk * l_chunk
+    o = ((w_cache[..., None] * o_cache + w_chunk[..., None] * o_chunk)
+         / torch.clamp(l_tot, min=1e-30)[..., None])
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, hd).to(x.dtype)
+    out = _out(_apply_head_mask(o, head_mask), p["wo"])
+
+    # rolling insert of the chunk: C <= size positions have distinct slots,
+    # so a padded position (>= valid_len) rewrites its slot's old contents
+    # and leaves the buffer as if it had been skipped (a wrapped slot may
+    # still hold a visible valid token)
+    slots = torch.remainder(pos, size)                          # (B, C)
+    b_idx = torch.arange(B, device=dev)[:, None].expand(B, C)
+    new_k = k.to(cache.k.dtype)                                 # (B,C,Hkv,hd)
+    new_v = v.to(cache.v.dtype)
+    if valid_len is not None:
+        vl = torch.as_tensor(valid_len, dtype=torch.int64, device=dev)
+        keep = (ar[None, :] < vl.reshape(-1, 1))[:, :, None, None]
+        new_k = torch.where(keep, new_k, cache.k[b_idx, :, slots])
+        new_v = torch.where(keep, new_v, cache.v[b_idx, :, slots])
+    cache.k[b_idx, :, slots] = new_k
+    cache.v[b_idx, :, slots] = new_v
+    adv = C if valid_len is None else torch.as_tensor(
+        valid_len, dtype=cache.length.dtype, device=dev)
+    cache.length.add_(adv)
+    return out, cache
+
+
+def _cache_insert(cache: KVCache, k_t, v_t):
+    """Insert one token per row at its rolling slot. k_t: (B, Hkv, hd)."""
+    size = cache.k.shape[2]
+    slot = torch.remainder(cache.length.long(), size)
+    b_idx = torch.arange(cache.k.shape[0], device=cache.k.device)
+    cache.k[b_idx, :, slot] = k_t.to(cache.k.dtype)
+    cache.v[b_idx, :, slot] = v_t.to(cache.v.dtype)
+    cache.length.add_(1)
+    return cache
+
+
+def attn_decode_xla(p, x_t, cache: KVCache, *, rope_theta=10000.0,
+                    window=None, head_mask=None):
+    """One-token decode against the cache.  x_t: (B, d_model).
+    Returns (out (B, d_model), cache)."""
+    B = x_t.shape[0]
+    pos = cache.length.long()
+    x = x_t[:, None, :]
+    q, k, v = _qkv(p, x, pos[:, None], rope_theta)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    cache = _cache_insert(cache, k, v)
+    size = cache.k.shape[2]
+    Hq, hd = q.shape[1], q.shape[2]
+    Hkv = cache.k.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    s = (1.0 / math.sqrt(hd)) * _f32_matmul(qg, cache.k.transpose(-1, -2))
+    valid = torch.arange(size, device=x_t.device)[None, :] < \
+        cache.length[:, None]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), _NEG, device=x_t.device))
+    pr = torch.exp(s - s.amax(-1, keepdim=True))
+    pr = pr / torch.clamp(pr.sum(-1, keepdim=True), min=1e-30)
+    o = _f32_matmul(pr.to(cache.v.dtype), cache.v)
+    o = o.reshape(B, Hq, hd).to(x_t.dtype)
+    return _out(_apply_head_mask(o, head_mask), p["wo"]), cache

@@ -1,0 +1,109 @@
+"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, logits
+(port of ``repro.models.layers``).
+
+Functional style over plain parameter dicts of tensors.  Matmuls run in
+the activation dtype (bf16 on the card, which accumulates in fp32 and
+rounds the result to bf16 — the reference's ``preferred_element_type``
+then ``astype``); norms in fp32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dot(x, w):
+    """x (..., d) @ w (d, n) -> (..., n) in x's dtype."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def randn(generator, shape, std, dtype, device):
+    """N(0, std^2) in fp32 from ``generator`` on ``device``, cast to dtype
+    (the reference's ``(normal(key, shape) * s).astype(dtype)``)."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * std).to(dtype)
+
+
+# ------------------------------------------------------------------ RMSNorm
+
+def init_rmsnorm(d, device, reps=None):
+    shape = (d,) if reps is None else (reps, d)
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+
+
+def rmsnorm_fwd(p, x, eps=1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE
+
+def rope_freqs(head_dim, theta=10000.0, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta=10000.0):
+    """x: (..., T, H, hd) or (..., H, hd), positions broadcastable to the
+    leading dims of x without the head axis."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ MLP
+
+def init_mlp(generator, d_model, d_ff, dtype, device, reps):
+    s_in, s_ff = d_model ** -0.5, d_ff ** -0.5
+    return {
+        "wi_gate": randn(generator, (reps, d_model, d_ff), s_in, dtype, device),
+        "wi_up": randn(generator, (reps, d_model, d_ff), s_in, dtype, device),
+        "wo": randn(generator, (reps, d_ff, d_model), s_ff, dtype, device),
+    }
+
+
+def mlp_fwd(p, x):
+    g = dot(x, p["wi_gate"])
+    u = dot(x, p["wi_up"])
+    return dot(F.silu(g) * u, p["wo"])
+
+
+# ------------------------------------------------------------------ Embedding
+
+def init_embedding(generator, vocab, d_model, dtype, device):
+    return {"table": randn(generator, (vocab, d_model), d_model ** -0.5,
+                           dtype, device)}
+
+
+def embed_fwd(p, tokens):
+    return p["table"][tokens]
+
+
+def logits_matmul(x, w):
+    """x (..., d) @ w (d, V) with an fp32 result.
+
+    The reference computes this product from the activation-dtype operands
+    with fp32 output (``preferred_element_type``).  On the card bf16
+    operands go through ``torch.mm(..., out_dtype=torch.float32)``, which
+    keeps the fp32 accumulator and never materializes an fp32 copy of the
+    (d, V) head; elsewhere (fp32 configs, the CPU, which has no kernel for
+    that overload) both operands are fp32."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def logits_fwd(p, x, table=None):
+    """Project to vocab. ``table`` given => tied embeddings."""
+    w = table if table is not None else p["table"]
+    return logits_matmul(x, w.t())

@@ -1,0 +1,37 @@
+"""Minimal pytree helpers over the port's nested containers.
+
+Params and caches keep the reference's nesting (dicts, lists, tuples and
+NamedTuples of arrays); these helpers map over the tensor leaves.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of ``tree`` (``None`` leaves stay
+    ``None``), keeping the containers."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, x) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def leaves(tree) -> List[Any]:
+    """Leaves in a deterministic order (dict keys sorted, as jax does)."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for x in tree for l in leaves(x)]
+    if tree is None:
+        return []
+    return [tree]

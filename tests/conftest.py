@@ -7,3 +7,7 @@ def pytest_configure(config):
         "subprocess: spawns EngineWorker subprocesses (each builds its "
         "own jax runtime — the multiprocess disagg smoke; select with "
         "-m subprocess)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the port's hand-written "
+        "kernels); skips without one — run with -m cuda on the card")

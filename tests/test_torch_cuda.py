@@ -1,0 +1,111 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card (``-m cuda``; skipped without one).  This file imports no JAX, so
+it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the fp32 state differs only in summation order (decode,
+1e-5) or between two factorizations of one recurrence (prefill, 5e-4);
+a bf16 output allows one bf16 rounding step (2e-2).  Inputs are made with
+numpy from a seed.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import gdn_decode as tdecode    # noqa: E402
+from repro_torch.kernels import gdn_prefill as tprefill  # noqa: E402
+from repro_torch.kernels import ops, ref                 # noqa: E402
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+CHUNKWISE = dict(rtol=5e-4, atol=5e-4)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernels run only on "
+                    "the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _normal(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+        np.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("delta_rule", [True, False])
+def test_decode_kernel_vs_plain(cuda, dtype, delta_rule):
+    rng = np.random.default_rng(11)
+    B, Hk, Hv, d = 2, 4, 8, 128
+    q = _normal(rng, B, Hk, d)
+    k = torch.nn.functional.normalize(_normal(rng, B, Hk, d), dim=-1)
+    v = _normal(rng, B, Hv, d)
+    qkv = [x.to(cuda, dtype) for x in (q, k, v)]
+    S = _normal(rng, B, Hv, d, d, scale=0.2).to(cuda)
+    g, beta = (torch.sigmoid(_normal(rng, B, Hv)).to(cuda) for _ in range(2))
+    S_k = S.clone()
+    n = tdecode.launches
+    o_k, S_out = ops.gdn_decode(*qkv, S_k, g, beta, delta_rule=delta_rule)
+    o_p, S_p = ref.gdn_decode_ref(*qkv, S, g, beta, delta_rule=delta_rule)
+    torch.cuda.synchronize()
+    assert tdecode.launches == n + 1 and S_out is S_k
+    _close(o_k, o_p, F32 if dtype == torch.float32 else BF16)
+    _close(S_k, S_p, F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta_rule", [True, False])
+def test_prefill_kernel_vs_plain(cuda, delta_rule):
+    rng = np.random.default_rng(12)
+    B, T, Hk, Hv, d = 2, 32, 2, 4, 64
+    q = _normal(rng, B, T, Hk, d).to(cuda)
+    k = torch.nn.functional.normalize(_normal(rng, B, T, Hk, d),
+                                      dim=-1).to(cuda)
+    v = _normal(rng, B, T, Hv, d).to(cuda)
+    lg = -torch.nn.functional.softplus(_normal(rng, B, T, Hv)).to(cuda)
+    beta = torch.sigmoid(_normal(rng, B, T, Hv)).to(cuda)
+    S0 = _normal(rng, B, Hv, d, d, scale=0.1).to(cuda)
+    valid = torch.tensor([T, 5], dtype=torch.int32, device=cuda)
+    S_k = S0.clone()
+    n = tprefill.launches
+    O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=16,
+                             delta_rule=delta_rule, valid_len=valid)
+    rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
+            .contiguous() for x in (q, k, v, lg, beta)]
+    vl = torch.repeat_interleave(valid, Hv)
+    O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * Hv, d, d), vl,
+                                   delta_rule=delta_rule, n_rep=Hv // Hk)
+    torch.cuda.synchronize()
+    assert tprefill.launches == n + 1
+    _close(S_k.reshape(B * Hv, d, d), S_p, CHUNKWISE)
+    O_k = O_k.transpose(1, 2).reshape(B * Hv, T, d)
+    for r, n_valid in enumerate(vl.tolist()):
+        _close(O_k[r, :n_valid], O_p[r, :n_valid], CHUNKWISE)
+
+
+@pytest.mark.cuda
+def test_wrappers_check_their_inputs(cuda):
+    """Wrong dtype or a non-contiguous state raises before any launch."""
+    B, Hk, Hv, d = 1, 1, 2, 32
+    q = torch.zeros(B, Hk, d, device=cuda)
+    v = torch.zeros(B, Hv, d, device=cuda)
+    g = torch.ones(B, Hv, device=cuda)
+    S = torch.zeros(B, Hv, d, 2 * d, device=cuda)[..., :d]
+    n = tdecode.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        tdecode.gdn_decode(q, q, v, S, g, g)
+    with pytest.raises(TypeError, match="float32"):
+        tdecode.gdn_decode(q, q, v, S.contiguous(), g.double(), g)
+    assert tdecode.launches == n

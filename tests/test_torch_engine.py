@@ -1,0 +1,131 @@
+"""The port's serving engine against the JAX reference's, on reduced
+qwen3-next-gdn with ``use_pallas_serving=True`` (the reference runs its
+Pallas kernels in interpret mode; the port's CPU tensors take the kernels'
+plain versions).  Parameters come from the reference's init through the
+bridge.  Token streams must be identical — greedy and stochastic, with
+prefill/decode overlap on and off (the reference's streams do not depend
+on overlap or on its batched staging, so its default engine is the
+reference for both).
+"""
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jconfigs                    # noqa: E402
+from repro.models import lm as jlm                        # noqa: E402
+from repro.serving.engine import DecodeEngine as JEngine  # noqa: E402
+from repro.serving.engine import Request as JRequest      # noqa: E402
+from repro_torch import configs as tconfigs               # noqa: E402
+from repro_torch.bridge import to_torch                   # noqa: E402
+from repro_torch.launch import serve as tserve            # noqa: E402
+from repro_torch.serving.engine import DecodeEngine, Request  # noqa: E402
+
+ENGINE = dict(max_slots=2, max_len=64, decode_block=4, prefill_chunk=8,
+              seed=3)
+# prompts spanning several chunks with ragged tails, one exactly a chunk;
+# (temperature, top_k) per request: greedy plus one stochastic
+PROMPT_LENS = (21, 8, 30, 13)
+SAMPLING = ((0.0, 0), (0.0, 0), (0.8, 20), (0.0, 0))
+MAX_NEW = (7, 5, 9, 6)
+
+
+def _requests(cls):
+    rng = np.random.default_rng(0)
+    return [cls(rid=i, prompt=rng.integers(1, 256, size=n, dtype=np.int32),
+                max_new_tokens=m, temperature=t, top_k=k)
+            for i, (n, (t, k), m) in enumerate(zip(PROMPT_LENS, SAMPLING,
+                                                    MAX_NEW))]
+
+
+@pytest.fixture(scope="module")
+def reference():
+    jcfg = jconfigs.get_arch("qwen3-next-gdn").reduced().replace(
+        use_pallas_serving=True)
+    jp = jax.jit(jlm.init_lm, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    eng = JEngine(jcfg, jp, **ENGINE)
+    reqs = _requests(JRequest)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    streams = {r.rid: list(r.output) for r in reqs}
+    tcfg = tconfigs.get_arch("qwen3-next-gdn").reduced().replace(
+        use_pallas_serving=True)
+    return streams, eng.metrics(), tcfg, to_torch(jax.tree.map(np.asarray,
+                                                               jp))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_engine_streams_match_reference(reference, overlap):
+    streams, jm, tcfg, tp = reference
+    eng = DecodeEngine(tcfg, tp, overlap=overlap, device="cpu", **ENGINE)
+    reqs = _requests(Request)
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_done()
+    assert len(done) == len(reqs)
+    assert {r.rid: list(r.output) for r in reqs} == streams
+    m = eng.metrics()
+    assert set(m) <= set(jm)                    # the reference's key names
+    for key in ("requests", "tokens", "decode_block", "prefill_chunk",
+                "staging_depth", "plan_mode"):
+        assert m[key] == jm[key], key
+
+
+def test_engine_budget_ticks_and_admit_completion(reference):
+    """max_new_tokens = 1 completes at admit (no slot, no tick); a tick
+    never runs past the largest remaining budget."""
+    _, _, tcfg, tp = reference
+    eng = DecodeEngine(tcfg, tp, device="cpu", **ENGINE)
+    eng.submit(Request(rid=0, prompt=np.arange(1, 12, dtype=np.int32),
+                       max_new_tokens=1))
+    eng.submit(Request(rid=1, prompt=np.arange(1, 5, dtype=np.int32),
+                       max_new_tokens=3))
+    eng.run_until_done()
+    m = eng.metrics()
+    assert m["tokens"] == 4 and m["decoded_tokens"] == 2
+    assert m["ticks"] == 1                   # one k=2 bucket tick
+    assert m["scatter_dispatches"] == 1
+
+
+def test_engine_rejects_bad_requests_and_deferred_settings(reference):
+    _, _, tcfg, tp = reference
+    eng = DecodeEngine(tcfg, tp, device="cpu", **ENGINE)
+    for req, match in ((Request(rid=0, prompt=np.ones(3), top_p=0.0),
+                        "top_p"),
+                       (Request(rid=0, prompt=np.ones(3), top_k=40),
+                        "temperature"),
+                       (Request(rid=0, prompt=np.ones(3),
+                                max_new_tokens=0), "max_new_tokens"),
+                       (Request(rid=0, prompt=np.ones(65)), "max_len"),
+                       (Request(rid=0), "prompt")):
+        with pytest.raises(ValueError, match=match):
+            eng.submit(req)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.pause(0)
+    for kw in (dict(plan_mode="pow2"), dict(prefill_batching=True),
+               dict(mesh=object()), dict(speculative=True),
+               dict(async_paging=True), dict(swap_policy="idle",
+                                             idle_swap_ms=5.0),
+               dict(role="prefill")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DecodeEngine(tcfg, tp, device="cpu", **ENGINE, **kw)
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(reference):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    _, _, tcfg, tp = reference
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecodeEngine(tcfg, tp, **ENGINE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--arch", "qwen3-next-gdn", "--requests", "1"])
+
+
+def test_serve_cli_on_cpu(capsys):
+    tserve.main(["--arch", "qwen3-next-gdn", "--requests", "3",
+                 "--max-new", "3", "--slots", "2", "--max-len", "32",
+                 "--kernels", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 9 tokens" in out
