@@ -21,7 +21,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
      1024, prefill chunk 64, decode block 8): 6 requests, prompts of
      100-400 tokens, 32 new tokens each, one at temperature 0.8 / top-k
      40.  The kernels' launch counters are zeroed just before and read
-     just after this run.
+     just after this run;
+  5. training full-width qwen3-next-gdn through the port's ``Trainer``
+     with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 3
+     steps, a checkpoint into a temporary directory under ``build/``):
+     first ``loss_fn`` and its gradients at the initial parameters through
+     the flash kernels against the plain ``blockwise_attention`` path,
+     then the 3 steps with the launch counters zeroed just before and read
+     just after.
+
+Phase 2 also holds the three flash-attention kernels (forward, dq, dk/dv)
+against their plain versions at the trained shape (B=2, T=2048, Hq=16,
+Hkv=2, hd=128, bf16) and on a windowed and a ragged (``valid_len``) case,
+and times each beside ``F.scaled_dot_product_attention`` (the library
+yardstick, used nowhere in the port).
 
 The second line before the last is a JSON object with one entry per
 kernel; the line before the last is the card's name and power limit; the
@@ -31,9 +44,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +64,8 @@ FP32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
 
 CFG = dict(B=4, Hk=16, Hv=32, d=128)
+# the trained attention shape: global batch 2, seq_len 2048, GQA 16:2
+FLASH = dict(B=2, T=2048, Hq=16, Hkv=2, hd=128)
 
 
 def card_line() -> str:
@@ -226,6 +243,126 @@ def prefill_phase(ops, ref, kprefill, time_launches):
                 library_ms=None)
 
 
+def _flash_inputs(B, T, Hq, Hkv, hd, dtype, gen):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    G = Hq // Hkv
+    return (rnd(B * Hkv, G, T, hd), rnd(B * Hkv, T, hd), rnd(B * Hkv, T, hd),
+            rnd(B * Hkv, G, T, hd))
+
+
+def _flash_check(ref, kflash, label, q, k, v, do, vl=None, window=None):
+    """The three kernels against the dense plain versions on one input.
+    bf16 o/dq/dk/dv: one rounding step apart (rtol = atol = 2e-2); fp32
+    outputs and the fp32 statistics m, l differ in summation order only
+    (1e-4).  Rows at padded query positions are garbage in the reference
+    and are skipped (their cotangent is zeroed)."""
+    T, G = q.shape[2], q.shape[1]
+    rows = torch.ones(q.shape[0], T, dtype=torch.bool, device="cuda")
+    if vl is not None:
+        rows = torch.arange(T, device="cuda")[None, :] < vl[:, None]
+        do = do * rows[:, None, :, None].to(do.dtype)
+    o, m, l = kflash.flash_fwd(q, k, v, vl, window=window)
+    dq, dk, dv = kflash.flash_bwd(q, k, v, o, m, l, do, vl, window=window)
+    po, pm, pl = ref.flash_fwd_ref(q, k, v, vl, window=window)
+    pdq, pdk, pdv = ref.flash_bwd_ref(q, k, v, o, m, l, do, vl,
+                                      window=window)
+    torch.cuda.synchronize()
+    tol = (2e-2, 2e-2) if q.dtype == torch.bfloat16 else (1e-4, 1e-4)
+    r4 = rows[:, None].expand(-1, G, -1)
+    errs = [check(f"{label} o", o[r4], po[r4], *tol),
+            check(f"{label} m", m[r4], pm[r4], 1e-4, 1e-4),
+            check(f"{label} l", l[r4], pl[r4], 1e-4, 1e-4),
+            check(f"{label} dq", dq[r4], pdq[r4], *tol),
+            check(f"{label} dk", dk, pdk, *tol),
+            check(f"{label} dv", dv, pdv, *tol)]
+    return errs[:3], errs[3:4], errs[4:]
+
+
+def flash_phase(ref, kflash, time_launches):
+    """The flash-attention kernels at the trained shape, plus a windowed
+    fp32 case and a ragged bf16 case, against their plain versions; then
+    each timed beside the plain version and SDPA."""
+    B, T, Hq, Hkv, hd = (FLASH[k] for k in ("B", "T", "Hq", "Hkv", "hd"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    q, k, v, do = _flash_inputs(B, T, Hq, Hkv, hd, bf, gen)
+    errs = [_flash_check(ref, kflash, "flash full width", q, k, v, do)]
+    errs.append(_flash_check(
+        ref, kflash, "flash window=100 fp32",
+        *_flash_inputs(1, 384, 4, 2, 128, torch.float32, gen), window=100))
+    vl = torch.repeat_interleave(
+        torch.tensor([300, 137], dtype=torch.int32, device="cuda"), 2)
+    errs.append(_flash_check(ref, kflash, "flash valid_len=(300, 137) T=300",
+                             *_flash_inputs(2, 300, 8, 2, 64, bf, gen), vl))
+    err_fwd, err_dq, err_dkv = (max(max(e[i]) for e in errs)
+                                for i in range(3))
+
+    o, m, l = kflash.flash_fwd(q, k, v)
+    timed = {}
+    for name, fn, kern in (
+            ("flash_fwd", lambda: kflash.flash_fwd(q, k, v),
+             "flash_fwd_kernel"),
+            ("flash_bwd_dq", lambda: kflash.flash_bwd(q, k, v, o, m, l, do),
+             "flash_dq_kernel"),
+            ("flash_bwd_dkv", lambda: kflash.flash_bwd(q, k, v, o, m, l, do),
+             "flash_dkv_kernel")):
+        timed[name] = time_launches(fn, kern)
+        print(f"  {name}: CUDA events around the call {timed[name][0]:.4f} "
+              f"ms (the backward's covers delta, dq and dk/dv), the "
+              f"kernel's own duration {timed[name][1]:.4f} ms")
+    plain_fwd, _ = time_launches(lambda: ref.flash_fwd_ref(q, k, v), reps=5,
+                                 warmup=1)
+    plain_bwd, _ = time_launches(
+        lambda: ref.flash_bwd_ref(q, k, v, o, m, l, do), reps=5, warmup=1)
+    # the library yardstick: one SDPA call on the same inputs
+    F = torch.nn.functional
+    qs = q.reshape(B, Hq, T, hd).detach().requires_grad_(True)
+    ks = k.reshape(B, Hkv, T, hd).detach().requires_grad_(True)
+    vs = v.reshape(B, Hkv, T, hd).detach().requires_grad_(True)
+    dos = do.reshape(B, Hq, T, hd)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        lib_fwd, _ = time_launches(sdpa)
+    out = sdpa()
+    lib_bwd, _ = time_launches(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True))
+    print(f"  SDPA (is_causal, enable_gqa): forward {lib_fwd:.4f} ms, "
+          f"backward (dq, dk, dv together) {lib_bwd:.4f} ms; plain: "
+          f"forward {plain_fwd:.4f} ms, backward (all three) "
+          f"{plain_bwd:.4f} ms")
+
+    pairs = B * Hq * T * (T + 1) // 2       # visible (q, k) pairs, causal
+    prod = 2 * pairs * hd                   # FLOP of one causal product
+    bf_b, f_b = 2, 4
+    qo = B * Hq * T * hd * bf_b
+    kv = 2 * B * Hkv * T * hd * bf_b
+    stats = B * Hq * T * f_b
+    rows = []
+    for name, nbytes, tc, fp32, err, plain, lib, src, line in (
+            ("flash_fwd", 2 * qo + kv + 2 * stats, 1, 1, err_fwd, plain_fwd,
+             lib_fwd, "flash_fwd.cu", 105),
+            ("flash_bwd_dq", 3 * qo + kv + 3 * stats, 2, 1, err_dq,
+             plain_bwd, lib_bwd, "flash_bwd.cu", 166),
+            ("flash_bwd_dkv", 2 * qo + 2 * kv + 3 * stats, 2, 2, err_dkv,
+             plain_bwd, lib_bwd, "flash_bwd.cu", 192)):
+        b = bound(name, nbytes, fp32 * prod, tc * prod)
+        all_tc = max(nbytes / HBM_BYTES_PER_S,
+                     (tc + fp32) * prod / BF16_TC_FLOPS_PER_S) * 1e3
+        print(f"  {name} bound with every product on the tensor cores: "
+              f"{all_tc * 1e3:.3f} us")
+        rows.append(dict(name=name, route="cuda",
+                         source=f"src/repro_torch/csrc/{src}",
+                         replaces=f"src/repro/kernels/flash_attn.py:{line}",
+                         max_abs_err=err, ms=timed[name][1], plain_ms=plain,
+                         **b, bound_all_tc_ms=all_tc, library_ms=lib))
+    return rows
+
+
 # ---------------------------------------------------------------- phase 3
 
 def _one_step(cfg, params, lm, toks, tok):
@@ -349,6 +486,121 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+
+def _loss_and_grad_norm(params, cfg, batch):
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.tree import leaves
+    loss, _ = lm.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves(params), allow_unused=True)
+    norm = global_norm([g for g in grads if g is not None])
+    return float(loss.detach()), float(norm)
+
+
+def train_phase(cfg, card, kflash, kernel_mods):
+    """Full-width training through the port's Trainer with the flash
+    kernels.  Before training, ``loss_fn`` and its gradients at the initial
+    parameters on the step-0 batch through the kernels against the plain
+    ``blockwise_attention`` path: bf16 activations, so the limits are
+    relative to bf16 (loss 1e-2, gradient global norm 2e-2).  Then 3 steps
+    with every launch counter zeroed just before and read just after."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.lm import param_count
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    tcfg = cfg.replace(use_flash_kernel=True)
+    steps, n_attn = 3, sum(k == "attn" for k in cfg.layer_kinds)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
+        tc = TrainerConfig(
+            steps=steps, seq_len=FLASH["T"], global_batch=FLASH["B"],
+            warmup_steps=1, ckpt_dir=ckdir, ckpt_every=1000, log_every=1)
+        tr = Trainer(tcfg, tc, device="cuda")
+        t0 = time.perf_counter()
+        tr.compile()
+        torch.cuda.synchronize()
+        params = tr.state["params"]
+        print(f"  state drawn in {time.perf_counter() - t0:.1f} s: "
+              f"{param_count(params) / 1e9:.3f} B {cfg.act_dtype} params, AdamW "
+              f"fp32 moments; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        batch = tr.batch(0)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        t0 = time.perf_counter()
+        lf, nf = _loss_and_grad_norm(params, tcfg, batch)
+        t1 = time.perf_counter()
+        lp, np_ = _loss_and_grad_norm(
+            params, cfg.replace(use_flash_kernel=False), batch)
+        t2 = time.perf_counter()
+        dl, dn = abs(lf - lp) / abs(lp), abs(nf - np_) / np_
+        print(f"  loss_fn at init, step-0 batch: flash {lf:.6f} "
+              f"({t1 - t0:.1f} s with grads), plain {lp:.6f} "
+              f"({t2 - t1:.1f} s): relative difference {dl:.3e} (limit "
+              f"1e-2); grad global norm flash {nf:.6f}, plain {np_:.6f}: "
+              f"{dn:.3e} (limit 2e-2)")
+        if not (math.isfinite(lf) and math.isfinite(nf)) or dl > 1e-2 \
+                or dn > 2e-2:
+            raise AssertionError("flash and plain loss_fn disagree")
+
+        for mod in kernel_mods:
+            if isinstance(mod.launches, dict):
+                for k in mod.launches:
+                    mod.launches[k] = 0
+            else:
+                mod.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = tr.run()
+        wall = time.perf_counter() - t0
+        launches = dict(kflash.launches)
+        others = {m.__name__: m.launches for m in kernel_mods
+                  if not isinstance(m.launches, dict)}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [l for _, l in hist]
+        print(f"  losses {losses} (ln V = {math.log(cfg.vocab):.4f}); "
+              f"step-1 loss against loss_fn at init: "
+              f"{abs(losses[0] - lf) / lf:.3e}")
+        if [s_ for s_, _ in hist] != list(range(1, steps + 1)) or not all(
+                math.isfinite(l) for l in losses):
+            raise AssertionError(f"bad training history {hist}")
+        if abs(losses[0] - lf) / lf > 1e-3:
+            raise AssertionError("step 1 does not compute loss_fn at init")
+        if losses[0] < math.log(cfg.vocab) - 0.5:
+            raise AssertionError("a random model beat the uniform loss")
+        fwd_runs = 2 if cfg.remat else 1            # remat runs it again
+        want = {"flash_fwd": fwd_runs * n_attn * steps,
+                "flash_bwd_dq": n_attn * steps,
+                "flash_bwd_dkv": n_attn * steps}
+        print(f"  flash launches {launches} over {steps} steps (expected "
+              f"{want}: {n_attn} attention layers, each forward run again "
+              f"by remat); other kernels {others}")
+        if launches != want or any(others.values()):
+            raise AssertionError("unexpected kernel launches in training")
+        st = sorted(tr.step_times[1:])
+        step_s = st[len(st) // 2]
+        tokens = FLASH["B"] * FLASH["T"]
+        print(f"  train [{card}]: step times "
+              f"{[round(t, 4) for t in tr.step_times]} s; median of steps "
+              f"2-{steps} {step_s:.4f} s = {tokens / step_s:.1f} tokens/s; "
+              f"peak memory {peak / 2**30:.2f} GiB "
+              f"(max_memory_allocated); run() with its final checkpoint "
+              f"{wall:.1f} s")
+        mgr = CheckpointManager(ckdir)
+        with open(pathlib.Path(ckdir) / f"step_{steps:09d}" /
+                  "manifest.json") as f:
+            manifest = json.load(f)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(tr.state))
+        print(f"  checkpoint: step {mgr.latest_step()}, "
+              f"{manifest['nbytes'] / 2**30:.2f} GiB in "
+              f"{len(manifest['keys'])} arrays")
+        if mgr.latest_step() != steps or manifest["nbytes"] != state_bytes:
+            raise AssertionError("the final checkpoint is incomplete")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -361,10 +613,12 @@ def main():
     try:
         from repro_torch import configs
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import flash_attn as kflash
         from repro_torch.kernels import gdn_decode as kdecode
         from repro_torch.kernels import gdn_prefill as kprefill
         from repro_torch.launch.profile_decode import time_launches
         from repro_torch.models import lm
+        from repro_torch.runtime import trainer  # noqa: F401
         from repro_torch.serving import engine as engine_mod
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
@@ -386,10 +640,13 @@ def main():
     print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
     rows = [decode_phase(ref, kdecode, time_launches),
             prefill_phase(ops, ref, kprefill, time_launches)]
+    rows += flash_phase(ref, kflash, time_launches)
     for r in rows:
+        lib = "" if r["library_ms"] is None else \
+            f", library {r['library_ms'] * 1e3:.2f} us"
         print(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, plain "
-              f"{r['plain_ms'] * 1e3:.2f} us)")
+              f"{r['plain_ms'] * 1e3:.2f} us{lib})")
     if args.kernels_only:
         print(json.dumps({"kernels": rows}))
         return 0
@@ -407,6 +664,13 @@ def main():
     print(f"[4] serving through DecodeEngine [{card}]")
     launches = serve_phase(cfg, params, engine_mod, kdecode, kprefill,
                            card)
+    del params
+    torch.cuda.empty_cache()
+
+    print(f"[5] training full-width {cfg.name} through Trainer with the "
+          f"flash kernels [{card}]")
+    launches.update(train_phase(cfg, card, kflash,
+                                (kflash, kdecode, kprefill)))
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,8 @@
 """Numpy bridge between the reference's trees and the port's.
 
-The reference's params, caches and sampler state convert to numpy with
+The reference's params, caches, sampler state and training state
+(``{"params", "opt": {"mu", "count"}, "step"}``, the per-parameter moment
+dicts and the int32 scalars included) convert to numpy with
 ``jax.tree.map(np.asarray, tree)`` (done by the caller — this module never
 imports jax).  ``to_torch`` turns such a numpy tree into the port's tree on
 a device, keeping the nesting of ``lm.init_lm``/``lm.init_caches`` (dicts,

@@ -1,0 +1,183 @@
+"""Checkpointing: atomic, async, auto-resuming, pure numpy npz (port of
+``repro.checkpoint.manager``).
+
+Layout:  <dir>/step_<n>/shard_<p>.npz + manifest.json
+  * leaves flattened with the reference's '/'-joined key paths (dict keys,
+    list/tuple indices, ``.name`` for NamedTuple fields), so a checkpoint
+    written by either package restores in the other;
+  * bf16 leaves are stored as their raw uint16 bits under the key tagged
+    ``::bfloat16`` (npz has no bf16), as the reference does;
+  * atomic via write-to-tmp + os.replace (a crashed save never corrupts the
+    latest checkpoint);
+  * async save on a background thread: tensors are copied to host numpy
+    before the thread starts, so training may update them in place at once;
+  * ``restore_latest`` picks the newest *complete* checkpoint (the manifest
+    is written last), so partial saves from a killed job are skipped.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _map_paths(fn, tree, prefix=()):
+    """``tree`` with each leaf replaced by ``fn(key path, leaf)``; key paths
+    are the reference's jax key paths joined by '/'."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_paths(fn, x, prefix + (f".{name}",))
+                            for name, x in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_paths(fn, x, prefix + (str(i),))
+                          for i, x in enumerate(tree))
+    if tree is None:
+        return None
+    return fn("/".join(prefix), tree)
+
+
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(host array, key tag): bf16 becomes its uint16 bits, tagged."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.array(leaf, copy=True), ""
+    t = leaf.detach()
+    # a device tensor's host copy is already private; a host tensor's view
+    # must be copied, or later in-place updates would reach the snapshot
+    t = t.clone() if t.device.type == "cpu" else t.to("cpu")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "::bfloat16"
+    return t.numpy(), ""
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    flat = {}
+
+    def put(key, leaf):
+        arr, tag = _to_numpy(leaf)
+        flat[key + tag] = arr
+    _map_paths(put, tree)
+    return flat
+
+
+def _write(flat: Dict[str, np.ndarray], directory: str, step: int,
+           process_index: int = 0) -> str:
+    d = os.path.join(directory, f"step_{step:09d}")
+    tmp = d + f".tmp{process_index}"
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(os.path.join(tmp, f"shard_{process_index}.npz"), **flat)
+    manifest = {
+        "step": step,
+        "time": time.time(),
+        "keys": sorted(flat.keys()),
+        "nbytes": int(sum(v.nbytes for v in flat.values())),
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.replace(tmp, d)                      # atomic publish
+    return d
+
+
+def save(tree, directory: str, step: int, process_index: int = 0) -> str:
+    return _write(_flatten(tree), directory, step, process_index)
+
+
+def _leaf_from(arr: np.ndarray, tag: str) -> torch.Tensor:
+    if tag == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    if tag:
+        raise TypeError(f"unsupported stored dtype tag {tag!r}")
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def restore(tree_like, directory: str, step: int, process_index: int = 0):
+    """The checkpoint at ``step`` as a tree shaped like ``tree_like``, with
+    each leaf a CPU tensor in the dtype of its ``tree_like`` leaf."""
+    d = os.path.join(directory, f"step_{step:09d}")
+    with np.load(os.path.join(d, f"shard_{process_index}.npz")) as z:
+        stored = {}
+        for key in z.files:
+            base, _, tag = key.partition("::")
+            stored[base] = _leaf_from(z[key], tag)
+
+    def take(key, like):
+        if tuple(stored[key].shape) != tuple(like.shape):
+            raise ValueError(f"{key}: stored {tuple(stored[key].shape)}, "
+                             f"expected {tuple(like.shape)}")
+        return stored[key].to(like.dtype)
+    return _map_paths(take, tree_like)
+
+
+def completed_steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp0"):
+            if os.path.exists(os.path.join(directory, name, "manifest.json")):
+                steps.append(int(name.split("_")[1]))
+    return sorted(steps)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    def latest_step(self) -> Optional[int]:
+        steps = completed_steps(self.directory)
+        return steps[-1] if steps else None
+
+    def save(self, tree, step: int, blocking: bool = True):
+        self.wait()                 # one save at a time
+        flat = _flatten(tree)       # snapshot to host numpy, on this thread
+
+        def do():
+            _write(flat, self.directory, step)
+            self._gc()
+
+        if blocking:
+            do()
+        else:
+            self._thread = threading.Thread(target=do, daemon=True)
+            self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def restore_latest(self, tree_like):
+        self.wait()
+        step = self.latest_step()
+        if step is None:
+            return None, None
+        return restore(tree_like, self.directory, step), step
+
+    def _gc(self):
+        steps = completed_steps(self.directory)
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"),
+                          ignore_errors=True)
+
+
+@torch.no_grad()
+def copy_into(dst, src):
+    """Copy every leaf of ``src`` into the leaf of ``dst`` at the same key
+    path, in place (a restored host tree into live device tensors)."""
+    flat = {}
+    _map_paths(flat.__setitem__, src)
+    _map_paths(lambda key, d: d.copy_(flat[key]), dst)
+    return dst

@@ -1,11 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``repro_torch/csrc/*.cu`` file is one kernel library with a plain C
-interface (no PyTorch headers, so each compiles in seconds).  The first
-kernel call builds all of them at once — one ``nvcc`` process per source,
-started together — into ``<repo>/build/kernels/`` (listed in
-``.gitignore``), named by a hash of source and flags so an edited source is
-rebuilt.  A failed build raises with nvcc's output.
+interface (no PyTorch headers, so each compiles in seconds); shared device
+code lives in ``csrc/*.cuh`` headers.  The first kernel call builds all of
+them at once — one ``nvcc`` process per source, started together — into
+``<repo>/build/kernels/`` (listed in ``.gitignore``), named by a hash of
+source, headers and flags so an edited source or header is rebuilt.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -45,6 +45,8 @@ def _nvcc() -> str:
 
 def _target(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

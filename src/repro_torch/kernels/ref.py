@@ -65,3 +65,68 @@ def gdn_prefill_ref(q, k, v, log_g, beta, S0, valid_len=None, *,
     O, S = gdn.prefill_sequential(qf, kf, vf, lg, bf, S0.float(),
                                   scale=scale, delta_rule=delta_rule)
     return O.to(v.dtype), S.to(S0.dtype)
+
+
+# ------------------------------------------------------------ flash attention
+
+FLASH_NEG_INF = -1e30
+
+
+def _flash_mask(T: int, window=None, valid_len=None, device=None):
+    """(rows or 1, 1, T, T) bool: the flash kernels' score mask — causal,
+    ``(q - k) < window``, and ``k < valid_len[row]`` (valid_len (rows,))."""
+    pos = torch.arange(T, device=device)
+    keep = pos[:, None] >= pos[None, :]
+    if window is not None:
+        keep = keep & ((pos[:, None] - pos[None, :]) < window)
+    keep = keep[None, None]
+    if valid_len is not None:
+        vl = torch.as_tensor(valid_len, device=device).reshape(-1)
+        keep = keep & (pos[None, None, None, :] < vl[:, None, None, None])
+    return keep
+
+
+def _flash_scores(q, k, valid_len, scale, window):
+    """Masked fp32 scores (BH, G, T, T) of q (BH, G, T, hd), k (BH, T, hd)."""
+    s = scale * torch.matmul(q.float(), k.float().unsqueeze(1).transpose(-1,
+                                                                         -2))
+    keep = _flash_mask(q.shape[2], window, valid_len, q.device)
+    return torch.where(keep, s, torch.full((), FLASH_NEG_INF,
+                                           device=q.device))
+
+
+def flash_fwd_ref(q, k, v, valid_len=None, *, scale=None, window=None):
+    """Plain version of ``kernels.flash_attn.flash_fwd``, dense in fp32.
+
+    q: (BH, G, T, hd); k, v: (BH, T, hd); valid_len: optional (BH,) int.
+    Returns (o in q's dtype, m, l (BH, G, T) fp32): the row max of the
+    masked scores and the row sum of exp(s - m)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _flash_scores(q, k, valid_len, scale, window)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.matmul(p, v.float().unsqueeze(1)) / torch.clamp(
+        l, min=1e-30)[..., None]
+    return o.to(q.dtype), m, l
+
+
+def flash_bwd_ref(q, k, v, o, m, l, do, valid_len=None, *, scale=None,
+                  window=None):
+    """Plain version of ``kernels.flash_attn.flash_bwd``, dense in fp32:
+    p = exp(s - m) / max(l, 1e-30) from the forward's statistics,
+    delta = rowsum(do * o).  Returns (dq, dk, dv) in q's, k's, v's dtypes
+    (dk, dv summed over the G query heads of each kv head)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dof = do.float()
+    delta = torch.sum(dof * o.float(), dim=-1)
+    s = _flash_scores(q, k, valid_len, scale, window)
+    p = torch.exp(s - m[..., None]) / torch.clamp(l, min=1e-30)[..., None]
+    dp = torch.matmul(dof, v.float().unsqueeze(1).transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dq = scale * torch.matmul(ds, k.float().unsqueeze(1))
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q.float()).sum(1)
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

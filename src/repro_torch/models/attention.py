@@ -1,6 +1,12 @@
-"""GQA / sliding-window attention over a rolling KV cache (port of the
-serving half of ``repro.models.attention``).
+"""GQA / sliding-window attention: full-sequence training and serving
+over a rolling KV cache (port of ``repro.models.attention``).
 
+  * ``attn_train``         — full-sequence causal (optionally windowed)
+                             attention for training: the hand-written flash
+                             kernels (``use_flash_kernel``) or
+                             ``blockwise_attention``, an online-softmax
+                             loop over KV blocks that never materializes
+                             the (T, T) scores;
   * ``attn_prefill``       — causal attention over a fresh prompt, fills the
                              cache;
   * ``attn_prefill_chunk`` — one prompt chunk continuing from the cache
@@ -21,7 +27,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import flash_attn
 from repro_torch.models import layers
 
 _NEG = -1e30
@@ -78,6 +86,70 @@ def _f32_matmul(a, b):
     """fp32 product of activation-dtype operands (bf16 x bf16 products are
     exact in fp32, so this is the reference's fp32-accumulated dot)."""
     return torch.matmul(a.float(), b.float())
+
+
+def blockwise_attention(q, k, v, *, window=None, block_kv=512):
+    """Causal (optionally sliding-window) attention, looped over KV blocks.
+
+    q: (B, T, Hq, hd); k, v: (B, T, Hkv, hd).  Returns (B, T, Hq, hd).
+    Memory per block: O(T * block_kv) scores instead of O(T^2); each block
+    step is recomputed in the backward pass (the reference's
+    ``jax.checkpoint`` on its scan step), so no block's scores are kept."""
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    bkv = min(block_kv, T)
+    if T % bkv:
+        raise ValueError(f"T={T} is not a multiple of block_kv={bkv}")
+    qg = q.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4)   # (B,Hkv,G,T,hd)
+    q_pos = torch.arange(T, device=q.device)
+
+    def step(m, l, acc, k_blk, v_blk, kv0):
+        # activation-dtype operands, fp32 products (as the reference's
+        # preferred_element_type)
+        s = scale * _f32_matmul(qg, k_blk.permute(0, 2, 3, 1).unsqueeze(2))
+        kv_pos = kv0 + torch.arange(bkv, device=q.device)
+        mask = q_pos[:, None] >= kv_pos[None, :]
+        if window is not None:
+            mask = mask & ((q_pos[:, None] - kv_pos[None, :]) < window)
+        s = torch.where(mask, s, torch.full((), _NEG, device=q.device))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = corr * l + p.sum(-1)
+        acc_new = corr[..., None] * acc + _f32_matmul(
+            p.to(v_blk.dtype), v_blk.permute(0, 2, 1, 3).unsqueeze(2))
+        return m_new, l_new, acc_new
+
+    m = torch.full((B, Hkv, G, T), _NEG, device=q.device)
+    l = torch.zeros((B, Hkv, G, T), device=q.device)
+    acc = torch.zeros((B, Hkv, G, T, hd), device=q.device)
+    for j in range(T // bkv):
+        blk = slice(j * bkv, (j + 1) * bkv)
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(step, m, l, acc, k[:, blk], v[:, blk],
+                                   j * bkv, use_reentrant=False)
+        else:
+            m, l, acc = step(m, l, acc, k[:, blk], v[:, blk], j * bkv)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, hd).to(q.dtype)
+
+
+def attn_train(p, x, *, rope_theta=10000.0, window=None, block_kv=512,
+               use_flash_kernel=False, head_mask=None):
+    """Full-sequence causal attention for training.  x: (B, T, d).
+    ``use_flash_kernel`` runs ``kernels.flash_attn.flash_attention`` (the
+    hand-written kernels on the card, their plain versions on the CPU);
+    otherwise ``blockwise_attention``."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    q, k, v = _qkv(p, x, positions, rope_theta)
+    if use_flash_kernel:
+        o = flash_attn.flash_attention(q, k, v, window=window)
+    else:
+        o = blockwise_attention(q, k, v, window=window, block_kv=block_kv)
+    return _out(_apply_head_mask(o, head_mask), p["wo"])
 
 
 def attn_prefill(p, x, cache: KVCache, *, rope_theta=10000.0, window=None,

@@ -4,6 +4,8 @@ Projects the residual stream to q/k (h_k heads) and v (h_v = R*h_k heads,
 Grouped Value Attention), computes the per-head gates (paper Eqs. 5-6),
 L2-normalizes q/k and runs
 
+  * train: the differentiable chunkwise gated delta rule in fp32 from a
+    zero state (``core.gdn.gdn_prefill`` under autograd);
   * prefill: chunkwise gated delta rule — ``core.gdn.gdn_prefill`` (plain
     PyTorch) or, with ``use_pallas``, ``kernels.ops.gdn_prefill`` (the
     hand-written CUDA kernel on the card);
@@ -75,6 +77,19 @@ def _out(O, wo):
     Hv, hd, d = wo.shape
     return layers.dot(O.reshape(*O.shape[:-2], Hv * hd),
                       wo.reshape(Hv * hd, d))
+
+
+def gdn_train(p, x, *, chunk=64):
+    """Full-sequence gated delta rule for training (differentiable
+    chunkwise path, fp32, S0 = 0).  x: (B, T, d) -> (B, T, d)."""
+    B = x.shape[0]
+    hv, hd = p["wv"].shape[1], p["wv"].shape[2]
+    q, k, v, log_g, beta = _proj(p, x)
+    S0 = torch.zeros((B, hv, q.shape[-1], hd), dtype=torch.float32,
+                     device=x.device)
+    O, _ = gdn_core.gdn_prefill(q.float(), k.float(), v.float(), log_g, beta,
+                                S0, chunk=chunk)
+    return _out(O.to(x.dtype), p["wo"])
 
 
 def mask_ragged_inputs(valid_len, k, v, log_g, beta):

@@ -1,5 +1,5 @@
-"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, logits
-(port of ``repro.models.layers``).
+"""Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, logits,
+cross entropy (port of ``repro.models.layers``).
 
 Functional style over plain parameter dicts of tensors.  Matmuls run in
 the activation dtype (bf16 on the card, which accumulates in fp32 and
@@ -97,13 +97,48 @@ def logits_matmul(x, w):
     (d, V) head; elsewhere (fp32 configs, the CPU, which has no kernel for
     that overload) both operands are fp32."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 x (N, d) @ w (d, V) -> fp32, with a gradient: the ``out_dtype``
+    overload of ``torch.mm`` has no autograd formula.  The cotangent stays
+    fp32 and each gradient is rounded to its operand's dtype once, as the
+    reference's transpose of a ``preferred_element_type`` product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g, w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x.float().t(), g).to(w.dtype)
+        return gx, gw
 
 
 def logits_fwd(p, x, table=None):
     """Project to vocab. ``table`` given => tied embeddings."""
     w = table if table is not None else p["table"]
     return logits_matmul(x, w.t())
+
+
+# ------------------------------------------------------------------ loss
+
+def cross_entropy(logits, labels, z_loss=0.0):
+    """logits: (..., V) fp32; labels: (...) int.  Mean over all positions;
+    ``z_loss`` adds z_loss * logsumexp^2 per position."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss > 0.0:
+        loss = loss + z_loss * lse ** 2
+    return torch.mean(loss)

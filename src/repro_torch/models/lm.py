@@ -1,4 +1,5 @@
-"""Unified hybrid causal LM for serving (port of ``repro.models.lm``).
+"""Unified hybrid causal LM for training and serving (port of
+``repro.models.lm``).
 
 A model is a cycled ``pattern`` of mixer kinds plus a dense SwiGLU FFN per
 layer.  Layers are grouped into (pattern, repeats) groups with parameters
@@ -11,8 +12,16 @@ Caches are updated in place: every function writes each layer's new cache
 back into the stacked buffers it was given (the port's form of buffer
 donation) and returns them.
 
+Training runs each group's repeats in a loop; with ``cfg.remat`` each
+repeat is recomputed in the backward pass (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` of its scanned block), and so is each
+cross-entropy chunk.
+
 Entry points:
   init_lm(generator, cfg, device)            -> params
+  forward_hidden(params, cfg, tokens|embeds) -> ((B, T, d) hidden, aux)
+  loss_fn(params, cfg, batch)                -> (loss, {"ce", "aux"})
+                                                (chunked cross entropy)
   cache_specs(cfg, batch, max_len)           -> CacheSpec (stacked)
   init_caches(cfg, batch, max_len, device)   -> caches
   prefill(params, cfg, caches, tokens|embeds)-> (last-token logits, caches)
@@ -29,6 +38,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
@@ -99,6 +109,74 @@ def init_lm(generator, cfg: ArchConfig, device=None):
 
 def param_count(params) -> int:
     return sum(t.numel() for t in leaves(params))
+
+
+# ---------------------------------------------------------------- train
+
+def _layer_train(kind, cfg: ArchConfig, lp, x):
+    h = layers.rmsnorm_fwd(lp["norm1"], x, cfg.norm_eps)
+    x = x + get_mixer(kind).train(lp["mixer"], cfg, h)
+    return _ffn_fwd(cfg, lp, x)
+
+
+def _unstack(tree, reps: int):
+    """The per-repeat slices of a stacked tree, from one ``unbind`` per
+    leaf (whose backward stacks the repeats' gradients once, where indexing
+    each repeat would scatter each into a zeroed full-size buffer)."""
+    parts = {id(t): t.unbind(0) for t in leaves(tree)}
+    return [tree_map(lambda t, r=r: parts[id(t)][r], tree)
+            for r in range(reps)]
+
+
+def forward_hidden(params, cfg: ArchConfig, tokens=None, embeds=None):
+    """Returns (final hidden (B, T, d), total MoE aux loss — 0, as no MoE
+    FFN is ported)."""
+    _check_ffn(cfg)
+    x = _embed(params, cfg, tokens, embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (kinds, reps), gp in zip(build_groups(cfg), params["groups"]):
+
+        def block(x, lp_slice, kinds=kinds):
+            for i, kind in enumerate(kinds):
+                x = _layer_train(kind, cfg, lp_slice[i], x)
+            return x
+
+        for lp_slice in _unstack(gp, reps):
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, lp_slice, use_reentrant=False)
+            else:
+                x = block(x, lp_slice)
+    return x, aux_total
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, t_chunk=1024, z_loss=1e-4,
+            aux_weight=0.01):
+    """Cross entropy chunked over T (never materializes (B, T, V) fp32
+    logits: each chunk's logits are recomputed in the backward pass).
+    ``batch``: {"tokens" or "embeds", "labels" (B, T)}.  Returns
+    (loss, {"ce", "aux"}) as 0-d fp32 tensors."""
+    labels = batch["labels"]
+    h, aux = forward_hidden(params, cfg, batch.get("tokens"),
+                            batch.get("embeds"))
+    B, T, _ = h.shape
+    tc = min(t_chunk, T)
+    n = T // tc
+
+    def chunk_loss(hc, lc):
+        return layers.cross_entropy(_logits(params, cfg, hc), lc,
+                                    z_loss=z_loss)
+
+    if n <= 1:
+        ce = chunk_loss(h, labels)
+    else:
+        losses = []
+        for i in range(n):
+            hc, lc = h[:, i * tc:(i + 1) * tc], labels[:, i * tc:(i + 1) * tc]
+            losses.append(checkpoint(chunk_loss, hc, lc, use_reentrant=False)
+                          if torch.is_grad_enabled() else chunk_loss(hc, lc))
+        ce = torch.mean(torch.stack(losses))
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------- caches

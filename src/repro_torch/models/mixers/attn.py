@@ -36,6 +36,13 @@ class Attention(SequenceMixer):
                                         device, reps)
 
     @classmethod
+    def train(cls, params, cfg, x):
+        return attention.attn_train(params, x, rope_theta=cfg.rope_theta,
+                                    window=cls._window(cfg),
+                                    use_flash_kernel=cfg.use_flash_kernel,
+                                    head_mask=_head_mask(cfg, x.device))
+
+    @classmethod
     def prefill(cls, params, cfg, x, cache):
         return attention.attn_prefill(params, x, cache,
                                       rope_theta=cfg.rope_theta,

@@ -4,6 +4,7 @@ The port's counterpart of ``repro.models.mixers.base``.  A mixer kind is one
 class implementing
 
   init_params(generator, cfg, dtype, device, reps) -> stacked parameter dict
+  train(params, cfg, x)                            -> (B, T, d) mixed output
   prefill(params, cfg, x, cache)                   -> ((B, T, d), cache)
   prefill_chunk(params, cfg, x, cache, valid_len)  -> ((B, C, d), cache)
   decode(params, cfg, x_t, cache)                  -> ((B, d), cache)
@@ -93,6 +94,11 @@ class SequenceMixer:
     @classmethod
     def init_params(cls, generator, cfg, dtype, device, reps: int):
         raise NotImplementedError(cls.kind)
+
+    @classmethod
+    def train(cls, params, cfg, x):
+        raise NotImplementedError(
+            f"mixer kind {cls.kind!r} has no training path")
 
     @classmethod
     def prefill(cls, params, cfg, x, cache):

@@ -23,6 +23,10 @@ class GatedDeltaNet(SequenceMixer):
                                   device, reps)
 
     @classmethod
+    def train(cls, params, cfg, x):
+        return gdn_layer.gdn_train(params, x)
+
+    @classmethod
     def prefill(cls, params, cfg, x, cache):
         return gdn_layer.gdn_prefill(params, x, cache,
                                      use_pallas=cfg.use_pallas_serving)

@@ -26,12 +26,15 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def leaves(tree) -> List[Any]:
-    """Leaves in a deterministic order (dict keys sorted, as jax does)."""
+def leaves(tree, is_leaf: Callable = None) -> List[Any]:
+    """Leaves in a deterministic order (dict keys sorted, as jax does);
+    ``is_leaf(node)`` true stops the descent at ``node``."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in leaves(tree[k])]
+        return [l for k in sorted(tree) for l in leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [l for x in tree for l in leaves(x)]
+        return [l for x in tree for l in leaves(x, is_leaf)]
     if tree is None:
         return []
     return [tree]

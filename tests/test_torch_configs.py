@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro import configs as jconfigs                    # noqa: E402
 from repro.models import lm as jlm                        # noqa: E402
+from repro.optim import optimizers as jopt                # noqa: E402
 from repro.serving import sampling as jsampling           # noqa: E402
 from repro_torch import configs as tconfigs               # noqa: E402
 from repro_torch.bridge import to_numpy, to_torch         # noqa: E402
@@ -72,7 +73,13 @@ def test_bridge_round_trip_is_bitwise(act):
     sampler = jsampling.admit_slot(jsampling.init_state(2), 1, seed=5,
                                    rid=77, temperature=0.5, top_k=3,
                                    top_p=0.9, eos_id=4, budget=8)
-    for tree in (params, caches, sampler):
+    # the training state: moments in the activation dtype (bf16 adds the
+    # error-feedback buffer), nonzero, and the int32 count and step
+    adamw = jopt.AdamWConfig(moment_dtype=act)
+    train_state = jax.tree.map(lambda a: a + jnp.ones_like(a), {
+        "params": params, "opt": jopt.init_adamw(params, adamw),
+        "step": jnp.zeros((), jnp.int32)})
+    for tree in (params, caches, sampler, train_state):
         np_tree = jax.tree.map(np.asarray, tree)
         back = to_numpy(to_torch(np_tree))
         a = jax.tree.leaves(np_tree)
@@ -104,7 +111,24 @@ def test_import_leaves_jax_and_repro_out():
             "m.startswith('repro.'))\n"
             "print(len(sys.modules), bad)\n"
             "assert not bad, bad\n")
+    assert {"repro_torch.optim.optimizers", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer",
+            "repro_torch.launch.train",
+            "repro_torch.kernels.flash_attn"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 20
+
+
+def test_train_cli_needs_a_card_or_cpu(monkeypatch, capsys):
+    """Without a card the train CLI raises unless given --device cpu."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--arch", "qwen3-next-gdn", "--steps", "2", "--global-batch",
+            "2", "--seq-len", "16"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(args)
+    hist = train.main(args + ["--device", "cpu", "--kernels"])
+    assert [s for s, _ in hist] == [2]
+    assert "step      2 loss" in capsys.readouterr().out

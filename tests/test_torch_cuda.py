@@ -109,3 +109,81 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(TypeError, match="float32"):
         tdecode.gdn_decode(q, q, v, S.contiguous(), g.double(), g)
     assert tdecode.launches == n
+
+
+# ------------------------------------------------------------ flash attention
+
+# (B, T, Hq, Hkv, hd, window, valid_len): MHA, GQA 8:1 at the trained head
+# dim, a ragged T, a window, valid_len (one row fully padded)
+FLASH_CASES = [(2, 128, 4, 4, 64, None, None),
+               (1, 256, 16, 2, 128, None, None),
+               (2, 100, 4, 2, 64, None, None),
+               (1, 192, 4, 2, 128, 40, None),
+               (3, 128, 4, 2, 64, None, (128, 70, 0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_vs_plain(cuda, dtype, case):
+    """o, m, l, dq, dk, dv of the three kernels against the dense plain
+    versions on the same inputs.  fp32: summation order only (1e-4 — the
+    online softmax renormalizes by exp differences); bf16 outputs: one
+    rounding step (2e-2); m and l are fp32 either way (1e-4).  With
+    valid_len only valid rows of o, m, l and dq count, and only the
+    batch rows whose valid_len > 0 (an all-padded row is garbage in the
+    reference too)."""
+    from repro_torch.kernels import flash_attn as tflash
+    B, T, Hq, Hkv, hd, window, valid = case
+    G = Hq // Hkv
+    rng = np.random.default_rng(13)
+    q, do = (_normal(rng, B * Hkv, G, T, hd).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (_normal(rng, B * Hkv, T, hd).to(cuda, dtype) for _ in range(2))
+    vl = rows = None
+    if valid is not None:
+        vl = torch.repeat_interleave(torch.tensor(valid, dtype=torch.int32),
+                                     Hkv).to(cuda)
+        rows = torch.arange(T, device=cuda)[None, :] < vl[:, None]
+        do = do * rows[:, None, :, None].to(dtype)
+    n = dict(tflash.launches)
+    o, m, l = tflash.flash_fwd(q, k, v, vl, window=window)
+    dq, dk, dv = tflash.flash_bwd(q, k, v, o, m, l, do, vl, window=window)
+    po, pm, pl = ref.flash_fwd_ref(q, k, v, vl, window=window)
+    pdq, pdk, pdv = ref.flash_bwd_ref(q, k, v, o, m, l, do, vl,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert {k_: tflash.launches[k_] - n[k_] for k_ in n} == \
+        {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    stat = dict(rtol=1e-4, atol=1e-4)
+    tol = stat if dtype == torch.float32 else BF16
+    keep = torch.ones(B * Hkv, dtype=torch.bool, device=cuda) if vl is None \
+        else vl > 0
+    sel = (torch.ones(B * Hkv, T, dtype=torch.bool, device=cuda)
+           if rows is None else rows) & keep[:, None]
+    sel4 = sel[:, None].expand(-1, G, -1)
+    for got, want, t in ((o, po, tol), (m, pm, stat), (l, pl, stat),
+                         (dq, pdq, tol)):
+        _close(got[sel4], want[sel4], t)
+    for got, want in ((dk, pdk), (dv, pdv)):
+        _close(got[keep], want[keep], tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(cuda):
+    """FlashAttention's gradients through the kernels equal those through
+    the plain versions on the same bf16 inputs (2e-2)."""
+    from repro_torch.kernels import flash_attn as tflash
+    rng = np.random.default_rng(14)
+    B, T, Hq, Hkv, hd = 2, 128, 8, 2, 128
+    xs = [_normal(rng, B, T, h, hd).to(torch.bfloat16)
+          for h in (Hq, Hkv, Hkv)]
+    w = _normal(rng, B, T, Hq, hd)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        ins = [x.to(dev).requires_grad_(True) for x in xs]
+        o = tflash.flash_attention(*ins)
+        (o.float() * w.to(dev)).sum().backward()
+        grads.append([o.detach().cpu()] + [x.grad.cpu() for x in ins])
+    for a, b in zip(*grads):
+        _close(a, b, BF16)
