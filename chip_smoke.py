@@ -28,17 +28,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
      first ``loss_fn`` and its gradients at the initial parameters through
      the flash kernels against the plain ``blockwise_attention`` path,
      then the 3 steps with the launch counters zeroed just before and read
-     just after.
+     just after;
+  6. full-width h2o-danube-1.8b (24 sliding-window layers, window 4096,
+     random bf16 weights drawn on the card from seed 0): (i) served
+     through ``DecodeEngine`` (4 slots, max_len 8192 — a 4096-slot rolling
+     cache — prefill chunk 256, decode block 8) with prompts of 5000,
+     4500, 1000 and 200 tokens, 32 new tokens each, one at temperature
+     0.8 / top-k 40; (ii) the same four prompts prefilled through the
+     port's chunked prefill, then on each of the 24 layers' wrapped caches
+     ``attention.attn_decode_pallas`` (the flash-decode kernel) against
+     ``attention.attn_decode_xla`` (the mixers' path) on clones of the
+     cache with one ``x_t``, the kernel's launch counter zeroed just
+     before (ii) and read just after.
 
 Phase 2 also holds the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
 Hkv=2, hd=128, bf16) and on a windowed and a ragged (``valid_len``) case,
-and times each beside ``F.scaled_dot_product_attention`` (the library
-yardstick, used nowhere in the port).
+and the flash-decode kernel at three bf16 shapes (qwen3-next-gdn's
+attention layer at the serving batch, an h2o-danube-1.8b layer past its
+wrap, yi-9b at batch 1 over 32k slots), and times each beside
+``F.scaled_dot_product_attention`` (the library yardstick, used nowhere in
+the port).
 
 The second line before the last is a JSON object with one entry per
-kernel; the line before the last is the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+kernel (the flash-decode entry carries its three shapes, its top-level
+numbers are those of the h2o-danube-1.8b shape that phase 6 drives); the
+line before the last is the card's name and power limit; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -363,6 +379,60 @@ def flash_phase(ref, kflash, time_launches):
     return rows
 
 
+def attn_decode_phase(ref, kattn, time_launches, shapes):
+    """The flash-decode kernel against its plain version at the three
+    shapes, bf16 (o: one rounding step, rtol = atol = 2e-2), each timed
+    beside its bound (bytes of q, o and the occupied K/V rows; fp32 FLOP of
+    the visible slots), the plain version and one SDPA call with the same
+    boolean mask (``enable_gqa``)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for label, B, Hq, Hkv, d, T, lengths, window in shapes:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+        q, k, v = rnd(B, Hq, d), rnd(B, Hkv, T, d), rnd(B, Hkv, T, d)
+        length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        o = kattn.attn_decode(q, k, v, length, window=window)
+        want = ref.attn_decode_ref(q, k, v, length, window=window)
+        mask = ref.attn_decode_visible(length, T, window)[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+        lib_o = sdpa()[:, :, 0]
+        torch.cuda.synchronize()
+        err = check(f"attn_decode {label}", o, want, 2e-2, 2e-2)
+        check(f"attn_decode {label} vs SDPA", o, lib_o, 2e-2, 2e-2)
+        ev_ms, ms = time_launches(
+            lambda: kattn.attn_decode(q, k, v, length, window=window),
+            "attn_decode_")
+        plain_ms, _ = time_launches(
+            lambda: ref.attn_decode_ref(q, k, v, length, window=window))
+        lib_ms, _ = time_launches(sdpa)
+        occupied = int(torch.clamp(length, max=T).sum())
+        visible = int(mask.sum())
+        nbytes = 2 * B * Hq * d * 2 + 2 * occupied * Hkv * d * 2 + B * 4
+        b = bound(f"attn_decode {label}", nbytes, 4 * Hq * d * visible)
+        print(f"  attn_decode {label}: the two kernels' own duration "
+              f"{ms * 1e3:.2f} us (CUDA events {ev_ms * 1e3:.2f} us), bound "
+              f"{b['bound_ms'] * 1e3:.2f} us by {b['bound_by']}, plain "
+              f"{plain_ms * 1e3:.2f} us, SDPA {lib_ms * 1e3:.2f} us")
+        rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, **b))
+    main = rows[1]
+    return dict(name="attn_decode", route="cuda",
+                source="src/repro_torch/csrc/attn_decode.cu",
+                replaces="src/repro/kernels/attn_decode.py:78",
+                max_abs_err=max(x["max_abs_err"] for x in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shape=main["shape"],
+                shapes=rows)
+
+
 # ---------------------------------------------------------------- phase 3
 
 def _one_step(cfg, params, lm, toks, tok):
@@ -601,6 +671,136 @@ def train_phase(cfg, card, kflash, kernel_mods):
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+DANUBE_PROMPTS = (5000, 4500, 1000, 200)
+
+
+def _danube_serve(cfg, params, engine_mod, card):
+    """(i) Four requests, two with prompts past the 4096-token window,
+    through ``DecodeEngine`` to completion (after a short warm run)."""
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    kw = dict(max_slots=4, max_len=8192, prefill_chunk=256, decode_block=8,
+              seed=0, device="cuda")
+    rng = np.random.default_rng(6)
+    warm = Engine(cfg, params, **kw)
+    for i in range(2):
+        warm.submit(Request(rid=i, prompt=rng.integers(1, cfg.vocab, 300),
+                            max_new_tokens=4))
+    warm.run_until_done()
+    del warm
+    eng = Engine(cfg, params, **kw)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n),
+                    max_new_tokens=32, temperature=0.8 if i == 2 else 0.0,
+                    top_k=40 if i == 2 else 0)
+            for i, n in enumerate(DANUBE_PROMPTS)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if len(r.output) != 32 or not all(0 <= t < cfg.vocab
+                                          for t in r.output):
+            raise AssertionError(f"request {r.rid}: bad output {r.output}")
+    m = eng.metrics()
+    print(f"  serve [{card}]: prompts {[r.prompt_len for r in reqs]} "
+          f"(window {cfg.window}), {m['tokens']} tokens in {wall:.3f} s = "
+          f"{m['tokens'] / wall:.1f} tok/s; decode "
+          f"{m['decode_us_per_token']:.1f} us/token ({m['decoded_tokens']} "
+          f"tokens over {m['ticks']} ticks), mean TTFT "
+          f"{m['mean_ttft_s'] * 1e3:.1f} ms")
+    print("  streams (first 8 tokens): "
+          + "; ".join(f"{r.rid}:{r.output[:8]}" for r in reqs))
+
+
+def _danube_layers(cfg, params, lm, attention, kattn):
+    """(ii) The four prompts prefilled in chunks of 256 (per-row ragged),
+    then on every layer's cache the kernel path against the mixers' path
+    on clones with one ``x_t``.  bf16 outputs: phase 3's rule — the kernel
+    path no further from the fp32 truth (``attn_decode_xla`` on the same
+    inputs upcast) than twice the plain bf16 path; the new caches bitwise
+    equal (the same insert)."""
+    from repro_torch.tree import tree_map
+    B, C = len(DANUBE_PROMPTS), 256
+    n = -(-max(DANUBE_PROMPTS) // C)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(1, cfg.vocab, (B, n, C), generator=gen,
+                         device="cuda")
+    lens = torch.tensor(DANUBE_PROMPTS, device="cuda")
+    starts = torch.arange(n, device="cuda")[:, None] * C
+    vls = torch.clamp(lens[None, :] - starts, 0, C).to(torch.int32)
+    caches = lm.init_caches(cfg, B, 8192, device="cuda")
+    t0 = time.perf_counter()
+    lm.prefill_chunk_scan(params, cfg, caches, tokens=toks, valid_lens=vls)
+    torch.cuda.synchronize()
+    kv_bytes = sum(t.numel() * t.element_size() for g in caches
+                   for c in g for t in c)
+    print(f"  prefilled rows of {list(DANUBE_PROMPTS)} tokens in {n} chunks "
+          f"of {C} in {time.perf_counter() - t0:.2f} s; KV cache "
+          f"{kv_bytes / 2**30:.3f} GiB")
+    x_t = torch.randn(B, cfg.d_model, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kw = dict(rope_theta=cfg.rope_theta)
+    kattn.launches = 0
+    n_layers, worst = 0, 0.0
+    for (kinds, reps), gp, gc in zip(lm.build_groups(cfg), params["groups"],
+                                     caches):
+        for r in range(reps):
+            for i in range(len(kinds)):
+                lp = tree_map(lambda a: a[r], gp[i])["mixer"]
+                c = tree_map(lambda a: a[r], gc[i])
+                ck = type(c)(*(t.clone() for t in c))
+                cx = type(c)(*(t.clone() for t in c))
+                ok, ck = attention.attn_decode_pallas(lp, x_t, ck, **kw)
+                ox, cx = attention.attn_decode_xla(lp, x_t, cx,
+                                                   window=cfg.window, **kw)
+                c32 = type(c)(c.k.float(), c.v.float(), c.length.clone())
+                truth, _ = attention.attn_decode_xla(
+                    {k_: w.float() for k_, w in lp.items()}, x_t.float(),
+                    c32, window=cfg.window, **kw)
+                torch.cuda.synchronize()
+                err_k, err_x = max_err(ok, truth), max_err(ox, truth)
+                if not bool(torch.isfinite(ok.float()).all()) or (
+                        err_k > 2 * err_x and not torch.equal(ok, ox)):
+                    raise AssertionError(
+                        f"layer {n_layers}: kernel {err_k:.3e} from fp32, "
+                        f"plain {err_x:.3e}")
+                if not all(torch.equal(a, b_) for a, b_ in zip(ck, cx)):
+                    raise AssertionError(f"layer {n_layers}: the caches "
+                                         f"differ")
+                worst = max(worst, err_k / max(err_x, 1e-30))
+                if n_layers == 0:
+                    print(f"  layer 0: lengths {ck.length.tolist()} on "
+                          f"{ck.k.shape[2]} slots; max|kernel - plain| "
+                          f"{max_err(ok, ox):.3e}, from fp32: kernel "
+                          f"{err_k:.3e}, plain {err_x:.3e} (limit 2x "
+                          f"plain)")
+                n_layers += 1
+    launches = kattn.launches
+    print(f"  {n_layers} layers: outputs within tolerance (worst kernel / "
+          f"plain error ratio {worst:.3f}), caches bitwise equal; "
+          f"attn_decode launches {launches}")
+    if launches != n_layers or n_layers != cfg.n_layers:
+        raise AssertionError(f"attn_decode launched {launches} times for "
+                             f"{n_layers} layers")
+    return {"attn_decode": launches}
+
+
+def danube_phase(card, lm, attention, engine_mod, kattn, configs):
+    cfg = configs.get_arch("h2o-danube-1.8b")
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[6] full-width {cfg.name}: {lm.param_count(params) / 1e9:.3f} B "
+          f"params ({cfg.act_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    _danube_serve(cfg, params, engine_mod, card)
+    return _danube_layers(cfg, params, lm, attention, kattn)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -613,11 +813,13 @@ def main():
     try:
         from repro_torch import configs
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import attn_decode as kattn
         from repro_torch.kernels import flash_attn as kflash
         from repro_torch.kernels import gdn_decode as kdecode
         from repro_torch.kernels import gdn_prefill as kprefill
-        from repro_torch.launch.profile_decode import time_launches
-        from repro_torch.models import lm
+        from repro_torch.launch.profile_decode import (ATTN_DECODE_SHAPES,
+                                                       time_launches)
+        from repro_torch.models import attention, lm
         from repro_torch.runtime import trainer  # noqa: F401
         from repro_torch.serving import engine as engine_mod
     except ImportError as e:
@@ -641,6 +843,8 @@ def main():
     rows = [decode_phase(ref, kdecode, time_launches),
             prefill_phase(ops, ref, kprefill, time_launches)]
     rows += flash_phase(ref, kflash, time_launches)
+    rows.append(attn_decode_phase(ref, kattn, time_launches,
+                                  ATTN_DECODE_SHAPES))
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f", library {r['library_ms'] * 1e3:.2f} us"
@@ -670,7 +874,11 @@ def main():
     print(f"[5] training full-width {cfg.name} through Trainer with the "
           f"flash kernels [{card}]")
     launches.update(train_phase(cfg, card, kflash,
-                                (kflash, kdecode, kprefill)))
+                                (kflash, kdecode, kprefill, kattn)))
+    torch.cuda.empty_cache()
+
+    launches.update(danube_phase(card, lm, attention, engine_mod, kattn,
+                                 configs))
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

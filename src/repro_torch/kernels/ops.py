@@ -2,15 +2,17 @@
 ``repro.kernels.ops``).
 
 Dispatch only: a CUDA tensor goes to the hand-written kernel (which
-launches or raises), a CPU tensor to the plain PyTorch version in ``ref``.
-Both paths update the recurrent state in place and return it, so callers
-see one semantics.  The GVA row mapping and the (B, T, H, d) <->
-(B*H, T, d) layout of ``gdn_prefill`` live here, at the public function.
+launches or raises), a CPU tensor to the plain PyTorch version in ``ref``,
+any other device raises.  Both GDN paths update the recurrent state in
+place and return it, so callers see one semantics.  The GVA row mapping
+and the (B, T, H, d) <-> (B*H, T, d) layout of ``gdn_prefill`` live here,
+at the public function.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import attn_decode as _attn
 from repro_torch.kernels import gdn_decode as _decode
 from repro_torch.kernels import gdn_prefill as _prefill
 from repro_torch.kernels import ref
@@ -73,4 +75,19 @@ def gdn_prefill(q, k, v, log_g, beta, S0, *, chunk=64, scale=None,
     return O.reshape(B, Hv, T, d_v).transpose(1, 2), S0
 
 
-__all__ = ["gdn_decode", "gdn_prefill", "ref"]
+def attn_decode(q, k_cache, v_cache, length, *, scale=None, window=None):
+    """Flash-decode GQA attention of one token against a KV cache.
+
+    q: (B, Hq, d); k_cache, v_cache: (B, Hkv, T, d); length: (B,) int32,
+    the raw token count (may exceed T on a rolling cache: the kernel owns
+    the occupancy clamp and masks ``window`` on absolute wrapped
+    positions).  Returns o (B, Hq, d) in q's dtype.  The TPU tiling knob
+    ``block_t`` has no counterpart."""
+    if _on_cuda(k_cache):
+        return _attn.attn_decode(q, k_cache, v_cache, length, scale=scale,
+                                 window=window)
+    return ref.attn_decode_ref(q, k_cache, v_cache, length, scale=scale,
+                               window=window)
+
+
+__all__ = ["gdn_decode", "gdn_prefill", "attn_decode", "ref"]

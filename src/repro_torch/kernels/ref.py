@@ -130,3 +130,42 @@ def flash_bwd_ref(q, k, v, o, m, l, do, valid_len=None, *, scale=None,
     dk = scale * torch.matmul(ds.transpose(-1, -2), q.float()).sum(1)
     dv = torch.matmul(p.transpose(-1, -2), dof).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------ attention decode
+
+def attn_decode_visible(length, T: int, window=None):
+    """(B, T) bool: the slots of a (rolling) cache of ``T`` slots that a
+    one-token query sees, with ``length`` (B,) the raw token count (may
+    exceed T).  Slot t is occupied iff t < min(length, T); with a window
+    it holds absolute position (length-1) - ((length-1-t) mod T) and is
+    visible iff that position >= length - window (the TPU kernel's rule,
+    ``repro/kernels/attn_decode.py``)."""
+    L = length.long().reshape(-1, 1)
+    t = torch.arange(T, device=length.device)[None, :]
+    keep = t < torch.clamp(L, max=T)
+    if window is not None:
+        p_abs = (L - 1) - torch.remainder(L - 1 - t, T)
+        keep = keep & (p_abs >= L - window)
+    return keep
+
+
+def attn_decode_ref(q, k_cache, v_cache, length, *, scale=None, window=None):
+    """Plain version of ``kernels.attn_decode``: dense fp32 softmax over the
+    visible slots (``attn_decode_visible``).  q: (B, Hq, d); k_cache,
+    v_cache: (B, Hkv, T, d); length: (B,) int.  Masked slots get p = 0
+    exactly, so a row with no visible slot (length 0) gives 0.  Returns o
+    (B, Hq, d) in q's dtype."""
+    B, Hq, d = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(B, Hkv, Hq // Hkv, d).float()
+    s = scale * torch.matmul(qg, k_cache.float().transpose(-1, -2))
+    keep = attn_decode_visible(length, T, window)[:, None, None, :]
+    s = torch.where(keep, s, torch.full((), FLASH_NEG_INF, device=q.device))
+    p = torch.where(keep, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros((), device=q.device))
+    o = torch.matmul(p, v_cache.float()) / torch.clamp(
+        p.sum(-1, keepdim=True), min=1e-30)
+    return o.reshape(B, Hq, d).to(q.dtype)

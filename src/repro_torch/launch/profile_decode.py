@@ -15,11 +15,16 @@ Full-width qwen3-next-gdn (random bf16 weights from ``--seed``) in a
     each launch (``decode_kernel_study``), against its per-call time in
     the profiled ticks.
 
+``--attn-decode`` runs only ``attn_decode_study``: the flash-decode kernel
+at the three shapes of ``chip_smoke.py``'s phase 2 with each split length
+in turn, its split and merge kernels timed apart.
+
 The card's name and power limit head the output.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import subprocess
 import time
 
@@ -64,9 +69,13 @@ def _dev_us(evt):
     return 0.0
 
 
-def _kernel_us(prof, name):
+def _kernel_us(prof, name, calls):
+    """Device microseconds per call of the CUDA kernels whose names hold
+    ``name``, summed (a call may launch more than one)."""
     evts = [e for e in prof.key_averages() if name in e.key and _dev_us(e)]
-    return sum(_dev_us(e) for e in evts) / sum(e.count for e in evts)
+    if not evts:
+        raise RuntimeError(f"the profiler recorded no kernel named {name!r}")
+    return sum(_dev_us(e) for e in evts) / calls
 
 
 def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
@@ -79,8 +88,9 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
     between the events.
 
     Returns (median ms between CUDA events around each call, mean ms per
-    launch of the CUDA kernel whose name holds ``kernel`` as the profiler
-    (CUPTI) records it — the kernel's own duration — or None)."""
+    call of the CUDA kernels whose names hold ``kernel`` as the profiler
+    (CUPTI) records them — the kernels' own durations, summed over the
+    launches of one call — or None)."""
     buf = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
     pre = {"read": buf.sum, "write": buf.zero_, "none": lambda: None}[flush]
 
@@ -106,7 +116,7 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run([])
-    return event_ms, _kernel_us(prof, kernel) / 1e3
+    return event_ms, _kernel_us(prof, kernel, reps) / 1e3
 
 
 def decode_kernel_study(cfg, batch):
@@ -133,6 +143,43 @@ def decode_kernel_study(cfg, batch):
               f"call")
 
 
+# (label, B, Hq, Hkv, d, T, lengths, window): the flash-decode kernel's
+# shapes in chip_smoke.py's phase 2; "b" is the shape its phase 6 drives
+ATTN_DECODE_SHAPES = (
+    ("a: qwen3-next-gdn attention, B=4, ragged", 4, 16, 2, 128, 1024,
+     (1, 300, 777, 1024), None),
+    ("b: h2o-danube-1.8b, B=4, wrapped, window 4096", 4, 32, 8, 80, 4096,
+     (100, 4096, 4500, 9000), 4096),
+    ("c: yi-9b, B=1, 32k", 1, 32, 4, 128, 32768, (32768,), None),
+)
+
+
+def attn_decode_study(splits=(64, 128, 256, 512, 1024)):
+    """The flash-decode kernel (bf16) at ``ATTN_DECODE_SHAPES`` with its own
+    split length and then each of ``splits``: the two kernels' own
+    durations after a read flush (``time_launches``), split and merge
+    apart."""
+    from repro_torch.kernels import attn_decode as kattn
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for label, B, Hq, Hkv, d, T, lengths, window in ATTN_DECODE_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for shape in ((B, Hq, d), (B, Hkv, T, d),
+                                          (B, Hkv, T, d)))
+        length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        own = kattn.split_len(B, Hkv, T, d, 2, kattn.sm_count(q.device))
+        for split in (own,) + tuple(x for x in splits
+                                    if x <= T and x != own):
+            fn = functools.partial(kattn.attn_decode, q, k, v, length,
+                                   window=window, split=split)
+            _, part = time_launches(fn, "attn_decode_bf16_kernel")
+            _, merge = time_launches(fn, "attn_decode_merge_kernel")
+            print(f"attn_decode {label}, split {split:5d} "
+                  f"({-(-T // split) * B * Hkv} CTAs"
+                  f"{', split_len' if split == own else ''}): split kernel "
+                  f"{part * 1e3:.2f} us + merge {merge * 1e3:.2f} us = "
+                  f"{(part + merge) * 1e3:.2f} us")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--slots", type=int, default=4)
@@ -140,6 +187,8 @@ def main(argv=None):
     ap.add_argument("--ticks", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--attn-decode", action="store_true",
+                    help="only the flash-decode kernel's split study")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode measures the card: no CUDA device")
@@ -147,6 +196,9 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    if args.attn_decode:
+        attn_decode_study()
+        return
     base = configs.get_arch("qwen3-next-gdn")
     decode_kernel_study(base, args.slots)
     params = lm.init_lm(args.seed, base)

@@ -13,7 +13,11 @@ over a rolling KV cache (port of ``repro.models.attention``).
                              (RoPE/visibility resume at ``cache.length``,
                              ragged ``valid_len`` tails);
   * ``attn_decode_xla``    — one token against the cache (the reference's
-                             plain-XLA decode; its name is kept).
+                             plain-XLA decode; its name is kept), the
+                             mixers' decode;
+  * ``attn_decode_pallas`` — one token through the flash-decode kernel
+                             (``kernels.ops.attn_decode``), which no mixer
+                             calls, as in the reference.
 
 KV cache layout: (B, Hkv, Tmax, hd) + lengths (B,) int32.  A rolling (SWA)
 cache of ``size`` slots holds token p at slot p mod size.  The functions
@@ -29,7 +33,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import flash_attn
+from repro_torch.kernels import flash_attn, ops
 from repro_torch.models import layers
 
 _NEG = -1e30
@@ -303,3 +307,20 @@ def attn_decode_xla(p, x_t, cache: KVCache, *, rope_theta=10000.0,
     o = _f32_matmul(pr.to(cache.v.dtype), cache.v)
     o = o.reshape(B, Hq, hd).to(x_t.dtype)
     return _out(_apply_head_mask(o, head_mask), p["wo"]), cache
+
+
+def attn_decode_pallas(p, x_t, cache: KVCache, *, rope_theta=10000.0,
+                       window=None):
+    """One-token decode through the flash-decode kernel (the reference's
+    name is kept).  x_t: (B, d_model).  Returns (out (B, d_model), cache).
+
+    As in the reference: the raw ``cache.length`` goes to the kernel, which
+    owns the occupancy clamp; ``window`` is accepted but not forwarded (a
+    ``swa`` cache is ``min(window, max_len)`` slots, so the buffer is the
+    window) and no head mask is applied — on head-padded configs the
+    padded heads' outputs are not zeroed, unlike ``attn_decode_xla``."""
+    pos = cache.length.long()
+    q, k, v = _qkv(p, x_t[:, None, :], pos[:, None], rope_theta)
+    cache = _cache_insert(cache, k[:, 0], v[:, 0])
+    o = ops.attn_decode(q[:, 0].contiguous(), cache.k, cache.v, cache.length)
+    return _out(o, p["wo"]), cache

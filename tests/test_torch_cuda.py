@@ -187,3 +187,46 @@ def test_flash_attention_autograd_on_card(cuda):
         grads.append([o.detach().cpu()] + [x.grad.cpu() for x in ins])
     for a, b in zip(*grads):
         _close(a, b, BF16)
+
+
+# ------------------------------------------------------- attention decode
+
+# the phase-2 shapes of chip_smoke.py: (a) qwen3-next-gdn's attention layer
+# at the serving batch, ragged lengths; (b) an h2o-danube-1.8b layer, its
+# 4096-slot rolling cache on both sides of the wrap, window 4096; plus a
+# small fp32 MHA case with a window inside a wrapped buffer
+ATTN_CASES = {
+    "a": (4, 16, 2, 128, 1024, (1, 300, 777, 1024), None),
+    "b": (4, 32, 8, 80, 4096, (100, 4096, 4500, 9000), 4096),
+    "small_window": (2, 4, 4, 64, 96, (50, 200), 40),
+}
+
+
+def _attn_inputs(cuda, dtype, B, Hq, Hkv, d, T, lengths):
+    rng = np.random.default_rng(15)
+    q = _normal(rng, B, Hq, d).to(cuda, dtype)
+    k, v = (_normal(rng, B, Hkv, T, d).to(cuda, dtype) for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attn_decode_kernel_vs_plain_and_sdpa(cuda, dtype, case):
+    """The flash-decode kernel against its plain version (fp32: summation
+    order only, 1e-5; bf16 output: one rounding step, 2e-2) and against
+    ``F.scaled_dot_product_attention`` with the same boolean mask (2e-2:
+    SDPA's own bf16 arithmetic)."""
+    from repro_torch.kernels import attn_decode as tattn
+    B, Hq, Hkv, d, T, lengths, window = ATTN_CASES[case]
+    q, k, v, length = _attn_inputs(cuda, dtype, B, Hq, Hkv, d, T, lengths)
+    n = tattn.launches
+    o = ops.attn_decode(q, k, v, length, window=window)
+    want = ref.attn_decode_ref(q, k, v, length, window=window)
+    mask = ref.attn_decode_visible(length, T, window)[:, None, None, :]
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    torch.cuda.synchronize()
+    assert tattn.launches == n + 1 and o.dtype == dtype
+    _close(o, want, F32 if dtype == torch.float32 else BF16)
+    _close(o, lib, BF16)
