@@ -43,12 +43,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 Phase 2 also holds the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
-Hkv=2, hd=128, bf16) and on a windowed and a ragged (``valid_len``) case,
-and the flash-decode kernel at three bf16 shapes (qwen3-next-gdn's
-attention layer at the serving batch, an h2o-danube-1.8b layer past its
-wrap, yi-9b at batch 1 over 32k slots), and times each beside
-``F.scaled_dot_product_attention`` (the library yardstick, used nowhere in
-the port).
+Hkv=2, hd=128, bf16) and on windowed and ragged (``valid_len``) cases
+(the dk/dv call timed with its zeroing and its cast, each printed; its
+run-to-run reproducibility and SDPA's distance from the plain version
+beside the kernels' printed too), and the flash-decode kernel at three
+bf16 shapes (qwen3-next-gdn's attention layer at the serving batch, an
+h2o-danube-1.8b layer past its wrap, yi-9b at batch 1 over 32k slots),
+and times each beside ``F.scaled_dot_product_attention`` (the library
+yardstick, used nowhere in the port).
 
 The second line before the last is a JSON object with one entry per
 kernel (the flash-decode entry carries its three shapes, its top-level
@@ -155,20 +157,48 @@ def decode_phase(ref, kdecode, time_launches):
                 **bound("gdn_decode", nbytes, flops), library_ms=None)
 
 
-def bound(name, nbytes, fp32_flops, tc_flops=0):
+def bound_ms(nbytes, fp32_flops, tc_flops=0):
     """The least time for the work: the larger of the bytes over the HBM
     rate and the operations over their peak rate — ``fp32_flops`` at the
     CUDA-core fp32 rate, ``tc_flops`` (bf16 x bf16 products accumulated in
-    fp32) at the bf16 tensor-core rate."""
+    fp32) at the bf16 tensor-core rate.  Returns (ms, "bytes" or
+    "operations", (bytes ms, fp32 ms, tensor-core ms))."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_fp32 = fp32_flops / FP32_FLOPS_PER_S * 1e3
     t_tc = tc_flops / BF16_TC_FLOPS_PER_S * 1e3
     t_ops = t_fp32 + t_tc
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", (t_bytes, t_fp32, t_tc))
+
+
+def bound(name, nbytes, fp32_flops, tc_flops=0):
+    ms, by, (t_bytes, t_fp32, t_tc) = bound_ms(nbytes, fp32_flops, tc_flops)
     print(f"  {name} bound: bytes {t_bytes * 1e3:.3f} us, operations "
-          f"{t_ops * 1e3:.3f} us (fp32 {t_fp32 * 1e3:.3f} us + bf16 "
-          f"tensor-core {t_tc * 1e3:.3f} us)")
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+          f"{(t_fp32 + t_tc) * 1e3:.3f} us (fp32 {t_fp32 * 1e3:.3f} us + "
+          f"bf16 tensor-core {t_tc * 1e3:.3f} us)")
+    return dict(bound_ms=ms, bound_by=by)
+
+
+def flash_work(B, T, Hq, Hkv, hd):
+    """What each flash kernel must do at a causal bf16 shape: the bytes
+    it must move (each input read once, each output written once) and the
+    FLOP of its products by the rate of the operands they take.  The
+    forward (Q K^T, P V with P rounded to bf16) and dk/dv (Q K^T, dO V^T,
+    P^T dO, dS^T Q with P and dS rounded to bf16) feed the tensor cores
+    bf16 x bf16 in every product; dq (Q K^T and dO V^T of bf16 inputs, dS
+    K with dS in fp32) has one product with an fp32 operand."""
+    pairs = B * Hq * T * (T + 1) // 2       # visible (q, k) pairs, causal
+    prod = 2 * pairs * hd                   # FLOP of one causal product
+    qo = B * Hq * T * hd * 2
+    kv = 2 * B * Hkv * T * hd * 2
+    stats = B * Hq * T * 4
+    return {
+        "flash_fwd": dict(nbytes=2 * qo + kv + 2 * stats, tc_flops=2 * prod,
+                          fp32_flops=0),
+        "flash_bwd_dq": dict(nbytes=3 * qo + kv + 3 * stats,
+                             tc_flops=2 * prod, fp32_flops=prod),
+        "flash_bwd_dkv": dict(nbytes=2 * qo + 2 * kv + 3 * stats,
+                              tc_flops=4 * prod, fp32_flops=0)}
 
 
 def prefill_inputs(B, T, gen):
@@ -297,8 +327,9 @@ def _flash_check(ref, kflash, label, q, k, v, do, vl=None, window=None):
 
 def flash_phase(ref, kflash, time_launches):
     """The flash-attention kernels at the trained shape, plus a windowed
-    fp32 case and a ragged bf16 case, against their plain versions; then
-    each timed beside the plain version and SDPA."""
+    case at either dtype and a ragged bf16 case, against their plain
+    versions; then each timed beside its bound, the plain version and
+    SDPA."""
     B, T, Hq, Hkv, hd = (FLASH[k] for k in ("B", "T", "Hq", "Hkv", "hd"))
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
@@ -307,6 +338,9 @@ def flash_phase(ref, kflash, time_launches):
     errs.append(_flash_check(
         ref, kflash, "flash window=100 fp32",
         *_flash_inputs(1, 384, 4, 2, 128, torch.float32, gen), window=100))
+    errs.append(_flash_check(
+        ref, kflash, "flash window=100 bf16",
+        *_flash_inputs(1, 384, 4, 2, 128, bf, gen), window=100))
     vl = torch.repeat_interleave(
         torch.tensor([300, 137], dtype=torch.int32, device="cuda"), 2)
     errs.append(_flash_check(ref, kflash, "flash valid_len=(300, 137) T=300",
@@ -315,18 +349,34 @@ def flash_phase(ref, kflash, time_launches):
                                 for i in range(3))
 
     o, m, l = kflash.flash_fwd(q, k, v)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    bwd = (q, k, v, do, m, l, delta, None, hd ** -0.5, 0)
+    # dk/dv bitwise from run to run? (atomics add the G heads' partials)
+    dk0, dv0 = kflash._dkv_cuda(*bwd)
+    n_diff = 0
+    for _ in range(4):
+        dk1, dv1 = kflash._dkv_cuda(*bwd)
+        n_diff = max(n_diff, int((dk1 != dk0).sum() + (dv1 != dv0).sum()))
+    print(f"  flash_bwd_dkv run to run (5 calls): "
+          + ("dk and dv bitwise equal" if n_diff == 0 else
+             f"up to {n_diff} of {2 * dk0.numel()} bf16 elements differ"))
+    # the dk/dv call's own kernels: zeroing its fp32 buffers, the kernel,
+    # the cast to bf16
+    dkv_parts = ("flash_dkv_", "FillFunctor", "copy_kernel")
     timed = {}
     for name, fn, kern in (
-            ("flash_fwd", lambda: kflash.flash_fwd(q, k, v),
-             "flash_fwd_kernel"),
-            ("flash_bwd_dq", lambda: kflash.flash_bwd(q, k, v, o, m, l, do),
+            ("flash_fwd", lambda: kflash.flash_fwd(q, k, v), "flash_fwd_"),
+            ("flash_bwd_dq", lambda: kflash._dq_cuda(*bwd),
              "flash_dq_kernel"),
-            ("flash_bwd_dkv", lambda: kflash.flash_bwd(q, k, v, o, m, l, do),
-             "flash_dkv_kernel")):
-        timed[name] = time_launches(fn, kern)
-        print(f"  {name}: CUDA events around the call {timed[name][0]:.4f} "
-              f"ms (the backward's covers delta, dq and dk/dv), the "
-              f"kernel's own duration {timed[name][1]:.4f} ms")
+            ("flash_bwd_dkv", lambda: kflash._dkv_cuda(*bwd), dkv_parts)):
+        ev, own = time_launches(fn, kern)
+        if isinstance(own, dict):
+            print(f"  {name} split: " + ", ".join(
+                f"{n} {t:.4f} ms" for n, t in own.items()))
+            own = sum(own.values())
+        timed[name] = own
+        print(f"  {name}: CUDA events around the call {ev:.4f} ms, the "
+              f"kernels' own duration {own:.4f} ms")
     plain_fwd, _ = time_launches(lambda: ref.flash_fwd_ref(q, k, v), reps=5,
                                  warmup=1)
     plain_bwd, _ = time_launches(
@@ -351,31 +401,39 @@ def flash_phase(ref, kflash, time_launches):
           f"backward (dq, dk, dv together) {lib_bwd:.4f} ms; plain: "
           f"forward {plain_fwd:.4f} ms, backward (all three) "
           f"{plain_bwd:.4f} ms")
+    # the cost of bf16 rounding: the kernels' and SDPA's distance from the
+    # plain fp32 version (its backward from its own forward)
+    po, pm, pl = ref.flash_fwd_ref(q, k, v)
+    plain = (po,) + ref.flash_bwd_ref(q, k, v, po, pm, pl, do)
+    dq = kflash._dq_cuda(*bwd)
+    kern = (o, dq, dk0, dv0)
+    lib = [x.reshape(y.shape) for x, y in zip(
+        (out,) + torch.autograd.grad(out, (qs, ks, vs), dos), plain)]
+    torch.cuda.synchronize()
+    print("  max|diff| from the plain version, kernels / SDPA: " + ", ".join(
+        f"{n} {max_err(a, p):.3e} / {max_err(b, p):.3e}"
+        for n, a, b, p in zip(("o", "dq", "dk", "dv"), kern, lib, plain)))
 
-    pairs = B * Hq * T * (T + 1) // 2       # visible (q, k) pairs, causal
-    prod = 2 * pairs * hd                   # FLOP of one causal product
-    bf_b, f_b = 2, 4
-    qo = B * Hq * T * hd * bf_b
-    kv = 2 * B * Hkv * T * hd * bf_b
-    stats = B * Hq * T * f_b
+    work = flash_work(B, T, Hq, Hkv, hd)
     rows = []
-    for name, nbytes, tc, fp32, err, plain, lib, src, line in (
-            ("flash_fwd", 2 * qo + kv + 2 * stats, 1, 1, err_fwd, plain_fwd,
-             lib_fwd, "flash_fwd.cu", 105),
-            ("flash_bwd_dq", 3 * qo + kv + 3 * stats, 2, 1, err_dq,
-             plain_bwd, lib_bwd, "flash_bwd.cu", 166),
-            ("flash_bwd_dkv", 2 * qo + 2 * kv + 3 * stats, 2, 2, err_dkv,
-             plain_bwd, lib_bwd, "flash_bwd.cu", 192)):
-        b = bound(name, nbytes, fp32 * prod, tc * prod)
-        all_tc = max(nbytes / HBM_BYTES_PER_S,
-                     (tc + fp32) * prod / BF16_TC_FLOPS_PER_S) * 1e3
+    for name, err, plain_ms, lib_ms, src, line in (
+            ("flash_fwd", err_fwd, plain_fwd, lib_fwd, "flash_fwd.cu", 105),
+            ("flash_bwd_dq", err_dq, plain_bwd, lib_bwd, "flash_bwd.cu", 166),
+            ("flash_bwd_dkv", err_dkv, plain_bwd, lib_bwd, "flash_bwd.cu",
+             192)):
+        w = work[name]
+        b = bound(name, w["nbytes"], w["fp32_flops"], w["tc_flops"])
+        all_tc = bound_ms(w["nbytes"], 0, w["tc_flops"] + w["fp32_flops"])[0]
         print(f"  {name} bound with every product on the tensor cores: "
-              f"{all_tc * 1e3:.3f} us")
+              f"{all_tc * 1e3:.3f} us; the kernels' own duration "
+              f"{timed[name] / b['bound_ms']:.2f}x the bound, "
+              f"{timed[name] / lib_ms:.2f}x SDPA's "
+              f"{'forward' if name == 'flash_fwd' else 'whole backward'}")
         rows.append(dict(name=name, route="cuda",
                          source=f"src/repro_torch/csrc/{src}",
                          replaces=f"src/repro/kernels/flash_attn.py:{line}",
-                         max_abs_err=err, ms=timed[name][1], plain_ms=plain,
-                         **b, bound_all_tc_ms=all_tc, library_ms=lib))
+                         max_abs_err=err, ms=timed[name], plain_ms=plain_ms,
+                         **b, bound_all_tc_ms=all_tc, library_ms=lib_ms))
     return rows
 
 

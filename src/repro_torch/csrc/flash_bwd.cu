@@ -1,5 +1,5 @@
 // Causal (optionally windowed, optionally ragged) GQA flash-attention
-// backward for Hopper, sm_90a: two kernels, dq and dk/dv.
+// backward for Hopper, sm_90a: the dq kernel and the dk/dv kernels.
 //
 // Replaces: src/repro/kernels/flash_attn.py, flash_bwd (line 236): its
 // _dq_kernel (line 166, pallas_call at line 258) and its _dkv_kernel
@@ -7,31 +7,47 @@
 //
 // Inputs as the forward's (q, do: (BH, G, T, HD); k, v: (BH, T, HD); fp32
 // or bf16), plus the forward's fp32 statistics m, l and
-// delta = rowsum(do * o), (BH, G, T) each.  Both kernels rebuild the
+// delta = rowsum(do * o), (BH, G, T) each.  Every kernel rebuilds the
 // probabilities tile by tile as p = exp(s - m) / max(l, 1e-30) (masked
 // scores -1e30) and ds = p * (do v^T - delta); nothing of size T x T
-// reaches device memory.
+// reaches device memory.  dq comes out in q's dtype; dk and dv come out
+// in fp32, summed over the G query heads of each kv head, as the
+// reference's dk/dv kernel leaves them (its caller casts).
 //
 // What bounds them on an H100: operations.  dq does three causal products
 // (q k^T, do v^T, ds k), dk/dv four (q k^T, do v^T, p^T do, ds^T q).
 //
-// dq: one CTA per (q tile of 64 rows, bh, g), the longest rows first.  Q
-// and dO stay in shared memory; the CTA loops over the key tiles from the
-// window's lower bound to the causal diagonal and accumulates
-// dq = scale * sum ds k in fp32 registers.
-// dk/dv: one CTA per (key tile of 64 rows, bh).  K and V stay in shared
-// memory; the CTA loops over the G query heads of its kv head and, for
-// each, over the q tiles from the causal diagonal to the window's upper
-// bound, accumulating dv = sum p^T do and dk = scale * sum ds^T q in fp32
-// registers.  Each CTA owns its rows of dk and dv outright: no atomics and
-// no second pass.  A key tile wholly at or past valid_len gets zeros (its
-// p is 0 in every row that has a visible key).
+// dq (both dtypes, CUDA cores in fp32): one CTA per (q tile of 64 rows,
+// bh, g), the longest rows first.  Q and dO stay in shared memory; the CTA
+// loops over the key tiles from the window's lower bound to the causal
+// diagonal and accumulates dq = scale * sum ds k in fp32 registers.
+//
+// dk/dv, bf16 (tensor cores): one CTA per (key tile of 64 rows, bh, g),
+// key tile 0 first (grid (BH * G, key tiles)), so no CTA walks more than
+// T / 64 query tiles and the causal triangle spreads over the card.  K
+// and V of the tile stay in shared memory; the Q and dO tiles of the
+// query head, with their m, l and delta, stream through a two-stage
+// cp.async ring from the causal diagonal to the window's upper bound.
+// 4 warps, each owning 16 key rows: S^T = K Q^T and dP^T = V dO^T run on
+// mma.sync m16n8k16 (bf16 -> fp32), so that P^T and dS^T = P^T o (dP^T -
+// delta), packed to bf16 from the accumulator fragments, are already the
+// A operands of dV += P^T dO and dK += dS^T Q (Q's and dO's B fragments
+// from ldmatrix.trans).  dK and dV accumulate in fp32 registers; at the
+// end each CTA adds its partial into the fp32 dk, dv with atomics (red.add;
+// the caller zeroes them): the G query heads' partials meet there in
+// fp32, in an order that varies from run to run.  Masked probabilities
+// are exactly 0.  A key tile wholly at or past valid_len returns at once
+// and keeps its zeros.
+// dk/dv, fp32 (kept on the card for its exactness): one CTA per (key tile,
+// bh) looping over the G query heads and their q tiles, every product on
+// the CUDA cores; each CTA owns its rows of dk and dv outright.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace tc;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -190,6 +206,212 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, HD>(dv + bh * head, acc_v, one, k0, T_len, ty, tx);
 }
 
+// ------------------------------------------------------------- dk/dv bf16
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          const int* __restrict__ valid_len, int G,
+                          int T_len, float scale, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = HD + kTcPad;
+  constexpr int kElems = kTile * LD;             // one shared tile
+  // a ring stage: Q, dO (bf16 tiles), then m, l, delta of its 64 rows
+  constexpr int kStage = 2 * kElems + 3 * kTile * 2;   // in bf16 units
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + kElems;
+  bf16* ring = sV + kElems;
+
+  const int bhg = blockIdx.x;                    // bh * G + g
+  const int bh = bhg / G;
+  const int kt = blockIdx.y, k0 = kt * kTile;
+  const int valid = valid_len ? min(valid_len[bh], T_len) : T_len;
+  if (k0 >= valid) return;                       // its rows stay zero
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t head = static_cast<size_t>(T_len) * HD;
+  const size_t stat = static_cast<size_t>(bhg) * T_len;
+  const float sl2 = scale * kLog2e;
+  const int nq = (T_len + kTile - 1) / kTile;
+  const int k_last = min(k0 + kTile, T_len) - 1;
+  const int q_lo = kt;                           // causal diagonal
+  const int q_hi =
+      window > 0 ? min(nq - 1, (k_last + window - 1) / kTile) : nq - 1;
+
+  // Q, dO and the statistics of q tile qt into ring stage st
+  auto issue_q = [&](int st, int qt) {
+    bf16* dst = ring + st * kStage;
+    const int row0 = qt * kTile;
+    issue_rows<HD>(dst, q + bhg * head, row0, T_len);
+    issue_rows<HD>(dst + kElems, dout + bhg * head, row0, T_len);
+    float* sst = reinterpret_cast<float*>(dst + 2 * kElems);
+    for (int i = threadIdx.x; i < 3 * kTile; i += kTcThreads) {
+      const int which = i / kTile, row = row0 + i % kTile;
+      const float* src = which == 0 ? m : which == 1 ? l : delta;
+      const bool ok = row < T_len;
+      cp_async4_zfill(sst + i, src + stat + (ok ? row : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  issue_rows<HD>(sK, k + bh * head, k0, T_len);
+  issue_rows<HD>(sV, v + bh * head, k0, T_len);
+  cp_async_commit();
+  issue_q(0, q_lo);
+
+  const int r0 = warp * 16;                      // this warp's key rows
+  const int key_a = k0 + r0 + gid;               // elements 0, 1; + 8: 2, 3
+  float acc_k[HD / 8][4], acc_v[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int qt = q_lo; qt <= q_hi; ++qt) {
+    const int it = qt - q_lo;
+    if (qt < q_hi) {
+      issue_q((it + 1) & 1, qt + 1);  // its stage was freed last iteration
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sQ = ring + (it & 1) * kStage;
+    const bf16* sDO = sQ + kElems;
+    const float* sM = reinterpret_cast<const float*>(sDO + kElems);
+    const float* sL = sM + kTile;
+    const float* sD = sL + kTile;
+    const int q0 = qt * kTile;
+
+    // S^T = K Q^T: st[j] holds queries q0 + 8 j + 2 tig (+1)
+    float st[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      unsigned ka[4];
+      ldmatrix_x4(ka, sK + (r0 + (lane & 15)) * LD + ks * 16 +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned qb[4];
+        ldmatrix_x4(qb, sQ + (16 * j + (lane & 7) + ((lane >> 4) & 1) * 8) *
+                                 LD +
+                            ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(st[2 * j], ka, qb[0], qb[1]);
+        mma_bf16(st[2 * j + 1], ka, qb[2], qb[3]);
+      }
+    }
+    // P^T = exp2(s scale log2 e - (m log2 e + log2 l)); masked: 0
+    const bool full = tile_full(q0, k0, valid, window, T_len);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float nb[2] = {fmaf(sM[c], kLog2e, log2f(fmaxf(sL[c], 1e-30f))),
+                           fmaf(sM[c + 1], kLog2e,
+                                log2f(fmaxf(sL[c + 1], 1e-30f)))};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = full || visible(q0 + c + (e & 1), key_a + (e >> 1) * 8,
+                                        valid, window, T_len);
+        st[j][e] =
+            ok ? exp2_approx(fmaf(st[j][e], sl2, -nb[e & 1])) : 0.f;
+      }
+    }
+    // dV += P^T dO, 16 queries per step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const unsigned pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const bf16* br =
+          sDO + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int n = 0; n < HD / 8; n += 2) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, br + n * 8);
+        mma_bf16(acc_v[n], pa, b[0], b[1]);
+        mma_bf16(acc_v[n + 1], pa, b[2], b[3]);
+      }
+    }
+    // dP^T = V dO^T
+    float dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      unsigned va[4];
+      ldmatrix_x4(va, sV + (r0 + (lane & 15)) * LD + ks * 16 +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned ob[4];
+        ldmatrix_x4(ob, sDO + (16 * j + (lane & 7) + ((lane >> 4) & 1) * 8) *
+                                  LD +
+                            ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(dp[2 * j], va, ob[0], ob[1]);
+        mma_bf16(dp[2 * j + 1], va, ob[2], ob[3]);
+      }
+    }
+    // dS^T = P^T o (dP^T - delta), in place of P^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] *= dp[j][e] - sD[c + (e & 1)];
+    }
+    // dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const unsigned da[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const bf16* br =
+          sQ + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int n = 0; n < HD / 8; n += 2) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, br + n * 8);
+        mma_bf16(acc_k[n], da, b[0], b[1]);
+        mma_bf16(acc_k[n + 1], da, b[2], b[3]);
+      }
+    }
+    __syncthreads();                             // this stage is free again
+  }
+
+  // the G query heads' partials meet in fp32 device memory
+  float* dkh = dk + bh * head;
+  float* dvh = dv + bh * head;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = key_a + 8 * h;
+    if (row >= T_len) continue;
+    const size_t at = static_cast<size_t>(row) * HD + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      atomicAdd(dkh + at + 8 * n, scale * acc_k[n][2 * h]);
+      atomicAdd(dkh + at + 8 * n + 1, scale * acc_k[n][2 * h + 1]);
+      atomicAdd(dvh + at + 8 * n, acc_v[n][2 * h]);
+      atomicAdd(dvh + at + 8 * n + 1, acc_v[n][2 * h + 1]);
+    }
+  }
+}
+
 template <typename T, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* m, const void* l, const void* delta, void* dq,
@@ -231,11 +453,36 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const void* m, const void* l,
+                    const void* delta, void* dk, void* dv,
+                    const void* valid_len, int BH, int G, int T_len,
+                    float scale, int window, cudaStream_t stream) {
+  // K, V and two ring stages of Q, dO and 3 x 64 fp32 statistics
+  const size_t smem =
+      2 * static_cast<size_t>(kTile) * (HD + kTcPad) * sizeof(bf16) +
+      2 * (2 * static_cast<size_t>(kTile) * (HD + kTcPad) * sizeof(bf16) +
+           3 * kTile * sizeof(float));
+  int err = prepare(flash_dkv_bf16_kernel<HD>, smem);
+  if (err) return err;
+  const dim3 grid(BH * G, (T_len + kTile - 1) / kTile);
+  flash_dkv_bf16_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<const int*>(valid_len), G, T_len,
+      scale, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients); hd 64
-// or 128; window <= 0 means none; valid_len is null or (BH,) int32.  Each
-// returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and dq); hd 64 or 128;
+// window <= 0 means none; valid_len is null or (BH,) int32.  dk and dv are
+// fp32 (BH, T, hd) at either dtype, and must be zero for bf16 (the kernel
+// adds into them).  Each returns a cudaError_t.
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* m,
                                const void* l, const void* delta, void* dq,
@@ -261,13 +508,13 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 int G, int T_len, int hd, float scale,
                                 int window, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_DKV(T, HD)                                                      \
-  return launch_dkv<T, HD>(q, k, v, dout, m, l, delta, dk, dv, valid_len, BH, \
-                           G, T_len, scale, window, st)
-  if (dtype == 0 && hd == 64) FLASH_DKV(float, 64);
-  if (dtype == 0 && hd == 128) FLASH_DKV(float, 128);
-  if (dtype == 1 && hd == 64) FLASH_DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) FLASH_DKV(__nv_bfloat16, 128);
+#define FLASH_DKV(LAUNCH)                                                    \
+  return LAUNCH(q, k, v, dout, m, l, delta, dk, dv, valid_len, BH, G, T_len, \
+                scale, window, st)
+  if (dtype == 0 && hd == 64) FLASH_DKV((launch_dkv<float, 64>));
+  if (dtype == 0 && hd == 128) FLASH_DKV((launch_dkv<float, 128>));
+  if (dtype == 1 && hd == 64) FLASH_DKV(launch_dkv_bf16<64>);
+  if (dtype == 1 && hd == 128) FLASH_DKV(launch_dkv_bf16<128>);
 #undef FLASH_DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,13 +10,18 @@ Replaces, in ``repro/kernels/flash_attn.py``: ``flash_fwd`` (line 105,
 ``_fwd_kernel`` at line 50) and ``flash_bwd`` (line 236, ``_dq_kernel`` at
 line 166, ``_dkv_kernel`` at line 192).  Bound on the card: operations —
 two causal products in the forward, three in dq, four in dk/dv, against
-O(B*H*T*hd) bytes.  Design (see the sources): 64-row tiles in shared
-memory, fp32 online softmax in registers, key tiles skipped outside the
-window and past the causal diagonal; the forward saves the row max ``m``
-and row sum ``l`` separately, as the backward reads both; dq runs one CTA
-per query tile, dk/dv one CTA per key tile looping over the G query heads
-of its kv head, so neither needs atomics.  The tile size is a constant of
-the kernels.
+O(B*H*T*hd) bytes.  Design (see the sources): 64-row tiles, online
+softmax in registers, key tiles skipped outside the window and past the
+causal diagonal; the forward saves the row max ``m`` and row sum ``l``
+separately, as the backward reads both.  bf16 inputs run the forward and
+dk/dv on the tensor cores (``mma.sync``, cp.async rings, P and dS rounded
+to bf16 for their products, fp32 sums); dk/dv runs one CTA per (key tile,
+kv row, query head) and adds the G heads' partials into zeroed fp32
+buffers with atomics, cast to bf16 after — so dk and dv are not bitwise
+reproducible from run to run.  fp32 inputs, and dq at either dtype, run
+exact fp32 kernels on the CUDA cores (dk/dv one CTA per key tile looping
+over the G query heads, no atomics).  The tile size is a constant of the
+kernels.
 
 Dispatch as in ``kernels.ops``: a CUDA tensor goes to the kernels (which
 launch or raise), a CPU tensor to the plain versions ``ref.flash_fwd_ref``
@@ -131,18 +136,44 @@ def _bwd_cuda(q, k, v, m, l, do, delta, valid_len, scale, window):
     if not (m.dtype == l.dtype == delta.dtype == torch.float32) or not (
             m.shape == l.shape == delta.shape == (BH, G, T)):
         raise ValueError(f"m, l and delta must be float32 {(BH, G, T)}")
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              m.data_ptr(), l.data_ptr(), delta.data_ptr())
-    tail = (BH, G, T, hd, scale, window, _DTYPE_CODE[q.dtype], _stream(q))
+    args = (q, k, v, do, m, l, delta, vl, scale, window)
+    return (_dq_cuda(*args),) + _dkv_cuda(*args)
+
+
+def _ptrs(q, k, v, do, m, l, delta):
+    return tuple(t.data_ptr() for t in (q, k, v, do, m, l, delta))
+
+
+def _tail(q, scale, window):
+    BH, G, T, hd = q.shape
+    return (BH, G, T, hd, scale, window, _DTYPE_CODE[q.dtype], _stream(q))
+
+
+def _dq_cuda(q, k, v, do, m, l, delta, vl, scale, window):
+    """dq from checked inputs (``_bwd_cuda``): one launch."""
     dq = torch.empty_like(q)
     err = _fn("flash_bwd", "flash_dq_launch", 9)(
-        *common, dq.data_ptr(), _vl_ptr(vl), *tail)
+        *_ptrs(q, k, v, do, m, l, delta), dq.data_ptr(), _vl_ptr(vl),
+        *_tail(q, scale, window))
     _raise_on(err, "flash_bwd_dq")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    return dq
+
+
+def _dkv_cuda(q, k, v, do, m, l, delta, vl, scale, window):
+    """(dk, dv) from checked inputs (``_bwd_cuda``).  The kernels write dk
+    and dv in fp32, as the reference's dk/dv kernel does; the bf16 kernel
+    adds the G query heads' partials into zeroed buffers with atomics.
+    Then one cast to k's dtype (none for fp32)."""
+    if q.dtype == torch.bfloat16:
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+    else:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _fn("flash_bwd", "flash_dkv_launch", 10)(
-        *common, dk.data_ptr(), dv.data_ptr(), _vl_ptr(vl), *tail)
+        *_ptrs(q, k, v, do, m, l, delta), dk.data_ptr(), dv.data_ptr(),
+        _vl_ptr(vl), *_tail(q, scale, window))
     _raise_on(err, "flash_bwd_dkv")
-    return dq, dk, dv
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_fwd(q, k, v, valid_len=None, *, scale=None, window=None):

@@ -69,13 +69,19 @@ def _dev_us(evt):
     return 0.0
 
 
-def _kernel_us(prof, name, calls):
-    """Device microseconds per call of the CUDA kernels whose names hold
-    ``name``, summed (a call may launch more than one)."""
-    evts = [e for e in prof.key_averages() if name in e.key and _dev_us(e)]
-    if not evts:
-        raise RuntimeError(f"the profiler recorded no kernel named {name!r}")
-    return sum(_dev_us(e) for e in evts) / calls
+def _kernel_split_us(prof, names, calls):
+    """{name: device microseconds per call} of the kernels whose names
+    hold each of ``names`` (a kernel counts under the first name it
+    holds); names that match no kernel are left out."""
+    out = {}
+    for e in prof.key_averages():
+        hit = next((n for n in names if n in e.key), None)
+        if hit is not None and _dev_us(e):
+            out[hit] = out.get(hit, 0.0) + _dev_us(e) / calls
+    if not out:
+        raise RuntimeError(f"the profiler recorded no kernel named any of "
+                           f"{names}")
+    return out
 
 
 def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
@@ -90,7 +96,9 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
     Returns (median ms between CUDA events around each call, mean ms per
     call of the CUDA kernels whose names hold ``kernel`` as the profiler
     (CUPTI) records them — the kernels' own durations, summed over the
-    launches of one call — or None)."""
+    launches of one call — or None).  With a tuple of names for
+    ``kernel`` the second value is {name: ms per call} instead, one entry
+    for each name some kernel holds."""
     buf = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
     pre = {"read": buf.sum, "write": buf.zero_, "none": lambda: None}[flush]
 
@@ -116,7 +124,10 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run([])
-    return event_ms, _kernel_us(prof, kernel, reps) / 1e3
+    if isinstance(kernel, tuple):
+        return event_ms, {n: us / 1e3 for n, us in
+                          _kernel_split_us(prof, kernel, reps).items()}
+    return event_ms, _kernel_split_us(prof, (kernel,), reps)[kernel] / 1e3
 
 
 def decode_kernel_study(cfg, batch):

@@ -113,13 +113,21 @@ def test_wrappers_check_their_inputs(cuda):
 
 # ------------------------------------------------------------ flash attention
 
-# (B, T, Hq, Hkv, hd, window, valid_len): MHA, GQA 8:1 at the trained head
-# dim, a ragged T, a window, valid_len (one row fully padded)
-FLASH_CASES = [(2, 128, 4, 4, 64, None, None),
-               (1, 256, 16, 2, 128, None, None),
-               (2, 100, 4, 2, 64, None, None),
-               (1, 192, 4, 2, 128, 40, None),
-               (3, 128, 4, 2, 64, None, (128, 70, 0))]
+# (B, T, Hq, Hkv, hd, window, valid_len, peak): MHA, GQA 8:1 at the
+# trained head dim, a ragged T, a window, valid_len (one row fully padded);
+# the trained shape; a T that is no multiple of the 64-row tile; a window
+# narrower than a tile, so every tile on the diagonal crosses its edge; a
+# peaky softmax (q and k times ``peak``: scores spanning about +-30, where
+# rounding P to bf16 is hardest)
+FLASH_CASES = [(2, 128, 4, 4, 64, None, None, 1.0),
+               (1, 256, 16, 2, 128, None, None, 1.0),
+               (2, 100, 4, 2, 64, None, None, 1.0),
+               (1, 192, 4, 2, 128, 40, None, 1.0),
+               (3, 128, 4, 2, 64, None, (128, 70, 0), 1.0),
+               (1, 2048, 16, 2, 128, None, None, 1.0),
+               (2, 300, 8, 2, 128, None, None, 1.0),
+               (1, 256, 4, 2, 128, 24, None, 1.0),
+               (1, 512, 8, 2, 128, None, None, 2.75)]
 
 
 @pytest.mark.cuda
@@ -134,12 +142,13 @@ def test_flash_kernels_vs_plain(cuda, dtype, case):
     batch rows whose valid_len > 0 (an all-padded row is garbage in the
     reference too)."""
     from repro_torch.kernels import flash_attn as tflash
-    B, T, Hq, Hkv, hd, window, valid = case
+    B, T, Hq, Hkv, hd, window, valid, peak = case
     G = Hq // Hkv
     rng = np.random.default_rng(13)
-    q, do = (_normal(rng, B * Hkv, G, T, hd).to(cuda, dtype)
-             for _ in range(2))
-    k, v = (_normal(rng, B * Hkv, T, hd).to(cuda, dtype) for _ in range(2))
+    q = _normal(rng, B * Hkv, G, T, hd, scale=peak).to(cuda, dtype)
+    do = _normal(rng, B * Hkv, G, T, hd).to(cuda, dtype)
+    k = _normal(rng, B * Hkv, T, hd, scale=peak).to(cuda, dtype)
+    v = _normal(rng, B * Hkv, T, hd).to(cuda, dtype)
     vl = rows = None
     if valid is not None:
         vl = torch.repeat_interleave(torch.tensor(valid, dtype=torch.int32),
