@@ -7,7 +7,8 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
   1. the card's name and power limit, torch/CUDA versions; build the
-     hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+     hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a) and
+     print each kernel's registers and spills (ptxas);
   2. each kernel against its plain PyTorch version on the card at the
      full-width shapes of qwen3-next-gdn (Hk=16, Hv=32, d=128, bf16 q/k/v,
      fp32 state), with its time (the kernel's own duration as the
@@ -44,9 +45,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 Phase 2 also holds the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
 Hkv=2, hd=128, bf16) and on windowed and ragged (``valid_len``) cases
-(the dk/dv call timed with its zeroing and its cast, each printed; its
-run-to-run reproducibility and SDPA's distance from the plain version
-beside the kernels' printed too), and the flash-decode kernel at three
+(the dk/dv call timed with its zeroing and its cast, each printed; dq
+checked bitwise equal over 5 calls, dk/dv's run-to-run differences and
+SDPA's distance from the plain version beside the kernels' printed too),
+and the flash-decode kernel at three
 bf16 shapes (qwen3-next-gdn's attention layer at the serving batch, an
 h2o-danube-1.8b layer past its wrap, yi-9b at batch 1 over 32k slots),
 and times each beside ``F.scaled_dot_product_attention`` (the library
@@ -64,6 +66,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -91,6 +94,24 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill line) per entry function of nvcc's
+    ``-Xptxas -v`` output."""
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        elif "spill stores" in line:
+            spills = line.strip()
+        else:
+            r = re.search(r"Used (\d+) registers", line)
+            if r and kernel:
+                out.append((kernel, int(r.group(1)), spills))
+                kernel, spills = None, ""
+    return out
 
 
 def max_err(a, b) -> float:
@@ -183,10 +204,10 @@ def flash_work(B, T, Hq, Hkv, hd):
     """What each flash kernel must do at a causal bf16 shape: the bytes
     it must move (each input read once, each output written once) and the
     FLOP of its products by the rate of the operands they take.  The
-    forward (Q K^T, P V with P rounded to bf16) and dk/dv (Q K^T, dO V^T,
-    P^T dO, dS^T Q with P and dS rounded to bf16) feed the tensor cores
-    bf16 x bf16 in every product; dq (Q K^T and dO V^T of bf16 inputs, dS
-    K with dS in fp32) has one product with an fp32 operand."""
+    forward (Q K^T, P V with P rounded to bf16), dq (Q K^T, dO V^T, dS K
+    with dS rounded to bf16) and dk/dv (Q K^T, dO V^T, P^T dO, dS^T Q with
+    P and dS rounded to bf16) feed the tensor cores bf16 x bf16 in every
+    product."""
     pairs = B * Hq * T * (T + 1) // 2       # visible (q, k) pairs, causal
     prod = 2 * pairs * hd                   # FLOP of one causal product
     qo = B * Hq * T * hd * 2
@@ -196,21 +217,42 @@ def flash_work(B, T, Hq, Hkv, hd):
         "flash_fwd": dict(nbytes=2 * qo + kv + 2 * stats, tc_flops=2 * prod,
                           fp32_flops=0),
         "flash_bwd_dq": dict(nbytes=3 * qo + kv + 3 * stats,
-                             tc_flops=2 * prod, fp32_flops=prod),
+                             tc_flops=3 * prod, fp32_flops=0),
         "flash_bwd_dkv": dict(nbytes=2 * qo + 2 * kv + 3 * stats,
                               tc_flops=4 * prod, fp32_flops=0)}
 
 
-def prefill_inputs(B, T, gen):
-    Hk, Hv, d = CFG["Hk"], CFG["Hv"], CFG["d"]
+def prefill_work(Hk, Hv, T, d, bf16):
+    """What one gdn_prefill call must do for one staged prompt of T = C
+    tokens (one chunk) over Hv value rows, d_k = d_v = d: the bytes it
+    must move (q, k, v, O in bf16 or fp32, log g and beta, the fp32 state
+    read and written, valid_len) and the FLOP of its products by the rate
+    of the instructions the kernel issues.  Per row: Q K^T and K K^T (2 C^2
+    d) multiply bf16 inputs exactly on the tensor cores; K S, Q S and the
+    state update (6 C d^2) multiply them by the three bf16 parts of an
+    fp32 operand, three tensor-core products each; applying the inverse
+    and M U (2 C^2 d) take fp32 operands on the CUDA cores.  fp32 inputs
+    count every product at the fp32 rate."""
+    C = T
+    exact, split, fp32 = 2 * C * C * d, 6 * C * d * d, 2 * C * C * d
+    dsize = 2 if bf16 else 4
+    nbytes = (2 * Hk * T * d + 2 * Hv * T * d) * dsize + 2 * Hv * T * 4 \
+        + 2 * Hv * d * d * 4 + Hv * 4
+    if not bf16:
+        return dict(nbytes=nbytes, tc_flops=0,
+                    fp32_flops=Hv * (exact + split + fp32))
+    return dict(nbytes=nbytes, tc_flops=Hv * (exact + 3 * split),
+                fp32_flops=Hv * fp32)
 
+
+def prefill_inputs(B, T, gen, Hk=CFG["Hk"], Hv=CFG["Hv"], d=CFG["d"],
+                   dtype=torch.bfloat16):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    q = rnd(B, T, Hk, d).to(torch.bfloat16)
-    k = torch.nn.functional.normalize(rnd(B, T, Hk, d), dim=-1).to(
-        torch.bfloat16)
-    v = rnd(B, T, Hv, d).to(torch.bfloat16)
+    q = rnd(B, T, Hk, d).to(dtype)
+    k = torch.nn.functional.normalize(rnd(B, T, Hk, d), dim=-1).to(dtype)
+    v = rnd(B, T, Hv, d).to(dtype)
     log_g = -torch.nn.functional.softplus(rnd(B, T, Hv))
     beta = torch.sigmoid(rnd(B, T, Hv))
     S0 = rnd(B, Hv, d, d) * 0.1
@@ -218,36 +260,53 @@ def prefill_inputs(B, T, gen):
 
 
 def prefill_phase(ops, ref, kprefill, time_launches):
-    """gdn_prefill at BH = 4*32 rows, T in {16, 64} (chunk = T), ragged
-    valid_len per batch row including 0 and T.  The kernel's chunkwise UT
-    transform with forward substitution and the plain sequential scan are
-    two factorizations of one fp32 recurrence at d = 128: the state within
-    rtol = atol = 1e-4; O is bf16 (2e-2)."""
+    """gdn_prefill at BH = 4*32 rows: T in {16, 64} (chunk = T), ragged
+    valid_len per batch row including 0 and T; and T = 192 in chunks of 64
+    with valid_len 192/0/100/64 (crossing chunk edges), both delta_rule
+    values: the tensor-core kernel at d = 128, bf16.  Then the reduced
+    configurations' shape on the CUDA-core kernel (Hk=2, Hv=4, d=16, fp32,
+    T = 128 in chunks of 64, valid_len 128/0/70/64), both delta_rule values.
+    The kernel's chunkwise UT transform with its blocked inverse and the
+    plain sequential scan are two factorizations of one fp32 recurrence:
+    the state within rtol = atol = 1e-4; O within 2e-2 in bf16 and 5e-4 in
+    fp32 (the card tests' tolerances); a valid_len = 0 row keeps its state
+    bitwise."""
     Hk, Hv, d = CFG["Hk"], CFG["Hv"], CFG["d"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = []
-    for T in (16, 64):
+    full, reduced = (Hk, Hv, d, torch.bfloat16), (2, 4, 16, torch.float32)
+    for T, chunk, lens, delta_rule, shape in (
+            (16, 16, (16, 0, 9, 3), True, full),
+            (64, 64, (64, 0, 33, 3), True, full),
+            (192, 64, (192, 0, 100, 64), True, full),
+            (192, 64, (192, 0, 100, 64), False, full),
+            (128, 64, (128, 0, 70, 64), True, reduced),
+            (128, 64, (128, 0, 70, 64), False, reduced)):
         B = CFG["B"]
-        q, k, v, lg, beta, S0 = prefill_inputs(B, T, gen)
-        valid = torch.tensor([T, 0, T // 2 + 1, 3], dtype=torch.int32,
-                             device="cuda")
+        hk, hv, dd, dtype = shape
+        q, k, v, lg, beta, S0 = prefill_inputs(B, T, gen, hk, hv, dd, dtype)
+        valid = torch.tensor(lens, dtype=torch.int32, device="cuda")
         S_k = S0.clone()
-        O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=T,
-                                 valid_len=valid)
+        O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=chunk,
+                                 valid_len=valid, delta_rule=delta_rule)
         rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
                 .contiguous() for x in (q, k, v, lg, beta)]
-        vl = torch.repeat_interleave(valid, Hv)
-        O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * Hv, d, d), vl,
-                                       n_rep=Hv // Hk)
+        vl = torch.repeat_interleave(valid, hv)
+        O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * hv, dd, dd),
+                                       vl, delta_rule=delta_rule,
+                                       n_rep=hv // hk)
         torch.cuda.synchronize()
-        errs.append(check(f"gdn_prefill T={T} S", S_k.reshape(B * Hv, d, d),
-                          S_p, 1e-4, 1e-4))
+        label = (f"gdn_prefill d={dd} {str(dtype)[6:]} T={T} chunk={chunk} "
+                 f"delta_rule={delta_rule}")
+        errs.append(check(f"{label} S", S_k.reshape(B * hv, dd, dd), S_p,
+                          1e-4, 1e-4))
         if not torch.equal(S_k[1], S0[1]):
             raise AssertionError("valid_len=0 row changed its state")
-        O_k = O_k.transpose(1, 2).reshape(B * Hv, T, d)
+        O_k = O_k.transpose(1, 2).reshape(B * hv, T, dd)
         mask = (torch.arange(T, device="cuda")[None, :] < vl[:, None])
-        errs.append(check(f"gdn_prefill T={T} O (valid rows)",
-                          O_k[mask], O_p[mask], 2e-2, 2e-2))
+        o_tol = 2e-2 if dtype == torch.bfloat16 else 5e-4
+        errs.append(check(f"{label} O (valid rows)", O_k[mask], O_p[mask],
+                          o_tol, o_tol))
     # time at the main path's shape: one staged prompt (B=1), a full
     # 64-token chunk, through the kernel's own wrapper (rows laid out by
     # ops.gdn_prefill)
@@ -263,29 +322,20 @@ def prefill_phase(ops, ref, kprefill, time_launches):
     ev_ms, ms = time_launches(
         lambda: kprefill.gdn_prefill(*rows_qk, v_r, lg_r, b_r, S_r, vl,
                                      chunk=T, n_rep=Hv // Hk),
-        "gdn_prefill_kernel")
+        "gdn_prefill_tc_kernel")
     S_p0 = S0.reshape(Hv, d, d)
     plain_ms, _ = time_launches(
         lambda: ref.gdn_prefill_ref(*rows_qk, v_r, lg_r, b_r, S_p0, vl,
                                     n_rep=Hv // Hk), reps=5, warmup=1)
     print(f"  gdn_prefill: CUDA events around one launch {ev_ms * 1e3:.2f} "
           f"us, the kernel's own duration {ms * 1e3:.2f} us")
-    C, dk, dv = T, d, d
-    # per row and chunk: A = tril(K K^T) and M = tril(Q K^T) multiply the
-    # bf16 q/k, which the tensor cores do exactly in fp32 accumulation;
-    # K S, Q S, the state update, the triangular solve and M U take fp32
-    # operands
-    tc_row = 2 * C * C * dk
-    fp32_row = 6 * C * dk * dv + 2 * C * C * dv
-    if q.dtype != torch.bfloat16:
-        fp32_row, tc_row = fp32_row + tc_row, 0
-    nbytes = (2 * Hk * T * d + 2 * Hv * T * d) * 2 + 2 * Hv * T * 4 \
-        + 2 * Hv * d * d * 4 + Hv * 4
+    w = prefill_work(Hk, Hv, T, d, q.dtype == torch.bfloat16)
     return dict(name="gdn_prefill", route="cuda",
                 source="src/repro_torch/csrc/gdn_prefill.cu",
                 replaces="src/repro/kernels/gdn_prefill.py:116",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                **bound("gdn_prefill", nbytes, Hv * fp32_row, Hv * tc_row),
+                **bound("gdn_prefill", w["nbytes"], w["fp32_flops"],
+                        w["tc_flops"]),
                 library_ms=None)
 
 
@@ -357,6 +407,16 @@ def flash_phase(ref, kflash, time_launches):
     for _ in range(4):
         dk1, dv1 = kflash._dkv_cuda(*bwd)
         n_diff = max(n_diff, int((dk1 != dk0).sum() + (dv1 != dv0).sum()))
+    # dq bitwise from run to run? (each CTA owns its rows)
+    dq0 = kflash._dq_cuda(*bwd)
+    n_dq = 0
+    for _ in range(4):
+        n_dq = max(n_dq, int((kflash._dq_cuda(*bwd) != dq0).sum()))
+    print(f"  flash_bwd_dq run to run (5 calls): "
+          + ("dq bitwise equal" if n_dq == 0 else
+             f"up to {n_dq} of {dq0.numel()} bf16 elements differ"))
+    if n_dq:
+        raise AssertionError("dq is not bitwise reproducible")
     print(f"  flash_bwd_dkv run to run (5 calls): "
           + ("dk and dv bitwise equal" if n_diff == 0 else
              f"up to {n_diff} of {2 * dk0.numel()} bf16 elements differ"))
@@ -367,7 +427,7 @@ def flash_phase(ref, kflash, time_launches):
     for name, fn, kern in (
             ("flash_fwd", lambda: kflash.flash_fwd(q, k, v), "flash_fwd_"),
             ("flash_bwd_dq", lambda: kflash._dq_cuda(*bwd),
-             "flash_dq_kernel"),
+             "flash_dq_"),
             ("flash_bwd_dkv", lambda: kflash._dkv_cuda(*bwd), dkv_parts)):
         ev, own = time_launches(fn, kern)
         if isinstance(own, dict):
@@ -893,9 +953,8 @@ def main():
     print(f"  built {sorted(_build.build_log) or 'nothing new'} in "
           f"{_build.build_seconds:.1f} s")
     for name, log in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, regs, spills in ptxas_report(log):
+            print(f"  {name}: {kernel}: {regs} registers, {spills}")
 
     print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
     rows = [decode_phase(ref, kdecode, time_launches),

@@ -17,10 +17,25 @@
 // What bounds them on an H100: operations.  dq does three causal products
 // (q k^T, do v^T, ds k), dk/dv four (q k^T, do v^T, p^T do, ds^T q).
 //
-// dq (both dtypes, CUDA cores in fp32): one CTA per (q tile of 64 rows,
-// bh, g), the longest rows first.  Q and dO stay in shared memory; the CTA
-// loops over the key tiles from the window's lower bound to the causal
-// diagonal and accumulates dq = scale * sum ds k in fp32 registers.
+// dq, bf16 (tensor cores), modelled on the forward: a CTA of 4 warps owns
+// 128 query rows of one (bh, g), each warp two m-tiles of 16 rows, the
+// longest rows first (grid (BH * G, q tiles)).  Q and dO stay in shared
+// memory; K and V flow through a two-stage cp.async ring of 32-key tiles
+// (so that two CTAs fit an SM: 104,448 bytes each), from the window's
+// lower bound to the causal diagonal.  Per key tile and warp: S = Q K^T
+// (mma.sync m16n8k16, bf16 -> fp32), P = exp2(s scale log2 e - (m log2 e
+// + log2 l)) in the forward's units (masked only on m-tiles whose tile
+// crosses the diagonal, the window edge, valid_len or T; masked p exactly
+// 0), dP = dO V^T, dS = P o (dP - delta) in place of P, rounded to bf16
+// straight into the A operand of dq += dS K (K's B fragments from
+// ldmatrix.trans).  At most two m-tiles x 32 keys of S and dP (64 fp32
+// registers) are live beside the 128 dq accumulators; each K and V
+// fragment read feeds both m-tiles.  scale is applied at the store.  Each
+// CTA owns its dq rows outright (no atomics), so dq is bitwise
+// reproducible from run to run.
+// dq, fp32 (kept on the card for its exactness): one CTA per (q tile of
+// 64 rows, bh, g), the longest rows first, every product on the CUDA cores
+// in fp32; Q and dO stay in shared memory and dq accumulates in registers.
 //
 // dk/dv, bf16 (tensor cores): one CTA per (key tile of 64 rows, bh, g),
 // key tile 0 first (grid (BH * G, key tiles)), so no CTA walks more than
@@ -296,29 +311,15 @@ __global__ void __launch_bounds__(kTcThreads)
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      unsigned ka[4];
-      ldmatrix_x4(ka, sK + (r0 + (lane & 15)) * LD + ks * 16 +
-                          (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        unsigned qb[4];
-        ldmatrix_x4(qb, sQ + (16 * j + (lane & 7) + ((lane >> 4) & 1) * 8) *
-                                 LD +
-                            ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(st[2 * j], ka, qb[0], qb[1]);
-        mma_bf16(st[2 * j + 1], ka, qb[2], qb[3]);
-      }
-    }
+    mma_abt<1, 8, HD, LD>(&st, sK + r0 * LD + a_off<LD>(lane),
+                          sQ + bt_off<LD>(lane));
     // P^T = exp2(s scale log2 e - (m log2 e + log2 l)); masked: 0
     const bool full = tile_full(q0, k0, valid, window, T_len);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = 8 * j + 2 * tig;
-      const float nb[2] = {fmaf(sM[c], kLog2e, log2f(fmaxf(sL[c], 1e-30f))),
-                           fmaf(sM[c + 1], kLog2e,
-                                log2f(fmaxf(sL[c + 1], 1e-30f)))};
+      const float nb[2] = {p_bias(sM[c], sL[c]),
+                           p_bias(sM[c + 1], sL[c + 1])};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = full || visible(q0 + c + (e & 1), key_a + (e >> 1) * 8,
@@ -330,20 +331,10 @@ __global__ void __launch_bounds__(kTcThreads)
     // dV += P^T dO, 16 queries per step
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const unsigned pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const bf16* br =
-          sDO + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < HD / 8; n += 2) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, br + n * 8);
-        mma_bf16(acc_v[n], pa, b[0], b[1]);
-        mma_bf16(acc_v[n + 1], pa, b[2], b[3]);
-      }
+      unsigned pa[4];
+      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+      mma_ab16<1, HD / 8, LD>(&acc_v, &pa,
+                              sDO + 16 * kk * LD + b_off<LD>(lane));
     }
     // dP^T = V dO^T
     float dp[8][4];
@@ -351,21 +342,8 @@ __global__ void __launch_bounds__(kTcThreads)
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      unsigned va[4];
-      ldmatrix_x4(va, sV + (r0 + (lane & 15)) * LD + ks * 16 +
-                          (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        unsigned ob[4];
-        ldmatrix_x4(ob, sDO + (16 * j + (lane & 7) + ((lane >> 4) & 1) * 8) *
-                                  LD +
-                            ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(dp[2 * j], va, ob[0], ob[1]);
-        mma_bf16(dp[2 * j + 1], va, ob[2], ob[3]);
-      }
-    }
+    mma_abt<1, 8, HD, LD>(&dp, sV + r0 * LD + a_off<LD>(lane),
+                          sDO + bt_off<LD>(lane));
     // dS^T = P^T o (dP^T - delta), in place of P^T
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -376,20 +354,10 @@ __global__ void __launch_bounds__(kTcThreads)
     // dK += dS^T Q
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const unsigned da[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const bf16* br =
-          sQ + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < HD / 8; n += 2) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, br + n * 8);
-        mma_bf16(acc_k[n], da, b[0], b[1]);
-        mma_bf16(acc_k[n + 1], da, b[2], b[3]);
-      }
+      unsigned da[4];
+      acc_to_a(da, st[2 * kk], st[2 * kk + 1]);
+      mma_ab16<1, HD / 8, LD>(&acc_k, &da,
+                              sQ + 16 * kk * LD + b_off<LD>(lane));
     }
     __syncthreads();                             // this stage is free again
   }
@@ -410,6 +378,197 @@ __global__ void __launch_bounds__(kTcThreads)
       atomicAdd(dvh + at + 8 * n + 1, acc_v[n][2 * h + 1]);
     }
   }
+}
+
+// ---------------------------------------------------------------- dq bf16
+
+constexpr int kDqKeys = 32;            // keys per ring stage of the dq kernel
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    flash_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ m,
+                         const float* __restrict__ l,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq,
+                         const int* __restrict__ valid_len, int G,
+                         int T_len, float scale, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kWarpRows = 16 * kMT;
+  constexpr int kRows = kWarpRows * kTcThreads / 32;   // 128 query rows
+  constexpr int LD = HD + kTcPad;
+  constexpr int kElems = kDqKeys * LD;           // one K or V stage tile
+  constexpr int kNJ = kDqKeys / 8;               // n8 key tiles per stage
+  bf16* sKV = reinterpret_cast<bf16*>(smem_raw);   // [stage][K, V][row][LD]
+  bf16* sQ = sKV + 4 * kElems;                     // kRows rows
+  bf16* sDO = sQ + kRows * LD;                     // kRows rows
+
+  const int nq = (T_len + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kRows;
+  const int bhg = blockIdx.x;                    // bh * G + g
+  const int bh = bhg / G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int valid = valid_len ? min(valid_len[bh], T_len) : T_len;
+  const size_t head = static_cast<size_t>(T_len) * HD;
+  const size_t stat = static_cast<size_t>(bhg) * T_len;
+  const bf16* kh = k + bh * head;
+  const bf16* vh = v + bh * head;
+  const float sl2 = scale * kLog2e;
+
+  int lo, hi;
+  kv_range(q0, valid, window, T_len, &lo, &hi, kRows, kDqKeys);
+  issue_rows<HD>(sQ, q + bhg * head, q0, T_len, kRows);
+  issue_rows<HD>(sDO, dout + bhg * head, q0, T_len, kRows);
+  cp_async_commit();
+  if (lo <= hi) {
+    issue_rows<HD>(sKV, kh, lo * kDqKeys, T_len, kDqKeys);
+    issue_rows<HD>(sKV + kElems, vh, lo * kDqKeys, T_len, kDqKeys);
+  }
+  cp_async_commit();
+
+  const int r0 = warp * kWarpRows;               // this warp's query rows
+  const int w0 = q0 + r0;
+  // m-tile t: rows w0 + 16 t + gid (fragment elements 0, 1) and + 8 (2, 3)
+  float nb[kMT][2], dl[kMT][2];
+#pragma unroll
+  for (int t = 0; t < kMT; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w0 + 16 * t + gid + 8 * h;
+      const bool ok = row < T_len;
+      nb[t][h] = ok ? p_bias(m[stat + row], l[stat + row]) : 0.f;
+      dl[t][h] = ok ? delta[stat + row] : 0.f;
+    }
+  float acc[kMT][HD / 8][4];
+#pragma unroll
+  for (int t = 0; t < kMT; ++t)
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][n][e] = 0.f;
+  // Q's and dO's A fragments are read from shared memory per use
+  const bf16* qa = sQ + r0 * LD + a_off<LD>(lane);
+  const bf16* da = sDO + r0 * LD + a_off<LD>(lane);
+
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int it = kt - lo;
+    if (kt < hi) {
+      // its stage was freed by the sync that ended iteration it - 1
+      bf16* nxt = sKV + ((it + 1) & 1) * 2 * kElems;
+      issue_rows<HD>(nxt, kh, (kt + 1) * kDqKeys, T_len, kDqKeys);
+      issue_rows<HD>(nxt + kElems, vh, (kt + 1) * kDqKeys, T_len, kDqKeys);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sK = sKV + (it & 1) * 2 * kElems;
+    const bf16* sV = sK + kElems;
+    const int k0 = kt * kDqKeys;
+    // a warp none of whose pairs is visible skips the tile (its ds would
+    // all be 0)
+    if (tile_any(w0, k0, window, T_len, kWarpRows, kDqKeys)) {
+      // S = Q K^T: s[t][j] holds keys k0 + 8 j + 2 tig (+1)
+      float s[kMT][kNJ][4];
+#pragma unroll
+      for (int t = 0; t < kMT; ++t)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][j][e] = 0.f;
+      mma_abt<kMT, kNJ, HD, LD>(s, qa, sK + bt_off<LD>(lane));
+      // P = exp2(s scale log2 e - p_bias); masked: exactly 0
+#pragma unroll
+      for (int t = 0; t < kMT; ++t) {
+        const int wt = w0 + 16 * t;
+        const bool full = tile_full(wt, k0, valid, window, T_len, 16,
+                                    kDqKeys);
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok =
+                full || visible(wt + gid + (e >> 1) * 8,
+                                k0 + 8 * j + 2 * tig + (e & 1), valid,
+                                window, T_len);
+            s[t][j][e] =
+                ok ? exp2_approx(fmaf(s[t][j][e], sl2, -nb[t][e >> 1]))
+                   : 0.f;
+          }
+      }
+      // dP = dO V^T, then dS = P o (dP - delta) in place of P, rounded to
+      // bf16 into the A fragments of dq += dS K (16 keys each)
+      float dp[kMT][kNJ][4];
+#pragma unroll
+      for (int t = 0; t < kMT; ++t)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[t][j][e] = 0.f;
+      mma_abt<kMT, kNJ, HD, LD>(dp, da, sV + bt_off<LD>(lane));
+      unsigned dsa[kNJ / 2][kMT][4];
+#pragma unroll
+      for (int t = 0; t < kMT; ++t) {
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[t][j][e] *= dp[t][j][e] - dl[t][e >> 1];
+#pragma unroll
+        for (int kk = 0; kk < kNJ / 2; ++kk)
+          acc_to_a(dsa[kk][t], s[t][2 * kk], s[t][2 * kk + 1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kNJ / 2; ++kk)
+        mma_ab16<kMT, HD / 8, LD>(acc, dsa[kk],
+                                  sK + 16 * kk * LD + b_off<LD>(lane));
+    }
+    __syncthreads();                             // this stage is free again
+  }
+  cp_async_wait<0>();                            // Q and dO, when no tile ran
+
+  bf16* dqh = dq + bhg * head;
+#pragma unroll
+  for (int t = 0; t < kMT; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w0 + 16 * t + gid + 8 * h;
+      if (row >= T_len) continue;
+      unsigned* orow = reinterpret_cast<unsigned*>(
+          dqh + static_cast<size_t>(row) * HD + 2 * tig);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        orow[4 * n] = pack_bf16(scale * acc[t][n][2 * h],
+                                scale * acc[t][n][2 * h + 1]);
+    }
+}
+
+template <int HD>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dout, const void* m, const void* l,
+                   const void* delta, void* dq, const void* valid_len, int BH,
+                   int G, int T_len, float scale, int window,
+                   cudaStream_t stream) {
+  constexpr int rows = 16 * kMT * kTcThreads / 32;
+  // two K/V stages of kDqKeys rows, the Q and dO tiles
+  const size_t smem = (4 * kDqKeys + 2 * rows) *
+                      static_cast<size_t>(HD + kTcPad) * sizeof(bf16);
+  auto kernel = flash_dq_bf16_kernel<HD>;
+  int err = prepare(kernel, smem);
+  if (err) return err;
+  const dim3 grid(BH * G, (T_len + rows - 1) / rows);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq),
+      static_cast<const int*>(valid_len), G, T_len, scale, window);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
@@ -490,13 +649,13 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                int T_len, int hd, float scale, int window,
                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_DQ(T, HD)                                                     \
-  return launch_dq<T, HD>(q, k, v, dout, m, l, delta, dq, valid_len, BH, G, \
-                          T_len, scale, window, st)
-  if (dtype == 0 && hd == 64) FLASH_DQ(float, 64);
-  if (dtype == 0 && hd == 128) FLASH_DQ(float, 128);
-  if (dtype == 1 && hd == 64) FLASH_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) FLASH_DQ(__nv_bfloat16, 128);
+#define FLASH_DQ(LAUNCH)                                                  \
+  return LAUNCH(q, k, v, dout, m, l, delta, dq, valid_len, BH, G, T_len, \
+                scale, window, st)
+  if (dtype == 0 && hd == 64) FLASH_DQ((launch_dq<float, 64>));
+  if (dtype == 0 && hd == 128) FLASH_DQ((launch_dq<float, 128>));
+  if (dtype == 1 && hd == 64) FLASH_DQ(launch_dq_bf16<64>);
+  if (dtype == 1 && hd == 128) FLASH_DQ(launch_dq_bf16<128>);
 #undef FLASH_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }

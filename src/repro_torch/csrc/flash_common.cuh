@@ -1,21 +1,22 @@
 // Shared tile machinery of the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu).
 //
-// fp32 kernels (and the dq kernel at either dtype): every tile is kTile =
-// 64 rows of a (T, HD) matrix, staged in shared memory as fp32, row-major
-// with kPad floats of padding per row.  A CTA has 256 threads arranged
-// 16 x 16 (ty, tx).  In a 64 x 64 score tile the thread owns rows ty + 16 i
-// and columns tx + 16 j (i, j < 4): strided, so that the 8 threads of a
+// fp32 kernels: every tile is kTile = 64 rows of a (T, HD) matrix,
+// staged in shared memory as fp32, row-major with kPad floats of padding
+// per row.  A CTA has 256 threads arranged 16 x 16 (ty, tx).  In a
+// 64 x 64 score tile the thread owns rows ty + 16 i and columns tx + 16 j
+// (i, j < 4): strided, so that the 8 threads of a
 // quarter warp read 8 different K rows whose float4 words fall in 8
 // disjoint bank groups (row stride HD + 4 floats), and the 16 threads that
 // share a row form one half warp (row max and row sum are 4 xor-shuffles).
 // In an output tile (64 x HD) the thread owns rows ty + 16 i and the float4
 // columns tx * 4 + 64 h, h < HD / 64.
 //
-// bf16 tensor-core kernels (forward, dk/dv): CTAs of 4 warps (kTcThreads
-// = 128 threads); tiles stay bf16 in shared memory, rows padded by 16
-// bytes (kTcPad) so that every ldmatrix is conflict-free
-// (tensor_core.cuh), filled by 16-byte cp.async copies (issue_rows).
+// bf16 tensor-core kernels (forward, dq, dk/dv): CTAs of 4 warps
+// (kTcThreads = 128 threads); tiles stay bf16 in shared memory, rows
+// padded by 16 bytes (kTcPad) so that every ldmatrix is conflict-free
+// (tensor_core.cuh), filled by 16-byte cp.async copies (issue_rows).  The
+// forward and dq give each warp kMT m-tiles of 16 query rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +37,7 @@ constexpr float kNegInf = -1e30f;  // finite, as the reference's NEG_INF
 constexpr int kTcThreads = 128;  // bf16 kernels: 4 warps
 constexpr int kTcPad = 8;        // bf16 elements of padding per shared row
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMT = 2;           // forward, dq: 16-row m-tiles per warp
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -172,35 +174,44 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// key tiles [lo, hi] that hold a key visible to some query row in
-// [q0, q0 + rows): from the window's lower bound to the causal diagonal
-// (and below valid); hi < lo when there is none
+// key tiles [lo, hi] (of `keys` keys each) that hold a key visible to
+// some query row in [q0, q0 + rows): from the window's lower bound to the
+// causal diagonal (and below valid); hi < lo when there is none
 __device__ __forceinline__ void kv_range(int q0, int valid, int window,
                                          int T_len, int* lo, int* hi,
-                                         int rows = kTile) {
+                                         int rows = kTile,
+                                         int keys = kTile) {
   const int last_key = min(min(q0 + rows, T_len), valid) - 1;
   const int first_key = window > 0 ? max(0, q0 - window + 1) : 0;
-  *lo = first_key / kTile;
-  *hi = last_key < 0 ? -1 : last_key / kTile;
+  *lo = first_key / keys;
+  *hi = last_key < 0 ? -1 : last_key / keys;
 }
 
 // every (query, key) pair of query rows [q0, q0 + rows) and the key tile
-// at k0 is visible: below the causal diagonal, inside the window, below
-// valid (<= T) and T
+// [k0, k0 + keys) is visible: below the causal diagonal, inside the
+// window, below valid (<= T) and T
 __device__ __forceinline__ bool tile_full(int q0, int k0, int valid,
                                           int window, int T_len,
-                                          int rows = kTile) {
-  return k0 + kTile - 1 <= q0 && k0 + kTile <= valid &&
+                                          int rows = kTile,
+                                          int keys = kTile) {
+  return k0 + keys - 1 <= q0 && k0 + keys <= valid &&
          q0 + rows <= T_len &&
          (window <= 0 || q0 + rows - 1 - k0 < window);
 }
 
-// some pair of query rows [q0, q0 + rows) and the key tile at k0 (below
-// valid) passes the causal and window rules
+// some pair of query rows [q0, q0 + rows) and the key tile [k0, k0 +
+// keys) (below valid) passes the causal and window rules
 __device__ __forceinline__ bool tile_any(int q0, int k0, int window,
-                                         int T_len, int rows) {
+                                         int T_len, int rows,
+                                         int keys = kTile) {
   return q0 < T_len && k0 <= q0 + rows - 1 &&
-         (window <= 0 || q0 - (k0 + kTile - 1) < window);
+         (window <= 0 || q0 - (k0 + keys - 1) < window);
+}
+
+// p = exp(s scale - m) / max(l, 1e-30) = exp2(s scale log2 e - p_bias(m,
+// l)), for the forward's statistics m, l (natural-log units)
+__device__ __forceinline__ float p_bias(float m, float l) {
+  return fmaf(m, kLog2e, log2f(fmaxf(l, 1e-30f)));
 }
 
 // cp.async rows [row0, row0 + rows) of a bf16 (T, HD) matrix into a

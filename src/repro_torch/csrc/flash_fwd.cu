@@ -159,8 +159,6 @@ int launch(const void* q, const void* k, const void* v, void* o, void* m,
 
 // ------------------------------------------------------------------ bf16
 
-constexpr int kMT = 2;                  // 16-row m-tiles per warp
-
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 2)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q,
@@ -201,9 +199,9 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   cp_async_commit();
 
   const int r0 = warp * kWarpRows;               // this warp's query rows
-  // the A fragments of m-tile t at depth ks: ldmatrix at qrow + 16 t LD +
-  // 16 ks (Q stays in shared memory: registers hold two m-tiles' S and O)
-  const bf16* qrow = sQ + (r0 + (lane & 15)) * LD + (lane >> 4) * 8;
+  // Q's A fragments are read from shared memory per use (registers hold
+  // two m-tiles' S and O)
+  const bf16* qrow = sQ + r0 * LD + a_off<LD>(lane);
   // m-tile t: rows w0 + 16 t + gid (fragment elements 0, 1) and + 8 (2, 3)
   const int w0 = q0 + r0;
   float acc[kMT][HD / 8][4];
@@ -245,25 +243,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[t][j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        unsigned a[kMT][4];
-#pragma unroll
-        for (int t = 0; t < kMT; ++t)
-          ldmatrix_x4(a[t], qrow + 16 * t * LD + ks * 16);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          unsigned kb[4];
-          ldmatrix_x4(kb,
-                      sK + (16 * j + (lane & 7) + ((lane >> 4) & 1) * 8) * LD +
-                          ks * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int t = 0; t < kMT; ++t) {
-            mma_bf16(s[t][2 * j], a[t], kb[0], kb[1]);
-            mma_bf16(s[t][2 * j + 1], a[t], kb[2], kb[3]);
-          }
-        }
-      }
+      mma_abt<kMT, 8, HD, LD>(s, qrow, sK + bt_off<LD>(lane));
 #pragma unroll
       for (int t = 0; t < kMT; ++t) {
         const int wt = w0 + 16 * t;
@@ -317,25 +297,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       for (int kk = 0; kk < 4; ++kk) {
         unsigned pa[kMT][4];
 #pragma unroll
-        for (int t = 0; t < kMT; ++t) {
-          pa[t][0] = pack_bf16(s[t][2 * kk][0], s[t][2 * kk][1]);
-          pa[t][1] = pack_bf16(s[t][2 * kk][2], s[t][2 * kk][3]);
-          pa[t][2] = pack_bf16(s[t][2 * kk + 1][0], s[t][2 * kk + 1][1]);
-          pa[t][3] = pack_bf16(s[t][2 * kk + 1][2], s[t][2 * kk + 1][3]);
-        }
-        const bf16* vr =
-            sV + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-            (lane >> 4) * 8;
-#pragma unroll
-        for (int n = 0; n < HD / 8; n += 2) {
-          unsigned vb[4];
-          ldmatrix_x4_trans(vb, vr + n * 8);
-#pragma unroll
-          for (int t = 0; t < kMT; ++t) {
-            mma_bf16(acc[t][n], pa[t], vb[0], vb[1]);
-            mma_bf16(acc[t][n + 1], pa[t], vb[2], vb[3]);
-          }
-        }
+        for (int t = 0; t < kMT; ++t)
+          acc_to_a(pa[t], s[t][2 * kk], s[t][2 * kk + 1]);
+        mma_ab16<kMT, HD / 8, LD>(acc, pa,
+                                  sV + 16 * kk * LD + b_off<LD>(lane));
       }
     }
     __syncthreads();                             // this stage is free again

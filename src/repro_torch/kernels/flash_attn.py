@@ -13,15 +13,15 @@ two causal products in the forward, three in dq, four in dk/dv, against
 O(B*H*T*hd) bytes.  Design (see the sources): 64-row tiles, online
 softmax in registers, key tiles skipped outside the window and past the
 causal diagonal; the forward saves the row max ``m`` and row sum ``l``
-separately, as the backward reads both.  bf16 inputs run the forward and
-dk/dv on the tensor cores (``mma.sync``, cp.async rings, P and dS rounded
-to bf16 for their products, fp32 sums); dk/dv runs one CTA per (key tile,
-kv row, query head) and adds the G heads' partials into zeroed fp32
-buffers with atomics, cast to bf16 after — so dk and dv are not bitwise
-reproducible from run to run.  fp32 inputs, and dq at either dtype, run
-exact fp32 kernels on the CUDA cores (dk/dv one CTA per key tile looping
-over the G query heads, no atomics).  The tile size is a constant of the
-kernels.
+separately, as the backward reads both.  bf16 inputs run all three
+kernels on the tensor cores (``mma.sync``, cp.async rings, P and dS
+rounded to bf16 for their products, fp32 sums); dq runs one CTA per 128
+query rows that owns its rows, so dq is bitwise reproducible; dk/dv runs
+one CTA per (key tile, kv row, query head) and adds the G heads' partials
+into zeroed fp32 buffers with atomics, cast to bf16 after — so dk and dv
+are not bitwise reproducible from run to run.  fp32 inputs run exact fp32
+kernels on the CUDA cores (dk/dv one CTA per key tile looping over the G
+query heads, no atomics).  The tile size is a constant of the kernels.
 
 Dispatch as in ``kernels.ops``: a CUDA tensor goes to the kernels (which
 launch or raise), a CPU tensor to the plain versions ``ref.flash_fwd_ref``

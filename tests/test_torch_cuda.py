@@ -65,22 +65,37 @@ def test_decode_kernel_vs_plain(cuda, dtype, delta_rule):
     _close(S_k, S_p, F32)
 
 
+# (B, T, Hk, Hv, d, chunk, valid_len, dtype): a small fp32 case in chunks
+# of 16; the reduced configurations' width (d=16, fp32) and bf16 at d=64,
+# both on the CUDA-core kernel, over two chunks of 64; the full-width head
+# dim in chunks of 64 over three chunks, bf16 as served (the tensor-core
+# kernel).  valid_len crosses chunk edges, one row fully padded.
+PREFILL_CASES = {
+    "small": (2, 32, 2, 4, 64, 16, (32, 5), torch.float32),
+    "reduced": (3, 128, 2, 4, 16, 64, (128, 0, 70), torch.float32),
+    "bf16_d64": (3, 128, 2, 4, 64, 64, (128, 0, 70), torch.bfloat16),
+    "full_width_multichunk": (4, 192, 2, 4, 128, 64, (192, 0, 100, 64),
+                              torch.bfloat16),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
 @pytest.mark.parametrize("delta_rule", [True, False])
-def test_prefill_kernel_vs_plain(cuda, delta_rule):
+def test_prefill_kernel_vs_plain(cuda, delta_rule, case):
+    B, T, Hk, Hv, d, chunk, valid, dtype = PREFILL_CASES[case]
     rng = np.random.default_rng(12)
-    B, T, Hk, Hv, d = 2, 32, 2, 4, 64
-    q = _normal(rng, B, T, Hk, d).to(cuda)
+    q = _normal(rng, B, T, Hk, d).to(cuda, dtype)
     k = torch.nn.functional.normalize(_normal(rng, B, T, Hk, d),
-                                      dim=-1).to(cuda)
-    v = _normal(rng, B, T, Hv, d).to(cuda)
+                                      dim=-1).to(cuda, dtype)
+    v = _normal(rng, B, T, Hv, d).to(cuda, dtype)
     lg = -torch.nn.functional.softplus(_normal(rng, B, T, Hv)).to(cuda)
     beta = torch.sigmoid(_normal(rng, B, T, Hv)).to(cuda)
     S0 = _normal(rng, B, Hv, d, d, scale=0.1).to(cuda)
-    valid = torch.tensor([T, 5], dtype=torch.int32, device=cuda)
+    valid = torch.tensor(valid, dtype=torch.int32, device=cuda)
     S_k = S0.clone()
     n = tprefill.launches
-    O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=16,
+    O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=chunk,
                              delta_rule=delta_rule, valid_len=valid)
     rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
             .contiguous() for x in (q, k, v, lg, beta)]
@@ -90,9 +105,13 @@ def test_prefill_kernel_vs_plain(cuda, delta_rule):
     torch.cuda.synchronize()
     assert tprefill.launches == n + 1
     _close(S_k.reshape(B * Hv, d, d), S_p, CHUNKWISE)
+    for b, n_valid in enumerate(valid.tolist()):
+        if n_valid == 0:            # a fully padded row keeps its state
+            assert torch.equal(S_k[b], S0[b])
     O_k = O_k.transpose(1, 2).reshape(B * Hv, T, d)
+    o_tol = CHUNKWISE if dtype == torch.float32 else BF16
     for r, n_valid in enumerate(vl.tolist()):
-        _close(O_k[r, :n_valid], O_p[r, :n_valid], CHUNKWISE)
+        _close(O_k[r, :n_valid], O_p[r, :n_valid], o_tol)
 
 
 @pytest.mark.cuda
@@ -179,6 +198,25 @@ def test_flash_kernels_vs_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
+def test_flash_dq_bitwise_reproducible(cuda):
+    """The bf16 dq kernel owns its rows (no atomics): five calls on the
+    same inputs give the same bits."""
+    from repro_torch.kernels import flash_attn as tflash
+    rng = np.random.default_rng(16)
+    BH, G, T, hd = 2, 4, 300, 128
+    q, do = (_normal(rng, BH, G, T, hd).to(cuda, torch.bfloat16)
+             for _ in range(2))
+    k, v = (_normal(rng, BH, T, hd).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    o, m, l = tflash.flash_fwd(q, k, v)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, m, l, delta, None, hd ** -0.5, 0)
+    first = tflash._dq_cuda(*args)
+    for _ in range(4):
+        assert torch.equal(tflash._dq_cuda(*args), first)
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_on_card(cuda):
     """FlashAttention's gradients through the kernels equal those through
     the plain versions on the same bf16 inputs (2e-2)."""
@@ -239,3 +277,34 @@ def test_attn_decode_kernel_vs_plain_and_sdpa(cuda, dtype, case):
     assert tattn.launches == n + 1 and o.dtype == dtype
     _close(o, want, F32 if dtype == torch.float32 else BF16)
     _close(o, lib, BF16)
+
+
+@pytest.mark.cuda
+def test_reduced_serve_through_kernels(cuda):
+    """The reduced qwen3-next-gdn (d=16, fp32: the CUDA-core prefill
+    kernel) served through the GDN kernels on the card, as the serve CLI's
+    default with ``--kernels`` does: prompts of 4 to 40 tokens staged in
+    chunks of 16, every request decoded to its length, both kernels
+    launched, the token streams those of the plain path."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    base = configs.get_arch("qwen3-next-gdn").reduced()
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, base.vocab, size=n, dtype=np.int32)
+               for n in (4, 16, 23, 40)]
+    streams = {}
+    for kernels in (True, False):
+        cfg = base.replace(use_pallas_serving=kernels)
+        params = lm.init_lm(0, cfg, device="cuda")
+        eng = DecodeEngine(cfg, params, max_slots=2, max_len=64, seed=0,
+                           decode_block=4, prefill_chunk=16, device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+        n = (tprefill.launches, tdecode.launches)
+        done = sorted(eng.run_until_done(), key=lambda r: r.rid)
+        assert all(len(r.output) == 8 for r in done)
+        launched = (tprefill.launches > n[0], tdecode.launches > n[1])
+        assert launched == (kernels, kernels)
+        streams[kernels] = [list(r.output) for r in done]
+    assert streams[True] == streams[False]

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro.core import gdn as jgdn                       # noqa: E402
 from repro.kernels import ops as jops, ref as jref       # noqa: E402
 from repro.kernels.gdn_decode import gdn_decode_pallas   # noqa: E402
+from repro.kernels.gdn_prefill import gdn_prefill_pallas  # noqa: E402
 from repro_torch.core import gdn as tgdn                 # noqa: E402
 from repro_torch.kernels import gdn_decode as tdecode    # noqa: E402
 from repro_torch.kernels import gdn_prefill as tprefill  # noqa: E402
@@ -236,6 +237,162 @@ def test_gdn_prefill_plain_vs_sequential_oracle():
                                     n_rep=R)
     np.testing.assert_array_equal(tO2.numpy(), tO.numpy())
     np.testing.assert_array_equal(tS2.numpy(), tS.numpy())
+
+
+# ------------------------------------------- the prefill kernel's design
+
+def _blocked_inverse(A):
+    """(I + A)^{-1} for a strictly lower (C, C) A, C a power of two >= 16,
+    in the CUDA kernel's order: the 16 x 16 diagonal blocks by forward
+    substitution (all columns at once), then blocks of doubling size n:
+    the lower-left block of each 2n x 2n diagonal block,
+    X_hl = -X_hh (A_hl X_ll)."""
+    C = A.shape[0]
+    X = torch.zeros_like(A)
+    for b in range(0, C, 16):
+        blk = A[b:b + 16, b:b + 16]
+        x = torch.zeros(16, 16)
+        for r in range(16):
+            x[r] = torch.eye(16)[r] - blk[r, :r] @ x[:r]
+        X[b:b + 16, b:b + 16] = x
+    n = 16
+    while n < C:
+        for lo in range(0, C, 2 * n):
+            lo_, hi_ = slice(lo, lo + n), slice(lo + n, lo + 2 * n)
+            X[hi_, lo_] = -(X[hi_, hi_] @ (A[hi_, lo_] @ X[lo_, lo_]))
+        n *= 2
+    return X
+
+
+def _split_product(a, b):
+    """a @ b as the kernel's tensor cores take it for bf16-valued a: a
+    times the three bf16 parts of the fp32 b, summed."""
+    p0 = b.to(torch.bfloat16).float()
+    r = b - p0
+    p1 = r.to(torch.bfloat16).float()
+    p2 = (r - p1).to(torch.bfloat16).float()
+    return a @ p0 + a @ p1 + a @ p2
+
+
+def _prefill_kernel_emulation(q, k, v, lg, beta, S0, valid_len, chunk,
+                              scale, delta_rule, product):
+    """The CUDA prefill kernels' arithmetic in plain fp32 torch on rows
+    q, k, v (BH, T, d): per chunk the masked inputs, L = cumsum(log g), M
+    and A from Q K^T and K K^T with their decays, Q S and K S, the
+    right-hand side, the blocked inverse applied as one product, O = scale
+    (exp(L) Q S + M U) and S' = exp(L_C) S + K^T (W U).  ``product`` takes
+    the products with the state and with W U: ``_split_product`` for the
+    tensor-core kernel (bf16 q, k), ``torch.matmul`` for the CUDA-core
+    one."""
+    BH, T, _ = q.shape
+    O = torch.zeros_like(v)
+    S = S0.clone()
+    for r in range(BH):
+        for t0 in range(0, T, chunk):
+            pos = t0 + torch.arange(chunk)
+            ok = pos < int(valid_len[r])
+            Q = q[r, t0:t0 + chunk]
+            K = torch.where(ok[:, None], k[r, t0:t0 + chunk], 0.0)
+            V = torch.where(ok[:, None], v[r, t0:t0 + chunk], 0.0)
+            g = torch.where(ok, lg[r, t0:t0 + chunk], 0.0)
+            b = torch.where(ok, beta[r, t0:t0 + chunk], 0.0)
+            L = torch.cumsum(g, 0)
+            Lp = L - g
+            low = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+            M = torch.where(low, torch.exp(L[:, None] - L[None, :])
+                            * (Q @ K.T), 0.0)
+            QS = product(Q, S[r])
+            if delta_rule:
+                A = torch.where(low & ~torch.eye(chunk, dtype=torch.bool),
+                                b[:, None] * torch.exp(Lp[:, None]
+                                                       - L[None, :])
+                                * (K @ K.T), 0.0)
+                rhs = b[:, None] * (V - torch.exp(Lp)[:, None]
+                                    * product(K, S[r]))
+                U = _blocked_inverse(A) @ rhs
+            else:
+                U = V
+            O[r, t0:t0 + chunk] = scale * (torch.exp(L)[:, None] * QS
+                                           + M @ U)
+            W = torch.exp(L[-1] - L)
+            S[r] = torch.exp(L[-1]) * S[r] + product(K.T, W[:, None] * U)
+    return O, S
+
+
+def _check_prefill_design(delta_rule, d, bf16_qk, product):
+    """The emulated kernel at C=64 over two chunks with ragged rows (one
+    fully padded, one ending inside the second chunk), against
+    ``gdn_prefill_pallas`` in interpret mode (nilpotent doubling) and the
+    port's plain sequential scan: the state within 1e-4; O within the
+    chunkwise tolerance; the padded row's state bitwise unchanged."""
+    BH, T, C = 3, 128, 64
+    q, k, v, lg, beta, S0 = prefill_inputs(21, 1, T, BH, BH, d, d)
+    q, k, v = (x[0].transpose(1, 0, 2).copy() for x in (q, k, v))
+    lg, beta = (x[0].T.copy() for x in (lg, beta))
+    S0 = S0[0]
+    if bf16_qk:
+        q, k = (np.asarray(_t(x).to(torch.bfloat16).float()) for x in (q, k))
+    valid = np.array([T, 0, 70], np.int32)
+    scale = d ** -0.5 if delta_rule else 1.0
+    jO, jS = gdn_prefill_pallas(*map(_j, (q, k, v, lg, beta, S0)),
+                                _j(valid), chunk=C, scale=scale,
+                                delta_rule=delta_rule, interpret=True)
+    eO, eS = _prefill_kernel_emulation(*map(_t, (q, k, v, lg, beta, S0)),
+                                       _t(valid), C, scale, delta_rule,
+                                       product)
+    pO, pS = tref.gdn_prefill_ref(*map(_t, (q, k, v, lg, beta, S0)),
+                                  _t(valid), scale=scale,
+                                  delta_rule=delta_rule)
+    state = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(eS), _np(jS), **state)
+    np.testing.assert_allclose(_np(eS), _np(pS), **state)
+    np.testing.assert_array_equal(_np(eS)[1], S0[1])
+    for r in range(BH):
+        n = int(valid[r])
+        np.testing.assert_allclose(_np(eO)[r, :n], _np(jO)[r, :n],
+                                   **CHUNKWISE)
+        np.testing.assert_allclose(_np(eO)[r, :n], _np(pO)[r, :n],
+                                   **CHUNKWISE)
+
+
+@pytest.mark.parametrize("delta_rule", [True, False])
+def test_prefill_kernel_design_vs_pallas(delta_rule):
+    """The tensor-core prefill kernel's numeric design on the CPU before
+    any card run: its blocked inverse, its order of products and its
+    products with the three bf16 parts of an fp32 operand, at d=128 with q
+    and k holding bf16 values, as served."""
+    _check_prefill_design(delta_rule, 128, True, _split_product)
+
+
+@pytest.mark.parametrize("delta_rule", [True, False])
+def test_prefill_cuda_core_design_vs_pallas(delta_rule):
+    """The CUDA-core prefill kernel's design, which serves the reduced
+    configurations: the same blocked inverse and order of products, the
+    products with the state in plain fp32, at their width d=16 in fp32."""
+    _check_prefill_design(delta_rule, 16, False, torch.matmul)
+
+
+def test_prefill_bound_at_main_shape():
+    """chip_smoke.py's gdn_prefill bound at the main path's shape (one
+    64-token chunk, Hk=16, Hv=32, d=128, bf16), against the figures worked
+    by hand: 5,783,680 bytes at 3.35 TB/s = 1.7265 us; Q K^T and K K^T
+    (32 x 2 x 64^2 x 128) plus three split products for K S, Q S and the
+    state update (32 x 3 x 6 x 64 x 128^2) at 989 TFLOP/s = 0.6446 us;
+    the inverse applied and M U (32 x 2 x 64^2 x 128) at 67 TFLOP/s =
+    0.5008 us: bound by bytes."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    w = smoke.prefill_work(Hk=16, Hv=32, T=64, d=128, bf16=True)
+    assert w == dict(nbytes=5_783_680, tc_flops=637_534_208,
+                     fp32_flops=33_554_432)
+    ms, by, (t_bytes, t_fp32, t_tc) = smoke.bound_ms(
+        w["nbytes"], w["fp32_flops"], w["tc_flops"])
+    assert (round(ms, 7), by) == (0.0017265, "bytes")
+    assert (round(t_fp32, 7), round(t_tc, 7)) == (0.0005008, 0.0006446)
 
 
 # ------------------------------------------------------------- dispatch
