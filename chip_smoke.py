@@ -45,14 +45,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
 Phase 2 also holds the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
 Hkv=2, hd=128, bf16) and on windowed and ragged (``valid_len``) cases
-(the dk/dv call timed with its zeroing and its cast, each printed; dq
-checked bitwise equal over 5 calls, dk/dv's run-to-run differences and
-SDPA's distance from the plain version beside the kernels' printed too),
-and the flash-decode kernel at three
+(each call one kernel launch, by the profiler; dq, dk and dv checked
+bitwise equal over 5 calls; SDPA's distance from the plain version
+printed beside the kernels'), and the flash-decode kernel at three
 bf16 shapes (qwen3-next-gdn's attention layer at the serving batch, an
-h2o-danube-1.8b layer past its wrap, yi-9b at batch 1 over 32k slots),
-and times each beside ``F.scaled_dot_product_attention`` (the library
-yardstick, used nowhere in the port).
+h2o-danube-1.8b layer past its wrap, yi-9b at batch 1 over 32k slots;
+one launch per call, bitwise equal over 5 calls), and times each beside
+``F.scaled_dot_product_attention`` (the library yardstick, used nowhere
+in the port).
 
 The second line before the last is a JSON object with one entry per
 kernel (the flash-decode entry carries its three shapes, its top-level
@@ -375,7 +375,7 @@ def _flash_check(ref, kflash, label, q, k, v, do, vl=None, window=None):
     return errs[:3], errs[3:4], errs[4:]
 
 
-def flash_phase(ref, kflash, time_launches):
+def flash_phase(ref, kflash, time_launches, kernels_per_call):
     """The flash-attention kernels at the trained shape, plus a windowed
     case at either dtype and a ragged bf16 case, against their plain
     versions; then each timed beside its bound, the plain version and
@@ -401,42 +401,36 @@ def flash_phase(ref, kflash, time_launches):
     o, m, l = kflash.flash_fwd(q, k, v)
     delta = torch.sum(do.float() * o.float(), dim=-1)
     bwd = (q, k, v, do, m, l, delta, None, hd ** -0.5, 0)
-    # dk/dv bitwise from run to run? (atomics add the G heads' partials)
+    # dq and dk/dv bitwise from run to run? (each dq CTA owns its rows; the
+    # dk/dv clusters sum the G heads' partials in rank order)
     dk0, dv0 = kflash._dkv_cuda(*bwd)
-    n_diff = 0
+    dq0 = kflash._dq_cuda(*bwd)
+    n_dkv = n_dq = 0
     for _ in range(4):
         dk1, dv1 = kflash._dkv_cuda(*bwd)
-        n_diff = max(n_diff, int((dk1 != dk0).sum() + (dv1 != dv0).sum()))
-    # dq bitwise from run to run? (each CTA owns its rows)
-    dq0 = kflash._dq_cuda(*bwd)
-    n_dq = 0
-    for _ in range(4):
+        n_dkv = max(n_dkv, int((dk1 != dk0).sum() + (dv1 != dv0).sum()))
         n_dq = max(n_dq, int((kflash._dq_cuda(*bwd) != dq0).sum()))
-    print(f"  flash_bwd_dq run to run (5 calls): "
-          + ("dq bitwise equal" if n_dq == 0 else
-             f"up to {n_dq} of {dq0.numel()} bf16 elements differ"))
-    if n_dq:
-        raise AssertionError("dq is not bitwise reproducible")
-    print(f"  flash_bwd_dkv run to run (5 calls): "
-          + ("dk and dv bitwise equal" if n_diff == 0 else
-             f"up to {n_diff} of {2 * dk0.numel()} bf16 elements differ"))
-    # the dk/dv call's own kernels: zeroing its fp32 buffers, the kernel,
-    # the cast to bf16
-    dkv_parts = ("flash_dkv_", "FillFunctor", "copy_kernel")
+    for name, n_diff, total in (("dq", n_dq, dq0.numel()),
+                                ("dk and dv", n_dkv, 2 * dk0.numel())):
+        print(f"  {name} run to run (5 calls): "
+              + ("bitwise equal" if n_diff == 0 else
+                 f"up to {n_diff} of {total} bf16 elements differ"))
+        if n_diff:
+            raise AssertionError(f"{name} not bitwise reproducible")
     timed = {}
     for name, fn, kern in (
             ("flash_fwd", lambda: kflash.flash_fwd(q, k, v), "flash_fwd_"),
             ("flash_bwd_dq", lambda: kflash._dq_cuda(*bwd),
              "flash_dq_"),
-            ("flash_bwd_dkv", lambda: kflash._dkv_cuda(*bwd), dkv_parts)):
+            ("flash_bwd_dkv", lambda: kflash._dkv_cuda(*bwd), "flash_dkv_")):
         ev, own = time_launches(fn, kern)
-        if isinstance(own, dict):
-            print(f"  {name} split: " + ", ".join(
-                f"{n} {t:.4f} ms" for n, t in own.items()))
-            own = sum(own.values())
+        per_call, names = kernels_per_call(fn)
+        if per_call != 1:
+            raise AssertionError(f"{name}: {per_call} kernels per call "
+                                 f"({names})")
         timed[name] = own
-        print(f"  {name}: CUDA events around the call {ev:.4f} ms, the "
-              f"kernels' own duration {own:.4f} ms")
+        print(f"  {name}: one kernel per call; CUDA events around the call "
+              f"{ev:.4f} ms, the kernel's own duration {own:.4f} ms")
     plain_fwd, _ = time_launches(lambda: ref.flash_fwd_ref(q, k, v), reps=5,
                                  warmup=1)
     plain_bwd, _ = time_launches(
@@ -497,9 +491,11 @@ def flash_phase(ref, kflash, time_launches):
     return rows
 
 
-def attn_decode_phase(ref, kattn, time_launches, shapes):
+def attn_decode_phase(ref, kattn, time_launches, kernels_per_call,
+                      shapes):
     """The flash-decode kernel against its plain version at the three
-    shapes, bf16 (o: one rounding step, rtol = atol = 2e-2), each timed
+    shapes, bf16 (o: one rounding step, rtol = atol = 2e-2), bitwise equal
+    over 5 calls of one kernel launch each (profiler), each timed
     beside its bound (bytes of q, o and the occupied K/V rows; fp32 FLOP of
     the visible slots), the plain version and one SDPA call with the same
     boolean mask (``enable_gqa``)."""
@@ -524,9 +520,20 @@ def attn_decode_phase(ref, kattn, time_launches, shapes):
         torch.cuda.synchronize()
         err = check(f"attn_decode {label}", o, want, 2e-2, 2e-2)
         check(f"attn_decode {label} vs SDPA", o, lib_o, 2e-2, 2e-2)
-        ev_ms, ms = time_launches(
-            lambda: kattn.attn_decode(q, k, v, length, window=window),
-            "attn_decode_")
+
+        def call():
+            return kattn.attn_decode(q, k, v, length, window=window)
+
+        n_diff = max(int((call() != o).sum()) for _ in range(4))
+        per_call, names = kernels_per_call(call)
+        print(f"  attn_decode {label}: 5 calls "
+              + ("bitwise equal" if n_diff == 0 else
+                 f"differ in up to {n_diff} of {o.numel()} elements")
+              + f"; {per_call:g} kernel launch per call ({names})")
+        if n_diff or per_call != 1:
+            raise AssertionError(f"attn_decode {label}: not one launch per "
+                                 f"call, or not bitwise reproducible")
+        ev_ms, ms = time_launches(call, "attn_decode_")
         plain_ms, _ = time_launches(
             lambda: ref.attn_decode_ref(q, k, v, length, window=window))
         lib_ms, _ = time_launches(sdpa)
@@ -534,7 +541,7 @@ def attn_decode_phase(ref, kattn, time_launches, shapes):
         visible = int(mask.sum())
         nbytes = 2 * B * Hq * d * 2 + 2 * occupied * Hkv * d * 2 + B * 4
         b = bound(f"attn_decode {label}", nbytes, 4 * Hq * d * visible)
-        print(f"  attn_decode {label}: the two kernels' own duration "
+        print(f"  attn_decode {label}: the kernel's own duration "
               f"{ms * 1e3:.2f} us (CUDA events {ev_ms * 1e3:.2f} us), bound "
               f"{b['bound_ms'] * 1e3:.2f} us by {b['bound_by']}, plain "
               f"{plain_ms * 1e3:.2f} us, SDPA {lib_ms * 1e3:.2f} us")
@@ -936,6 +943,7 @@ def main():
         from repro_torch.kernels import gdn_decode as kdecode
         from repro_torch.kernels import gdn_prefill as kprefill
         from repro_torch.launch.profile_decode import (ATTN_DECODE_SHAPES,
+                                                       kernels_per_call,
                                                        time_launches)
         from repro_torch.models import attention, lm
         from repro_torch.runtime import trainer  # noqa: F401
@@ -959,9 +967,9 @@ def main():
     print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
     rows = [decode_phase(ref, kdecode, time_launches),
             prefill_phase(ops, ref, kprefill, time_launches)]
-    rows += flash_phase(ref, kflash, time_launches)
+    rows += flash_phase(ref, kflash, time_launches, kernels_per_call)
     rows.append(attn_decode_phase(ref, kattn, time_launches,
-                                  ATTN_DECODE_SHAPES))
+                                  kernels_per_call, ATTN_DECODE_SHAPES))
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f", library {r['library_ms'] * 1e3:.2f} us"

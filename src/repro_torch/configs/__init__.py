@@ -5,7 +5,8 @@ listed: the paper's own qwen3-next-gdn (gdn + attn) and the six dense
 attention-only archs (attn / swa with a dense FFN).  The reference
 registry (``repro.configs``) has four more — mamba2 (ssm), recurrentgemma
 (rglru), mixtral and arctic (MoE) — which join here together with their
-mixer kinds and FFNs (ROADMAP queue 1, item 9).  ``frontend_stub`` (llava,
+mixer kinds and FFNs (the reference's ``models/ssm.py``, ``models/rglru.py``
+and ``models/moe.py``; ROADMAP).  ``frontend_stub`` (llava,
 musicgen) is read only by the reference's ``launch/steps.py``; the served
 LM is the token path, as in the reference.
 """
@@ -32,7 +33,8 @@ def get_arch(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; the port has {sorted(ARCHS)} "
                        f"(mamba2, recurrentgemma, mixtral and arctic need "
                        f"the ssm/rglru mixer kinds or MoE FFNs, not yet "
-                       f"ported — ROADMAP queue 1, item 9)")
+                       f"ported: the reference's models/ssm.py, rglru.py and "
+                       f"moe.py — ROADMAP)")
     return ARCHS[key]
 
 

@@ -10,9 +10,8 @@
 // delta = rowsum(do * o), (BH, G, T) each.  Every kernel rebuilds the
 // probabilities tile by tile as p = exp(s - m) / max(l, 1e-30) (masked
 // scores -1e30) and ds = p * (do v^T - delta); nothing of size T x T
-// reaches device memory.  dq comes out in q's dtype; dk and dv come out
-// in fp32, summed over the G query heads of each kv head, as the
-// reference's dk/dv kernel leaves them (its caller casts).
+// reaches device memory.  dq comes out in q's dtype; dk and dv, summed
+// over the G query heads of each kv head, in k's dtype.
 //
 // What bounds them on an H100: operations.  dq does three causal products
 // (q k^T, do v^T, ds k), dk/dv four (q k^T, do v^T, p^T do, ds^T q).
@@ -37,25 +36,43 @@
 // 64 rows, bh, g), the longest rows first, every product on the CUDA cores
 // in fp32; Q and dO stay in shared memory and dq accumulates in registers.
 //
-// dk/dv, bf16 (tensor cores): one CTA per (key tile of 64 rows, bh, g),
-// key tile 0 first (grid (BH * G, key tiles)), so no CTA walks more than
-// T / 64 query tiles and the causal triangle spreads over the card.  K
-// and V of the tile stay in shared memory; the Q and dO tiles of the
-// query head, with their m, l and delta, stream through a two-stage
-// cp.async ring from the causal diagonal to the window's upper bound.
-// 4 warps, each owning 16 key rows: S^T = K Q^T and dP^T = V dO^T run on
-// mma.sync m16n8k16 (bf16 -> fp32), so that P^T and dS^T = P^T o (dP^T -
-// delta), packed to bf16 from the accumulator fragments, are already the
-// A operands of dV += P^T dO and dK += dS^T Q (Q's and dO's B fragments
-// from ldmatrix.trans).  dK and dV accumulate in fp32 registers; at the
-// end each CTA adds its partial into the fp32 dk, dv with atomics (red.add;
-// the caller zeroes them): the G query heads' partials meet there in
-// fp32, in an order that varies from run to run.  Masked probabilities
-// are exactly 0.  A key tile wholly at or past valid_len returns at once
-// and keeps its zeros.
+// dk/dv, bf16 (tensor cores): one CTA per (key tile of 64 rows, bh,
+// query head), key tile 0 first (grid (BH * C, key tiles)), so no CTA
+// walks more than T / 64 query tiles and the causal triangle spreads over
+// the card.  K and V of the tile stay in shared memory; the Q and dO
+// tiles of the query head, with their m, l and delta, stream through a
+// two-stage cp.async ring from the causal diagonal to the window's upper
+// bound.  4 warps, each owning 16 key rows: S^T = K Q^T and dP^T = V dO^T
+// run on mma.sync m16n8k16 (bf16 -> fp32), so that P^T and dS^T = P^T o
+// (dP^T - delta), packed to bf16 from the accumulator fragments, are
+// already the A operands of dV += P^T dO and dK += dS^T Q (Q's and dO's B
+// fragments from ldmatrix.trans).  dK and dV accumulate in fp32 registers.
+// The sum over the G query heads of a kv head is one fixed order, so dk
+// and dv are bitwise reproducible: the CTAs of one (bh, key tile) form a
+// thread block cluster of C ranks (C divides G and is at most 8; the host
+// picks it, ``flash_attn.cluster_size``: at the trained shape, G = 8,
+// clusters of 4 CTAs of two heads each beat clusters of 8, measured by
+// ``launch/profile_train.py --dkv-clusters``; rank r owns heads
+// r G/C .. (r+1) G/C - 1 and sums them in registers, in order).  After the query loop a cluster barrier
+// frees every rank's shared memory; each CTA then pushes its fp32
+// partial (dK scale, dV) from its registers into the rank that owns each
+// row — rank r owns rows [64 r / C, 64 (r+1) / C) and keeps one slot per
+// sender where its ring and K/V tiles were — with distributed
+// shared-memory stores, which do not wait for a reply (pulling the
+// partials with remote loads instead was slower).  After a second
+// barrier each rank sums its slots in rank order 0..C-1 from local
+// shared memory and stores bf16 (round to nearest even: the reference's
+// fp32 sum, then one cast).  No CTA touches a peer's memory after the
+// second barrier, so none waits to exit.  One launch: no atomics, no fp32
+// buffers, no zeroing, no cast.  Masked probabilities are exactly 0.  A
+// key tile wholly at or past valid_len (the same for every CTA of the
+// cluster, which shares bh and the tile) writes its zeros and returns
+// before either barrier.
 // dk/dv, fp32 (kept on the card for its exactness): one CTA per (key tile,
 // bh) looping over the G query heads and their q tiles, every product on
 // the CUDA cores; each CTA owns its rows of dk and dv outright.
+
+#include <cooperative_groups.h>
 
 #include "flash_common.cuh"
 
@@ -223,6 +240,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------- dk/dv bf16
 
+constexpr int kMaxCluster = 8;     // the portable cluster size
+
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads)
     flash_dkv_bf16_kernel(const bf16* __restrict__ q,
@@ -232,38 +251,59 @@ __global__ void __launch_bounds__(kTcThreads)
                           const float* __restrict__ m,
                           const float* __restrict__ l,
                           const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          const int* __restrict__ valid_len, int G,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          const int* __restrict__ valid_len, int G, int C,
                           int T_len, float scale, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = HD + kTcPad;
   constexpr int kElems = kTile * LD;             // one shared tile
   // a ring stage: Q, dO (bf16 tiles), then m, l, delta of its 64 rows
   constexpr int kStage = 2 * kElems + 3 * kTile * 2;   // in bf16 units
+  constexpr int kVec = HD / 4;                   // float4 columns of a row
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + kElems;
   bf16* ring = sV + kElems;
 
-  const int bhg = blockIdx.x;                    // bh * G + g
-  const int bh = bhg / G;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / C;
+  const int heads = G / C;                       // this CTA's, in order
   const int kt = blockIdx.y, k0 = kt * kTile;
+  const size_t head = static_cast<size_t>(T_len) * HD;
+  // the rows of the cluster's sum that this CTA reduces and stores
+  const int row_lo = kTile * rank / C, row_hi = kTile * (rank + 1) / C;
   const int valid = valid_len ? min(valid_len[bh], T_len) : T_len;
-  if (k0 >= valid) return;                       // its rows stay zero
+  if (k0 >= valid) {         // uniform over the cluster: no barrier follows
+    const int n = (row_hi - row_lo) * kVec;
+    for (int i = threadIdx.x; i < 2 * n; i += kTcThreads) {
+      const int which = i / n, e = i - which * n;
+      const int row = k0 + row_lo + e / kVec;
+      if (row < T_len)
+        store4((which ? dv : dk) + bh * head + static_cast<size_t>(row) * HD +
+                   (e % kVec) * 4,
+               make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    return;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const size_t head = static_cast<size_t>(T_len) * HD;
-  const size_t stat = static_cast<size_t>(bhg) * T_len;
   const float sl2 = scale * kLog2e;
   const int nq = (T_len + kTile - 1) / kTile;
   const int k_last = min(k0 + kTile, T_len) - 1;
   const int q_lo = kt;                           // causal diagonal
   const int q_hi =
       window > 0 ? min(nq - 1, (k_last + window - 1) / kTile) : nq - 1;
+  const int n_qt = q_hi - q_lo + 1;              // >= 1
+  const int n_it = heads * n_qt;                 // (head, q tile) steps
 
-  // Q, dO and the statistics of q tile qt into ring stage st
-  auto issue_q = [&](int st, int qt) {
+  // Q, dO and the statistics of step `it` (head rank * heads + it / n_qt,
+  // q tile q_lo + it % n_qt) into ring stage st
+  auto issue_q = [&](int st, int it) {
     bf16* dst = ring + st * kStage;
-    const int row0 = qt * kTile;
+    const int bhg = bh * G + rank * heads + it / n_qt;
+    const int row0 = (q_lo + it % n_qt) * kTile;
+    const size_t stat = static_cast<size_t>(bhg) * T_len;
     issue_rows<HD>(dst, q + bhg * head, row0, T_len);
     issue_rows<HD>(dst + kElems, dout + bhg * head, row0, T_len);
     float* sst = reinterpret_cast<float*>(dst + 2 * kElems);
@@ -279,7 +319,7 @@ __global__ void __launch_bounds__(kTcThreads)
   issue_rows<HD>(sK, k + bh * head, k0, T_len);
   issue_rows<HD>(sV, v + bh * head, k0, T_len);
   cp_async_commit();
-  issue_q(0, q_lo);
+  issue_q(0, 0);
 
   const int r0 = warp * 16;                      // this warp's key rows
   const int key_a = k0 + r0 + gid;               // elements 0, 1; + 8: 2, 3
@@ -289,10 +329,9 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  for (int qt = q_lo; qt <= q_hi; ++qt) {
-    const int it = qt - q_lo;
-    if (qt < q_hi) {
-      issue_q((it + 1) & 1, qt + 1);  // its stage was freed last iteration
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      issue_q((it + 1) & 1, it + 1);  // its stage was freed last iteration
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -303,7 +342,7 @@ __global__ void __launch_bounds__(kTcThreads)
     const float* sM = reinterpret_cast<const float*>(sDO + kElems);
     const float* sL = sM + kTile;
     const float* sD = sL + kTile;
-    const int q0 = qt * kTile;
+    const int q0 = (q_lo + it % n_qt) * kTile;
 
     // S^T = K Q^T: st[j] holds queries q0 + 8 j + 2 tig (+1)
     float st[8][4];
@@ -362,21 +401,55 @@ __global__ void __launch_bounds__(kTcThreads)
     __syncthreads();                             // this stage is free again
   }
 
-  // the G query heads' partials meet in fp32 device memory
-  float* dkh = dk + bh * head;
-  float* dvh = dv + bh * head;
+  // the cluster's sum of the fp32 partials: rank r owns key rows
+  // [row_lo, row_hi) = [64 r / C, 64 (r+1) / C) and receives every rank's
+  // partial of them in its shared memory, where its ring and K/V tiles
+  // were, in slots [sender][row - row_lo][LDP] (rows padded by 8 floats:
+  // a half warp's 8-byte stores fall in distinct banks)
+  constexpr int LDP = HD + 8;
+  const int slot_rows = (kTile + C - 1) / C;
+  float* recv = reinterpret_cast<float*>(smem_raw);   // dK slots, then dV
+  const int dv_at = C * slot_rows * LDP;
+  cluster.sync();              // every rank is done with its tiles
+  // push this CTA's partial from its registers (remote stores do not
+  // wait for a reply)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = key_a + 8 * h;
-    if (row >= T_len) continue;
-    const size_t at = static_cast<size_t>(row) * HD + 2 * tig;
+    const int row = r0 + gid + 8 * h;
+    const int owner = ((row + 1) * C - 1) / kTile;
+    float* dst = cluster.map_shared_rank(recv, owner) +
+                 (rank * slot_rows + row - kTile * owner / C) * LDP +
+                 2 * tig;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      atomicAdd(dkh + at + 8 * n, scale * acc_k[n][2 * h]);
-      atomicAdd(dkh + at + 8 * n + 1, scale * acc_k[n][2 * h + 1]);
-      atomicAdd(dvh + at + 8 * n, acc_v[n][2 * h]);
-      atomicAdd(dvh + at + 8 * n + 1, acc_v[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(scale * acc_k[n][2 * h], scale * acc_k[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dst + dv_at + 8 * n) =
+          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
+  }
+  cluster.sync();              // every partial has landed where it is owned
+  // rows [row_lo, row_hi) of dK and dV: the C partials summed in rank
+  // order from local shared memory, then one bf16 rounding
+  const int n = (row_hi - row_lo) * kVec;
+  for (int i = threadIdx.x; i < 2 * n; i += kTcThreads) {
+    const int which = i / n, e = i - which * n;
+    const int j = e / kVec, col = (e % kVec) * 4;
+    const float* part = recv + which * dv_at + j * LDP + col;
+    float4 sum = *reinterpret_cast<const float4*>(part);
+    for (int p = 1; p < C; ++p) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(part + p * slot_rows * LDP);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const int row = k0 + row_lo + j;
+    if (row < T_len)
+      store4((which ? dv : dk) + bh * head + static_cast<size_t>(row) * HD +
+                 col,
+             sum);
   }
 }
 
@@ -616,32 +689,64 @@ template <int HD>
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* dout, const void* m, const void* l,
                     const void* delta, void* dk, void* dv,
-                    const void* valid_len, int BH, int G, int T_len,
+                    const void* valid_len, int BH, int G, int C, int T_len,
                     float scale, int window, cudaStream_t stream) {
-  // K, V and two ring stages of Q, dO and 3 x 64 fp32 statistics
+  if (C < 1 || C > kMaxCluster || G % C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // K, V and two ring stages of Q, dO and 3 x 64 fp32 statistics; the
+  // received fp32 partials of dK and dV reuse it
   const size_t smem =
       2 * static_cast<size_t>(kTile) * (HD + kTcPad) * sizeof(bf16) +
       2 * (2 * static_cast<size_t>(kTile) * (HD + kTcPad) * sizeof(bf16) +
            3 * kTile * sizeof(float));
-  int err = prepare(flash_dkv_bf16_kernel<HD>, smem);
+  // C slots of ceil(64 / C) rows of dK and dV, at most 70 rows (C = 7)
+  static_assert(2 * 70 * (HD + 8) * sizeof(float) <=
+                    6 * kTile * (HD + kTcPad) * sizeof(bf16),
+                "the partials must fit where the tiles were");
+  auto kernel = flash_dkv_bf16_kernel<HD>;
+  int err = prepare(kernel, smem);
   if (err) return err;
-  const dim3 grid(BH * G, (T_len + kTile - 1) / kTile);
-  flash_dkv_bf16_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BH * C, (T_len + kTile - 1) / kTile);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster of C such CTAs must fit the card at all (checked once per
+  // cluster size): refuse rather than launch something else
+  static int fits[kMaxCluster + 1] = {};
+  if (!fits[C]) {
+    int clusters = 0;
+    err = static_cast<int>(cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(kernel), &cfg));
+    if (err) return err;
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    fits[C] = 1;
+  }
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<const int*>(valid_len), G, T_len,
-      scale, window);
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), static_cast<const int*>(valid_len), G, C,
+      T_len, scale, window));
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and dq); hd 64 or 128;
-// window <= 0 means none; valid_len is null or (BH,) int32.  dk and dv are
-// fp32 (BH, T, hd) at either dtype, and must be zero for bf16 (the kernel
-// adds into them).  Each returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, dq, dk and dv); hd 64
+// or 128; window <= 0 means none; valid_len is null or (BH,) int32.  dk
+// and dv are (BH, T, hd) in k's dtype.  cluster (dk/dv, bf16 only): the
+// CTAs that sum a kv head's G query heads, a divisor of G up to 8.  Each
+// returns a cudaError_t.
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* m,
                                const void* l, const void* delta, void* dq,
@@ -665,15 +770,20 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 const void* l, const void* delta, void* dk,
                                 void* dv, const void* valid_len, int BH,
                                 int G, int T_len, int hd, float scale,
-                                int window, int dtype, void* stream) {
+                                int window, int dtype, void* stream,
+                                int cluster) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_DKV(LAUNCH)                                                    \
-  return LAUNCH(q, k, v, dout, m, l, delta, dk, dv, valid_len, BH, G, T_len, \
-                scale, window, st)
-  if (dtype == 0 && hd == 64) FLASH_DKV((launch_dkv<float, 64>));
-  if (dtype == 0 && hd == 128) FLASH_DKV((launch_dkv<float, 128>));
-  if (dtype == 1 && hd == 64) FLASH_DKV(launch_dkv_bf16<64>);
-  if (dtype == 1 && hd == 128) FLASH_DKV(launch_dkv_bf16<128>);
-#undef FLASH_DKV
+  if (dtype == 0 && hd == 64)
+    return launch_dkv<float, 64>(q, k, v, dout, m, l, delta, dk, dv,
+                                 valid_len, BH, G, T_len, scale, window, st);
+  if (dtype == 0 && hd == 128)
+    return launch_dkv<float, 128>(q, k, v, dout, m, l, delta, dk, dv,
+                                  valid_len, BH, G, T_len, scale, window, st);
+#define FLASH_DKV_BF16(HD)                                                  \
+  return launch_dkv_bf16<HD>(q, k, v, dout, m, l, delta, dk, dv, valid_len, \
+                             BH, G, cluster, T_len, scale, window, st)
+  if (dtype == 1 && hd == 64) FLASH_DKV_BF16(64);
+  if (dtype == 1 && hd == 128) FLASH_DKV_BF16(128);
+#undef FLASH_DKV_BF16
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,12 +16,14 @@ causal diagonal; the forward saves the row max ``m`` and row sum ``l``
 separately, as the backward reads both.  bf16 inputs run all three
 kernels on the tensor cores (``mma.sync``, cp.async rings, P and dS
 rounded to bf16 for their products, fp32 sums); dq runs one CTA per 128
-query rows that owns its rows, so dq is bitwise reproducible; dk/dv runs
-one CTA per (key tile, kv row, query head) and adds the G heads' partials
-into zeroed fp32 buffers with atomics, cast to bf16 after — so dk and dv
-are not bitwise reproducible from run to run.  fp32 inputs run exact fp32
-kernels on the CUDA cores (dk/dv one CTA per key tile looping over the G
-query heads, no atomics).  The tile size is a constant of the kernels.
+query rows that owns its rows; dk/dv runs one CTA per (key tile, kv row,
+query head or heads), and the CTAs of one key tile's G query heads form
+a thread block cluster (``cluster_size``) that sums their fp32 partials
+through distributed shared memory in a fixed order and stores bf16 (one
+launch, no atomics), so dq, dk and dv are all bitwise reproducible from
+run to run.  fp32 inputs run exact fp32 kernels on the CUDA cores (dk/dv one CTA
+per key tile looping over the G query heads).  The tile size is a
+constant of the kernels.
 
 Dispatch as in ``kernels.ops``: a CUDA tensor goes to the kernels (which
 launch or raise), a CPU tensor to the plain versions ``ref.flash_fwd_ref``
@@ -43,6 +45,11 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)     # the kernels' head-dim instantiations
+MAX_CLUSTER = 8           # the portable thread-block-cluster size
+# the cluster size the dk/dv kernel prefers: on the H100 clusters of 4
+# CTAs (two heads each) beat clusters of 8 at the trained shape, G = 8
+# (``python -m repro_torch.launch.profile_train --dkv-clusters``)
+PREFERRED_CLUSTER = 4
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _TAIL = [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P]   # BH G T hd scale
@@ -50,9 +57,9 @@ _TAIL = [_I, _I, _I, _I, ctypes.c_float, _I, _I, _P]   # BH G T hd scale
 
 
 @functools.cache
-def _fn(lib: str, name: str, n_ptrs: int):
+def _fn(lib: str, name: str, n_ptrs: int, extra: tuple = ()):
     fn = getattr(_build.load(lib), name)
-    fn.argtypes = [_P] * n_ptrs + _TAIL
+    fn.argtypes = [_P] * n_ptrs + _TAIL + list(extra)
     fn.restype = ctypes.c_int
     return fn
 
@@ -159,21 +166,27 @@ def _dq_cuda(q, k, v, do, m, l, delta, vl, scale, window):
     return dq
 
 
-def _dkv_cuda(q, k, v, do, m, l, delta, vl, scale, window):
-    """(dk, dv) from checked inputs (``_bwd_cuda``).  The kernels write dk
-    and dv in fp32, as the reference's dk/dv kernel does; the bf16 kernel
-    adds the G query heads' partials into zeroed buffers with atomics.
-    Then one cast to k's dtype (none for fp32)."""
-    if q.dtype == torch.bfloat16:
-        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.zeros_like(dk)
-    else:
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _fn("flash_bwd", "flash_dkv_launch", 10)(
+def cluster_size(G: int) -> int:
+    """CTAs of the bf16 dk/dv kernel's cluster over one key tile's G query
+    heads (each CTA sums G / C heads in registers, in order): the largest
+    divisor of G up to ``PREFERRED_CLUSTER``; where that is 1 but G fits a
+    cluster (G = 5, 7), G itself, so that no CTA walks every head."""
+    c = max(c for c in range(1, PREFERRED_CLUSTER + 1) if G % c == 0)
+    return G if c == 1 and G <= MAX_CLUSTER else c
+
+
+def _dkv_cuda(q, k, v, do, m, l, delta, vl, scale, window, cluster=None):
+    """(dk, dv) in k's dtype from checked inputs (``_bwd_cuda``): one
+    launch, which writes every row, summed over the G query heads in a
+    fixed order.  ``cluster`` overrides ``cluster_size``'s choice, for
+    ``launch.profile_train``'s study."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _fn("flash_bwd", "flash_dkv_launch", 10, (_I,))(
         *_ptrs(q, k, v, do, m, l, delta), dk.data_ptr(), dv.data_ptr(),
-        _vl_ptr(vl), *_tail(q, scale, window))
+        _vl_ptr(vl), *_tail(q, scale, window),
+        cluster_size(q.shape[1]) if cluster is None else cluster)
     _raise_on(err, "flash_bwd_dkv")
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk, dv
 
 
 def flash_fwd(q, k, v, valid_len=None, *, scale=None, window=None):

@@ -17,7 +17,7 @@ Full-width qwen3-next-gdn (random bf16 weights from ``--seed``) in a
 
 ``--attn-decode`` runs only ``attn_decode_study``: the flash-decode kernel
 at the three shapes of ``chip_smoke.py``'s phase 2 with each split length
-in turn, its split and merge kernels timed apart.
+and ring depth in turn.
 
 The card's name and power limit head the output.
 """
@@ -130,6 +130,37 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
     return event_ms, _kernel_split_us(prof, (kernel,), reps)[kernel] / 1e3
 
 
+def kernels_per_call(fn, calls=10, tries=3):
+    """(device kernels launched per call of ``fn``, their names), as the
+    profiler records them.  Spin kernels pad the window on both sides and
+    precede each call, and are not counted: the profiler can drop the
+    records at the edge of a window, and now and then a whole window's.
+    A window counts only if most of its spins were recorded (a test of
+    the profiler, independent of ``fn``); up to ``tries`` windows, else
+    it raises."""
+    spins = 1 + calls + 4
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            for _ in range(calls):
+                torch.cuda._sleep(100_000)
+                fn()
+            for _ in range(4):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = sum(e.count for e in events if "spin_kernel" in e.key)
+        if seen >= spins - 2:
+            kernels = [e for e in events if "spin_kernel" not in e.key]
+            return (sum(e.count for e in kernels) / calls,
+                    [e.key for e in kernels])
+    raise RuntimeError(f"the profiler recorded too few of its windows' "
+                       f"{spins} spin kernels in {tries} tries")
+
+
 def decode_kernel_study(cfg, batch):
     """The GDN decode kernel alone at the served shape (``batch`` slots),
     timed by CUDA events and by the profiler after each flush of
@@ -165,11 +196,11 @@ ATTN_DECODE_SHAPES = (
 )
 
 
-def attn_decode_study(splits=(64, 128, 256, 512, 1024)):
+def attn_decode_study(splits=(64, 128, 192, 256, 512, 768, 1024, 2048),
+                      stages=(2, 3)):
     """The flash-decode kernel (bf16) at ``ATTN_DECODE_SHAPES`` with its own
-    split length and then each of ``splits``: the two kernels' own
-    durations after a read flush (``time_launches``), split and merge
-    apart."""
+    split length and ring depth, then each of ``splits`` x ``stages``: the
+    kernel's own duration after a read flush (``time_launches``)."""
     from repro_torch.kernels import attn_decode as kattn
     gen = torch.Generator(device="cuda").manual_seed(4)
     for label, B, Hq, Hkv, d, T, lengths, window in ATTN_DECODE_SHAPES:
@@ -177,18 +208,19 @@ def attn_decode_study(splits=(64, 128, 256, 512, 1024)):
             torch.bfloat16) for shape in ((B, Hq, d), (B, Hkv, T, d),
                                           (B, Hkv, T, d)))
         length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        own = kattn.split_len(B, Hkv, T, d, 2, kattn.sm_count(q.device))
-        for split in (own,) + tuple(x for x in splits
-                                    if x <= T and x != own):
+        own = (kattn.split_len(B, Hkv, T, d, 2, kattn.sm_count(q.device)),
+               kattn.ring_stages(d, 2))
+        grid = [own] + [(x, st) for x in splits for st in stages
+                        if x <= T and (x, st) != own]
+        for split, st in grid:
             fn = functools.partial(kattn.attn_decode, q, k, v, length,
-                                   window=window, split=split)
-            _, part = time_launches(fn, "attn_decode_bf16_kernel")
-            _, merge = time_launches(fn, "attn_decode_merge_kernel")
-            print(f"attn_decode {label}, split {split:5d} "
-                  f"({-(-T // split) * B * Hkv} CTAs"
-                  f"{', split_len' if split == own else ''}): split kernel "
-                  f"{part * 1e3:.2f} us + merge {merge * 1e3:.2f} us = "
-                  f"{(part + merge) * 1e3:.2f} us")
+                                   window=window, split=split, stages=st)
+            _, ms = time_launches(fn, "attn_decode_")
+            live = sum(kattn.live_splits(lengths, T, split)) * Hkv
+            print(f"attn_decode {label}, split {split:5d}, {st} stages "
+                  f"({live} live CTAs"
+                  f"{', the default' if (split, st) == own else ''}): "
+                  f"{ms * 1e3:.2f} us")
 
 
 def main(argv=None):

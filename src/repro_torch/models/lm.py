@@ -65,8 +65,8 @@ def build_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
 def _check_ffn(cfg: ArchConfig):
     if cfg.ffn not in ("dense", "none"):
         raise NotImplementedError(
-            f"ffn={cfg.ffn!r}: MoE FFNs are not ported yet (ROADMAP queue 1, "
-            f"item 9)")
+            f"ffn={cfg.ffn!r}: MoE FFNs are not ported yet: the reference's "
+            f"models/moe.py (ROADMAP)")
 
 
 def _init_position(generator, kind, cfg, dtype, device, reps):

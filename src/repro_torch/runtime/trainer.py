@@ -14,8 +14,8 @@ Behaviours carried over from the reference:
     resume replays the exact batch stream;
   * microbatch gradient accumulation in ``accum_dtype``.
 
-The port runs on one device: there is no mesh and no sharding (ROADMAP
-queue 1, item 11).
+The port runs on one device: there is no mesh and no sharding (the
+reference's ``parallel/sharding.py`` is not ported yet; ROADMAP).
 """
 from __future__ import annotations
 
@@ -133,7 +133,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "the port trains on one device; meshes and sharding are not "
-                "ported yet (ROADMAP queue 1, item 11)")
+                "ported yet: the reference's parallel/sharding.py (ROADMAP)")
         self.cfg, self.tc = cfg, tc
         self.device = _device.resolve(device)
         self.loader = HostDataLoader(DataConfig(

@@ -19,9 +19,10 @@ The executor owns
     - ``scatter(slot, buf)``: copy a staging cache + sampler row + first
       token into ``slot``.  Staging buffers never alias slot buffers.
 
-Deferred to later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): ``plan_mode="pow2"``, ``prefill_batching=True``, ``mesh``,
-speculative decode (draft models) and async paging.
+Deferred to later slices (each raises ``NotImplementedError`` naming the
+reference module that holds it): ``plan_mode="pow2"``,
+``prefill_batching=True``, ``mesh``, speculative decode (draft models) and
+async paging.
 """
 from __future__ import annotations
 
@@ -56,10 +57,12 @@ class PlanStep(NamedTuple):
 _MAX_SCAN_CHUNKS = 4
 
 
-def deferred(what: str, item: str):
-    """The error for a setting this slice of the port does not implement."""
+def deferred(what: str, module: str):
+    """The error for a setting this slice of the port does not implement:
+    ``module`` is where the reference package ``repro`` holds it."""
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
+        f"{what} is not ported to repro_torch yet: the reference's "
+        f"{module} (ROADMAP)")
 
 
 class DeviceExecutor:
@@ -73,20 +76,19 @@ class DeviceExecutor:
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
                  async_paging: bool = False, device=None):
         if plan_mode == "pow2":
-            raise deferred("plan_mode='pow2'", "item 8 (pow2 plans)")
+            raise deferred("plan_mode='pow2'", "serving/executor.py")
         if plan_mode != "masked":
             raise ValueError(f"plan_mode must be 'masked' or 'pow2', "
                              f"got {plan_mode!r}")
         if prefill_batching:
-            raise deferred("prefill_batching=True",
-                           "item 8 (batched staging)")
+            raise deferred("prefill_batching=True", "serving/executor.py")
         if mesh is not None:
-            raise deferred("mesh", "item 11 (multi-device)")
+            raise deferred("mesh", "parallel/sharding.py")
         if draft_cfg is not None or draft_params is not None:
             raise deferred("speculative decode (draft model)",
-                           "item 10 (speculative decode)")
+                           "serving/executor.py")
         if async_paging:
-            raise deferred("async_paging", "item 10 (state paging)")
+            raise deferred("async_paging", "serving/scheduler.py")
         if staging_depth < 1:
             raise ValueError(
                 f"staging_depth must be >= 1, got {staging_depth}")

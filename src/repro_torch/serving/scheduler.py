@@ -23,7 +23,7 @@ The scheduler never touches a device buffer; it decides *what* the
 Staging is per prompt: the reference's batched staging emits bitwise the
 same streams as its per-prompt path, so this port is held against the
 reference's default engine.  Settings of later slices raise
-``NotImplementedError`` naming their ROADMAP item.
+``NotImplementedError`` naming the reference module that holds them.
 """
 from __future__ import annotations
 
@@ -125,18 +125,17 @@ class Scheduler:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
         if prefill_budget is not None:
             raise deferred("prefill_budget (batched staging)",
-                           "item 8 (batched staging)")
+                           "serving/scheduler.py")
         if (swap_policy != "manual" or idle_swap_ms is not None
                 or max_live_requests is not None
                 or host_swap_bytes is not None or swap_spool_dir is not None):
             raise deferred("state paging (swap policies, admission caps, "
-                           "spill)", "item 10 (state paging)")
+                           "spill)", "serving/scheduler.py")
         if speculative or adaptive_k:
-            raise deferred("speculative decode", "item 10 (speculative "
-                                                 "decode)")
+            raise deferred("speculative decode", "serving/scheduler.py")
         if role != "both":
             raise deferred(f"role={role!r} (disaggregated serving)",
-                           "item 10 (router and RPC)")
+                           "serving/router.py and serving/rpc.py")
         self.cfg = cfg
         self.params = params
         self.max_slots = max_slots
@@ -247,13 +246,13 @@ class Scheduler:
         self._all.append(req)
 
     def pause(self, rid: int):
-        raise deferred("pause (state paging)", "item 10 (state paging)")
+        raise deferred("pause (state paging)", "serving/scheduler.py")
 
     def resume(self, rid: int):
-        raise deferred("resume (state paging)", "item 10 (state paging)")
+        raise deferred("resume (state paging)", "serving/scheduler.py")
 
     def preempt(self, rid: Optional[int] = None):
-        raise deferred("preempt (state paging)", "item 10 (state paging)")
+        raise deferred("preempt (state paging)", "serving/scheduler.py")
 
     @property
     def queue_len(self) -> int:

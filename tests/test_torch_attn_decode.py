@@ -128,13 +128,108 @@ def test_kernel_wrapper_checks_and_never_falls_back():
 
 
 def test_split_len_fills_the_card():
-    """Splits at the three shapes of chip_smoke.py on 132 SMs: (a) one
-    tile each, (b) 16 of 256 slots, (c) 64 of 512; whole tiles, one split
+    """Splits at the three shapes of chip_smoke.py on 132 SMs, each just
+    enough CTAs for 64 KiB of K/V in flight per SM: (a) one tile each
+    (3-stage ring at d = 128: 64 KiB per CTA), (b) 16 of 256 slots (d = 80:
+    2 stages, four CTAs per SM), (c) 32 of 1024; whole tiles, one split
     when the card is full without splitting."""
     assert tkattn.split_len(4, 2, 1024, 128, 2, 132) == 64
     assert tkattn.split_len(4, 8, 4096, 80, 2, 132) == 256
-    assert tkattn.split_len(1, 4, 32768, 128, 2, 132) == 512
+    assert tkattn.split_len(1, 4, 32768, 128, 2, 132) == 1024
     assert tkattn.split_len(64, 16, 100, 64, 4, 132) == 128
+
+
+@pytest.mark.parametrize("d,itemsize,stages", [(128, 2, 3), (80, 2, 2),
+                                               (64, 2, 2), (16, 2, 2),
+                                               (128, 4, 2), (80, 4, 2)])
+def test_ring_stages(d, itemsize, stages):
+    """bf16 deepens its ring to 3 stages only where two tiles in flight
+    reach 64 KiB and two CTAs still fit an SM (d = 128); fp32
+    double-buffers."""
+    assert tkattn.ring_stages(d, itemsize) == stages
+
+
+# (label, B, Hkv, d, T, lengths with one row emptied): chip_smoke.py's three
+# shapes; (split, splits per row of the grid, live splits per batch row)
+SIZING = {
+    "a": ((4, 2, 128, 1024, (1, 300, 0, 1024)), (64, 16, [1, 5, 0, 16])),
+    "b": ((4, 8, 80, 4096, (100, 0, 4500, 9000)), (256, 16, [1, 0, 16, 16])),
+    "c": ((1, 4, 128, 32768, (0,)), (1024, 32, [0])),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SIZING))
+def test_split_and_counter_sizing(shape):
+    """The host's plan at each shape with an empty batch row: the split,
+    the grid's splits per (row, kv head), the live splits the kernel
+    counts (ceil(min(length, T) / split); 0 for the empty row, whose
+    output split 0 writes as zeros without touching a counter), and one
+    arrival counter per (row, kv head)."""
+    (B, Hkv, d, T, lengths), (split, n_split, live) = SIZING[shape]
+    assert tkattn.split_len(B, Hkv, T, d, 2, 132) == split
+    assert -(-T // split) == n_split
+    assert tkattn.live_splits(lengths, T, split) == live
+    assert max(live) <= n_split
+    buf = tkattn._counter_buffer(torch.device("cpu"), B * Hkv)
+    assert buf.numel() >= B * Hkv and buf.dtype == torch.int32
+    assert not buf.any()
+    assert tkattn._counter_buffer(torch.device("cpu"), B * Hkv) is buf
+
+
+def _split_merge_emulation(q, k, v, length, window, split):
+    """The one-launch kernel's arithmetic in fp32 on (B, Hq, d) q and (B,
+    Hkv, T, d) caches: each live split's (m, l, acc) in log2 units, then
+    the last split's merge in split order 0..n-1 — M = max m_s, w_s =
+    exp2(m_s - M), o = sum w_s acc_s / max(sum w_s l_s, 1e-30); a row with
+    no occupied slot gives 0."""
+    B, Hq, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    vis = tref.attn_decode_visible(length, T, window)       # (B, T)
+    s = torch.einsum("bhgd,bhtd->bhgt", q.reshape(B, Hkv, G, d), k)
+    s = s * (d ** -0.5 * 1.4426950408889634)
+    o = torch.zeros(B, Hkv, G, d)
+    for b in range(B):
+        live = tkattn.live_splits(length[b:b + 1].tolist(), T, split)[0]
+        parts = []
+        for sp in range(live):
+            sl = slice(sp * split, min((sp + 1) * split,
+                                       min(int(length[b]), T)))
+            x = s[b, :, :, sl].masked_fill(~vis[b, sl], -1e30)
+            m = x.amax(-1, keepdim=True)
+            p = torch.where(vis[b, sl], torch.exp2(x - m), torch.zeros(()))
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("hgt,htd->hgd", p, v[b, :, sl])))
+        if not parts:
+            continue
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        num, den = 0.0, 0.0
+        for m, l, acc in parts:
+            w = torch.exp2(m - M)
+            num, den = num + w * acc, den + w * l
+        o[b] = num / torch.clamp(den, min=1e-30)
+    return o.reshape(B, Hq, d)
+
+
+@pytest.mark.parametrize("split", [8, 16, 64])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_merge_emulation_matches_pallas(case, split):
+    """The kernel's split-and-merge design on the CPU against the Pallas
+    kernel in interpret mode (fp32, 1e-5) on the occupied rows.  The first
+    batch row is emptied: the reference leaves a length-0 row undefined
+    (its Pallas kernel averages V, its oracle gives NaN); the port's plain
+    version, and so the kernel, gives o = 0."""
+    B, Hkv, G, T, d, lengths, window = CASES[case]
+    q, k, v, length = _decode_inputs(22, B, Hkv, G, T, d, lengths)
+    length[0] = 0
+    jo = jops.attn_decode(*(jnp.asarray(a) for a in (q, k, v)),
+                          jnp.asarray(length), block_t=8, window=window)
+    tq, tk, tv, tl = (torch.from_numpy(a) for a in (q, k, v, length))
+    to = _split_merge_emulation(tq, tk, tv, tl, window, split)
+    np.testing.assert_allclose(to[1:].numpy(), _np(jo)[1:], **F32)
+    assert not to[0].any()
+    assert torch.equal(to[0], tref.attn_decode_ref(tq, tk, tv, tl,
+                                                   window=window)[0])
 
 
 # ------------------------------------------------------ attention layer

@@ -216,6 +216,90 @@ def test_flash_dq_bitwise_reproducible(cuda):
         assert torch.equal(tflash._dq_cuda(*args), first)
 
 
+def _dkv_inputs(cuda, rng, BH, G, T, hd):
+    q, do = (_normal(rng, BH, G, T, hd).to(cuda, torch.bfloat16)
+             for _ in range(2))
+    k, v = (_normal(rng, BH, T, hd).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+def test_flash_dkv_bitwise_reproducible(cuda):
+    """The bf16 dk/dv kernel sums the G query heads in a fixed order (a
+    thread block cluster, no atomics): five calls at the trained shape
+    (B=2, T=2048, GQA 16:2) give the same bits, from one launch each."""
+    from repro_torch.kernels import flash_attn as tflash
+    rng = np.random.default_rng(18)
+    BH, G, T, hd = 4, 8, 2048, 128
+    q, k, v, do = _dkv_inputs(cuda, rng, BH, G, T, hd)
+    o, m, l = tflash.flash_fwd(q, k, v)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, m, l, delta, None, hd ** -0.5, 0)
+    n = tflash.launches["flash_bwd_dkv"]
+    dk0, dv0 = tflash._dkv_cuda(*args)
+    assert dk0.dtype == dv0.dtype == torch.bfloat16
+    for _ in range(4):
+        dk, dv = tflash._dkv_cuda(*args)
+        assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+    assert tflash.launches["flash_bwd_dkv"] == n + 5
+
+
+# (G, hd, T, window, valid_len per batch row of 2): the registry's group
+# sizes 1 (minicpm-2b; no cluster), 4 (yi-9b; 4 CTAs of one head), 7
+# (llava-next-34b; 7 CTAs of one head) and 8 (h2o-danube, qwen3-next-gdn;
+# 4 CTAs of two heads), and 16 (4 CTAs of four heads); each with a window
+# or with valid_len whose second row leaves key tiles wholly past it (they
+# must come out as zeros)
+DKV_GROUP_CASES = [(1, 128, 200, 50, (200, 60)), (4, 64, 256, None, (256, 9)),
+                   (7, 128, 200, 70, (131, 64)), (8, 128, 320, 100, (320, 1)),
+                   (16, 64, 192, None, (192, 100))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DKV_GROUP_CASES)
+def test_flash_dkv_cluster_vs_plain(cuda, case):
+    """dk and dv of the bf16 cluster kernel against the plain version at
+    every cluster size the registry needs (2e-2: one bf16 rounding of an
+    fp32 sum), and exactly zero on key rows at or past valid_len."""
+    from repro_torch.kernels import flash_attn as tflash
+    G, hd, T, window, valid = case
+    rng = np.random.default_rng(19)
+    Hkv = 2
+    q, k, v, do = _dkv_inputs(cuda, rng, 2 * Hkv, G, T, hd)
+    vl = torch.repeat_interleave(torch.tensor(valid, dtype=torch.int32),
+                                 Hkv).to(cuda)
+    rows = torch.arange(T, device=cuda)[None, :] < vl[:, None]
+    do = do * rows[:, None, :, None].to(do.dtype)
+    o, m, l = tflash.flash_fwd(q, k, v, vl, window=window)
+    _, dk, dv = tflash.flash_bwd(q, k, v, o, m, l, do, vl, window=window)
+    _, pdk, pdv = ref.flash_bwd_ref(q, k, v, o, m, l, do, vl, window=window)
+    torch.cuda.synchronize()
+    _close(dk, pdk, BF16)
+    _close(dv, pdv, BF16)
+    assert not dk[~rows].any() and not dv[~rows].any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_bitwise_on_card(cuda):
+    """Two autograd backward passes of ``flash_attention`` through the
+    kernels (bf16, GQA 8:1, a window) give bitwise-equal gradients."""
+    from repro_torch.kernels import flash_attn as tflash
+    rng = np.random.default_rng(20)
+    B, T, Hq, Hkv, hd = 2, 384, 8, 1, 128
+    xs = [_normal(rng, B, T, h, hd).to(cuda, torch.bfloat16)
+          for h in (Hq, Hkv, Hkv)]
+    w = _normal(rng, B, T, Hq, hd).to(cuda)
+    grads = []
+    for _ in range(2):
+        ins = [x.clone().requires_grad_(True) for x in xs]
+        o = tflash.flash_attention(*ins, window=200)
+        (o.float() * w).sum().backward()
+        grads.append([x.grad for x in ins])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_attention_autograd_on_card(cuda):
     """FlashAttention's gradients through the kernels equal those through
@@ -277,6 +361,34 @@ def test_attn_decode_kernel_vs_plain_and_sdpa(cuda, dtype, case):
     assert tattn.launches == n + 1 and o.dtype == dtype
     _close(o, want, F32 if dtype == torch.float32 else BF16)
     _close(o, lib, BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_decode_one_launch_bitwise_and_empty_rows(cuda, dtype):
+    """Shape (b) of chip_smoke.py with its second batch row emptied: one
+    kernel launch per call (the merge is the last split's), five calls
+    bitwise equal (the merge sums in split order whichever split is last),
+    o = 0 exactly on the empty row, the other rows as the plain version."""
+    from repro_torch.kernels import attn_decode as tattn
+    B, Hq, Hkv, d, T, lengths, window = ATTN_CASES["b"]
+    lengths = (lengths[0], 0) + lengths[2:]
+    q, k, v, length = _attn_inputs(cuda, dtype, B, Hq, Hkv, d, T, lengths)
+
+    def call():
+        return tattn.attn_decode(q, k, v, length, window=window)
+
+    first = call()
+    n = tattn.launches
+    for _ in range(4):
+        assert torch.equal(call(), first)
+    assert tattn.launches == n + 4
+    from repro_torch.launch.profile_decode import kernels_per_call
+    per_call, names = kernels_per_call(call)
+    assert per_call == 1 and all("attn_decode" in x for x in names), names
+    assert not first[1].any()
+    want = ref.attn_decode_ref(q, k, v, length, window=window)
+    _close(first, want, F32 if dtype == torch.float32 else BF16)
 
 
 @pytest.mark.cuda

@@ -223,6 +223,101 @@ def test_tensor_core_rounding_matches_reference(window, valid):
     np.testing.assert_allclose(_np(dv), _np(jdv), **card)
 
 
+@pytest.mark.parametrize("G,expected", [(1, 1), (4, 4), (6, 3), (7, 7),
+                                        (8, 4), (16, 4)])
+def test_dkv_cluster_size(G, expected):
+    """The bf16 dk/dv kernel's cluster over a key tile's G query heads:
+    the largest divisor of G up to 4 (the registry's G = 8: four CTAs of
+    two heads each; G = 4: one head each), or G itself where no divisor
+    but 1 is that small and G fits a cluster (G = 7, llava-next-34b)."""
+    C = tflash.cluster_size(G)
+    assert C == expected and G % C == 0 and C <= tflash.MAX_CLUSTER
+
+
+def _dkv_cluster_emulation(q, k, v, do, vl, window, scale, C):
+    """Dense emulation of the bf16 dk/dv kernel's reduction on (BH, G, T,
+    hd) bf16 q, do and (BH, T, hd) bf16 k, v: per query head the fp32
+    partials dK_g = scale rnd(dS_g)^T Q_g and dV_g = rnd(P_g)^T dO_g (P and
+    dS rounded to bf16 as the kernel's products take them); cluster rank
+    r sums heads r G/C .. (r+1) G/C - 1 in order, the ranks' partials are
+    summed in rank order 0..C-1, then one bf16 rounding."""
+    f = torch.float32
+    BH, G, T, hd = q.shape
+    pos = torch.arange(T)
+    keep = pos[:, None] >= pos[None, :]
+    if window is not None:
+        keep = keep & (pos[:, None] - pos[None, :] < window)
+    keep = keep[None, None] & (pos < (T if vl is None else
+                                      torch.from_numpy(vl)[:, None, None,
+                                                           None]))
+    s = scale * torch.matmul(q.to(f), k.to(f).unsqueeze(1).transpose(-1, -2))
+    s = torch.where(keep, s, torch.full((), -1e30))
+    m = s.amax(-1)
+    e = torch.where(keep, torch.exp(s - m[..., None]), torch.zeros(()))
+    p = e / torch.clamp(e.sum(-1), min=1e-30)[..., None]
+    rnd = lambda x: x.to(torch.bfloat16).to(f)              # noqa: E731
+    o = torch.matmul(rnd(p), v.to(f).unsqueeze(1)).to(torch.bfloat16)
+    dof = do.to(f)
+    delta = (dof * o.to(f)).sum(-1)
+    dp = torch.matmul(dof, v.to(f).unsqueeze(1).transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dk_g = scale * torch.matmul(rnd(ds).transpose(-1, -2), q.to(f))
+    dv_g = torch.matmul(rnd(p).transpose(-1, -2), dof)
+    H = G // C
+    out = []
+    for parts in (dk_g, dv_g):
+        ranks = []
+        for r in range(C):
+            acc = parts[:, r * H]
+            for j in range(1, H):
+                acc = acc + parts[:, r * H + j]
+            ranks.append(acc)
+        total = ranks[0]
+        for r in range(1, C):
+            total = total + ranks[r]
+        out.append(total.to(torch.bfloat16))
+    return o, out[0], out[1]
+
+
+@pytest.mark.parametrize("G,window,valid", [(8, None, None),
+                                            (8, 40, (256, 150)),
+                                            (7, None, None),
+                                            (16, None, (256, 100))])
+def test_dkv_cluster_reduction_matches_reference(G, window, valid):
+    """The deterministic dk/dv design on the CPU: per-head fp32 partials
+    summed in the cluster's fixed order and rounded to bf16 once stay
+    within the card's bf16 tolerance (2e-2, as the rounding emulation
+    above) of the JAX ``_dkv_kernel`` (interpret mode) at hd = 128, for
+    clusters of two heads per CTA (G = 8), one (G = 7) and four (G =
+    16)."""
+    BH, T, hd = 2, 256, 128
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(BH, G, T, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(BH, T, hd)).astype(np.float32)
+            for _ in range(2))
+    do = rng.normal(size=(BH, G, T, hd)).astype(np.float32)
+    vl = None if valid is None else np.asarray(valid, np.int32)
+    rows = np.ones((BH, T), bool) if vl is None else \
+        np.arange(T)[None, :] < vl[:, None]
+    do = do * rows[:, None, :, None]
+    jq, jk, jv, jdo = (_j(x, True) for x in (q, k, v, do))
+    jvl = None if vl is None else jnp.asarray(vl)
+    jo, jm, jl = jflash.flash_fwd(jq, jk, jv, jvl, window=window,
+                                  interpret=True)
+    _, jdk, jdv = jflash.flash_bwd(jq, jk, jv, jo, jm, jl, jdo, jvl,
+                                   window=window, interpret=True)
+    _, dk, dv = _dkv_cluster_emulation(
+        *(_t(x, True) for x in (q, k, v, do)), vl, window, hd ** -0.5,
+        tflash.cluster_size(G))
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    card = dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(dk), _np(jdk), **card)
+    np.testing.assert_allclose(_np(dv), _np(jdv), **card)
+    if vl is not None:       # key rows at or past valid_len: exactly zero
+        for b, n in enumerate(valid):
+            assert not _np(dk)[b, n:].any() and not _np(dv)[b, n:].any()
+
+
 def test_flash_bounds_at_trained_shape():
     """chip_smoke.py's bound arithmetic at the trained shape (B=2,
     T=2048, Hq=16, Hkv=2, hd=128), against the figures worked by hand:

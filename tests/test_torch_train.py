@@ -342,6 +342,7 @@ def test_trainer_microbatch_accumulation():
 
 def test_trainer_rejects_a_mesh():
     cfg = tconfigs.get_arch("qwen3-next-gdn").reduced()
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    with pytest.raises(NotImplementedError,
+                       match=r"parallel/sharding\.py \(ROADMAP\)"):
         ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=object(),
                          device="cpu")
