@@ -21,8 +21,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
   4. serving through ``DecodeEngine`` with the kernels (4 slots, max_len
      1024, prefill chunk 64, decode block 8): 6 requests, prompts of
      100-400 tokens, 32 new tokens each, one at temperature 0.8 / top-k
-     40.  The kernels' launch counters are zeroed just before and read
-     just after this run;
+     40, through an eager engine (``cuda_graphs=False``) and then the
+     default one (every decode and prefill program replayed from a CUDA
+     graph), each serving the mix twice — "cold" (each program's eager
+     first call and its capture), then "warm" — with the streams bitwise
+     equal between the two engines and the program shapes within the
+     reference's bounds.  The kernels' launch counters are zeroed just
+     before and read just after the graphs' warm run (replays add the
+     launches their capture counted); then one replayed tick of 4
+     resident requests under the profiler must run 36 x k
+     ``gdn_decode_kernel`` launches;
   5. training full-width qwen3-next-gdn through the port's ``Trainer``
      with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 3
      steps, a checkpoint into a temporary directory under ``build/``):
@@ -35,8 +43,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      through ``DecodeEngine`` (4 slots, max_len 8192 — a 4096-slot rolling
      cache — prefill chunk 256, decode block 8) with prompts of 5000,
      4500, 1000 and 200 tokens, 32 new tokens each, one at temperature
-     0.8 / top-k 40; (ii) the same four prompts prefilled through the
-     port's chunked prefill, then on each of the 24 layers' wrapped caches
+     0.8 / top-k 40, eagerly and through CUDA graphs as in phase 4;
+     (ii) the same four prompts prefilled through the port's chunked
+     prefill, then on each of the 24 layers' wrapped caches
      ``attention.attn_decode_pallas`` (the flash-decode kernel) against
      ``attention.attn_decode_xla`` (the mixers' path) on clones of the
      cache with one ``x_t``, the kernel's launch counter zeroed just
@@ -621,63 +630,130 @@ def model_phase(cfg, params, lm):
 
 # ---------------------------------------------------------------- phase 4
 
-def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card):
+def serve_twice(Engine, cfg, params, kw, make_requests, card, label):
+    """The same request mix through two engines on one set of weights:
+    ``cuda_graphs=False`` (eager), then the default (every decode and
+    prefill program replayed from a CUDA graph).  Each engine serves the
+    mix twice: "cold" takes every program through its first, eager call
+    and its capture; "warm" replays.  The streams must be bitwise equal
+    between the engines.  The kernels' launch counters are zeroed just
+    before the graphs' warm run (the main path) and read just after it.
+    Returns (graph engine, launches of that run, its decode steps)."""
+    from repro_torch.serving.graphs import add_launches, launch_counts
+    streams, graph_eng = {}, None
+    for graphs in (False, None):
+        eng = Engine(cfg, params, cuda_graphs=graphs, **kw)
+        name = "graphs" if eng.executor.cuda_graphs else "eager"
+        for run in ("cold", "warm"):
+            reqs = make_requests()
+            eng.reset_metrics()                 # decode_steps = 0
+            if name == "graphs" and run == "warm":
+                add_launches(launch_counts(), -1)       # zero every count
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if name == "graphs" and run == "warm":
+                launches, steps = launch_counts(), eng.decode_steps
+            for r in reqs:
+                if len(r.output) != r.max_new_tokens or not all(
+                        0 <= t < cfg.vocab for t in r.output):
+                    raise AssertionError(f"request {r.rid}: bad output "
+                                         f"{r.output}")
+            streams[(name, run)] = [list(r.output) for r in reqs]
+            m = eng.metrics()
+            print(f"  {label} {name} {run} [{card}]: decode "
+                  f"{m['decode_us_per_token']:.1f} us/token "
+                  f"({m['decoded_tokens']} tokens over {m['ticks']} "
+                  f"ticks), mean TTFT {m['mean_ttft_s'] * 1e3:.1f} ms, "
+                  f"{m['tokens'] / wall:.1f} tok/s ({m['tokens']} tokens in "
+                  f"{wall:.3f} s), {m['mean_tokens_per_s']:.1f} tok/s per "
+                  f"request; programs {eng.executor.compiled_programs()}")
+        if name == "graphs":
+            graph_eng = eng
+        else:
+            del eng
+    if graph_eng is None:
+        raise AssertionError("the default engine on the card replays no "
+                             "CUDA graphs")
+    for run in ("cold", "warm"):
+        if streams[("graphs", run)] != streams[("eager", run)]:
+            raise AssertionError(f"{label} {run}: streams with CUDA graphs "
+                                 f"differ from the eager engine's")
+    print(f"  {label}: streams bitwise equal with and without CUDA graphs "
+          f"(first 8 tokens: "
+          + "; ".join(f"{i}:{s[:8]}"
+                      for i, s in enumerate(streams[("graphs", "warm")]))
+          + ")")
+    progs = graph_eng.executor.compiled_programs()
+    if progs["prefill_scan"] > 4 or progs["prefill_admit"] > 1 or \
+            progs["decode"] > max(1, graph_eng.decode_block).bit_length():
+        raise AssertionError(f"{label}: program shapes beyond the "
+                             f"reference's bounds: {progs}")
+    return graph_eng, launches, steps
+
+
+def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
+                kernel_counts):
     Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
     kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
               seed=0, device="cuda")
     rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(100, 401)))
+               for _ in range(6)]
+    print(f"  prompts {[len(p) for p in prompts]}, 32 new tokens each")
 
-    def requests(n, lo, hi, new):
-        out = []
-        for i in range(n):
-            stoch = i == 2
-            out.append(Request(
-                rid=i, prompt=rng.integers(1, cfg.vocab,
-                                           size=int(rng.integers(lo, hi + 1))),
-                max_new_tokens=new, temperature=0.8 if stoch else 0.0,
-                top_k=40 if stoch else 0))
-        return out
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32,
+                        temperature=0.8 if i == 2 else 0.0,
+                        top_k=40 if i == 2 else 0)
+                for i, p in enumerate(prompts)]
 
-    warm = Engine(cfg, params, **kw)        # first-call set-up, not timed
-    for r in requests(2, 100, 130, 4):
-        warm.submit(r)
-    warm.run_until_done()
-    del warm
-
-    eng = Engine(cfg, params, **kw)
-    reqs = requests(6, 100, 400, 32)
-    kdecode.launches = kprefill.launches = 0
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"gdn_decode": kdecode.launches,
-                "gdn_prefill": kprefill.launches}
-    m = eng.metrics()
+    eng, counts, steps = serve_twice(Engine, cfg, params, kw, requests, card,
+                                     "serve")
+    launches = {"gdn_decode": counts[(kdecode.__name__, "")],
+                "gdn_prefill": counts[(kprefill.__name__, "")]}
     n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
-    print(f"  prompts {[r.prompt_len for r in reqs]}, "
-          f"{m['tokens']} tokens in {wall:.3f} s")
-    for r in reqs:
-        if len(r.output) != 32 or not all(0 <= t < cfg.vocab
-                                          for t in r.output):
-            raise AssertionError(f"request {r.rid}: bad output {r.output}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched: {launches}")
-    if launches["gdn_decode"] != n_gdn * eng.decode_steps:
+    if launches["gdn_decode"] != n_gdn * steps:
         raise AssertionError(
             f"gdn_decode launches {launches['gdn_decode']} != {n_gdn} x "
-            f"{eng.decode_steps} decode steps")
-    print(f"  launches {launches} = {n_gdn} GDN layers x "
-          f"{eng.decode_steps} decode steps (+ prefill chunks)")
-    print(f"  serve [{card}]: decode {m['decode_us_per_token']:.1f} "
-          f"us/token ({m['decoded_tokens']} tokens over {m['ticks']} ticks), "
-          f"mean TTFT {m['mean_ttft_s'] * 1e3:.1f} ms, "
-          f"{m['tokens'] / wall:.1f} tok/s overall, "
-          f"{m['mean_tokens_per_s']:.1f} tok/s per request")
-    print("  streams (first 8 tokens): "
-          + "; ".join(f"{r.rid}:{r.output[:8]}" for r in reqs))
+            f"{steps} decode steps")
+    print(f"  launches {launches} = {n_gdn} GDN layers x {steps} decode "
+          f"steps (+ prefill chunks), counted under replay")
+
+    # one replayed tick under the profiler: 4 resident greedy requests,
+    # ticks of k = 8 after the decode(8) graph has been captured
+    for i in range(4):
+        eng.submit(Request(rid=100 + i, prompt=prompts[i][:128],
+                           max_new_tokens=200))
+    while len(eng.active) < 4 or eng._stagings or eng.queue:
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    if eng.executor._programs[("decode", 8, False)].graph is None:
+        raise AssertionError("decode(8) was not captured")
+    ks = []
+
+    def tick():
+        steps0 = eng.decode_steps
+        eng.step()
+        ks.append(eng.decode_steps - steps0)
+
+    counts = kernel_counts(tick, calls=2)
+    k = ks[-1]
+    if set(ks) != {8}:
+        raise AssertionError(f"profiled ticks of k = {ks}, not 8")
+    got = sum(n for name, n in counts.items() if "gdn_decode_kernel" in name)
+    print(f"  one replayed tick (k = {k}) under the profiler: {got:g} "
+          f"gdn_decode_kernel launches ({n_gdn} x {k} expected), "
+          f"{sum(counts.values()):g} kernels in all")
+    if got != n_gdn * k:
+        raise AssertionError(f"a replayed tick ran {got} gdn_decode_kernel "
+                             f"launches, not {n_gdn} x {k}")
     return launches
 
 
@@ -803,41 +879,25 @@ DANUBE_PROMPTS = (5000, 4500, 1000, 200)
 
 def _danube_serve(cfg, params, engine_mod, card):
     """(i) Four requests, two with prompts past the 4096-token window,
-    through ``DecodeEngine`` to completion (after a short warm run)."""
+    through ``DecodeEngine`` to completion, eagerly and through CUDA
+    graphs (``serve_twice``)."""
     Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
     kw = dict(max_slots=4, max_len=8192, prefill_chunk=256, decode_block=8,
               seed=0, device="cuda")
     rng = np.random.default_rng(6)
-    warm = Engine(cfg, params, **kw)
-    for i in range(2):
-        warm.submit(Request(rid=i, prompt=rng.integers(1, cfg.vocab, 300),
-                            max_new_tokens=4))
-    warm.run_until_done()
-    del warm
-    eng = Engine(cfg, params, **kw)
-    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n),
-                    max_new_tokens=32, temperature=0.8 if i == 2 else 0.0,
-                    top_k=40 if i == 2 else 0)
-            for i, n in enumerate(DANUBE_PROMPTS)]
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    for r in reqs:
-        if len(r.output) != 32 or not all(0 <= t < cfg.vocab
-                                          for t in r.output):
-            raise AssertionError(f"request {r.rid}: bad output {r.output}")
-    m = eng.metrics()
-    print(f"  serve [{card}]: prompts {[r.prompt_len for r in reqs]} "
-          f"(window {cfg.window}), {m['tokens']} tokens in {wall:.3f} s = "
-          f"{m['tokens'] / wall:.1f} tok/s; decode "
-          f"{m['decode_us_per_token']:.1f} us/token ({m['decoded_tokens']} "
-          f"tokens over {m['ticks']} ticks), mean TTFT "
-          f"{m['mean_ttft_s'] * 1e3:.1f} ms")
-    print("  streams (first 8 tokens): "
-          + "; ".join(f"{r.rid}:{r.output[:8]}" for r in reqs))
+    prompts = [rng.integers(1, cfg.vocab, n) for n in DANUBE_PROMPTS]
+    print(f"  prompts {list(DANUBE_PROMPTS)} (window {cfg.window}), 32 new "
+          f"tokens each")
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32,
+                        temperature=0.8 if i == 2 else 0.0,
+                        top_k=40 if i == 2 else 0)
+                for i, p in enumerate(prompts)]
+
+    eng, _, _ = serve_twice(Engine, cfg, params, kw, requests, card,
+                            "danube serve")
+    del eng
 
 
 def _danube_layers(cfg, params, lm, attention, kattn):
@@ -943,6 +1003,7 @@ def main():
         from repro_torch.kernels import gdn_decode as kdecode
         from repro_torch.kernels import gdn_prefill as kprefill
         from repro_torch.launch.profile_decode import (ATTN_DECODE_SHAPES,
+                                                       kernel_counts,
                                                        kernels_per_call,
                                                        time_launches)
         from repro_torch.models import attention, lm
@@ -992,7 +1053,7 @@ def main():
 
     print(f"[4] serving through DecodeEngine [{card}]")
     launches = serve_phase(cfg, params, engine_mod, kdecode, kprefill,
-                           card)
+                           card, kernel_counts)
     del params
     torch.cuda.empty_cache()
 

@@ -34,6 +34,17 @@ def resolve(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def as_int(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """An int, or an int tensor, as a ``dtype`` tensor on ``device`` with no
+    copy from host memory: a tensor is cast where it lies (moved first if
+    it lies elsewhere), a host int is written by a fill kernel.  Either is
+    safe inside a CUDA graph capture, which refuses a pageable
+    host-to-device copy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), int(x), dtype=dtype, device=device)
+
+
 def dtype(name) -> torch.dtype:
     """Config dtype string (``ArchConfig.act_dtype``/``state_dtype``) or
     torch dtype -> torch dtype."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch.kernels import attn_decode as _attn
 from repro_torch.kernels import gdn_decode as _decode
 from repro_torch.kernels import gdn_prefill as _prefill
@@ -61,7 +62,7 @@ def gdn_prefill(q, k, v, log_g, beta, S0, *, chunk=64, scale=None,
     S0h = S0.view(B * Hv, d_k, d_v)
     vlh = None
     if valid_len is not None:
-        vl = torch.as_tensor(valid_len, dtype=torch.int32, device=S0.device)
+        vl = _device.as_int(valid_len, torch.int32, S0.device)
         vlh = torch.repeat_interleave(vl.reshape(-1).expand(B), Hv)
     if _on_cuda(S0):
         O, _ = _prefill.gdn_prefill(qh, kh, vh, lgh, bh, S0h, vlh,

@@ -6,11 +6,15 @@ Full-width qwen3-next-gdn (random bf16 weights from ``--seed``) in a
 ``DecodeEngine`` with ``--slots`` requests resident.  Prints
 
   * the wall time of a decode step (host clock around ticks that end in a
-    host sync), with the hand-written kernels and through the plain path,
-    measured in turns (kernels, plain, kernels, plain);
-  * a ``torch.profiler`` breakdown of ``--ticks`` kernel-path ticks: the
-    device's busy share of the wall time and the top operators by device
-    time and by host time;
+    host sync) for three engines, measured in turns: the hand-written
+    kernels replayed from CUDA graphs ("graphs", the default), the same
+    kernels run eagerly ("eager", ``cuda_graphs=False``) and the plain
+    path, eagerly ("plain");
+  * for "graphs" and "eager", a ``torch.profiler`` breakdown of
+    ``--ticks`` ticks: the device's busy share of the wall time, the
+    kernels launched and the device's idle time per step (and per launch:
+    the mean gap), and the top operators by device time and by host
+    time;
   * the GDN decode kernel alone at the served shape, by what precedes
     each launch (``decode_kernel_study``), against its per-call time in
     the profiled ticks.
@@ -36,17 +40,18 @@ from repro_torch.models import lm
 from repro_torch.serving.engine import DecodeEngine, Request
 
 
-def _engine(cfg, params, args):
+def _engine(cfg, params, args, cuda_graphs):
     eng = DecodeEngine(cfg, params, max_slots=args.slots, max_len=1024,
                        prefill_chunk=64, decode_block=args.block,
-                       seed=args.seed)
+                       seed=args.seed, cuda_graphs=cuda_graphs)
     rng = np.random.default_rng(args.seed)
     for i in range(args.slots):
         eng.submit(Request(rid=i, prompt=rng.integers(1, cfg.vocab, 128),
                            max_new_tokens=1000))
     while len(eng.active) < args.slots:     # admit every request
         eng.step()
-    eng.step()                              # one warm tick
+    for _ in range(2):                      # warm ticks: the tick's eager
+        eng.step()                          # first call, then its capture
     return eng
 
 
@@ -130,14 +135,14 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
     return event_ms, _kernel_split_us(prof, (kernel,), reps)[kernel] / 1e3
 
 
-def kernels_per_call(fn, calls=10, tries=3):
-    """(device kernels launched per call of ``fn``, their names), as the
-    profiler records them.  Spin kernels pad the window on both sides and
-    precede each call, and are not counted: the profiler can drop the
-    records at the edge of a window, and now and then a whole window's.
-    A window counts only if most of its spins were recorded (a test of
-    the profiler, independent of ``fn``); up to ``tries`` windows, else
-    it raises."""
+def kernel_counts(fn, calls=10, tries=3):
+    """{kernel name: device launches per call of ``fn``}, as the profiler
+    records them.  Spin kernels pad the window on both sides and precede
+    each call, and are not counted: the profiler can drop the records at
+    the edge of a window, and now and then a whole window's.  A window
+    counts only if most of its spins were recorded (a test of the
+    profiler, independent of ``fn``); up to ``tries`` windows, else it
+    raises."""
     spins = 1 + calls + 4
     for _ in range(tries):
         torch.cuda.synchronize()
@@ -154,11 +159,16 @@ def kernels_per_call(fn, calls=10, tries=3):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         seen = sum(e.count for e in events if "spin_kernel" in e.key)
         if seen >= spins - 2:
-            kernels = [e for e in events if "spin_kernel" not in e.key]
-            return (sum(e.count for e in kernels) / calls,
-                    [e.key for e in kernels])
+            return {e.key: e.count / calls for e in events
+                    if "spin_kernel" not in e.key}
     raise RuntimeError(f"the profiler recorded too few of its windows' "
                        f"{spins} spin kernels in {tries} tries")
+
+
+def kernels_per_call(fn, calls=10, tries=3):
+    """(device kernels launched per call of ``fn``, their names)."""
+    counts = kernel_counts(fn, calls, tries)
+    return sum(counts.values()), list(counts)
 
 
 def decode_kernel_study(cfg, batch):
@@ -245,15 +255,20 @@ def main(argv=None):
     base = configs.get_arch("qwen3-next-gdn")
     decode_kernel_study(base, args.slots)
     params = lm.init_lm(args.seed, base)
-    engines = {}
-    for name, pallas in (("kernels", True), ("plain", False)):
-        engines[name] = _engine(base.replace(use_pallas_serving=pallas),
-                                params, args)
-    for name in ("kernels", "plain", "kernels", "plain"):
+    kernels = base.replace(use_pallas_serving=True)
+    engines = {"graphs": _engine(kernels, params, args, None),
+               "eager": _engine(kernels, params, args, False),
+               "plain": _engine(base, params, args, False)}
+    for name in ("graphs", "eager", "plain") * 2:
         print(f"decode step, {args.slots} slots, {name}: "
               f"{_step_ms(engines[name], args.ticks):.3f} ms")
-    eng = engines["kernels"]
     del engines["plain"]
+    for name in ("graphs", "eager"):
+        _breakdown(name, engines[name], args)
+
+
+def _breakdown(name, eng, args):
+    """The profiler's view of ``args.ticks`` ticks of ``eng``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -265,19 +280,24 @@ def main(argv=None):
         wall_us = (time.perf_counter() - t0) * 1e6
     steps = eng.decode_steps - steps0
     avg = prof.key_averages()
-    dev_total = sum(_dev_us(e) for e in avg)
-    attributed = sum(e.self_device_time_total for e in avg
-                     if e.device_type != torch.autograd.DeviceType.CUDA)
-    print(f"profiled {steps} steps: wall {wall_us / steps / 1e3:.3f} ms/step, "
-          f"device busy {dev_total / steps / 1e3:.3f} ms/step "
-          f"({100 * dev_total / wall_us:.1f}% of wall, profiler on; "
-          f"{attributed / steps / 1e3:.3f} ms/step attributed to operators)")
-    print(f"top {args.top} kernels by device time (ms per step, calls per "
-          f"step, us per call):")
-    for e in sorted(avg, key=_dev_us, reverse=True)[:args.top]:
+    kernels = [e for e in avg
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_total = sum(_dev_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels) / steps
+    idle_us = (wall_us - dev_total) / steps
+    print(f"{name}: profiled {steps} steps: wall "
+          f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
+          f"{dev_total / steps / 1e3:.3f} ms/step ({100 * dev_total / wall_us:.1f}"
+          f"% of wall, profiler on); {launches:.1f} kernels per step, the "
+          f"device idle {idle_us / 1e3:.3f} ms per step = "
+          f"{idle_us / launches:.2f} us per launch")
+    print(f"{name}: top {args.top} kernels by device time (ms per step, "
+          f"calls per step, us per call):")
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:args.top]:
         print(f"  {_dev_us(e) / steps / 1e3:9.4f}  {e.count / steps:7.1f}  "
               f"{_dev_us(e) / e.count:8.2f}  {e.key[:90]}")
-    print(f"top {args.top} by host time (self ms per step, calls per step):")
+    print(f"{name}: top {args.top} by host time (self ms per step, calls "
+          f"per step):")
     host = [e for e in avg
             if e.device_type != torch.autograd.DeviceType.CUDA]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,

@@ -7,7 +7,9 @@ state slots (the base flags of ``repro.launch.serve``).
 Runs on the card (``--device cuda``, the default) or, with
 ``--device cpu``, on the CPU through the kernels' plain versions.
 ``--kernels`` sets ``use_pallas_serving``: the GDN layers then run the
-hand-written CUDA kernels.  ``--full`` serves the full-width config with
+hand-written CUDA kernels.  On the card every decode and prefill program
+is replayed from a CUDA graph; ``--no-cuda-graphs`` runs them eagerly
+(the comparison run: the streams are the same).  ``--full`` serves the full-width config with
 weights drawn on the device from ``--seed``; the default is the reduced
 config.
 """
@@ -58,6 +60,10 @@ def main(argv=None):
                          "the hand-written CUDA kernels")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--no-cuda-graphs", dest="cuda_graphs",
+                    action="store_false", default=None,
+                    help="run the programs eagerly on the card instead of "
+                         "replaying CUDA graphs")
     args = ap.parse_args(argv)
 
     cfg = configs.get_arch(args.arch)
@@ -71,14 +77,16 @@ def main(argv=None):
                        decode_block=args.decode_block, overlap=args.overlap,
                        prefill_chunk=args.prefill_chunk,
                        budget_ticks=args.budget_ticks,
-                       staging_depth=args.staging_depth, device=args.device)
+                       staging_depth=args.staging_depth, device=args.device,
+                       cuda_graphs=args.cuda_graphs)
     print(f"engine: {args.slots} slots x (persistent state "
           f"{eng.state_bytes_per_slot / 2**10:.1f} KiB + window/KV "
           f"{eng.window_bytes_per_slot / 2**10:.1f} KiB) = "
           f"{eng.cache_bytes / 2**20:.2f} MiB slot buffers on "
           f"{eng.executor.device}, decode_block={args.decode_block}, "
           f"prefill={'overlapped' if args.overlap else 'serialized'} "
-          f"chunks of {eng.prefill_chunk}, kernels={args.kernels}")
+          f"chunks of {eng.prefill_chunk}, kernels={args.kernels}, "
+          f"cuda_graphs={eng.executor.cuda_graphs}")
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         prompt = rng.integers(1, cfg.vocab, size=rng.integers(4, 17),
@@ -100,6 +108,7 @@ def main(argv=None):
     print(f"  per-request means: ttft {m['mean_ttft_s'] * 1e3:.1f} ms, "
           f"latency {m['mean_latency_s'] * 1e3:.1f} ms, "
           f"{m['mean_tokens_per_s']:.1f} tok/s")
+    print(f"  programs: {eng.executor.compiled_programs()}")
     for r in done[:4]:
         print(f"  req {r.rid}: ttft {r.ttft_s * 1e3:.1f} ms, "
               f"{len(r.output)} toks: {list(r.output)}")

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import device as _device
 from repro_torch.kernels import flash_attn, ops
 from repro_torch.models import layers
 
@@ -260,14 +261,14 @@ def attn_prefill_chunk(p, x, cache: KVCache, *, rope_theta=10000.0,
     new_k = k.to(cache.k.dtype)                                 # (B,C,Hkv,hd)
     new_v = v.to(cache.v.dtype)
     if valid_len is not None:
-        vl = torch.as_tensor(valid_len, dtype=torch.int64, device=dev)
+        vl = _device.as_int(valid_len, torch.int64, dev)
         keep = (ar[None, :] < vl.reshape(-1, 1))[:, :, None, None]
         new_k = torch.where(keep, new_k, cache.k[b_idx, :, slots])
         new_v = torch.where(keep, new_v, cache.v[b_idx, :, slots])
     cache.k[b_idx, :, slots] = new_k
     cache.v[b_idx, :, slots] = new_v
-    adv = C if valid_len is None else torch.as_tensor(
-        valid_len, dtype=cache.length.dtype, device=dev)
+    adv = C if valid_len is None else _device.as_int(
+        valid_len, cache.length.dtype, dev)
     cache.length.add_(adv)
     return out, cache
 

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch.core import gdn as gdn_core
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -96,8 +97,7 @@ def mask_ragged_inputs(valid_len, k, v, log_g, beta):
     """Zero the inputs at padded positions (>= ``valid_len``): a padded
     token with k = v = beta = 0 and log_g = 0 is an exact no-op on the
     state.  ``valid_len``: int, or (B,) int tensor."""
-    vl = torch.as_tensor(valid_len, dtype=torch.int32,
-                         device=k.device).reshape(-1, 1)
+    vl = _device.as_int(valid_len, torch.int32, k.device).reshape(-1, 1)
     vm = torch.arange(k.shape[1], device=k.device)[None, :] < vl
     zero = torch.zeros((), dtype=k.dtype, device=k.device)
     zf = torch.zeros((), dtype=log_g.dtype, device=k.device)

@@ -268,13 +268,10 @@ def prefill_chunk_scan(params, cfg: ArchConfig, caches, tokens=None,
                        embeds=None, valid_lens=None):
     """``prefill_chunk`` over n equal chunks in order.  tokens: (B, n, C)
     or embeds (B, n, C, d); ``valid_lens`` (n,) per-chunk valid counts, or
-    (n, B) per row (a 0 entry is an exact no-op chunk; a host int 0 is not
-    run at all).  Returns caches."""
+    (n, B) per row (a 0 entry is an exact no-op chunk).  Returns caches."""
     xs = tokens if tokens is not None else embeds
     for i in range(xs.shape[1]):
         vl = None if valid_lens is None else valid_lens[i]
-        if isinstance(vl, int) and vl == 0:
-            continue
         if tokens is not None:
             _, caches = prefill_chunk(params, cfg, caches, tokens=xs[:, i],
                                       valid_len=vl)
@@ -297,7 +294,7 @@ def prefill_sample(params, cfg: ArchConfig, caches, sampler, sample_fn,
     elif isinstance(valid_len, int):
         h_last = x[:, valid_len - 1]
     else:
-        vl = torch.as_tensor(valid_len, device=x.device).long()
+        vl = _device.as_int(valid_len, torch.int64, x.device)
         idx = torch.clamp(vl.reshape(-1) - 1, min=0).expand(x.shape[0])
         h_last = x[torch.arange(x.shape[0], device=x.device), idx]
     h = layers.rmsnorm_fwd(params["final_norm"], h_last, cfg.norm_eps)

@@ -2,6 +2,8 @@
 KV cache, wrapping ``repro_torch.models.attention``."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch import device as _device
@@ -10,7 +12,11 @@ from repro_torch.models.mixers import register
 from repro_torch.models.mixers.base import ArraySpec, CacheSpec, SequenceMixer
 
 
+@functools.lru_cache(maxsize=None)
 def _head_mask(cfg, device):
+    """The config's head mask on ``device``, copied there once: the
+    programs that reach it may run inside a CUDA graph capture, which
+    refuses a host-to-device copy."""
     if not cfg.n_heads_pad and not cfg.n_kv_heads_pad:
         return None
     return torch.as_tensor(cfg.head_mask(), device=device)

@@ -11,7 +11,10 @@ executor split (port of ``repro.serving.engine``, base tick only).
 ``DecodeEngine(cfg, params, ..., device=None)`` runs on ``cuda`` unless
 ``device="cpu"`` is passed.  With ``cfg.use_pallas_serving`` the GDN layers
 go through the hand-written CUDA kernels on the card (their plain versions
-on the CPU).  The router, RPC workers, paging and speculative decode of the
+on the CPU).  ``cuda_graphs`` (default None: on the card, not on the CPU)
+replays each decode and prefill program from a CUDA graph;
+``cuda_graphs=False`` runs them eagerly on the card, ``True`` on the CPU
+raises.  The router, RPC workers, paging and speculative decode of the
 reference come in later slices; asking for them raises
 ``NotImplementedError``.
 """

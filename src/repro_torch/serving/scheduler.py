@@ -120,7 +120,7 @@ class Scheduler:
                  speculative: bool = False, draft_cfg=None,
                  draft_params=None,
                  adaptive_k: bool = False, role: str = "both",
-                 device=None):
+                 device=None, cuda_graphs: Optional[bool] = None):
         if decode_block < 1:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
         if prefill_budget is not None:
@@ -150,7 +150,7 @@ class Scheduler:
             mesh=mesh, staging_depth=staging_depth, plan_mode=plan_mode,
             prefill_batching=prefill_batching, draft_cfg=draft_cfg,
             draft_params=draft_params, async_paging=async_paging,
-            device=device)
+            device=device, cuda_graphs=cuda_graphs)
         self.free: Deque[int] = deque(range(max_slots))
         self.active: Dict[int, Request] = {}
         self.queue: Deque[Request] = deque()
@@ -423,6 +423,7 @@ class Scheduler:
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
         lats = [r.latency_s for r in done if r.latency_s is not None]
         tps = [r.tokens_per_s for r in done if r.tokens_per_s is not None]
+        progs = self.executor.compiled_programs()
         return {
             "requests": len(done),
             "tokens": sum(len(r.output) for r in done),
@@ -438,6 +439,8 @@ class Scheduler:
             "prefill_chunk": self.executor.prefill_chunk,
             "plan_mode": self.executor.plan_mode,
             "prefill_batching": int(self.executor.prefill_batching),
+            "compiled_programs": progs["total"],
+            "prefill_programs": progs["prefill"],
             "staging_depth": self.staging_depth,
             "syncs_per_token": self.ticks / max(1, self.decoded_tokens),
             "mean_ttft_s": float(np.mean(ttfts)) if ttfts else 0.0,

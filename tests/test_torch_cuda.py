@@ -420,3 +420,164 @@ def test_reduced_serve_through_kernels(cuda):
         assert launched == (kernels, kernels)
         streams[kernels] = [list(r.output) for r in done]
     assert streams[True] == streams[False]
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def _graph_engines(prompts, news, temps):
+    """The reduced qwen3-next-gdn served through the GDN kernels by an
+    engine that replays CUDA graphs and one that runs eagerly, on one set
+    of weights; each serves ``prompts`` twice (the first run takes every
+    program through its eager first call and its capture, the second
+    replays).  Returns {cuda_graphs: (engine, [[stream]] per run)}."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg = configs.get_arch("qwen3-next-gdn").reduced().replace(
+        use_pallas_serving=True)
+    params = lm.init_lm(0, cfg, device="cuda")
+    out = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, params, max_slots=2, max_len=64, seed=0,
+                           decode_block=4, prefill_chunk=16,
+                           device="cuda", cuda_graphs=graphs)
+        runs = []
+        for _ in range(2):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=n,
+                            temperature=t, top_k=20 if t else 0)
+                    for i, (p, n, t) in enumerate(zip(prompts, news, temps))]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            runs.append([list(r.output) for r in reqs])
+        out[graphs] = (eng, runs)
+    return out
+
+
+@pytest.mark.cuda
+def test_graphs_streams_bitwise_equal_eager(cuda):
+    """Greedy and stochastic requests (prompts of 4 to 57 tokens: scans
+    with placeholder chunks) through replayed graphs give the eager
+    engine's streams; the GDN decode launches, counted under replay, are
+    one per GDN layer and decode step, as eagerly."""
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, 256, size=n, dtype=np.int32)
+               for n in (4, 57, 23, 40, 16)]
+    n0 = tdecode.launches
+    res = _graph_engines(prompts, (9, 5, 12, 3, 7),
+                         (0.0, 0.8, 0.0, 1.1, 0.0))
+    (geng, gruns), (eeng, eruns) = res[True], res[False]
+    assert gruns == eruns and gruns[0] == gruns[1]
+    progs = geng.executor.compiled_programs()
+    assert progs["cuda_graphs"] > 0
+    assert eeng.executor.compiled_programs()["cuda_graphs"] == 0
+    assert {k: v for k, v in progs.items() if k != "cuda_graphs"} == \
+        {k: v for k, v in eeng.executor.compiled_programs().items()
+         if k != "cuda_graphs"}
+    n_gdn = sum(k == "gdn" for k in geng.cfg.layer_kinds)
+    assert tdecode.launches - n0 == n_gdn * (geng.decode_steps
+                                             + eeng.decode_steps)
+
+
+@pytest.mark.cuda
+def test_graphs_admit_after_capture(cuda):
+    """A request admitted into a slot after the decode graphs it joins
+    were captured decodes as it does eagerly."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg = configs.get_arch("qwen3-next-gdn").reduced().replace(
+        use_pallas_serving=True)
+    params = lm.init_lm(1, cfg, device="cuda")
+    rng = np.random.default_rng(22)
+    first, late = (rng.integers(1, 256, size=n, dtype=np.int32)
+                   for n in (30, 19))
+    streams = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, params, max_slots=2, max_len=96, seed=0,
+                           decode_block=2, prefill_chunk=16, device="cuda",
+                           cuda_graphs=graphs)
+        a = Request(rid=0, prompt=first, max_new_tokens=40)
+        eng.submit(a)
+        for _ in range(6):          # decode(2) runs eagerly, is captured,
+            eng.step()              # then replays
+        if graphs:
+            assert eng.executor._programs[("decode", 2, False)].graph \
+                is not None
+        b = Request(rid=1, prompt=late, max_new_tokens=12, temperature=0.7)
+        eng.submit(b)
+        eng.run_until_done()
+        streams[graphs] = (list(a.output), list(b.output))
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.cuda
+def test_graphs_count_within_the_program_shapes(cuda):
+    """Across the masked planner's awkward lengths on one engine: at most
+    one graph per (k bucket, stochastic) and, per staging buffer, one per
+    scan shape and two per admit shape (greedy, stochastic)."""
+    lengths = (1, 7, 8, 9, 23, 40, 41, 57)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, 256, size=n, dtype=np.int32)
+               for n in lengths]
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg = configs.get_arch("qwen3-next-gdn").reduced().replace(
+        use_pallas_serving=True)
+    params = lm.init_lm(0, cfg, device="cuda")
+    eng = DecodeEngine(cfg, params, max_slots=2, max_len=64, seed=0,
+                       decode_block=4, prefill_chunk=8, device="cuda")
+    for _ in range(2):
+        for i, (p, n) in enumerate(zip(prompts, (2, 9, 3, 2, 2, 4, 6, 3))):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=n,
+                               temperature=0.8 if i % 3 == 1 else 0.0))
+        eng.run_until_done()
+    progs = eng.executor.compiled_programs()
+    assert progs["decode"] <= 3 and progs["prefill"] <= 5
+    bound = (2 * progs["decode"] + eng.staging_depth
+             * (progs["prefill_scan"] + 2 * progs["prefill_admit"]))
+    assert 0 < progs["cuda_graphs"] <= bound
+
+
+UNSAFE = r"""
+import json, sys, torch
+sys.path.insert(0, "src")
+from repro_torch.serving import graphs
+x = torch.zeros((), device="cuda")
+ran = []
+
+def unsafe():
+    ran.append(1)
+    x.add_(1.0)
+    return x + torch.tensor(1.0, device="cuda")   # a pageable copy
+
+prog = graphs.Program(unsafe, torch.cuda.graph_pool_handle())
+first = float(prog())
+try:
+    prog()
+    err = None
+except Exception as e:
+    err = type(e).__name__
+print(json.dumps({"first": first, "error": err, "ran": len(ran),
+                  "graph": prog.graph is not None}))
+"""
+
+
+@pytest.mark.cuda
+def test_graphs_capture_unsafe_program_raises(cuda):
+    """A program that copies host data raises at its capture and is not
+    run eagerly instead (a subprocess: a failed capture can leave the CUDA
+    context unusable)."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", UNSAFE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["first"] == 2.0 and res["error"] is not None
+    # the eager first call and the failed capture: no third, eager run
+    assert res["ran"] == 2 and res["graph"] is False
