@@ -49,9 +49,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ``attention.attn_decode_pallas`` (the flash-decode kernel) against
      ``attention.attn_decode_xla`` (the mixers' path) on clones of the
      cache with one ``x_t``, the kernel's launch counter zeroed just
-     before (ii) and read just after.
+     before (ii) and read just after;
+  7. full-width mamba2-1.3b (48 ssm layers: SSD through both GDN kernels
+     with ``delta_rule=False``, one q/k head for 64 value heads, d_k 128
+     x d_v 64; random bf16 weights drawn on the card from seed 0): phase
+     3's decode-step check, then phase 4's mix through the eager and the
+     CUDA-graph engine, streams bitwise equal, launches under replay of
+     48 x decode steps (``gdn_decode``) and 48 x prefill chunks
+     (``gdn_prefill``);
+  8. full-width recurrentgemma-2b (RG-LRU + swa, window 2048; random bf16
+     weights from seed 0): 4 requests of 300-2500 tokens, 16 new tokens
+     each, eagerly and through CUDA graphs, streams bitwise equal; no
+     hand-written kernel launches on this path.
 
-Phase 2 also holds the three flash-attention kernels (forward, dq, dk/dv)
+Phase 2 also holds both GDN kernels at mamba2-1.3b's shape (B=4, Hk=1,
+Hv=64, d_k=128, d_v=64, bf16, ``delta_rule=False``; the prefill at T=64
+and T=192 in chunks of 64 with ragged ``valid_len``), timed beside their
+bounds as the rows ``gdn_decode_mamba2`` and ``gdn_prefill_mamba2``, and
+the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
 Hkv=2, hd=128, bf16) and on windowed and ragged (``valid_len``) cases
 (each call one kernel launch, by the profiler; dq, dk and dv checked
@@ -140,51 +155,71 @@ def check(name, got, want, rtol, atol):
 
 # ---------------------------------------------------------------- phase 2
 
-def decode_phase(ref, kdecode, time_launches):
-    """gdn_decode at B=4, Hk=16, Hv=32, d=128; o is bf16 (one rounding:
-    rtol = atol = 2e-2), the fp32 state differs only in summation order
-    (rtol = atol = 1e-4)."""
-    B, Hk, Hv, d = CFG["B"], CFG["Hk"], CFG["Hv"], CFG["d"]
+def decode_work(B, Hk, Hv, dk, dv, delta_rule=True):
+    """What one gdn_decode call must do: the bytes it must move (q, k, v
+    and o in bf16, the fp32 state read and written, g and beta)
+    and its fp32 FLOP per value head — [k; q] S (4 dk dv) and the state
+    update (3 dk dv) with the delta rule; S^T q (2 dk dv) and the update
+    without it (SSD) — plus the output's few per column."""
+    state = B * Hv * dk * dv * 4
+    nbytes = 2 * state + (2 * B * Hk * dk + 2 * B * Hv * dv) * 2 \
+        + 2 * B * Hv * 4
+    flops = B * Hv * ((7 if delta_rule else 5) * dk * dv + 8 * dv)
+    return dict(nbytes=nbytes, fp32_flops=flops, tc_flops=0)
+
+
+def decode_phase(ref, kdecode, time_launches, name="gdn_decode",
+                 shape=(CFG["B"], CFG["Hk"], CFG["Hv"], CFG["d"], CFG["d"]),
+                 delta_rules=(True, False)):
+    """gdn_decode at ``shape`` = (B, Hk, Hv, d_k, d_v) — qwen3-next-gdn's
+    (4, 16, 32, 128, 128) and mamba2-1.3b's (4, 1, 64, 128, 64) — bf16
+    q/k/v, for each of ``delta_rules``, timed with the first; o is bf16
+    (one rounding: rtol = atol = 2e-2), the fp32 state differs only in
+    summation order (rtol = atol = 1e-4)."""
+    B, Hk, Hv, dk, dv = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    q = rnd(B, Hk, d).to(torch.bfloat16)
-    k = torch.nn.functional.normalize(rnd(B, Hk, d), dim=-1).to(
+    q = rnd(B, Hk, dk).to(torch.bfloat16)
+    k = torch.nn.functional.normalize(rnd(B, Hk, dk), dim=-1).to(
         torch.bfloat16)
-    v = rnd(B, Hv, d).to(torch.bfloat16)
-    S = rnd(B, Hv, d, d) * 0.2
+    v = rnd(B, Hv, dv).to(torch.bfloat16)
+    S = rnd(B, Hv, dk, dv) * 0.2
     g = torch.sigmoid(rnd(B, Hv))
     beta = torch.sigmoid(rnd(B, Hv))
     errs = []
-    for delta_rule in (True, False):
+    for delta_rule in delta_rules:
         S_k = S.clone()
         o_k, _ = kdecode.gdn_decode(q, k, v, S_k, g, beta,
                                     delta_rule=delta_rule)
         o_p, S_p = ref.gdn_decode_ref(q, k, v, S, g, beta,
                                       delta_rule=delta_rule)
         torch.cuda.synchronize()
-        errs.append(check(f"gdn_decode delta_rule={delta_rule} o", o_k, o_p,
+        errs.append(check(f"{name} delta_rule={delta_rule} o", o_k, o_p,
                           2e-2, 2e-2))
-        errs.append(check(f"gdn_decode delta_rule={delta_rule} S", S_k, S_p,
+        errs.append(check(f"{name} delta_rule={delta_rule} S", S_k, S_p,
                           1e-4, 1e-4))
+    delta_rule = delta_rules[0]
     S_t = S.clone()
     ev_ms, ms = time_launches(
-        lambda: kdecode.gdn_decode(q, k, v, S_t, g, beta),
+        lambda: kdecode.gdn_decode(q, k, v, S_t, g, beta,
+                                   delta_rule=delta_rule),
         "gdn_decode_kernel")
     plain_ms, _ = time_launches(
-        lambda: ref.gdn_decode_ref(q, k, v, S, g, beta))
-    print(f"  gdn_decode: CUDA events around one launch {ev_ms * 1e3:.2f} "
+        lambda: ref.gdn_decode_ref(q, k, v, S, g, beta,
+                                   delta_rule=delta_rule))
+    print(f"  {name} (B, Hk, Hv, d_k, d_v) = {shape}, delta_rule="
+          f"{delta_rule}: CUDA events around one launch {ev_ms * 1e3:.2f} "
           f"us, the kernel's own duration {ms * 1e3:.2f} us")
-    state = B * Hv * d * d * 4
-    nbytes = 2 * state + (2 * B * Hk * d + 2 * B * Hv * d) * 2 + 2 * B * Hv * 4
-    flops = B * Hv * (7 * d * d + 8 * d)    # [k;q]S, S update, o
-    return dict(name="gdn_decode", route="cuda",
+    w = decode_work(B, Hk, Hv, dk, dv, delta_rule)
+    return dict(name=name, route="cuda",
                 source="src/repro_torch/csrc/gdn_decode.cu",
                 replaces="src/repro/kernels/gdn_decode.py:66",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                **bound("gdn_decode", nbytes, flops), library_ms=None)
+                **bound(name, w["nbytes"], w["fp32_flops"]),
+                library_ms=None)
 
 
 def bound_ms(nbytes, fp32_flops, tc_flops=0):
@@ -231,22 +266,27 @@ def flash_work(B, T, Hq, Hkv, hd):
                               tc_flops=4 * prod, fp32_flops=0)}
 
 
-def prefill_work(Hk, Hv, T, d, bf16):
+def prefill_work(Hk, Hv, T, d_k, d_v, bf16=True, delta_rule=True):
     """What one gdn_prefill call must do for one staged prompt of T = C
-    tokens (one chunk) over Hv value rows, d_k = d_v = d: the bytes it
-    must move (q, k, v, O in bf16 or fp32, log g and beta, the fp32 state
-    read and written, valid_len) and the FLOP of its products by the rate
-    of the instructions the kernel issues.  Per row: Q K^T and K K^T (2 C^2
-    d) multiply bf16 inputs exactly on the tensor cores; K S, Q S and the
-    state update (6 C d^2) multiply them by the three bf16 parts of an
-    fp32 operand, three tensor-core products each; applying the inverse
-    and M U (2 C^2 d) take fp32 operands on the CUDA cores.  fp32 inputs
-    count every product at the fp32 rate."""
+    tokens (one chunk) over Hv value rows: the bytes it must move (q, k,
+    v, O in bf16 or fp32, log g and beta, the fp32 state read and
+    written, valid_len) and the FLOP of its products
+    by the rate of the instructions the kernel issues.  A causal C x C
+    product costs half a full one: C^2 d.  Per row with the delta rule:
+    Q K^T and K K^T (2 C^2 d_k) multiply bf16 inputs exactly on the tensor
+    cores; K S, Q S and the state update (6 C d_k d_v) multiply them by the
+    three bf16 parts of an fp32 operand, three tensor-core products each;
+    applying the inverse and M U (2 C^2 d_v) take fp32 operands on the
+    CUDA cores.  Without it (SSD) K K^T, K S and the inverse drop out:
+    Q K^T (C^2 d_k), Q S and the update (4 C d_k d_v), M V (C^2 d_v).
+    fp32 inputs count every product at the fp32 rate."""
     C = T
-    exact, split, fp32 = 2 * C * C * d, 6 * C * d * d, 2 * C * C * d
+    n = 2 if delta_rule else 1              # causal C x C products
+    exact, fp32 = n * C * C * d_k, n * C * C * d_v
+    split = (6 if delta_rule else 4) * C * d_k * d_v
     dsize = 2 if bf16 else 4
-    nbytes = (2 * Hk * T * d + 2 * Hv * T * d) * dsize + 2 * Hv * T * 4 \
-        + 2 * Hv * d * d * 4 + Hv * 4
+    nbytes = (2 * Hk * T * d_k + 2 * Hv * T * d_v) * dsize \
+        + 2 * Hv * T * 4 + 2 * Hv * d_k * d_v * 4 + Hv * 4
     if not bf16:
         return dict(nbytes=nbytes, tc_flops=0,
                     fp32_flops=Hv * (exact + split + fp32))
@@ -254,46 +294,60 @@ def prefill_work(Hk, Hv, T, d, bf16):
                 fp32_flops=Hv * fp32)
 
 
-def prefill_inputs(B, T, gen, Hk=CFG["Hk"], Hv=CFG["Hv"], d=CFG["d"],
-                   dtype=torch.bfloat16):
+def prefill_inputs(B, T, gen, Hk, Hv, d_k, d_v, dtype):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    q = rnd(B, T, Hk, d).to(dtype)
-    k = torch.nn.functional.normalize(rnd(B, T, Hk, d), dim=-1).to(dtype)
-    v = rnd(B, T, Hv, d).to(dtype)
+    q = rnd(B, T, Hk, d_k).to(dtype)
+    k = torch.nn.functional.normalize(rnd(B, T, Hk, d_k), dim=-1).to(dtype)
+    v = rnd(B, T, Hv, d_v).to(dtype)
     log_g = -torch.nn.functional.softplus(rnd(B, T, Hv))
     beta = torch.sigmoid(rnd(B, T, Hv))
-    S0 = rnd(B, Hv, d, d) * 0.1
+    S0 = rnd(B, Hv, d_k, d_v) * 0.1
     return q, k, v, log_g, beta, S0
 
 
-def prefill_phase(ops, ref, kprefill, time_launches):
-    """gdn_prefill at BH = 4*32 rows: T in {16, 64} (chunk = T), ragged
-    valid_len per batch row including 0 and T; and T = 192 in chunks of 64
-    with valid_len 192/0/100/64 (crossing chunk edges), both delta_rule
-    values: the tensor-core kernel at d = 128, bf16.  Then the reduced
-    configurations' shape on the CUDA-core kernel (Hk=2, Hv=4, d=16, fp32,
-    T = 128 in chunks of 64, valid_len 128/0/70/64), both delta_rule values.
-    The kernel's chunkwise UT transform with its blocked inverse and the
-    plain sequential scan are two factorizations of one fp32 recurrence:
-    the state within rtol = atol = 1e-4; O within 2e-2 in bf16 and 5e-4 in
-    fp32 (the card tests' tolerances); a valid_len = 0 row keeps its state
-    bitwise."""
-    Hk, Hv, d = CFG["Hk"], CFG["Hv"], CFG["d"]
+# prefill checks: (T, chunk, valid_len per batch row, delta_rule, (Hk, Hv,
+# d_k, d_v, dtype)) — qwen3-next-gdn's heads and the reduced
+# configurations' width; mamba2-1.3b's one q/k head for 64 value heads
+PREFILL_FULL = (CFG["Hk"], CFG["Hv"], CFG["d"], CFG["d"], torch.bfloat16)
+PREFILL_REDUCED = (2, 4, 16, 16, torch.float32)
+MAMBA2 = dict(B=4, Hk=1, Hv=64, d_k=128, d_v=64)
+PREFILL_MAMBA2 = (MAMBA2["Hk"], MAMBA2["Hv"], MAMBA2["d_k"], MAMBA2["d_v"],
+                  torch.bfloat16)
+PREFILL_CASES = (
+    (16, 16, (16, 0, 9, 3), True, PREFILL_FULL),
+    (64, 64, (64, 0, 33, 3), True, PREFILL_FULL),
+    (192, 64, (192, 0, 100, 64), True, PREFILL_FULL),
+    (192, 64, (192, 0, 100, 64), False, PREFILL_FULL),
+    (128, 64, (128, 0, 70, 64), True, PREFILL_REDUCED),
+    (128, 64, (128, 0, 70, 64), False, PREFILL_REDUCED))
+PREFILL_MAMBA2_CASES = (
+    (64, 64, (64, 0, 33, 3), False, PREFILL_MAMBA2),
+    (192, 64, (192, 0, 100, 64), False, PREFILL_MAMBA2))
+
+
+def prefill_phase(ops, ref, kprefill, time_launches, name="gdn_prefill",
+                  cases=PREFILL_CASES, timed=PREFILL_FULL + (True,)):
+    """gdn_prefill on each of ``cases`` at B = 4 batch rows: T in {16, 64}
+    (chunk = T) and T = 192 in chunks of 64, ragged valid_len per batch
+    row (crossing chunk edges, one row 0, one T).  qwen3-next-gdn's shape
+    and mamba2-1.3b's (Hk = 1, Hv = 64, d_k = 128, d_v = 64) take the
+    tensor-core kernel (bf16, d_k = 128), the reduced configurations'
+    width (d = 16, fp32) the CUDA-core kernel.  The kernel's chunkwise UT
+    transform with its blocked inverse and the plain sequential scan are
+    two factorizations of one fp32 recurrence: the state within rtol =
+    atol = 1e-4; O within 2e-2 in bf16 and 5e-4 in fp32 (the card tests'
+    tolerances); a valid_len = 0 row keeps its state bitwise.  Then the
+    kernel is timed at ``timed`` = (Hk, Hv, d_k, d_v, dtype, delta_rule)
+    on one staged prompt's 64-token chunk."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = []
-    full, reduced = (Hk, Hv, d, torch.bfloat16), (2, 4, 16, torch.float32)
-    for T, chunk, lens, delta_rule, shape in (
-            (16, 16, (16, 0, 9, 3), True, full),
-            (64, 64, (64, 0, 33, 3), True, full),
-            (192, 64, (192, 0, 100, 64), True, full),
-            (192, 64, (192, 0, 100, 64), False, full),
-            (128, 64, (128, 0, 70, 64), True, reduced),
-            (128, 64, (128, 0, 70, 64), False, reduced)):
+    for T, chunk, lens, delta_rule, shape in cases:
         B = CFG["B"]
-        hk, hv, dd, dtype = shape
-        q, k, v, lg, beta, S0 = prefill_inputs(B, T, gen, hk, hv, dd, dtype)
+        hk, hv, dk, dv, dtype = shape
+        q, k, v, lg, beta, S0 = prefill_inputs(B, T, gen, hk, hv, dk, dv,
+                                               dtype)
         valid = torch.tensor(lens, dtype=torch.int32, device="cuda")
         S_k = S0.clone()
         O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=chunk,
@@ -301,17 +355,18 @@ def prefill_phase(ops, ref, kprefill, time_launches):
         rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
                 .contiguous() for x in (q, k, v, lg, beta)]
         vl = torch.repeat_interleave(valid, hv)
-        O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * hv, dd, dd),
+        O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * hv, dk, dv),
                                        vl, delta_rule=delta_rule,
                                        n_rep=hv // hk)
         torch.cuda.synchronize()
-        label = (f"gdn_prefill d={dd} {str(dtype)[6:]} T={T} chunk={chunk} "
+        label = (f"{name} Hk={hk} Hv={hv} d_k={dk} d_v={dv} "
+                 f"{str(dtype)[6:]} T={T} chunk={chunk} "
                  f"delta_rule={delta_rule}")
-        errs.append(check(f"{label} S", S_k.reshape(B * hv, dd, dd), S_p,
+        errs.append(check(f"{label} S", S_k.reshape(B * hv, dk, dv), S_p,
                           1e-4, 1e-4))
         if not torch.equal(S_k[1], S0[1]):
             raise AssertionError("valid_len=0 row changed its state")
-        O_k = O_k.transpose(1, 2).reshape(B * hv, T, dd)
+        O_k = O_k.transpose(1, 2).reshape(B * hv, T, dv)
         mask = (torch.arange(T, device="cuda")[None, :] < vl[:, None])
         o_tol = 2e-2 if dtype == torch.bfloat16 else 5e-4
         errs.append(check(f"{label} O (valid rows)", O_k[mask], O_p[mask],
@@ -319,31 +374,35 @@ def prefill_phase(ops, ref, kprefill, time_launches):
     # time at the main path's shape: one staged prompt (B=1), a full
     # 64-token chunk, through the kernel's own wrapper (rows laid out by
     # ops.gdn_prefill)
+    Hk, Hv, dk, dv, dtype, delta_rule = timed
     T = 64
-    q, k, v, lg, beta, S0 = prefill_inputs(1, T, gen)
-    rows_qk = [x.transpose(1, 2).reshape(Hk, T, d).contiguous()
+    q, k, v, lg, beta, S0 = prefill_inputs(1, T, gen, Hk, Hv, dk, dv, dtype)
+    rows_qk = [x.transpose(1, 2).reshape(Hk, T, dk).contiguous()
                for x in (q, k)]
-    v_r = v.transpose(1, 2).reshape(Hv, T, d).contiguous()
+    v_r = v.transpose(1, 2).reshape(Hv, T, dv).contiguous()
     lg_r, b_r = (x.transpose(1, 2).reshape(Hv, T).contiguous()
                  for x in (lg, beta))
-    S_r = S0.reshape(Hv, d, d).clone()
+    S_r = S0.reshape(Hv, dk, dv).clone()
     vl = torch.full((Hv,), T, dtype=torch.int32, device="cuda")
     ev_ms, ms = time_launches(
         lambda: kprefill.gdn_prefill(*rows_qk, v_r, lg_r, b_r, S_r, vl,
-                                     chunk=T, n_rep=Hv // Hk),
+                                     chunk=T, n_rep=Hv // Hk,
+                                     delta_rule=delta_rule),
         "gdn_prefill_tc_kernel")
-    S_p0 = S0.reshape(Hv, d, d)
+    S_p0 = S0.reshape(Hv, dk, dv)
     plain_ms, _ = time_launches(
         lambda: ref.gdn_prefill_ref(*rows_qk, v_r, lg_r, b_r, S_p0, vl,
-                                    n_rep=Hv // Hk), reps=5, warmup=1)
-    print(f"  gdn_prefill: CUDA events around one launch {ev_ms * 1e3:.2f} "
+                                    n_rep=Hv // Hk, delta_rule=delta_rule),
+        reps=5, warmup=1)
+    print(f"  {name} (Hk, Hv, d_k, d_v) = {(Hk, Hv, dk, dv)}, delta_rule="
+          f"{delta_rule}: CUDA events around one launch {ev_ms * 1e3:.2f} "
           f"us, the kernel's own duration {ms * 1e3:.2f} us")
-    w = prefill_work(Hk, Hv, T, d, q.dtype == torch.bfloat16)
-    return dict(name="gdn_prefill", route="cuda",
+    w = prefill_work(Hk, Hv, T, dk, dv, dtype == torch.bfloat16, delta_rule)
+    return dict(name=name, route="cuda",
                 source="src/repro_torch/csrc/gdn_prefill.cu",
                 replaces="src/repro/kernels/gdn_prefill.py:116",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                **bound("gdn_prefill", w["nbytes"], w["fp32_flops"],
+                **bound(name, w["nbytes"], w["fp32_flops"],
                         w["tc_flops"]),
                 library_ms=None)
 
@@ -695,14 +754,19 @@ def serve_twice(Engine, cfg, params, kw, make_requests, card, label):
     return graph_eng, launches, steps
 
 
+def _phase4_prompts(vocab):
+    """Phase 4's mix: 6 prompts of 100-400 tokens."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, vocab, size=int(rng.integers(100, 401)))
+            for _ in range(6)]
+
+
 def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
                 kernel_counts):
     Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
     kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
               seed=0, device="cuda")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(100, 401)))
-               for _ in range(6)]
+    prompts = _phase4_prompts(cfg.vocab)
     print(f"  prompts {[len(p) for p in prompts]}, 32 new tokens each")
 
     def requests():
@@ -986,12 +1050,102 @@ def danube_phase(card, lm, attention, engine_mod, kattn, configs):
     return _danube_layers(cfg, params, lm, attention, kattn)
 
 
+# ---------------------------------------------------------------- phase 7
+
+def mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs):
+    """Full-width mamba2-1.3b (48 ssm layers, no FFN; random bf16 weights
+    drawn on the card from seed 0) through the GDN kernels with
+    ``delta_rule=False``: one decode step against the plain path (phase
+    3's check), then phase 4's mix through the eager and the CUDA-graph
+    engine (``serve_twice``), with the kernels' launches under replay:
+    ``gdn_decode`` 48 x decode steps, ``gdn_prefill`` 48 x prefill chunks
+    (placeholder chunks included: each runs as a no-op launch)."""
+    cfg = configs.get_arch("mamba2-1.3b").replace(use_pallas_serving=True)
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[7] full-width {cfg.name}: {lm.param_count(params) / 1e9:.3f} B "
+          f"params ({cfg.act_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    model_phase(cfg, params, lm)
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
+              seed=0, device="cuda")
+    prompts = _phase4_prompts(cfg.vocab)
+    print(f"  prompts {[len(p) for p in prompts]}, 32 new tokens each")
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32,
+                        temperature=0.8 if i == 2 else 0.0,
+                        top_k=40 if i == 2 else 0)
+                for i, p in enumerate(prompts)]
+
+    eng, counts, steps = serve_twice(Engine, cfg, params, kw, requests, card,
+                                     "mamba2 serve")
+    chunks = sum(st.size if st.kind == "scan" else 1 for p in prompts
+                 for st in eng.executor.plan_prefill(len(p)))
+    n_ssm = sum(k == "ssm" for k in cfg.layer_kinds)
+    launches = {"gdn_decode_mamba2": counts[(kdecode.__name__, "")],
+                "gdn_prefill_mamba2": counts[(kprefill.__name__, "")]}
+    want = {"gdn_decode_mamba2": n_ssm * steps,
+            "gdn_prefill_mamba2": n_ssm * chunks}
+    print(f"  launches {launches} = {n_ssm} ssm layers x ({steps} decode "
+          f"steps, {chunks} prefill chunks), counted under replay")
+    if launches != want:
+        raise AssertionError(f"mamba2 launches {launches} != {want}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8
+
+GEMMA_PROMPTS = (2500, 1200, 600, 300)
+
+
+def gemma_phase(card, lm, engine_mod, configs):
+    """Full-width recurrentgemma-2b (26 layers: 18 rglru, 8 swa with a
+    2048-token window and MQA q heads padded 10 -> 16; random bf16 weights
+    drawn on the card from seed 0) serving 4 requests, one prompt past the
+    window, 16 new tokens each (one at temperature 0.8 / top-k 40),
+    eagerly and through CUDA graphs (``serve_twice``): the RG-LRU programs
+    capture and replay, streams bitwise equal.  No hand-written kernel is
+    on this path: none may launch."""
+    cfg = configs.get_arch("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[8] full-width {cfg.name}: {lm.param_count(params) / 1e9:.3f} B "
+          f"params ({cfg.act_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    kw = dict(max_slots=4, max_len=4096, prefill_chunk=256, decode_block=8,
+              seed=0, device="cuda")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in GEMMA_PROMPTS]
+    print(f"  prompts {list(GEMMA_PROMPTS)} (window {cfg.window}), 16 new "
+          f"tokens each")
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=16,
+                        temperature=0.8 if i == 1 else 0.0,
+                        top_k=40 if i == 1 else 0)
+                for i, p in enumerate(prompts)]
+
+    _, counts, _ = serve_twice(Engine, cfg, params, kw, requests, card,
+                               "recurrentgemma serve")
+    if any(counts.values()):
+        raise AssertionError(f"a kernel launched on the rglru path: "
+                             f"{counts}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels, hold them against their plain "
                          "versions and stop")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1026,8 +1180,14 @@ def main():
             print(f"  {name}: {kernel}: {regs} registers, {spills}")
 
     print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
+    mamba2 = tuple(MAMBA2[k] for k in ("B", "Hk", "Hv", "d_k", "d_v"))
     rows = [decode_phase(ref, kdecode, time_launches),
-            prefill_phase(ops, ref, kprefill, time_launches)]
+            prefill_phase(ops, ref, kprefill, time_launches),
+            decode_phase(ref, kdecode, time_launches, "gdn_decode_mamba2",
+                         mamba2, delta_rules=(False,)),
+            prefill_phase(ops, ref, kprefill, time_launches,
+                          "gdn_prefill_mamba2", PREFILL_MAMBA2_CASES,
+                          PREFILL_MAMBA2 + (False,))]
     rows += flash_phase(ref, kflash, time_launches, kernels_per_call)
     rows.append(attn_decode_phase(ref, kattn, time_launches,
                                   kernels_per_call, ATTN_DECODE_SHAPES))
@@ -1065,8 +1225,15 @@ def main():
 
     launches.update(danube_phase(card, lm, attention, engine_mod, kattn,
                                  configs))
+    torch.cuda.empty_cache()
+    launches.update(mamba2_phase(card, lm, engine_mod, kdecode, kprefill,
+                                 configs))
+    torch.cuda.empty_cache()
+    gemma_phase(card, lm, engine_mod, configs)
     for r in rows:
         r["launches"] = launches[r["name"]]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ dicts and the int32 scalars included) convert to numpy with
 ``jax.tree.map(np.asarray, tree)`` (done by the caller — this module never
 imports jax).  ``to_torch`` turns such a numpy tree into the port's tree on
 a device, keeping the nesting of ``lm.init_lm``/``lm.init_caches`` (dicts,
-lists of per-group lists, stacked leaves); the reference's ``GDNState`` and
-``KVCache`` NamedTuples become the port's own NamedTuples of the same name.
+lists of per-group lists, stacked leaves); the reference's ``GDNState``,
+``KVCache``, ``SSMState`` and ``RGLRUState`` NamedTuples become the port's
+own NamedTuples of the same name.
 ``to_numpy`` is the inverse.  Both are bitwise.
 
 Dtype mapping: float32/int32/bool map to themselves; bfloat16 (numpy's
@@ -22,8 +23,11 @@ import torch
 
 from repro_torch.models.attention import KVCache
 from repro_torch.models.gdn_layer import GDNState
+from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.ssm import SSMState
 
-NAMEDTUPLES = {"GDNState": GDNState, "KVCache": KVCache}
+NAMEDTUPLES = {"GDNState": GDNState, "KVCache": KVCache,
+               "SSMState": SSMState, "RGLRUState": RGLRUState}
 
 
 def _leaf_to_torch(a, device):

@@ -1,9 +1,11 @@
 """Where a decode tick's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_decode
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        [--arch mamba2-1.3b]
 
-Full-width qwen3-next-gdn (random bf16 weights from ``--seed``) in a
-``DecodeEngine`` with ``--slots`` requests resident.  Prints
+The full-width ``--arch`` (default qwen3-next-gdn; random bf16 weights
+from ``--seed``) in a ``DecodeEngine`` with ``--slots`` requests
+resident.  Prints
 
   * the wall time of a decode step (host clock around ticks that end in a
     host sync) for three engines, measured in turns: the hand-written
@@ -15,9 +17,10 @@ Full-width qwen3-next-gdn (random bf16 weights from ``--seed``) in a
     kernels launched and the device's idle time per step (and per launch:
     the mean gap), and the top operators by device time and by host
     time;
-  * the GDN decode kernel alone at the served shape, by what precedes
-    each launch (``decode_kernel_study``), against its per-call time in
-    the profiled ticks.
+  * where the arch's layers call the GDN decode kernel (gdn, or ssm with
+    ``delta_rule=False``), the kernel alone at the served shape, by what
+    precedes each launch (``decode_kernel_study``), against its per-call
+    time in the profiled ticks.
 
 ``--attn-decode`` runs only ``attn_decode_study``: the flash-decode kernel
 at the three shapes of ``chip_smoke.py``'s phase 2 with each split length
@@ -171,25 +174,39 @@ def kernels_per_call(fn, calls=10, tries=3):
     return sum(counts.values()), list(counts)
 
 
+def gdn_decode_shape(cfg):
+    """(Hk, Hv, d_k, d_v, delta_rule) of the GDN decode kernel's calls in
+    ``cfg``'s decode step — gdn layers, or ssm layers (SSD: one q/k head,
+    no delta rule) — or None where no layer calls it."""
+    kinds = set(cfg.layer_kinds)
+    if "gdn" in kinds:
+        d = cfg.gdn_head_dim
+        return cfg.gdn_k_heads, cfg.gdn_v_heads, d, d, True
+    if "ssm" in kinds:
+        return (1, cfg.ssm_d_inner // cfg.ssm_headdim, cfg.ssm_d_state,
+                cfg.ssm_headdim, False)
+    return None
+
+
 def decode_kernel_study(cfg, batch):
     """The GDN decode kernel alone at the served shape (``batch`` slots),
     timed by CUDA events and by the profiler after each flush of
     ``time_launches``, to hold against its per-call time in serving."""
     from repro_torch.kernels import gdn_decode as kdecode
     gen = torch.Generator(device="cuda").manual_seed(0)
-    Hk, Hv, d = cfg.gdn_k_heads, cfg.gdn_v_heads, cfg.gdn_head_dim
+    Hk, Hv, dk, dv, delta_rule = gdn_decode_shape(cfg)
     q, k = (torch.nn.functional.normalize(
-        torch.randn(batch, Hk, d, generator=gen, device="cuda"), dim=-1)
+        torch.randn(batch, Hk, dk, generator=gen, device="cuda"), dim=-1)
         .to(torch.bfloat16) for _ in range(2))
-    v = torch.randn(batch, Hv, d, generator=gen, device="cuda").to(
+    v = torch.randn(batch, Hv, dv, generator=gen, device="cuda").to(
         torch.bfloat16)
-    S = 0.1 * torch.randn(batch, Hv, d, d, generator=gen, device="cuda")
+    S = 0.1 * torch.randn(batch, Hv, dk, dv, generator=gen, device="cuda")
     g, beta = (torch.rand(batch, Hv, generator=gen, device="cuda")
                for _ in range(2))
     for flush in ("read", "write", "none"):
-        ev, own = time_launches(lambda: kdecode.gdn_decode(q, k, v, S, g,
-                                                           beta),
-                                "gdn_decode_kernel", flush=flush)
+        ev, own = time_launches(lambda: kdecode.gdn_decode(
+            q, k, v, S, g, beta, delta_rule=delta_rule),
+            "gdn_decode_kernel", flush=flush)
         print(f"gdn_decode kernel alone, B={batch}, after flush={flush}: "
               f"events {ev * 1e3:.2f} us, profiler {own * 1e3:.2f} us per "
               f"call")
@@ -235,6 +252,8 @@ def attn_decode_study(splits=(64, 128, 192, 256, 512, 768, 1024, 2048),
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-next-gdn",
+                    help="any arch of the port's registry, at full width")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--block", type=int, default=8)
     ap.add_argument("--ticks", type=int, default=4)
@@ -252,8 +271,9 @@ def main(argv=None):
     if args.attn_decode:
         attn_decode_study()
         return
-    base = configs.get_arch("qwen3-next-gdn")
-    decode_kernel_study(base, args.slots)
+    base = configs.get_arch(args.arch)
+    if gdn_decode_shape(base) is not None:
+        decode_kernel_study(base, args.slots)
     params = lm.init_lm(args.seed, base)
     kernels = base.replace(use_pallas_serving=True)
     engines = {"graphs": _engine(kernels, params, args, None),

@@ -6,8 +6,10 @@ state slots (the base flags of ``repro.launch.serve``).
 
 Runs on the card (``--device cuda``, the default) or, with
 ``--device cpu``, on the CPU through the kernels' plain versions.
-``--kernels`` sets ``use_pallas_serving``: the GDN layers then run the
-hand-written CUDA kernels.  On the card every decode and prefill program
+``--kernels`` sets ``use_pallas_serving``: the GDN layers (``gdn``, and
+``ssm`` with ``delta_rule=False``, e.g. ``--arch mamba2-1.3b``) then run
+the hand-written CUDA kernels; ``rglru`` (``--arch recurrentgemma-2b``)
+has none.  On the card every decode and prefill program
 is replayed from a CUDA graph; ``--no-cuda-graphs`` runs them eagerly
 (the comparison run: the streams are the same).  ``--full`` serves the full-width config with
 weights drawn on the device from ``--seed``; the default is the reduced
@@ -56,8 +58,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--kernels", action="store_true", default=False,
-                    help="use_pallas_serving: run the GDN layers through "
-                         "the hand-written CUDA kernels")
+                    help="use_pallas_serving: run the GDN and SSD layers "
+                         "through the hand-written CUDA kernels")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--no-cuda-graphs", dest="cuda_graphs",

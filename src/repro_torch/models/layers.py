@@ -1,5 +1,5 @@
 """Shared model layers: RMSNorm, RoPE, SwiGLU MLP, embeddings, logits,
-cross entropy (port of ``repro.models.layers``).
+causal conv1d, cross entropy (port of ``repro.models.layers``).
 
 Functional style over plain parameter dicts of tensors.  Matmuls run in
 the activation dtype (bf16 on the card, which accumulates in fp32 and
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import device as _device
 
 
 def dot(x, w):
@@ -128,6 +130,51 @@ def logits_fwd(p, x, table=None):
     """Project to vocab. ``table`` given => tied embeddings."""
     w = table if table is not None else p["table"]
     return logits_matmul(x, w.t())
+
+
+# ------------------------------------------------------------ causal conv1d
+# (mamba2 / RG-LRU mixers; decode keeps a (width-1)-token cache)
+
+def init_conv1d(generator, channels, width, dtype, device, reps):
+    return {"w": randn(generator, (reps, width, channels), width ** -0.5,
+                       dtype, device),
+            "b": torch.zeros((reps, channels), dtype=dtype, device=device)}
+
+
+def conv1d_fwd(p, x):
+    """Causal depthwise conv over (B, T, C): the reference's sum of the
+    ``width`` shifted products in x's dtype, in order, then the bias."""
+    width, T = p["w"].shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = pad[:, 0:T, :] * p["w"][0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + T, :] * p["w"][i]
+    return out + p["b"]
+
+
+def conv1d_decode(p, x_t, cache):
+    """One-step conv. x_t: (B, C); cache: (B, width-1, C).  The window's
+    products summed in fp32, cast to x's dtype, then the bias.  Returns
+    (y, new cache)."""
+    full = torch.cat([cache, x_t[:, None, :]], dim=1)        # (B, width, C)
+    y = torch.einsum("bwc,wc->bc", full.float(),
+                     p["w"].float()).to(x_t.dtype) + p["b"]
+    return y, full[:, 1:, :]
+
+
+def conv1d_carry(full, n, valid_len=None):
+    """The conv carry after a prefill block: the ``n`` rows of ``full``
+    (B, n + T, C) = cache ‖ block that follow the valid prefix, i.e. rows
+    [valid_len, valid_len + n) — the last ``n`` rows without ``valid_len``.
+    ``valid_len`` (int, 0-d or (B,) int tensor) becomes a gather index
+    built on the device, never a host value, so the carry is safe inside a
+    CUDA graph capture."""
+    if valid_len is None:
+        return full[:, -n:, :]
+    B, C = full.shape[0], full.shape[-1]
+    vl = _device.as_int(valid_len, torch.int64, full.device).reshape(-1, 1)
+    idx = (vl + torch.arange(n, device=full.device)[None, :]).expand(B, n)
+    return torch.gather(full, 1, idx[:, :, None].expand(B, n, C))
 
 
 # ------------------------------------------------------------------ loss

@@ -3,8 +3,9 @@
 
 One mixer kind == one module implementing the ``SequenceMixer`` protocol
 and decorated with ``@register``; the LM and the serving executor reach
-mixers only through ``get_mixer(kind)``.  Ported kinds: ``gdn``, ``attn``,
-``swa``.
+mixers only through ``get_mixer(kind)``.  Ported kinds — all six of the
+reference's registry: ``gdn``, ``gdn_naive``, ``attn``, ``swa``, ``ssm``
+(mamba2) and ``rglru`` (recurrentgemma).
 """
 from __future__ import annotations
 
@@ -35,6 +36,9 @@ def get_mixer(kind: str) -> Type[SequenceMixer]:
 # Built-in kinds self-register on import.
 from repro_torch.models.mixers import attn as _attn      # noqa: E402,F401
 from repro_torch.models.mixers import gdn as _gdn        # noqa: E402,F401
+from repro_torch.models.mixers import gdn_naive as _naive  # noqa: E402,F401
+from repro_torch.models.mixers import ssm as _ssm        # noqa: E402,F401
+from repro_torch.models.mixers import rglru as _rglru    # noqa: E402,F401
 
 __all__ = ["ArraySpec", "CacheSpec", "SequenceMixer", "MIXERS",
            "register", "get_mixer"]

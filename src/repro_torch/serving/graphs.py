@@ -24,6 +24,7 @@ itself counts nothing.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -83,10 +84,19 @@ class Program:
     def _capture(self):
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # A dropped engine's programs and executor form reference cycles
+        # (each program's function holds the executor), which only the
+        # collector frees; freeing their graphs during this capture
+        # invalidates it.  So collect first, and not while capturing.
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = self.fn()
         finally:
+            if gc_was_on:
+                gc.enable()
             after = launch_counts()
             delta = {k: after[k] - before[k] for k in after}
             add_launches(delta, -1)        # the capture launched nothing

@@ -114,6 +114,85 @@ def test_prefill_kernel_vs_plain(cuda, delta_rule, case):
         _close(O_k[r, :n_valid], O_p[r, :n_valid], o_tol)
 
 
+# mamba2's shapes: one q/k head (B, C) for every value head, d_k != d_v.
+# Decode (B, Hk, Hv, d_k, d_v, dtype): full width (bf16, the served
+# shape) and the reduced config (fp32, d_v 16 below the kernel's
+# 32-column tile).
+SSM_DECODE_CASES = {
+    "mamba2": (4, 1, 64, 128, 64, torch.bfloat16),
+    "mamba2_reduced": (3, 1, 8, 32, 16, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSM_DECODE_CASES))
+@pytest.mark.parametrize("delta_rule", [True, False])
+def test_decode_kernel_ssm_shapes_vs_plain(cuda, delta_rule, case):
+    B, Hk, Hv, dk, dv, dtype = SSM_DECODE_CASES[case]
+    rng = np.random.default_rng(13)
+    q = _normal(rng, B, Hk, dk)
+    k = torch.nn.functional.normalize(_normal(rng, B, Hk, dk), dim=-1)
+    v = _normal(rng, B, Hv, dv)
+    qkv = [x.to(cuda, dtype) for x in (q, k, v)]
+    S = _normal(rng, B, Hv, dk, dv, scale=0.2).to(cuda)
+    g, beta = (torch.sigmoid(_normal(rng, B, Hv)).to(cuda) for _ in range(2))
+    S_k = S.clone()
+    n = tdecode.launches
+    o_k, _ = ops.gdn_decode(*qkv, S_k, g, beta, delta_rule=delta_rule)
+    o_p, S_p = ref.gdn_decode_ref(*qkv, S, g, beta, delta_rule=delta_rule)
+    torch.cuda.synchronize()
+    assert tdecode.launches == n + 1
+    _close(o_k, o_p, F32 if dtype == torch.float32 else BF16)
+    _close(S_k, S_p, F32)
+
+
+# Prefill (B, T, Hk, Hv, d_k, d_v, chunk, valid_len, dtype): full width
+# on the tensor-core kernel over three chunks, the reduced config on the
+# CUDA-core kernel over two; valid_len crosses chunk edges, one row fully
+# padded.
+SSM_PREFILL_CASES = {
+    "mamba2": (4, 192, 1, 64, 128, 64, 64, (192, 0, 100, 64),
+               torch.bfloat16),
+    "mamba2_reduced": (3, 128, 1, 8, 32, 16, 64, (128, 0, 70),
+                       torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSM_PREFILL_CASES))
+@pytest.mark.parametrize("delta_rule", [True, False])
+def test_prefill_kernel_ssm_shapes_vs_plain(cuda, delta_rule, case):
+    B, T, Hk, Hv, dk, dv, chunk, valid, dtype = SSM_PREFILL_CASES[case]
+    rng = np.random.default_rng(14)
+    q = _normal(rng, B, T, Hk, dk).to(cuda, dtype)
+    k = torch.nn.functional.normalize(_normal(rng, B, T, Hk, dk),
+                                      dim=-1).to(cuda, dtype)
+    v = _normal(rng, B, T, Hv, dv).to(cuda, dtype)
+    lg = -torch.nn.functional.softplus(_normal(rng, B, T, Hv)).to(cuda)
+    beta = torch.sigmoid(_normal(rng, B, T, Hv)).to(cuda)
+    S0 = _normal(rng, B, Hv, dk, dv, scale=0.1).to(cuda)
+    valid = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    S_k = S0.clone()
+    n = tprefill.launches
+    O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=chunk,
+                             delta_rule=delta_rule, valid_len=valid)
+    rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
+            .contiguous() for x in (q, k, v, lg, beta)]
+    vl = torch.repeat_interleave(valid, Hv)
+    O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * Hv, dk, dv), vl,
+                                   delta_rule=delta_rule, n_rep=Hv // Hk)
+    torch.cuda.synchronize()
+    assert tprefill.launches == n + 1
+    _close(S_k.reshape(B * Hv, dk, dv), S_p, CHUNKWISE)
+    for b, n_valid in enumerate(valid.tolist()):
+        if n_valid == 0:
+            assert torch.equal(S_k[b], S0[b])
+    O_k = O_k.transpose(1, 2).reshape(B * Hv, T, dv)
+    o_tol = CHUNKWISE if dtype == torch.float32 else BF16
+    for r, n_valid in enumerate(vl.tolist()):
+        _close(O_k[r, :n_valid], O_p[r, :n_valid], o_tol)
+
+
 @pytest.mark.cuda
 def test_wrappers_check_their_inputs(cuda):
     """Wrong dtype or a non-contiguous state raises before any launch."""
@@ -422,6 +501,37 @@ def test_reduced_serve_through_kernels(cuda):
     assert streams[True] == streams[False]
 
 
+@pytest.mark.cuda
+def test_reduced_mamba2_serve_through_kernels(cuda):
+    """Reduced mamba2 (d_state 32 x headdim 16, fp32, one q/k head for 8
+    value heads: the CUDA-core prefill kernel, the decode kernel at d_v 16)
+    served through the GDN kernels with delta_rule=False, both kernels
+    launched, the token streams those of the plain path."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    base = configs.get_arch("mamba2-1.3b").reduced()
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(1, base.vocab, size=n, dtype=np.int32)
+               for n in (4, 16, 23, 40)]
+    streams = {}
+    for kernels in (True, False):
+        cfg = base.replace(use_pallas_serving=kernels)
+        params = lm.init_lm(0, cfg, device="cuda")
+        eng = DecodeEngine(cfg, params, max_slots=2, max_len=64, seed=0,
+                           decode_block=4, prefill_chunk=16, device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=8,
+                               temperature=0.7 if i == 1 else 0.0))
+        n = (tprefill.launches, tdecode.launches)
+        done = sorted(eng.run_until_done(), key=lambda r: r.rid)
+        assert all(len(r.output) == 8 for r in done)
+        launched = (tprefill.launches > n[0], tdecode.launches > n[1])
+        assert launched == (kernels, kernels)
+        streams[kernels] = [list(r.output) for r in done]
+    assert streams[True] == streams[False]
+
+
 # ------------------------------------------------------------ CUDA graphs
 
 def _graph_engines(prompts, news, temps):
@@ -540,6 +650,41 @@ def test_graphs_count_within_the_program_shapes(cuda):
     assert 0 < progs["cuda_graphs"] <= bound
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_graphs_streams_bitwise_equal_eager_new_archs(cuda, arch):
+    """Reduced mamba2 (through the GDN kernels) and recurrentgemma (RG-LRU
+    and a wrapped 32-slot swa window) served twice by a graph engine and
+    an eager one: the same streams, greedy and stochastic."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg = configs.get_arch(arch).reduced().replace(use_pallas_serving=True)
+    params = lm.init_lm(0, cfg, device="cuda")
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(1, 256, size=n, dtype=np.int32)
+               for n in (4, 57, 23, 40)]
+    out = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, params, max_slots=2, max_len=96, seed=0,
+                           decode_block=4, prefill_chunk=16, device="cuda",
+                           cuda_graphs=graphs)
+        runs = []
+        for _ in range(2):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=9,
+                            temperature=0.8 if i % 2 else 0.0,
+                            top_k=20 if i % 2 else 0)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            runs.append([list(r.output) for r in reqs])
+        out[graphs] = (eng.executor.compiled_programs(), runs)
+    assert out[True][1] == out[False][1]
+    assert out[True][1][0] == out[True][1][1]
+    assert out[True][0]["cuda_graphs"] > 0 == out[False][0]["cuda_graphs"]
+
+
 UNSAFE = r"""
 import json, sys, torch
 sys.path.insert(0, "src")
@@ -562,6 +707,74 @@ except Exception as e:
 print(json.dumps({"first": first, "error": err, "ran": len(ran),
                   "graph": prog.graph is not None}))
 """
+
+
+DEAD_ENGINE = r"""
+import gc, json, sys
+import numpy as np, torch
+sys.path.insert(0, "src")
+from repro_torch import configs
+from repro_torch.models import lm
+from repro_torch.serving import graphs
+from repro_torch.serving.engine import DecodeEngine, Request
+if sys.argv[1:] == ["unguarded"]:        # the capture without its guard
+    class _Gc:
+        collect = staticmethod(lambda *a: 0)
+        isenabled = staticmethod(lambda: False)
+        disable = enable = staticmethod(lambda: None)
+    graphs.gc = _Gc
+collect = gc.collect
+gc.disable()
+x = torch.zeros(1024, device="cuda")
+
+
+def fn():
+    y = x + 1.0
+    collect()        # the collector may run at any allocation
+    return y * 2.0
+
+
+prog = graphs.Program(fn, torch.cuda.graph_pool_handle())
+first = prog()                           # eager
+cfg = configs.get_arch("qwen3-next-gdn").reduced().replace(
+    use_pallas_serving=True)
+eng = DecodeEngine(cfg, lm.init_lm(0, cfg, device="cuda"), max_slots=2,
+                   max_len=64, seed=0, decode_block=4, prefill_chunk=16,
+                   device="cuda")
+eng.submit(Request(rid=0, prompt=np.arange(1, 40, dtype=np.int32),
+                   max_new_tokens=12))
+eng.run_until_done()
+dead = eng.executor.compiled_programs()["cuda_graphs"]
+del eng                                  # garbage in reference cycles
+try:
+    again = prog()                       # captured, then replayed
+    err, same = None, bool(torch.equal(first, again))
+except Exception as e:
+    err, same = type(e).__name__ + ": " + str(e)[:160], False
+print(json.dumps({"dead_graphs": dead, "error": err, "same": same}))
+"""
+
+
+@pytest.mark.cuda
+def test_graphs_capture_survives_a_dropped_engine(cuda):
+    """A dropped engine's executor and programs form reference cycles, so
+    the collector frees its graphs when it runs, which may be in the
+    middle of another program's capture; freed there they invalidate it.
+    The capture collects first and holds the collector off (here the
+    captured function runs the collector itself, where an allocation could
+    have).  In a subprocess: a failed capture can leave the context
+    unusable."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", DEAD_ENGINE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["dead_graphs"] > 0
+    assert (res["error"], res["same"]) == (None, True)
 
 
 @pytest.mark.cuda

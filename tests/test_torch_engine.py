@@ -129,3 +129,14 @@ def test_serve_cli_on_cpu(capsys):
                  "--kernels", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served 3 requests, 9 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_serve_cli_new_archs_on_cpu(capsys, arch):
+    """The serve CLI's reduced mamba2 (through the GDN kernels' plain
+    versions) and recurrentgemma (RG-LRU + swa) on the CPU."""
+    tserve.main(["--arch", arch, "--requests", "3", "--max-new", "4",
+                 "--slots", "2", "--max-len", "48", "--kernels",
+                 "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out

@@ -11,12 +11,15 @@ CPU, where every program runs eagerly.
   * token streams through the static-buffer programs equal the live JAX
     engine's — greedy and stochastic requests, a prompt with a placeholder
     chunk (valid_len 0, run as a no-op), an embeds prompt, overlap on and
-    off — on reduced qwen3-next-gdn (the GDN kernels' plain versions) and
-    on reduced minicpm-2b with its heads padded (the head mask);
+    off — on reduced qwen3-next-gdn (the GDN kernels' plain versions), on
+    reduced minicpm-2b with its heads padded (the head mask), on reduced
+    mamba2-1.3b (SSD through the GDN kernels' plain versions) and on
+    reduced recurrentgemma-2b (RG-LRU, a wrapped swa window, MQA padded);
   * the draws under the sampler are jax's, bit for bit, after the change
     that made them capture-safe;
   * no program makes a tensor from host data or syncs with the host after
-    its first call (the rule a CUDA graph capture enforces on the card);
+    its first call (the rule a CUDA graph capture enforces on the card),
+    on each of those archs;
   * ``cuda_graphs=True`` on the CPU raises.
 
 Everything is float32 at reduced width; each test takes seconds.
@@ -121,6 +124,12 @@ ARCHS = {
     # reduced() drops the padding: pad 4 heads to 8 again (as the full
     # config pads 36 to 48)
     "minicpm-2b": dict(n_heads_pad=8, n_kv_heads_pad=8),
+    # SSD through the GDN kernels' plain versions: one q/k head for 8
+    # value heads, d_state 32 x headdim 16, conv carries at the boundary
+    "mamba2-1.3b": dict(use_pallas_serving=True),
+    # RG-LRU + swa (window 32: the 45-token prompt wraps it), the MQA q
+    # heads padded 4 -> 8 as the full config pads 10 -> 16
+    "recurrentgemma-2b": dict(n_heads_pad=8),
 }
 
 

@@ -386,13 +386,44 @@ def test_prefill_bound_at_main_shape():
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    w = smoke.prefill_work(Hk=16, Hv=32, T=64, d=128, bf16=True)
+    w = smoke.prefill_work(Hk=16, Hv=32, T=64, d_k=128, d_v=128, bf16=True)
     assert w == dict(nbytes=5_783_680, tc_flops=637_534_208,
                      fp32_flops=33_554_432)
     ms, by, (t_bytes, t_fp32, t_tc) = smoke.bound_ms(
         w["nbytes"], w["fp32_flops"], w["tc_flops"])
     assert (round(ms, 7), by) == (0.0017265, "bytes")
     assert (round(t_fp32, 7), round(t_tc, 7)) == (0.0005008, 0.0006446)
+
+
+def test_gdn_bounds_at_mamba2_shape():
+    """chip_smoke.py's GDN bounds at mamba2-1.3b's shape (Hk=1, Hv=64,
+    d_k=128, d_v=64, bf16, delta_rule=False), against the figures worked
+    by hand.  Prefill, one 64-token chunk: bytes (2 x 64 x 128 + 2 x 64 x
+    64 x 64) x 2 + 2 x 64 x 64 x 4 + 2 x 64 x 128 x 64 x 4 + 64 x 4 =
+    5,308,672 at 3.35 TB/s = 1.5847 us; Q K^T (64 x 64^2 x 128) and three
+    split products for Q S and the update (64 x 3 x 4 x 64 x 128 x 64) at
+    989 TFLOP/s = 0.4411 us; M V (64 x 64^2 x 64) at 67 TFLOP/s = 0.2504
+    us: bound by bytes.  Decode at B=4: the state read and written (2 x 4
+    x 64 x 128 x 64 x 4) + q, k, v, o in bf16 + g, beta = 16,846,848 bytes
+    = 5.0289 us against 4 x 64 x (5 x 128 x 64 + 8 x 64) fp32 FLOP."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    w = smoke.prefill_work(Hk=1, Hv=64, T=64, bf16=True, d_k=128, d_v=64,
+                           delta_rule=False)
+    assert w == dict(nbytes=5_308_672, tc_flops=436_207_616,
+                     fp32_flops=16_777_216)
+    ms, by, (t_bytes, t_fp32, t_tc) = smoke.bound_ms(
+        w["nbytes"], w["fp32_flops"], w["tc_flops"])
+    assert (round(ms, 7), by) == (0.0015847, "bytes")
+    assert (round(t_fp32, 7), round(t_tc, 7)) == (0.0002504, 0.0004411)
+    w = smoke.decode_work(4, 1, 64, 128, 64, delta_rule=False)
+    assert w == dict(nbytes=16_846_848, fp32_flops=10_616_832, tc_flops=0)
+    ms, by, _ = smoke.bound_ms(w["nbytes"], w["fp32_flops"])
+    assert (round(ms, 7), by) == (0.0050289, "bytes")
 
 
 # ------------------------------------------------------------- dispatch

@@ -138,6 +138,42 @@ def test_gdn_layer_prefill_and_decode(model, pallas):
         np.testing.assert_allclose(_np(tS.S), _np(jS.S), **tol)
 
 
+@pytest.mark.parametrize("pallas", [False, True])
+def test_gdn_naive_mixer_matches_reference(model, pallas):
+    """The ``gdn_naive`` kind (Alg. 1 decode) through the mixer registry
+    on both settings of ``use_pallas_serving``: a ragged prefill chunk
+    (the prefill kernel's path when set) then two Alg. 1 decode steps
+    (plain in both packages whatever the setting)."""
+    from repro.models.mixers import get_mixer as jget_mixer
+    from repro_torch.models.mixers import get_mixer
+    jp, tp = model
+    jcfg, tcfg = _cfgs(pallas)
+    jm, tm = jget_mixer("gdn_naive"), get_mixer("gdn_naive")
+    assert (tm.state_passes, tm.fused) == (jm.state_passes, jm.fused) == \
+        (4, False)
+    lp_j = jax.tree.map(lambda a: a[0], jp["groups"][0][0]["mixer"])
+    lp_t = {k: v[0] for k, v in tp["groups"][0][0]["mixer"].items()}
+    rng = np.random.default_rng(6)
+    B, C, H, d = 2, 8, 4, 16
+    x = rng.normal(size=(B, C, 64)).astype(np.float32)
+    S0 = (rng.normal(size=(B, H, d, d)) * 0.1).astype(np.float32)
+    valid = np.array([8, 5], np.int32)
+    jo, jst = jm.prefill_chunk(lp_j, jcfg, jnp.asarray(x),
+                               jgdn_layer.GDNState(jnp.asarray(S0)),
+                               valid_len=jnp.asarray(valid))
+    to, tst = tm.prefill_chunk(lp_t, tcfg, torch.from_numpy(x),
+                               tgdn_layer.GDNState(torch.from_numpy(S0)),
+                               valid_len=torch.from_numpy(valid))
+    tol = dict(rtol=5e-4, atol=5e-4) if pallas else F32
+    np.testing.assert_allclose(_np(tst.S), _np(jst.S), **tol)
+    for _ in range(2):
+        xt = rng.normal(size=(B, 64)).astype(np.float32)
+        jo, jst = jm.decode(lp_j, jcfg, jnp.asarray(xt), jst)
+        to, tst = tm.decode(lp_t, tcfg, torch.from_numpy(xt), tst)
+        np.testing.assert_allclose(_np(to), _np(jo), **tol)
+        np.testing.assert_allclose(_np(tst.S), _np(jst.S), **tol)
+
+
 # --------------------------------------------------------- attention layer
 
 def test_attention_chunk_and_decode_through_rolling_wrap(model):
