@@ -32,12 +32,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
      resident requests under the profiler must run 36 x k
      ``gdn_decode_kernel`` launches;
   5. training full-width qwen3-next-gdn through the port's ``Trainer``
-     with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 3
-     steps, a checkpoint into a temporary directory under ``build/``):
-     first ``loss_fn`` and its gradients at the initial parameters through
-     the flash kernels against the plain ``blockwise_attention`` path,
-     then the 3 steps with the launch counters zeroed just before and read
-     just after;
+     with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 5
+     steps): first ``loss_fn`` and its gradients at the initial parameters
+     through the flash kernels against the plain ``blockwise_attention``
+     path; then an eager trainer (``cuda_graphs=False``, no checkpoint)
+     and the default one, which replays the step from one CUDA graph
+     (step 1 eager, step 2 captured; a checkpoint into a temporary
+     directory under ``build/``), each with the launch counters zeroed
+     just before and read just after its run; per-step loss and gradient
+     norm and a digest of the final state bitwise equal between the two;
+     the flash launches exact in both runs (the ``kernels`` line takes the
+     eager run's, counted at the wrappers; in the graph run replays add
+     what the capture counted, so one more replayed step under the
+     profiler must run one step's share of flash kernels); the graph's
+     kernel nodes, capture and instantiation times, the step time (median
+     of steps 3-5), peak allocated and reserved memory;
   6. full-width h2o-danube-1.8b (24 sliding-window layers, window 4096,
      random bf16 weights drawn on the card from seed 0): (i) served
      through ``DecodeEngine`` (4 slots, max_len 8192 — a 4096-slot rolling
@@ -87,6 +96,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -698,7 +708,7 @@ def serve_twice(Engine, cfg, params, kw, make_requests, card, label):
     between the engines.  The kernels' launch counters are zeroed just
     before the graphs' warm run (the main path) and read just after it.
     Returns (graph engine, launches of that run, its decode steps)."""
-    from repro_torch.serving.graphs import add_launches, launch_counts
+    from repro_torch.runtime.graphs import add_launches, launch_counts
     streams, graph_eng = {}, None
     for graphs in (False, None):
         eng = Engine(cfg, params, cuda_graphs=graphs, **kw)
@@ -823,6 +833,9 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
 
 # ---------------------------------------------------------------- phase 5
 
+TRAIN_STEPS = 5
+
+
 def _loss_and_grad_norm(params, cfg, batch):
     from repro_torch.models import lm
     from repro_torch.optim.optimizers import global_norm
@@ -833,95 +846,164 @@ def _loss_and_grad_norm(params, cfg, batch):
     return float(loss.detach()), float(norm)
 
 
-def train_phase(cfg, card, kflash, kernel_mods):
-    """Full-width training through the port's Trainer with the flash
-    kernels.  Before training, ``loss_fn`` and its gradients at the initial
-    parameters on the step-0 batch through the kernels against the plain
+def _zero_counts(kernel_mods):
+    for mod in kernel_mods:
+        if isinstance(mod.launches, dict):
+            for k in mod.launches:
+                mod.launches[k] = 0
+        else:
+            mod.launches = 0
+
+
+def state_digest(state):
+    """Per leaf, the int64 sum of its words (bf16 as int16, fp32 and int32
+    as int32), taken on the device and read once."""
+    from repro_torch.tree import leaves
+    bits = {2: torch.int16, 4: torch.int32}
+    return torch.stack([t.detach().view(bits[t.element_size()]).sum(
+        dtype=torch.int64) for t in leaves(state)]).tolist()
+
+
+def _init_check(tr, cfg, tcfg):
+    """``loss_fn`` and its gradients at the initial parameters on the
+    step-0 batch through the flash kernels against the plain
     ``blockwise_attention`` path: bf16 activations, so the limits are
-    relative to bf16 (loss 1e-2, gradient global norm 2e-2).  Then 3 steps
-    with every launch counter zeroed just before and read just after."""
+    relative to bf16 (loss 1e-2, gradient global norm 2e-2).  Returns the
+    flash loss."""
+    from repro_torch.tree import leaves
+    params = tr.state["params"]
+    batch = tr.batch(0)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    t0 = time.perf_counter()
+    lf, nf = _loss_and_grad_norm(params, tcfg, batch)
+    t1 = time.perf_counter()
+    lp, np_ = _loss_and_grad_norm(
+        params, cfg.replace(use_flash_kernel=False), batch)
+    t2 = time.perf_counter()
+    dl, dn = abs(lf - lp) / abs(lp), abs(nf - np_) / np_
+    print(f"  loss_fn at init, step-0 batch: flash {lf:.6f} "
+          f"({t1 - t0:.1f} s with grads), plain {lp:.6f} "
+          f"({t2 - t1:.1f} s): relative difference {dl:.3e} (limit "
+          f"1e-2); grad global norm flash {nf:.6f}, plain {np_:.6f}: "
+          f"{dn:.3e} (limit 2e-2)")
+    if not (math.isfinite(lf) and math.isfinite(nf)) or dl > 1e-2 \
+            or dn > 2e-2:
+        raise AssertionError("flash and plain loss_fn disagree")
+    return lf
+
+
+def _train_run(tr, cfg, kflash, kernel_mods, lf, card, label):
+    """``tr.run()`` over ``TRAIN_STEPS`` steps with every launch counter
+    zeroed just before and read just after; checks the history, step 1
+    against ``loss_fn`` at init and the flash launches.  Returns (flash
+    launches, [(loss, grad norm)] per step, median of steps 3-5)."""
+    steps, n_attn = TRAIN_STEPS, sum(k == "attn" for k in cfg.layer_kinds)
+    _zero_counts(kernel_mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = tr.run()
+    wall = time.perf_counter() - t0
+    launches = dict(kflash.launches)
+    others = {m.__name__: m.launches for m in kernel_mods
+              if not isinstance(m.launches, dict)}
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    losses = [l for _, l in hist]
+    print(f"  {label}: losses {losses} (ln V = {math.log(cfg.vocab):.4f}); "
+          f"grad norms {[r['grad_norm'] for r in tr.logged]}; step-1 loss "
+          f"against loss_fn at init: {abs(losses[0] - lf) / lf:.3e}")
+    if [s_ for s_, _ in hist] != list(range(1, steps + 1)) or not all(
+            math.isfinite(l) for l in losses):
+        raise AssertionError(f"bad training history {hist}")
+    if abs(losses[0] - lf) / lf > 1e-3:
+        raise AssertionError("step 1 does not compute loss_fn at init")
+    if losses[0] < math.log(cfg.vocab) - 0.5:
+        raise AssertionError("a random model beat the uniform loss")
+    fwd_runs = 2 if cfg.remat else 1            # remat runs it again
+    want = {"flash_fwd": fwd_runs * n_attn * steps,
+            "flash_bwd_dq": n_attn * steps,
+            "flash_bwd_dkv": n_attn * steps}
+    how = ("at the wrappers" if label == "eager" else
+           "under replay: each replay adds what the capture counted")
+    print(f"  {label}: flash launches {launches} over {steps} steps, "
+          f"counted {how} (expected {want}: {n_attn} attention layers, "
+          f"each forward run again by remat); other kernels {others}")
+    if launches != want or any(others.values()):
+        raise AssertionError("unexpected kernel launches in training")
+    step_s = float(np.median(tr.step_times[2:steps]))
+    tokens = FLASH["B"] * FLASH["T"]
+    print(f"  {label} [{card}]: step times "
+          f"{[round(t, 4) for t in tr.step_times]} s; median of steps "
+          f"3-{steps} {step_s:.4f} s = {tokens / step_s:.1f} tokens/s; "
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated), "
+          f"{reserved / 2**30:.2f} GiB reserved; run() {wall:.1f} s")
+    return launches, [(r["loss"], r["grad_norm"]) for r in tr.logged], \
+        step_s
+
+
+def train_phase(cfg, card, kflash, kernel_mods, kernel_counts):
+    """Full-width training through the port's Trainer with the flash
+    kernels, first eagerly (``cuda_graphs=False``, no checkpoint), then
+    replaying the step's CUDA graph (the default) with a checkpoint; each
+    ``TRAIN_STEPS`` steps from the same seed.  Per-step loss and gradient
+    norm and a digest of the final state must be equal bit for bit between
+    the two.  The flash launches are exact in both runs; in the graph run
+    a replay adds what its capture counted, so one more replayed step runs
+    under the profiler, whose flash kernels must be one step's share.
+    Returns the eager run's launches, counted at the wrappers."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.models.lm import param_count
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.graphs import graph_nodes
     from repro_torch.tree import leaves
     tcfg = cfg.replace(use_flash_kernel=True)
-    steps, n_attn = 3, sum(k == "attn" for k in cfg.layer_kinds)
+    steps = TRAIN_STEPS
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckdir:
-        tc = TrainerConfig(
-            steps=steps, seq_len=FLASH["T"], global_batch=FLASH["B"],
-            warmup_steps=1, ckpt_dir=ckdir, ckpt_every=1000, log_every=1)
-        tr = Trainer(tcfg, tc, device="cuda")
-        t0 = time.perf_counter()
-        tr.compile()
-        torch.cuda.synchronize()
-        params = tr.state["params"]
-        print(f"  state drawn in {time.perf_counter() - t0:.1f} s: "
-              f"{param_count(params) / 1e9:.3f} B {cfg.act_dtype} params, AdamW "
-              f"fp32 moments; "
-              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        batch = tr.batch(0)
-        for p in leaves(params):
-            p.requires_grad_(True)
-        t0 = time.perf_counter()
-        lf, nf = _loss_and_grad_norm(params, tcfg, batch)
-        t1 = time.perf_counter()
-        lp, np_ = _loss_and_grad_norm(
-            params, cfg.replace(use_flash_kernel=False), batch)
-        t2 = time.perf_counter()
-        dl, dn = abs(lf - lp) / abs(lp), abs(nf - np_) / np_
-        print(f"  loss_fn at init, step-0 batch: flash {lf:.6f} "
-              f"({t1 - t0:.1f} s with grads), plain {lp:.6f} "
-              f"({t2 - t1:.1f} s): relative difference {dl:.3e} (limit "
-              f"1e-2); grad global norm flash {nf:.6f}, plain {np_:.6f}: "
-              f"{dn:.3e} (limit 2e-2)")
-        if not (math.isfinite(lf) and math.isfinite(nf)) or dl > 1e-2 \
-                or dn > 2e-2:
-            raise AssertionError("flash and plain loss_fn disagree")
+        def trainer(cuda_graphs, ck):
+            tc = TrainerConfig(
+                steps=steps, seq_len=FLASH["T"], global_batch=FLASH["B"],
+                warmup_steps=1, ckpt_dir=ck, ckpt_every=1000, log_every=1)
+            t0 = time.perf_counter()
+            tr = Trainer(tcfg, tc, device="cuda",
+                         cuda_graphs=cuda_graphs).compile(keep_graph=True)
+            torch.cuda.synchronize()
+            print(f"  state drawn in {time.perf_counter() - t0:.1f} s: "
+                  f"{param_count(tr.state['params']) / 1e9:.3f} B "
+                  f"{cfg.act_dtype} params, AdamW fp32 moments; "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated")
+            return tr
 
-        for mod in kernel_mods:
-            if isinstance(mod.launches, dict):
-                for k in mod.launches:
-                    mod.launches[k] = 0
-            else:
-                mod.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        hist = tr.run()
-        wall = time.perf_counter() - t0
-        launches = dict(kflash.launches)
-        others = {m.__name__: m.launches for m in kernel_mods
-                  if not isinstance(m.launches, dict)}
-        peak = torch.cuda.max_memory_allocated()
-        losses = [l for _, l in hist]
-        print(f"  losses {losses} (ln V = {math.log(cfg.vocab):.4f}); "
-              f"step-1 loss against loss_fn at init: "
-              f"{abs(losses[0] - lf) / lf:.3e}")
-        if [s_ for s_, _ in hist] != list(range(1, steps + 1)) or not all(
-                math.isfinite(l) for l in losses):
-            raise AssertionError(f"bad training history {hist}")
-        if abs(losses[0] - lf) / lf > 1e-3:
-            raise AssertionError("step 1 does not compute loss_fn at init")
-        if losses[0] < math.log(cfg.vocab) - 0.5:
-            raise AssertionError("a random model beat the uniform loss")
-        fwd_runs = 2 if cfg.remat else 1            # remat runs it again
-        want = {"flash_fwd": fwd_runs * n_attn * steps,
-                "flash_bwd_dq": n_attn * steps,
-                "flash_bwd_dkv": n_attn * steps}
-        print(f"  flash launches {launches} over {steps} steps (expected "
-              f"{want}: {n_attn} attention layers, each forward run again "
-              f"by remat); other kernels {others}")
-        if launches != want or any(others.values()):
-            raise AssertionError("unexpected kernel launches in training")
-        st = sorted(tr.step_times[1:])
-        step_s = st[len(st) // 2]
-        tokens = FLASH["B"] * FLASH["T"]
-        print(f"  train [{card}]: step times "
-              f"{[round(t, 4) for t in tr.step_times]} s; median of steps "
-              f"2-{steps} {step_s:.4f} s = {tokens / step_s:.1f} tokens/s; "
-              f"peak memory {peak / 2**30:.2f} GiB "
-              f"(max_memory_allocated); run() with its final checkpoint "
-              f"{wall:.1f} s")
+        tr = trainer(False, None)
+        lf = _init_check(tr, cfg, tcfg)
+        launches, eager, eager_s = _train_run(tr, cfg, kflash, kernel_mods,
+                                              lf, card, "eager")
+        eager_digest = state_digest(tr.state)
+        del tr                     # two states do not fit the card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tr = trainer(None, ckdir)
+        if not tr.cuda_graphs:
+            raise AssertionError("the trainer does not default to graphs")
+        replayed, graph, graph_s = _train_run(tr, cfg, kflash, kernel_mods,
+                                              lf, card, "graphs")
+        prog = tr.program
+        kernels, nodes = graph_nodes(prog.graph)
+        print(f"  graphs [{card}]: one graph of {kernels} kernel nodes "
+              f"({nodes} nodes), captured in {prog.capture_s:.2f} s, "
+              f"instantiated in {prog.instantiate_s:.2f} s; replayed step "
+              f"{graph_s:.4f} s against {eager_s:.4f} s eagerly "
+              f"({eager_s / graph_s:.2f}x)")
+        same = graph == eager and state_digest(tr.state) == eager_digest
+        print(f"  per-step loss and grad norm, final state digest "
+              f"({len(eager_digest)} leaves): graphs == eager bitwise: "
+              f"{same}")
+        if not same:
+            raise AssertionError("the replayed step differs from the eager "
+                                 "step")
         mgr = CheckpointManager(ckdir)
         with open(pathlib.Path(ckdir) / f"step_{steps:09d}" /
                   "manifest.json") as f:
@@ -933,6 +1015,20 @@ def train_phase(cfg, card, kflash, kernel_mods):
               f"{len(manifest['keys'])} arrays")
         if mgr.latest_step() != steps or manifest["nbytes"] != state_bytes:
             raise AssertionError("the final checkpoint is incomplete")
+
+        # one more replayed step under the profiler (the state is checked)
+        counts = kernel_counts(tr.step, calls=1)
+        names = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_dq_",
+                 "flash_bwd_dkv": "flash_dkv_"}
+        got = {n: sum(c for key, c in counts.items() if p in key)
+               for n, p in names.items()}
+        per_step = {n: c // steps for n, c in replayed.items()}
+        print(f"  one replayed step under the profiler: flash kernels "
+              f"{got} (one step's share of the run's {replayed}: "
+              f"{per_step}), {sum(counts.values()):g} kernels in all")
+        if got != per_step:
+            raise AssertionError(f"a replayed step ran flash kernels {got}, "
+                                 f"not {per_step}")
     return launches
 
 
@@ -1220,7 +1316,8 @@ def main():
     print(f"[5] training full-width {cfg.name} through Trainer with the "
           f"flash kernels [{card}]")
     launches.update(train_phase(cfg, card, kflash,
-                                (kflash, kdecode, kprefill, kattn)))
+                                (kflash, kdecode, kprefill, kattn),
+                                kernel_counts))
     torch.cuda.empty_cache()
 
     launches.update(danube_phase(card, lm, attention, engine_mod, kattn,

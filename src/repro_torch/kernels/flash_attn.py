@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from repro_torch import device as _device
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ops import _on_cuda
 
@@ -100,13 +101,24 @@ def _check(q, k, v, valid_len, *extra):
         raise ValueError("flash kernels need contiguous, 16-byte aligned "
                          "inputs")
     if valid_len is not None:
-        valid_len = torch.as_tensor(valid_len, dtype=torch.int32,
-                                    device=q.device).reshape(-1)
+        valid_len = _lengths(valid_len, q.device)
         if valid_len.shape != (BH,):
             raise ValueError(f"valid_len must be ({BH},), got "
                              f"{tuple(valid_len.shape)}")
         valid_len = valid_len.contiguous()
     return BH, G, T, hd, valid_len
+
+
+def _lengths(valid_len, device) -> torch.Tensor:
+    """``valid_len`` as a flat int32 tensor on ``device``.  An int or a
+    tensor goes through ``device.as_int`` (no copy from host memory, so
+    safe inside a CUDA graph capture); a host sequence (a list, a numpy
+    array) is copied from the host."""
+    if isinstance(valid_len, (int, torch.Tensor)):
+        out = _device.as_int(valid_len, torch.int32, device)
+    else:
+        out = torch.as_tensor(valid_len, dtype=torch.int32, device=device)
+    return out.reshape(-1)
 
 
 def _raise_on(err, name):
@@ -234,12 +246,12 @@ def _heads_out(x, B):
     return x.reshape(B, BH // B * G, T, hd).permute(0, 2, 1, 3)
 
 
-def _len_per_bh(valid_len, Hkv):
-    """(B,) per-sequence lengths -> (B * Hkv,) per kernel row."""
+def _len_per_bh(valid_len, Hkv, device):
+    """(B,) per-sequence lengths -> (B * Hkv,) per kernel row on
+    ``device`` (``_lengths``)."""
     if valid_len is None:
         return None
-    return torch.repeat_interleave(
-        torch.as_tensor(valid_len).to(torch.int32).reshape(-1), Hkv)
+    return torch.repeat_interleave(_lengths(valid_len, device), Hkv)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -250,9 +262,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, window=None, valid_len=None):
         B, Hkv = q.shape[0], k.shape[2]
         qh, kh, vh = _heads_in(q, Hkv), _kv_in(k), _kv_in(v)
-        vl = _len_per_bh(valid_len, Hkv)
-        if vl is not None:
-            vl = vl.to(q.device)
+        vl = _len_per_bh(valid_len, Hkv, q.device)
         oh, m, l = flash_fwd(qh, kh, vh, vl, window=window)
         ctx.save_for_backward(qh, kh, vh, oh, m, l)
         ctx.window, ctx.valid_len, ctx.B = window, vl, B

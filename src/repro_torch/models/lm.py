@@ -15,7 +15,9 @@ donation) and returns them.
 Training runs each group's repeats in a loop; with ``cfg.remat`` each
 repeat is recomputed in the backward pass (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` of its scanned block), and so is each
-cross-entropy chunk.
+cross-entropy chunk.  No forward draws a random number, so the recompute
+neither saves nor restores the RNG state (which would read the generator
+inside a CUDA graph capture of the training step).
 
 Entry points:
   init_lm(generator, cfg, device)            -> params
@@ -143,7 +145,8 @@ def forward_hidden(params, cfg: ArchConfig, tokens=None, embeds=None):
 
         for lp_slice in _unstack(gp, reps):
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, lp_slice, use_reentrant=False)
+                x = checkpoint(block, x, lp_slice, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = block(x, lp_slice)
     return x, aux_total
@@ -172,7 +175,8 @@ def loss_fn(params, cfg: ArchConfig, batch, *, t_chunk=1024, z_loss=1e-4,
         losses = []
         for i in range(n):
             hc, lc = h[:, i * tc:(i + 1) * tc], labels[:, i * tc:(i + 1) * tc]
-            losses.append(checkpoint(chunk_loss, hc, lc, use_reentrant=False)
+            losses.append(checkpoint(chunk_loss, hc, lc, use_reentrant=False,
+                                     preserve_rng_state=False)
                           if torch.is_grad_enabled() else chunk_loss(hc, lc))
         ce = torch.mean(torch.stack(losses))
     loss = ce + aux_weight * aux

@@ -9,8 +9,11 @@ AdamW with
   * ``momentum=False``: the momentum-free Adafactor regime;
   * global-norm clipping.
 
-Schedules: WSD (warmup-stable-decay) and cosine, as functions of the host
-step.  The optimizer state mirrors the reference's tree,
+Schedules: WSD (warmup-stable-decay) and cosine, as functions of the step:
+a Python int (the learning rate as a float) or a 0-d int tensor (a 0-d
+fp32 tensor on its device, computed there with the reference's branches,
+so a training step never reads its step on the host).  The optimizer
+state mirrors the reference's tree,
 ``{"mu": per-parameter dicts, "count": int32 scalar}``, so it bridges and
 checkpoints one to one.  The moment arithmetic is fp32, as in the
 reference; ``adamw_update`` writes the new parameters and moments into
@@ -34,10 +37,21 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _warm(peak_lr, warmup_steps, s):
+    return peak_lr * torch.clamp(s / max(warmup_steps, 1), max=1.0)
+
+
 def wsd_schedule(peak_lr, warmup_steps, stable_steps, decay_steps,
                  final_frac=0.1):
     """MiniCPM's warmup-stable-decay schedule."""
     def lr(step):
+        if isinstance(step, torch.Tensor):
+            s = step.float()
+            in_decay = torch.clamp((s - warmup_steps - stable_steps)
+                                   / max(decay_steps, 1), 0.0, 1.0)
+            decay = peak_lr * (1.0 - (1.0 - final_frac) * in_decay)
+            return torch.where(s < warmup_steps,
+                               _warm(peak_lr, warmup_steps, s), decay)
         step = float(step)
         if step < warmup_steps:
             return _f32(peak_lr * min(1.0, step / max(warmup_steps, 1)))
@@ -49,6 +63,15 @@ def wsd_schedule(peak_lr, warmup_steps, stable_steps, decay_steps,
 
 def cosine_schedule(peak_lr, warmup_steps, total_steps, final_frac=0.1):
     def lr(step):
+        if isinstance(step, torch.Tensor):
+            s = step.float()
+            t = torch.clamp((s - warmup_steps)
+                            / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+            cos = final_frac + (1 - final_frac) * 0.5 * (
+                1 + torch.cos(math.pi * t))
+            return torch.where(s < warmup_steps,
+                               _warm(peak_lr, warmup_steps, s),
+                               peak_lr * cos)
         step = float(step)
         if step < warmup_steps:
             return _f32(peak_lr * min(1.0, step / max(warmup_steps, 1)))
@@ -164,14 +187,17 @@ def _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg: AdamWConfig):
 def adamw_update(grads, state, params, lr, cfg: AdamWConfig):
     """One AdamW step: clips ``grads`` to ``cfg.clip_norm``, then updates
     ``params`` and ``state["mu"]`` in place and advances
-    ``state["count"]``.  Returns (params, state, grad norm before
-    clipping, a 0-d fp32 tensor)."""
-    count = int(state["count"]) + 1
-    b1c = _f32(1.0 - np.float32(cfg.b1) ** np.float32(count))
-    b2c = _f32(1.0 - np.float32(cfg.b2) ** np.float32(count))
+    ``state["count"]``.  ``lr``: a float or a 0-d fp32 tensor.  The count
+    and the bias corrections stay on the device (reference
+    ``adamw_update``), so the step reads nothing on the host.  Returns
+    (params, state, grad norm before clipping, a 0-d fp32 tensor)."""
+    count = state["count"] + 1
+    b1c = 1.0 - cfg.b1 ** count.float()
+    b2c = 1.0 - cfg.b2 ** count.float()
     gnorm = global_norm(grads)
     clip = _clip_scale(gnorm, cfg.clip_norm)
-    lr = _f32(lr)
+    if not isinstance(lr, torch.Tensor):
+        lr = _f32(lr)
     flat_p = leaves(params)
     flat_g = leaves(grads)
     flat_s = leaves(state["mu"], is_leaf=lambda t: isinstance(t, dict)
@@ -186,6 +212,6 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig):
                              lr, b1c, b2c, clip, cfg)
         else:
             _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg)
-    state["count"].fill_(count)
+    state["count"].copy_(count)
     return params, state, gnorm
 

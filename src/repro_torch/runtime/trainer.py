@@ -3,7 +3,14 @@
 
 Behaviours carried over from the reference:
   * a train step with the parameters and optimizer moments updated in
-    place (the port's form of the reference's donated state);
+    place (the port's form of the reference's donated state), compiled:
+    the step reads its batch from static device buffers and computes the
+    learning rate and AdamW's bias corrections on the device, so on the
+    card it is captured once into a CUDA graph (forward with remat,
+    backward, clipping and AdamW) and replayed (``runtime.graphs.Program``:
+    the first call runs eagerly, the second captures).  ``cuda_graphs=False``
+    runs the same step eagerly on the card, the comparison; a capture or a
+    replay that fails raises, and is never retried as an eager step;
   * checkpoint/restart: atomic async checkpoints every ``ckpt_every``;
     ``run()`` auto-resumes from the latest complete checkpoint, and an
     exception inside the step loop triggers restore-and-continue with
@@ -33,6 +40,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, HostDataLoader
 from repro_torch.models import lm
 from repro_torch.optim import optimizers as opt
+from repro_torch.runtime import graphs
 from repro_torch.tree import leaves
 
 log = logging.getLogger("repro_torch.trainer")
@@ -82,7 +90,9 @@ def build_train_step(cfg: ArchConfig, tc: TrainerConfig):
     gradients (summed over ``tc.microbatches`` slices of the batch in
     ``tc.accum_dtype``), one AdamW step at the schedule's lr for
     ``state["step"]``, all written into ``state`` in place.  ``batch``
-    holds (B, T) int tensors on the state's device."""
+    holds (B, T) int tensors on the state's device.  Nothing is read on
+    the host: ``metrics`` ("loss", "lr", "grad_norm", ...) are 0-d
+    tensors on the device."""
     schedule = make_schedule(tc)
 
     def loss_and_grads(plist, params, batch):
@@ -118,7 +128,7 @@ def build_train_step(cfg: ArchConfig, tc: TrainerConfig):
             metrics = {k: v / n for k, v in msum.items()}
         else:
             loss, metrics, grads = loss_and_grads(plist, params, batch)
-        lr = schedule(int(state["step"]))
+        lr = schedule(state["step"])
         _, _, gnorm = opt.adamw_update(grads, state["opt"], params, lr,
                                        tc.adamw)
         state["step"].add_(1)
@@ -127,39 +137,87 @@ def build_train_step(cfg: ArchConfig, tc: TrainerConfig):
     return train_step
 
 
+class GraphStepError(RuntimeError):
+    """A training step's CUDA graph failed to capture or to replay."""
+
+
 class Trainer:
     def __init__(self, cfg: ArchConfig, tc: TrainerConfig, mesh=None,
-                 device=None):
+                 device=None, cuda_graphs: Optional[bool] = None):
+        """``cuda_graphs`` (default None: on the card, not on the CPU)
+        replays the compiled step from a CUDA graph; ``False`` runs it
+        eagerly; ``True`` on the CPU raises."""
         if mesh is not None:
             raise NotImplementedError(
                 "the port trains on one device; meshes and sharding are not "
                 "ported yet: the reference's parallel/sharding.py (ROADMAP)")
         self.cfg, self.tc = cfg, tc
         self.device = _device.resolve(device)
+        on_card = self.device.type == "cuda"
+        if cuda_graphs and not on_card:
+            raise ValueError(f"cuda_graphs=True needs a CUDA device; the "
+                             f"trainer runs on {self.device}")
+        self.cuda_graphs = on_card if cuda_graphs is None else cuda_graphs
         self.loader = HostDataLoader(DataConfig(
             vocab=cfg.vocab, seq_len=tc.seq_len,
             global_batch=tc.global_batch, seed=tc.seed))
         self.ckpt = (ckpt.CheckpointManager(tc.ckpt_dir)
                      if tc.ckpt_dir else None)
         self._step_fn = None
+        self.program: Optional[graphs.Program] = None
         self.state = None
+        self._batch = None
         self.step_times: list[float] = []
+        # {"step", "loss", "lr", "grad_norm"} at every logged step
+        self.logged: list[dict] = []
         self._ewma = None
         self._ewvar = 0.0
         self.restarts = 0
 
-    def compile(self):
-        """Draw the initial state on the device from ``tc.seed`` and build
-        the step function."""
+    def compile(self, keep_graph: bool = False):
+        """Draw the initial state on the device from ``tc.seed``, allocate
+        the static batch buffers and wrap the step function in the program
+        that runs it on them (the reference's ``jax.jit`` of the step).
+        ``keep_graph`` keeps the captured graph's template so that its
+        nodes can be counted and its instantiation timed
+        (``graphs.Program``)."""
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
         self.state = init_state(gen, self.cfg, self.tc, self.device)
         self._step_fn = build_train_step(self.cfg, self.tc)
+        shape = (self.tc.global_batch, self.tc.seq_len)
+        self._batch = {k: torch.zeros(shape, dtype=torch.int64,
+                                      device=self.device)
+                       for k in ("tokens", "labels")}
+        pool = torch.cuda.graph_pool_handle() if self.cuda_graphs else None
+        # bound to the state and the buffers, not to self: a dropped
+        # trainer's graph is then freed without the collector
+        self.program = graphs.Program(
+            lambda f=self._step_fn, s=self.state, b=self._batch: f(s, b)[1],
+            pool, keep_graph)
         return self
 
     def batch(self, step: int) -> dict:
-        """The loader's batch for ``step`` as int64 tensors on the device."""
-        return {k: torch.from_numpy(v).to(self.device, torch.int64)
-                for k, v in self.loader.batch_at(step).items()}
+        """The loader's batch for ``step`` copied into the static batch
+        buffers (the same int64 device tensors every step)."""
+        for k, v in self.loader.batch_at(step).items():
+            self._batch[k].copy_(torch.from_numpy(v))
+        return self._batch
+
+    def step(self) -> dict:
+        """One training step on the batch buffers, synced; returns its
+        metrics (0-d device tensors, overwritten by the next step).  Raises
+        ``GraphStepError`` where the call captured or replayed the graph
+        and failed."""
+        graphed = self.program.pool is not None and self.program.calls > 0
+        try:
+            metrics = self.program()
+            self._sync()
+        except Exception as e:
+            if graphed:
+                raise GraphStepError(f"the training step's CUDA graph "
+                                     f"failed: {e}") from e
+            raise
+        return metrics
 
     # ------------------------------------------------------------------
     def _record_step_time(self, dt: float, step: int):
@@ -195,29 +253,33 @@ class Trainer:
         """Train to tc.steps with restore-on-failure. `fail_at` injects a
         fault once (for tests / chaos drills).  Returns [(step, loss)] at
         every ``log_every`` steps and the last."""
-        if self._step_fn is None:
+        if self.program is None:
             self.compile()
         step = self._maybe_restore()
         injected = False
         history = []
         while step < self.tc.steps:
             try:
-                batch = self.batch(step)
+                self.batch(step)
                 if fail_at is not None and step == fail_at and not injected:
                     injected = True
                     raise RuntimeError("injected node failure")
                 t0 = time.perf_counter()
-                self.state, metrics = self._step_fn(self.state, batch)
-                self._sync()
+                metrics = self.step()
                 self._record_step_time(time.perf_counter() - t0, step)
                 step += 1
                 if step % self.tc.log_every == 0 or step == self.tc.steps:
-                    history.append((step, float(metrics["loss"])))
-                    log.info("step %d loss %.4f lr %.2e", step,
-                             float(metrics["loss"]), metrics["lr"])
+                    rec = {k: float(metrics[k])
+                           for k in ("loss", "lr", "grad_norm")}
+                    self.logged.append(dict(rec, step=step))
+                    history.append((step, rec["loss"]))
+                    log.info("step %d loss %.4f lr %.2e", step, rec["loss"],
+                             rec["lr"])
                 if self.ckpt and step % self.tc.ckpt_every == 0:
                     self.ckpt.save(self.state, step,
                                    blocking=not self.tc.ckpt_async)
+            except GraphStepError:
+                raise
             except Exception as e:  # noqa: BLE001 — node-failure recovery
                 self.restarts += 1
                 if self.restarts > self.tc.max_restarts:

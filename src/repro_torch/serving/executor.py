@@ -26,7 +26,7 @@ The executor owns
       slot buffers.
 
 On the card each program is captured once into a CUDA graph and replayed
-(``serving.graphs``); on the CPU, or with ``cuda_graphs=False``, it runs
+(``runtime.graphs``); on the CPU, or with ``cuda_graphs=False``, it runs
 eagerly.  Either way a program writes its results into the executor's
 buffers, so every call sees one set of addresses.
 
@@ -45,7 +45,8 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
-from repro_torch.serving import graphs, sampling
+from repro_torch.runtime import graphs
+from repro_torch.serving import sampling
 from repro_torch.tree import leaves
 
 

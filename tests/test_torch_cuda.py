@@ -688,7 +688,7 @@ def test_graphs_streams_bitwise_equal_eager_new_archs(cuda, arch):
 UNSAFE = r"""
 import json, sys, torch
 sys.path.insert(0, "src")
-from repro_torch.serving import graphs
+from repro_torch.runtime import graphs
 x = torch.zeros((), device="cuda")
 ran = []
 
@@ -715,7 +715,7 @@ import numpy as np, torch
 sys.path.insert(0, "src")
 from repro_torch import configs
 from repro_torch.models import lm
-from repro_torch.serving import graphs
+from repro_torch.runtime import graphs
 from repro_torch.serving.engine import DecodeEngine, Request
 if sys.argv[1:] == ["unguarded"]:        # the capture without its guard
     class _Gc:
@@ -794,3 +794,159 @@ def test_graphs_capture_unsafe_program_raises(cuda):
     assert res["first"] == 2.0 and res["error"] is not None
     # the eager first call and the failed capture: no third, eager run
     assert res["ran"] == 2 and res["graph"] is False
+
+
+# ------------------------------------------------------------ training graphs
+
+def _train_cfg():
+    """Reduced qwen3-next-gdn in bf16 through the flash kernels (head dim
+    64, which they take), remat on: every part of the full-width step."""
+    from repro_torch import configs
+    return configs.get_arch("qwen3-next-gdn").reduced().replace(
+        head_dim=64, act_dtype="bfloat16", use_flash_kernel=True, remat=True)
+
+
+def _train(cuda_graphs, fail_at=None, ckpt_dir=None, **kw):
+    """A trainer over 4 steps of 2 x 2048 tokens (two cross-entropy chunks,
+    each recomputed), warmup 2, run to its end."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    tc = TrainerConfig(steps=4, seq_len=2048, global_batch=2,
+                       warmup_steps=2, log_every=1, ckpt_dir=ckpt_dir,
+                       ckpt_every=2, ckpt_async=False, **kw)
+    t = Trainer(_train_cfg(), tc, device="cuda", cuda_graphs=cuda_graphs)
+    t.run(fail_at=fail_at)
+    return t
+
+
+def _words(t):
+    """A tensor's bits as integers, on the host."""
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().contiguous().view(bits[t.element_size()]).cpu()
+
+
+def _assert_same_bits(a, b):
+    from repro_torch.tree import leaves
+    la, lb = leaves(a.state), leaves(b.state)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert torch.equal(_words(x), _words(y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_graphs_bitwise_equal_eager(cuda, microbatches):
+    """The step replayed from its CUDA graph gives the eager step's losses,
+    gradient norms, parameters, moments and counts bit for bit over 4
+    steps (step 1 eager, step 2 captured, then replayed); the flash
+    launches counted under replay equal the eager run's."""
+    from repro_torch.kernels import flash_attn as kflash
+    runs = {}
+    for graphs in (False, True):
+        before = dict(kflash.launches)
+        t = _train(graphs, microbatches=microbatches)
+        runs[graphs] = (t, {k: n - before[k]
+                            for k, n in kflash.launches.items()})
+    (e, e_launch), (g, g_launch) = runs[False], runs[True]
+    assert g.program.graph is not None and e.program.graph is None
+    assert g.program.calls == e.program.calls == 4
+    assert [r["loss"] for r in g.logged] == [r["loss"] for r in e.logged]
+    assert [r["grad_norm"] for r in g.logged] == \
+        [r["grad_norm"] for r in e.logged]
+    _assert_same_bits(g, e)
+    n_attn = sum(k == "attn" for k in g.cfg.layer_kinds)
+    assert g_launch == e_launch == {
+        "flash_fwd": 2 * n_attn * 4 * microbatches,
+        "flash_bwd_dq": n_attn * 4 * microbatches,
+        "flash_bwd_dkv": n_attn * 4 * microbatches}
+
+
+@pytest.mark.cuda
+def test_train_graphs_restore_and_continue(cuda, tmp_path):
+    """A fault at step 3 restores the step-2 checkpoint in place and goes
+    on replaying the same graph: the run ends bit for bit where an
+    unbroken graph run ends."""
+    t = _train(True, fail_at=3, ckpt_dir=str(tmp_path / "fault"))
+    ref = _train(True, ckpt_dir=str(tmp_path / "ref"))
+    assert t.restarts == 1 and t.program.graph is not None
+    assert t.program.calls == 5 and len(t.step_times) == 5
+    _assert_same_bits(t, ref)
+
+
+@pytest.mark.cuda
+def test_train_graph_replay_runs_the_counted_flash_kernels(cuda):
+    """The flash launches a replay adds to the counters are what a replayed
+    step runs on the card (the profiler's count); a graph kept with
+    ``keep_graph=True`` holds at least that many kernel nodes, and its
+    capture and instantiation are timed apart."""
+    from repro_torch.launch.profile_decode import kernel_counts
+    from repro_torch.runtime.graphs import graph_nodes
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    tc = TrainerConfig(steps=4, seq_len=512, global_batch=2, warmup_steps=2)
+    t = Trainer(_train_cfg(), tc, device="cuda").compile(keep_graph=True)
+    t.batch(0)
+    for _ in range(3):
+        t.step()
+    prog = t.program
+    assert prog.capture_s > 0 and prog.instantiate_s > 0
+    counts = kernel_counts(t.step, calls=2)
+    prefixes = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_dq_",
+                "flash_bwd_dkv": "flash_dkv_"}
+    got = {n: sum(c for key, c in counts.items() if p in key)
+           for n, p in prefixes.items()}
+    want = {name: n for (mod, name), n in prog.launches.items()
+            if mod.endswith("flash_attn")}
+    assert got == want and min(want.values()) > 0
+    kernels, nodes = graph_nodes(prog.graph)
+    assert sum(want.values()) <= kernels <= nodes
+
+
+TRAIN_UNSAFE = r"""
+import json, sys, torch
+sys.path.insert(0, "src")
+from repro_torch import configs
+from repro_torch.runtime.trainer import GraphStepError, Trainer, TrainerConfig
+cfg = configs.get_arch("qwen3-next-gdn").reduced().replace(
+    head_dim=64, act_dtype="bfloat16", use_flash_kernel=True, remat=True)
+tc = TrainerConfig(steps=4, seq_len=256, global_batch=2, warmup_steps=2)
+tr = Trainer(cfg, tc, device="cuda").compile()
+real, ran = tr.program.fn, []
+
+
+def step():
+    ran.append(1)
+    out = real()
+    float(out["loss"])            # a host read inside the step
+    return out
+
+
+tr.program.fn = step
+try:
+    tr.run()
+    err = None
+except GraphStepError as e:
+    err = type(e.__cause__).__name__
+print(json.dumps({"error": err, "ran": len(ran), "restarts": tr.restarts,
+                  "graph": tr.program.graph is not None,
+                  "steps": len(tr.step_times)}))
+"""
+
+
+@pytest.mark.cuda
+def test_train_graph_capture_failure_raises(cuda):
+    """A step that reads a tensor on the host fails its capture; ``run``
+    raises ``GraphStepError`` with no restart and no eager step in its
+    place (a subprocess: a failed capture can leave the CUDA context
+    unusable)."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", TRAIN_UNSAFE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["error"] is not None
+    # the eager first step and the failed capture: no third, eager run
+    assert (res["ran"], res["restarts"], res["graph"], res["steps"]) == \
+        (2, 0, False, 1)

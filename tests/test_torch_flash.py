@@ -150,6 +150,23 @@ def test_flash_attention_autograd_matches_dense_float64(window, valid):
                                    **F32_GRAD)
 
 
+@pytest.mark.parametrize("form", ["list", "tuple", "numpy", "numpy_int64"])
+def test_flash_attention_takes_host_valid_len_sequences(form):
+    """A (B,) host sequence of lengths gives the bits a tensor gives."""
+    rng = np.random.default_rng(6)
+    B, T, Hq, Hkv, hd = 2, 32, 4, 2, 16
+    q, k, v = (torch.tensor(rng.normal(size=(B, T, h, hd)),
+                            dtype=torch.float32) for h in (Hq, Hkv, Hkv))
+    valid = (32, 9)
+    host = {"list": list(valid), "tuple": valid,
+            "numpy": np.asarray(valid, dtype=np.int32),
+            "numpy_int64": np.asarray(valid, dtype=np.int64)}[form]
+    want = tflash.flash_attention(
+        q, k, v, valid_len=torch.tensor(valid, dtype=torch.int32))
+    got = tflash.flash_attention(q, k, v, valid_len=host)
+    assert torch.equal(got, want)
+
+
 # --------------------------------------- the bf16 tensor-core kernels' design
 
 def _tc_emulation(q, k, v, do, vl, window, scale):

@@ -37,9 +37,9 @@ from repro.serving.engine import DecodeEngine as JEngine  # noqa: E402
 from repro.serving.engine import Request as JRequest      # noqa: E402
 from repro_torch import configs as tconfigs               # noqa: E402
 from repro_torch.bridge import to_torch                   # noqa: E402
-from repro_torch.serving import graphs                    # noqa: E402
 from repro_torch.serving import sampling as ts            # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, Request  # noqa: E402
+from torch_host_guard import guard_programs               # noqa: E402
 
 PROGRAM_KEYS = ("decode", "prefill_scan", "prefill_admit", "prefill",
                 "total")
@@ -176,57 +176,13 @@ def test_streams_through_programs_match_reference(reference, overlap):
         {k: want[k] for k in PROGRAM_KEYS}
 
 
-class _HostUse(AssertionError):
-    pass
-
-
-def _refuse(name):
-    def refuse(*args, **kwargs):
-        raise _HostUse(f"{name} inside a program after its first call")
-    return refuse
-
-
 def test_programs_stay_on_the_device_after_their_first_call(reference,
                                                             monkeypatch):
     """A CPU stand-in for the card's capture rules: from its second call on
     a program may neither make a tensor from host data (a pageable copy a
     capture refuses) nor read a tensor on the host (a sync)."""
     tcfg, tp, streams, _ = reference
-    guarded = {"on": False}
-
-    def as_tensor(data, *args, **kwargs):
-        if guarded["on"] and not isinstance(data, torch.Tensor):
-            raise _HostUse("torch.as_tensor of host data inside a program")
-        return real_as_tensor(data, *args, **kwargs)
-
-    real_as_tensor = torch.as_tensor
-    real_call = graphs.Program.__call__
-    monkeypatch.setattr(torch, "as_tensor", as_tensor)
-    for name in ("tensor", "from_numpy"):
-        real = getattr(torch, name)
-        monkeypatch.setattr(torch, name, lambda *a, _r=real, _n=name, **k: (
-            _refuse(f"torch.{_n}")() if guarded["on"] else _r(*a, **k)))
-    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
-                 "__float__"):
-        real = getattr(torch.Tensor, name)
-        monkeypatch.setattr(torch.Tensor, name, lambda self, *a, _r=real,
-                            _n=name, **k: (
-                                _refuse(f"Tensor.{_n}")() if guarded["on"]
-                                else _r(self, *a, **k)))
-
-    calls = {"guarded": 0}
-
-    def call(prog):
-        if prog.calls == 0:
-            return real_call(prog)
-        guarded["on"] = True
-        calls["guarded"] += 1
-        try:
-            return real_call(prog)
-        finally:
-            guarded["on"] = False
-
-    monkeypatch.setattr(graphs.Program, "__call__", call)
+    calls = guard_programs(monkeypatch)
     eng = DecodeEngine(tcfg, tp, device="cpu", **ENGINE)
     reqs = _mix(Request, tcfg.d_model)
     for r in reqs:

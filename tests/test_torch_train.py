@@ -17,6 +17,13 @@ moments agree like the gradients, and the parameters to 1e-6 wherever
 |g| ~ eps = 1e-8 magnifies a gradient's last-bit difference, so there
 the step is only held to its bound, 2 lr.  Loader batches and
 checkpoints are bitwise.
+
+The compiled step: the schedules' tensor form (a 0-d step on the device)
+against the reference's, three consecutive steps through the warmup
+against the jitted reference step with the tolerances above, the step
+under ``tests/torch_host_guard.py`` (no host data and no host read after
+its first call: what a CUDA graph capture refuses on the card), the static
+batch buffers, and a failed capture raising instead of running eagerly.
 """
 import logging
 
@@ -40,7 +47,9 @@ from repro_torch.data import pipeline as tdata             # noqa: E402
 from repro_torch.models import lm as tlm                   # noqa: E402
 from repro_torch.optim import optimizers as topt           # noqa: E402
 from repro_torch.runtime import trainer as ttrainer        # noqa: E402
+from repro_torch.runtime import graphs                     # noqa: E402
 from repro_torch.tree import leaves                        # noqa: E402
+from torch_host_guard import guard_programs                # noqa: E402
 
 STEP = dict(rtol=1e-6, atol=1e-6)
 LOSS = dict(rtol=1e-5, atol=0)
@@ -83,6 +92,22 @@ def test_schedules_match_reference(kind):
         j, t = (m.wsd_schedule(1e-3, 5, 20, 10) for m in (jopt, topt))
     for step in [0, 1, 4, 5, 9, 10, 11, 24, 30, 35, 50, 99, 100, 150]:
         np.testing.assert_allclose(t(step), float(j(step)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["cosine", "wsd"])
+def test_schedules_on_the_device_match_reference(kind):
+    """The tensor form: a 0-d int32 step gives a 0-d fp32 lr computed with
+    the reference's branches, over warmup, the stable or cosine part, the
+    decay and past the end."""
+    if kind == "cosine":
+        j, t = (m.cosine_schedule(3e-4, 10, 100) for m in (jopt, topt))
+    else:
+        j, t = (m.wsd_schedule(1e-3, 5, 20, 10) for m in (jopt, topt))
+    for step in [0, 1, 4, 5, 9, 10, 11, 24, 30, 35, 50, 99, 100, 150]:
+        got = t(torch.tensor(step, dtype=torch.int32))
+        assert got.dtype == torch.float32 and got.shape == ()
+        np.testing.assert_allclose(float(got), float(j(jnp.int32(step))),
+                                   rtol=1e-6)
 
 
 # ------------------------------------------------------------ AdamW
@@ -245,9 +270,7 @@ def test_train_step_matches_reference(jstate):
     tc = jtrainer.TrainerConfig(peak_lr=1e-3, warmup_steps=0)
     batch = _batch(jcfg, seed=1)
     tstate = to_torch(jax.tree.map(np.asarray, jstate))
-    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
-                             ("data", "model"))
-    with mesh:
+    with _mesh():
         jnew, jm = jax.jit(jtrainer.build_train_step(jcfg, tc))(
             jstate, jax.tree.map(jnp.asarray, batch))
     ttc = ttrainer.TrainerConfig(peak_lr=1e-3, warmup_steps=0)
@@ -259,10 +282,19 @@ def test_train_step_matches_reference(jstate):
     np.testing.assert_allclose(float(tm["grad_norm"]),
                                float(jm["grad_norm"]), rtol=1e-5)
     np.testing.assert_allclose(tm["lr"], float(jm["lr"]), rtol=1e-6)
+    _assert_stepped_state(tnew, jnew, tc)
+
+
+def _mesh():
+    return jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+
+
+def _assert_stepped_state(tnew, jnew, tc):
+    """Moments like the gradients; parameters tight where the gradient is
+    well above AdamW's eps; elsewhere the step g / (|g| + eps) is
+    ill-conditioned and only bounded by lr (1 + weight decay |p|)."""
     _assert_trees(tnew["opt"]["mu"], jnew["opt"]["mu"], **GRAD)
-    # parameters: tight where the gradient is well above AdamW's eps;
-    # elsewhere the step g / (|g| + eps) is ill-conditioned and only
-    # bounded by lr (1 + weight decay |p|)
     tp, jp = leaves(to_numpy(tnew["params"])), jax.tree.leaves(
         jax.tree.map(np.asarray, jnew["params"]))
     jmu = [np.asarray(s["m"]) for s in jax.tree.leaves(
@@ -273,6 +305,36 @@ def test_train_step_matches_reference(jstate):
         sharp = np.abs(m) / (1 - tc.adamw.b1) > 1e-6
         np.testing.assert_allclose(a[sharp], b[sharp], **STEP)
         np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)
+
+
+def test_train_steps_through_warmup_match_reference(jstate):
+    """Three consecutive steps of ``build_train_step`` with warmup_steps=2
+    (lr 0, peak / 2, then the cosine's peak), the lr and AdamW's bias
+    corrections taken on the device from the step and the count, against
+    the jitted reference step applied three times: the count passes 1 and
+    the warmup branch is held, with the tolerances of one step."""
+    jcfg, tcfg = _cfgs()
+    tc = jtrainer.TrainerConfig(peak_lr=1e-3, warmup_steps=2)
+    jstep = jax.jit(jtrainer.build_train_step(jcfg, tc))
+    tstep = ttrainer.build_train_step(
+        tcfg, ttrainer.TrainerConfig(peak_lr=1e-3, warmup_steps=2))
+    jnew, tnew = jstate, to_torch(jax.tree.map(np.asarray, jstate))
+    for i in range(3):
+        batch = _batch(jcfg, seed=10 + i)
+        with _mesh():
+            jnew, jm = jstep(jnew, jax.tree.map(jnp.asarray, batch))
+        tnew, tm = tstep(tnew, _tb(batch))
+        assert isinstance(tm["lr"], torch.Tensor)
+        np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   **LOSS)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-5)
+    assert float(jm["lr"]) == pytest.approx(1e-3)
+    assert int(tnew["step"]) == int(jnew["step"]) == 3
+    assert int(tnew["opt"]["count"]) == int(jnew["opt"]["count"]) == 3
+    _assert_stepped_state(tnew, jnew, tc)
 
 
 # ------------------------------------------------------------ trainer
@@ -346,3 +408,74 @@ def test_trainer_rejects_a_mesh():
                        match=r"parallel/sharding\.py \(ROADMAP\)"):
         ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=object(),
                          device="cpu")
+
+
+# ------------------------------------------------------------ compiled step
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_stays_on_the_device_after_its_first_call(monkeypatch,
+                                                             microbatches):
+    """The trainer's step program, from its second call on, makes no
+    tensor from host data and reads nothing on the host (what a CUDA graph
+    capture refuses on the card), with and without microbatches."""
+    calls = guard_programs(monkeypatch)
+    cfg = tconfigs.get_arch("qwen3-next-gdn").reduced()
+    tc = ttrainer.TrainerConfig(steps=3, seq_len=32, global_batch=2,
+                                microbatches=microbatches, warmup_steps=2,
+                                log_every=1)
+    t = ttrainer.Trainer(cfg, tc, device="cpu")
+    hist = t.run()
+    assert calls["guarded"] == 2
+    assert [s for s, _ in hist] == [1, 2, 3]
+    assert [r["lr"] for r in t.logged] == pytest.approx(
+        [0.0, tc.peak_lr / 2, tc.peak_lr])
+    assert int(t.state["step"]) == int(t.state["opt"]["count"]) == 3
+
+
+def test_trainer_batch_fills_the_same_buffers():
+    """``Trainer.batch`` copies the loader's batch into the static int64
+    buffers the step program reads: the same tensors every step."""
+    cfg = tconfigs.get_arch("qwen3-next-gdn").reduced()
+    tc = ttrainer.TrainerConfig(seq_len=32, global_batch=2)
+    t = ttrainer.Trainer(cfg, tc, device="cpu").compile()
+    b0 = t.batch(0)
+    ptrs = {k: v.data_ptr() for k, v in b0.items()}
+    first = {k: v.clone() for k, v in b0.items()}
+    b1 = t.batch(1)
+    assert b1 is b0 and {k: v.data_ptr() for k, v in b1.items()} == ptrs
+    want = t.loader.batch_at(1)
+    assert sorted(b1) == sorted(want) == ["labels", "tokens"]
+    for k, v in b1.items():
+        assert v.dtype == torch.int64 and tuple(v.shape) == (2, 32)
+        np.testing.assert_array_equal(v.numpy(), want[k])
+        assert not torch.equal(v, first[k])
+
+
+def test_trainer_graph_failure_raises_without_an_eager_retry(tmp_path,
+                                                             monkeypatch):
+    """A capture that fails raises out of ``run`` as ``GraphStepError``: no
+    restart, and no eager step in its place (on the CPU the program is
+    given a pool, so that its second call captures, as on the card)."""
+    def refuse(prog):
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    monkeypatch.setattr(graphs.Program, "_capture", refuse)
+    t = _tiny_trainer(tmp_path).compile()
+    t.program.pool = object()
+    with pytest.raises(ttrainer.GraphStepError, match="capturing"):
+        t.run()
+    assert t.restarts == 0 and t.program.calls == 2
+    assert len(t.step_times) == 1 and int(t.state["step"]) == 1
+
+
+def test_trainer_without_a_card_raises(monkeypatch):
+    """No fallback: the trainer's default device is the card, and graphs
+    need one."""
+    cfg = tconfigs.get_arch("qwen3-next-gdn").reduced()
+    with pytest.raises(ValueError, match="cuda_graphs=True needs a CUDA"):
+        ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), device="cpu",
+                         cuda_graphs=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrainer.Trainer(cfg, ttrainer.TrainerConfig())
