@@ -21,15 +21,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
   4. serving through ``DecodeEngine`` with the kernels (4 slots, max_len
      1024, prefill chunk 64, decode block 8): 6 requests, prompts of
      100-400 tokens, 32 new tokens each, one at temperature 0.8 / top-k
-     40, through an eager engine (``cuda_graphs=False``) and then the
-     default one (every decode and prefill program replayed from a CUDA
-     graph), each serving the mix twice — "cold" (each program's eager
-     first call and its capture), then "warm" — with the streams bitwise
-     equal between the two engines and the program shapes within the
-     reference's bounds.  The kernels' launch counters are zeroed just
-     before and read just after the graphs' warm run (replays add the
-     launches their capture counted); then one replayed tick of 4
-     resident requests under the profiler must run 36 x k
+     40, through an eager engine (``cuda_graphs=False``), the default one
+     (batched staging; every decode and prefill program replayed from a
+     CUDA graph), a per-prompt one (``prefill_batching=False``) and a pow2
+     one (``plan_mode="pow2"``), each graph engine serving the mix twice
+     — "cold" (each program's eager first call and its capture), then
+     "warm"; the eager engine once —
+     with each engine's dispatches, scatters, programs and TTFT printed,
+     the streams of the first three bitwise equal, the pow2 engine's warm
+     streams bitwise its cold ones (in bf16 its tail chunks round
+     otherwise; where its first token leaves the default's is printed),
+     and the program shapes within the reference's bounds for each
+     engine's path.  The kernels' launch counters are set to 0 just
+     before and read just after the eager engine's warm run (the main
+     path, counted at the wrappers): ``gdn_decode`` 36 x decode steps,
+     ``gdn_prefill`` a multiple of 36 (one launch per layer and chunk,
+     every staged row in it); the default graph engine's replays must add
+     the same counts, and one replayed batched round (the scan of 4 chunks
+     and the admit) under the profiler must run 36 x 5 prefill kernels;
+     then the max |diff| of one staged row's caches, batched against per
+     prompt; the pow2 and the batched streams bitwise equal in fp32
+     activations (the reference's promise), and in bf16 through the plain
+     path (no kernel), eagerly, the pow2 streams must leave the batched
+     ones too if the kernel path's do (the witness that bf16 arithmetic,
+     not a kernel, moves them); one replayed tick of 4 resident requests
+     under the profiler must run 36 x k ``gdn_decode_kernel`` launches;
+  9. (run right after phase 4, on its weights) speculative decode of the
+     same model on phase 4's mix through CUDA graphs: a self-draft with
+     k_draft 4, then a draft of the same architecture with weights from
+     seed 1 and ``adaptive_k``, each cold, then warm (replayed; in the
+     second, the rollback);
+     both streams bitwise phase 4's plain ones; acceptance, ticks, syncs
+     per token, decode us/token, programs and the checkpoint and draft
+     bytes printed; ``gdn_decode`` launches added under replay = 36 x
+     draft steps + 72 x verify positions, and one replayed draft + verify
+     of each engine under the profiler must run 36 x k + 72 x (k + 1)
      ``gdn_decode_kernel`` launches;
   5. training full-width qwen3-next-gdn through the port's ``Trainer``
      with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 5
@@ -62,16 +88,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
   7. full-width mamba2-1.3b (48 ssm layers: SSD through both GDN kernels
      with ``delta_rule=False``, one q/k head for 64 value heads, d_k 128
      x d_v 64; random bf16 weights drawn on the card from seed 0): phase
-     3's decode-step check, then phase 4's mix through the eager and the
-     CUDA-graph engine, streams bitwise equal, launches under replay of
-     48 x decode steps (``gdn_decode``) and 48 x prefill chunks
-     (``gdn_prefill``);
+     3's decode-step check, then phase 4's mix through the eager, the
+     default (batched, CUDA graphs) and a per-prompt CUDA-graph engine,
+     streams bitwise equal, launches counted at the wrappers in the eager
+     warm run (48 x decode steps, 48 x prefill chunks) and one replayed
+     batched round under the profiler (48 x 5 prefill kernels);
   8. full-width recurrentgemma-2b (RG-LRU + swa, window 2048; random bf16
      weights from seed 0): 4 requests of 300-2500 tokens, 16 new tokens
      each, eagerly and through CUDA graphs, streams bitwise equal; no
      hand-written kernel launches on this path.
 
-Phase 2 also holds both GDN kernels at mamba2-1.3b's shape (B=4, Hk=1,
+Phase 2 also holds the GDN prefill at qwen3-next-gdn's served shape on
+one staged prompt's unmasked chunks of T = C = 1, 2, 4, 8, 16 and 32 (the
+pow2 plans' tails) against its plain version, and both GDN kernels at
+mamba2-1.3b's shape (B=4, Hk=1,
 Hv=64, d_k=128, d_v=64, bf16, ``delta_rule=False``; the prefill at T=64
 and T=192 in chunks of 64 with ragged ``valid_len``), timed beside their
 bounds as the rows ``gdn_decode_mamba2`` and ``gdn_prefill_mamba2``, and
@@ -417,6 +447,35 @@ def prefill_phase(ops, ref, kprefill, time_launches, name="gdn_prefill",
                 library_ms=None)
 
 
+POW2_CHUNKS = (1, 2, 4, 8, 16, 32)
+
+
+def prefill_pow2_checks(ops, ref):
+    """gdn_prefill as the pow2 plans' tail sub-chunks launch it: one staged
+    prompt (B = 1) at qwen3-next-gdn's served shape (bf16, d_k 128: the
+    tensor-core kernel, which pads its 64-token tile), unmasked chunks of
+    T = C in ``POW2_CHUNKS``, each from the state the one before left
+    (as a tail decomposes), against the plain sequential scan: the state
+    within rtol = atol = 1e-4, O within 2e-2 (phase 2's tolerances).
+    Checks only: the timed rows stay at their shapes."""
+    hk, hv, dk, dv, dtype = PREFILL_FULL
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    S_k = S_p = None
+    for T in POW2_CHUNKS:
+        q, k, v, lg, beta, S0 = prefill_inputs(1, T, gen, hk, hv, dk, dv,
+                                               dtype)
+        if S_k is None:
+            S_k, S_p = S0.clone(), S0.reshape(hv, dk, dv).clone()
+        O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=64)
+        rows = [x.transpose(1, 2).reshape(x.shape[2], T, *x.shape[3:])
+                .contiguous() for x in (q, k, v, lg, beta)]
+        O_p, S_p = ref.gdn_prefill_ref(*rows, S_p, None, n_rep=hv // hk)
+        torch.cuda.synchronize()
+        label = f"gdn_prefill pow2 tail T = C = {T}"
+        check(f"{label} S", S_k.reshape(hv, dk, dv), S_p, 1e-4, 1e-4)
+        check(f"{label} O", O_k[0].transpose(0, 1), O_p, 2e-2, 2e-2)
+
+
 def _flash_inputs(B, T, Hq, Hkv, hd, dtype, gen):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -699,33 +758,81 @@ def model_phase(cfg, params, lm):
 
 # ---------------------------------------------------------------- phase 4
 
-def serve_twice(Engine, cfg, params, kw, make_requests, card, label):
-    """The same request mix through two engines on one set of weights:
-    ``cuda_graphs=False`` (eager), then the default (every decode and
-    prefill program replayed from a CUDA graph).  Each engine serves the
-    mix twice: "cold" takes every program through its first, eager call
-    and its capture; "warm" replays.  The streams must be bitwise equal
-    between the engines.  The kernels' launch counters are zeroed just
-    before the graphs' warm run (the main path) and read just after it.
-    Returns (graph engine, launches of that run, its decode steps)."""
+def program_bounds(eng) -> dict:
+    """The reference's bounds on the program shapes of ``eng``'s path:
+    batched staging one scan and one admit per input kind, the per-prompt
+    masked planner at most ``_MAX_SCAN_CHUNKS`` scans and one admit, the
+    pow2 baseline scans of m in {1, 2, 4} and tails of every power of two
+    below the chunk; decode one program per k bucket."""
+    C = eng.executor.prefill_chunk
+    if eng.prefill_batching:
+        prefill = dict(prefill_scan=1, prefill_chunk=0, prefill_admit=1)
+    elif eng.plan_mode == "masked":
+        prefill = dict(prefill_scan=4, prefill_chunk=0, prefill_admit=1)
+    else:
+        prefill = dict(prefill_scan=3, prefill_chunk=C.bit_length() - 1,
+                       prefill_admit=C.bit_length())
+    return dict(prefill, decode=max(1, eng.decode_block).bit_length())
+
+
+def first_difference(streams, ref):
+    """Per request, the first token index where ``streams`` leaves
+    ``ref`` (None: equal)."""
+    return [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                 None) for x, y in zip(streams, ref)]
+
+
+def serve_twice(Engine, cfg, params, kw, make_requests, card, label,
+                variants=()):
+    """The same request mix through several engines on one set of
+    weights: ``cuda_graphs=False`` (eager), the default (every decode and
+    prefill program replayed from a CUDA graph), then each of
+    ``variants`` ((name, extra engine arguments, held to the default's
+    streams), replayed from graphs).  Each graph engine serves the mix
+    twice: "cold" takes every program through its first, eager call and
+    its capture; "warm" replays.  The eager engine, which has nothing to
+    capture, serves it once (its "warm" run).  Every stream must be bitwise that of the
+    default engine (a variant not held to them: its warm streams bitwise
+    its cold ones, and the first token index where each request leaves
+    the default's stream is printed), and every engine's program shapes
+    within the reference's bounds for its path.
+
+    The kernels' launch counters are set to 0 just before the eager
+    engine's warm run (the main path, every launch counted at its
+    wrapper) and read just after it.  Every other engine's warm run
+    reports the counts it added; where programs replay, each replay adds
+    what its capture counted, so the callers hold those counts to the
+    eager run's and to what the profiler sees of a replay.  Returns
+    (default engine, {engine name: (kernel launches of its warm run,
+    keyed as ``launch_counts``, its decode steps)}, {(engine name, run):
+    streams})."""
     from repro_torch.runtime.graphs import add_launches, launch_counts
-    streams, graph_eng = {}, None
-    for graphs in (False, None):
-        eng = Engine(cfg, params, cuda_graphs=graphs, **kw)
-        name = "graphs" if eng.executor.cuda_graphs else "eager"
-        for run in ("cold", "warm"):
+    streams, graph_eng, runs = {}, None, {}
+    engines = [("eager", dict(cuda_graphs=False), True), ("graphs", {}, True)]
+    engines += list(variants)
+    held = {name for name, _, same in engines if same}
+    for name, extra, _ in engines:
+        eng = Engine(cfg, params, **kw, **extra)
+        if name != "eager" and not eng.executor.cuda_graphs:
+            raise AssertionError(f"{label} {name}: the engine on the card "
+                                 f"replays no CUDA graphs")
+        # the eager engine captures nothing: it serves the mix once
+        for run in (("warm",) if name == "eager" else ("cold", "warm")):
             reqs = make_requests()
             eng.reset_metrics()                 # decode_steps = 0
-            if name == "graphs" and run == "warm":
+            if name == "eager" and run == "warm":
                 add_launches(launch_counts(), -1)       # zero every count
+            before = launch_counts()
             t0 = time.perf_counter()
             for r in reqs:
                 eng.submit(r)
             eng.run_until_done()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            if name == "graphs" and run == "warm":
-                launches, steps = launch_counts(), eng.decode_steps
+            if run == "warm":
+                after = launch_counts()
+                runs[name] = ({k: after[k] - before[k] for k in after},
+                              eng.decode_steps)
             for r in reqs:
                 if len(r.output) != r.max_new_tokens or not all(
                         0 <= t < cfg.vocab for t in r.output):
@@ -739,29 +846,123 @@ def serve_twice(Engine, cfg, params, kw, make_requests, card, label):
                   f"ticks), mean TTFT {m['mean_ttft_s'] * 1e3:.1f} ms, "
                   f"{m['tokens'] / wall:.1f} tok/s ({m['tokens']} tokens in "
                   f"{wall:.3f} s), {m['mean_tokens_per_s']:.1f} tok/s per "
-                  f"request; programs {eng.executor.compiled_programs()}")
+                  f"request; {m['stage_dispatches']} prefill + "
+                  f"{m['scatter_dispatches']} scatter dispatches "
+                  f"({'batched' if eng.prefill_batching else 'per-prompt'}"
+                  f", {eng.plan_mode} plans); programs "
+                  f"{eng.executor.compiled_programs()}")
+        progs = eng.executor.compiled_programs()
+        over = {k: (progs[k], n) for k, n in program_bounds(eng).items()
+                if progs[k] > n}
+        if over:
+            raise AssertionError(f"{label} {name}: program shapes beyond "
+                                 f"the reference's bounds (got, bound): "
+                                 f"{over}")
         if name == "graphs":
             graph_eng = eng
         else:
             del eng
-    if graph_eng is None:
-        raise AssertionError("the default engine on the card replays no "
-                             "CUDA graphs")
-    for run in ("cold", "warm"):
-        if streams[("graphs", run)] != streams[("eager", run)]:
-            raise AssertionError(f"{label} {run}: streams with CUDA graphs "
-                                 f"differ from the eager engine's")
-    print(f"  {label}: streams bitwise equal with and without CUDA graphs "
+    for key, got in streams.items():
+        want = (streams[("graphs", key[1])] if key[0] in held
+                else streams[(key[0], "cold")])
+        if got != want:
+            raise AssertionError(f"{label} {key[0]} {key[1]}: streams "
+                                 f"differ from the default engine's"
+                                 if key[0] in held else
+                                 f"{label} {key[0]} warm: streams differ "
+                                 f"from its cold run's")
+    for name, _, same in engines:
+        if not same:
+            print(f"  {label} {name}: first token index leaving the "
+                  f"default engine's stream, per request "
+                  + str(first_difference(streams[(name, "warm")],
+                                         streams[("graphs", "warm")])))
+    print(f"  {label}: streams bitwise equal across {sorted(held)} "
           f"(first 8 tokens: "
           + "; ".join(f"{i}:{s[:8]}"
                       for i, s in enumerate(streams[("graphs", "warm")]))
           + ")")
-    progs = graph_eng.executor.compiled_programs()
-    if progs["prefill_scan"] > 4 or progs["prefill_admit"] > 1 or \
-            progs["decode"] > max(1, graph_eng.decode_block).bit_length():
-        raise AssertionError(f"{label}: program shapes beyond the "
-                             f"reference's bounds: {progs}")
-    return graph_eng, launches, steps
+    return graph_eng, runs, streams
+
+
+def gdn_launches(runs, kdecode, kprefill, n_layers, label):
+    """The GDN kernels' launches on the main path: the eager engine's
+    warm run, counted at the wrappers — ``gdn_decode`` once per layer and
+    decode step, ``gdn_prefill`` a positive multiple of the layers (one
+    launch per layer and chunk, every staged row in it).  The default
+    graph engine serves the same schedule, so the counts its replays
+    added must be the same; every graph engine's decode launches are one
+    per layer and decode step.  Prints each engine's prefill launches.
+    Returns {decode name: n, prefill name: n} of the eager run."""
+    dkey, pkey = (kdecode.__name__, ""), (kprefill.__name__, "")
+    eager, steps = runs["eager"]
+    got = {"decode": eager[dkey], "prefill": eager[pkey]}
+    if got["decode"] != n_layers * steps or got["prefill"] <= 0 \
+            or got["prefill"] % n_layers:
+        raise AssertionError(f"{label} eager: launches {got} ({n_layers} "
+                             f"layers, {steps} decode steps)")
+    for name, (counts, steps_) in runs.items():
+        if counts[dkey] != n_layers * steps_:
+            raise AssertionError(f"{label} {name}: {counts[dkey]} "
+                                 f"gdn_decode launches, not {n_layers} x "
+                                 f"{steps_}")
+    replayed = runs["graphs"][0]
+    if (replayed[dkey], replayed[pkey]) != (got["decode"], got["prefill"]):
+        raise AssertionError(f"{label}: the graph engine's replays added "
+                             f"{replayed[dkey]} / {replayed[pkey]} launches "
+                             f"where the eager engine launched {got}")
+    print(f"  {label} launches in the eager warm run, counted at the "
+          f"wrappers: gdn_decode {got['decode']} = {n_layers} layers x "
+          f"{steps} decode steps, gdn_prefill {got['prefill']} = "
+          f"{n_layers} x {got['prefill'] // n_layers} chunks; the default "
+          f"graph engine's replays added the same; gdn_prefill per warm "
+          f"run by engine (graph engines: added by replays) "
+          f"{ {k: c[pkey] for k, (c, _) in runs.items()} }")
+    return got
+
+
+def profile_batched_round(eng, kernel_counts, n_layers, label):
+    """One batched round replayed under the profiler: the (D, 4, C) scan
+    and the admit over every staging row (greedy; rows taking 4, 3, ...
+    full chunks, then tails of C/2, C/2 + 1, ... tokens), both programs
+    captured by the serve runs.  Each layer launches the prefill kernel
+    once per chunk of the scan and once for the admit, every row in the
+    launch; no program may be added or captured (both replayed).  The rows
+    are released afterwards."""
+    from repro_torch.serving.executor import _MAX_SCAN_CHUNKS as M
+    ex = eng.executor
+    D, C = ex.staging_depth, ex.prefill_chunk
+    for key in (("bscan", False), ("badmit", False, False)):
+        if key not in ex._programs or ex._programs[key].graph is None:
+            raise AssertionError(f"{label}: {key} was not captured")
+    rng = np.random.default_rng(5)
+    for row in range(D):
+        ex.bstage_begin(row, seed=0, rid=1000 + row, temperature=0.0,
+                        top_k=0, top_p=1.0, eos_id=None, budget=1)
+    scan = [(row, rng.integers(1, eng.cfg.vocab, (M - row) * C), M - row)
+            for row in range(D)]
+    admit = [(row, rng.integers(1, eng.cfg.vocab, C // 2 + row),
+              C // 2 + row) for row in range(D)]
+
+    def round_():
+        ex.bstage_chunk_scan(scan)
+        ex.bstage_admit(admit)
+
+    progs = ex.compiled_programs()
+    counts = kernel_counts(round_, calls=2)
+    ex.bscatter([], release_rows=range(D))
+    if ex.compiled_programs() != progs:
+        raise AssertionError(f"{label}: the profiled round added or "
+                             f"captured a program")
+    got = sum(n for name, n in counts.items() if "gdn_prefill" in name)
+    print(f"  {label}: one replayed batched round ({D} rows, scan of {M} "
+          f"chunks + admit) under the profiler: {got:g} gdn_prefill kernel "
+          f"launches ({n_layers} x ({M} + 1) expected), "
+          f"{sum(counts.values()):g} kernels in all")
+    if got != n_layers * (M + 1):
+        raise AssertionError(f"{label}: a replayed batched round ran {got} "
+                             f"gdn_prefill launches, not {n_layers} x "
+                             f"({M} + 1)")
 
 
 def _phase4_prompts(vocab):
@@ -769,6 +970,102 @@ def _phase4_prompts(vocab):
     rng = np.random.default_rng(0)
     return [rng.integers(1, vocab, size=int(rng.integers(100, 401)))
             for _ in range(6)]
+
+
+def staged_row_diff(Engine, cfg, params, kw, Request, prompts):
+    """Two prompts staged together (batched: one launch of each prefill
+    program over both rows, the dense projections one product over both
+    rows' tokens) and one at a time (per prompt), eagerly, each request
+    finishing at its admit so its staged caches stay in place: the max
+    |diff| of the first prompt's staged caches, batched against per
+    prompt (printed; the streams are what is held equal)."""
+    from repro_torch.tree import leaves
+    rows = {}
+    for batched in (True, False):
+        eng = Engine(cfg, params, cuda_graphs=False,
+                     prefill_batching=batched, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=1))
+        eng.run_until_done()
+        ex = eng.executor
+        rows[batched] = ([t[:, 0].clone() for t in leaves(ex.bstaging)]
+                         if batched else
+                         [t[:, 0].clone() for t in leaves(ex.staging[0])])
+        del eng, ex
+    diffs = [max_err(a, b) for a, b in zip(rows[True], rows[False])]
+    same = all(torch.equal(a, b) for a, b in zip(rows[True], rows[False]))
+    print(f"  one staged row's caches (prompt of {len(prompts[0])} tokens "
+          f"staged beside one of {len(prompts[1])}), batched against per "
+          f"prompt: max|diff| {max(diffs):.3e} over {len(diffs)} leaves, "
+          f"bitwise equal {same}")
+
+
+def pow2_fp32_check(Engine, cfg, params, kw, make_requests):
+    """The pow2 plans decompose a prompt's tail into other chunks (32 + 4
+    tokens where the masked plan runs one padded 64-token chunk): other
+    GDN chunk factorizations and other GEMM row counts, whose bf16
+    roundings differ, so in bf16 their streams may leave the masked
+    plans'.  The reference holds the two planners' streams equal in fp32
+    (``tests/test_ragged_prefill.py``): here at full width too, the same
+    weights upcast to fp32 activations, batched (masked) against pow2,
+    eagerly."""
+    from repro_torch.tree import tree_map
+    cfg32 = cfg.replace(act_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    out = {}
+    for name, extra in (("batched", {}), ("pow2", dict(plan_mode="pow2"))):
+        eng = Engine(cfg32, p32, cuda_graphs=False, **kw, **extra)
+        reqs = make_requests()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        out[name] = [list(r.output) for r in reqs]
+        del eng
+    del p32
+    torch.cuda.empty_cache()
+    diff = first_difference(out["pow2"], out["batched"])
+    print(f"  fp32 activations: pow2 against batched (masked) streams, "
+          f"first differing token per request {diff}")
+    if any(d is not None for d in diff):
+        raise AssertionError("fp32: pow2 streams differ from the masked "
+                             "plans'")
+
+
+def pow2_plain_witness(Engine, cfg, params, kw, make_requests,
+                       kernel_diff):
+    """The second witness that the pow2 engine's bf16 streams leave the
+    masked plans' through bf16 arithmetic and not through the port's
+    kernels: the same weights and mix through the plain path
+    (``use_pallas_serving=False``: no hand-written kernel may launch),
+    batched (masked) against pow2, eagerly.  ``kernel_diff``, the first
+    token index per request where the kernel path's pow2 streams leave
+    the masked ones, may hold a difference only if the plain path's
+    streams leave theirs too."""
+    from repro_torch.runtime.graphs import launch_counts
+    plain = cfg.replace(use_pallas_serving=False)
+    before, out = launch_counts(), {}
+    t0 = time.perf_counter()
+    for name, extra in (("batched", {}), ("pow2", dict(plan_mode="pow2"))):
+        eng = Engine(plain, params, cuda_graphs=False, **kw, **extra)
+        reqs = make_requests()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        out[name] = [list(r.output) for r in reqs]
+        del eng
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        raise AssertionError("a hand-written kernel launched on the plain "
+                             "path")
+    diff = first_difference(out["pow2"], out["batched"])
+    print(f"  bf16, plain path (no kernel; {time.perf_counter() - t0:.1f} "
+          f"s): pow2 against batched (masked) streams, first differing "
+          f"token per request {diff}; kernel path {kernel_diff}")
+    if any(d is not None for d in kernel_diff) and all(
+            d is None for d in diff):
+        raise AssertionError("bf16: the kernel path's pow2 streams leave "
+                             "the masked plans' where the plain path's do "
+                             "not")
 
 
 def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
@@ -785,19 +1082,19 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
                         top_k=40 if i == 2 else 0)
                 for i, p in enumerate(prompts)]
 
-    eng, counts, steps = serve_twice(Engine, cfg, params, kw, requests, card,
-                                     "serve")
-    launches = {"gdn_decode": counts[(kdecode.__name__, "")],
-                "gdn_prefill": counts[(kprefill.__name__, "")]}
+    eng, runs, streams = serve_twice(
+        Engine, cfg, params, kw, requests, card, "serve",
+        variants=(("per-prompt", dict(prefill_batching=False), True),
+                  ("pow2", dict(plan_mode="pow2"), False)))
     n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
-    if launches["gdn_decode"] != n_gdn * steps:
-        raise AssertionError(
-            f"gdn_decode launches {launches['gdn_decode']} != {n_gdn} x "
-            f"{steps} decode steps")
-    print(f"  launches {launches} = {n_gdn} GDN layers x {steps} decode "
-          f"steps (+ prefill chunks), counted under replay")
+    got = gdn_launches(runs, kdecode, kprefill, n_gdn, "serve")
+    launches = {"gdn_decode": got["decode"], "gdn_prefill": got["prefill"]}
+    profile_batched_round(eng, kernel_counts, n_gdn, "serve")
+    staged_row_diff(Engine, cfg, params, kw, Request, prompts[:2])
+    pow2_fp32_check(Engine, cfg, params, kw, requests)
+    pow2_plain_witness(Engine, cfg, params, kw, requests,
+                       first_difference(streams[("pow2", "warm")],
+                                        streams[("graphs", "warm")]))
 
     # one replayed tick under the profiler: 4 resident greedy requests,
     # ticks of k = 8 after the decode(8) graph has been captured
@@ -828,7 +1125,128 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
     if got != n_gdn * k:
         raise AssertionError(f"a replayed tick ran {got} gdn_decode_kernel "
                              f"launches, not {n_gdn} x {k}")
-    return launches
+    return launches, streams[("graphs", "warm")]
+
+
+# ---------------------------------------------------------------- phase 9
+
+def profile_verify(eng, kernel_counts, n_target, n_draft, label):
+    """One speculative tick's programs replayed under the profiler: the
+    draft (k steps of the draft model) and the verify (k + 1 positions of
+    target and draft), greedy, at the largest k whose draft and verify
+    the runs captured.  ``gdn_decode_kernel`` launches must be n_draft x
+    k + (n_target + n_draft) x (k + 1), and no program may be added or
+    captured (both replayed)."""
+    ex = eng.executor
+    if ex._stochastic():
+        raise AssertionError(f"{label}: a slot is still stochastic")
+    ks = [key[1] for key, prog in ex._programs.items()
+          if key[0] == "verify" and key[1] >= 1 and not key[2]
+          and prog.graph is not None
+          and ("draft", key[1], False) in ex._programs
+          and ex._programs[("draft", key[1], False)].graph is not None]
+    if not ks:
+        raise AssertionError(f"{label}: no greedy draft and verify pair "
+                             f"was captured")
+    k = max(ks)
+    progs = ex.compiled_programs()
+    counts = kernel_counts(lambda: ex.spec_verify(k, ex.spec_draft(k)),
+                           calls=2)
+    if ex.compiled_programs() != progs:
+        raise AssertionError(f"{label}: the profiled tick added or "
+                             f"captured a program")
+    got = sum(n for name, n in counts.items() if "gdn_decode_kernel" in name)
+    want = n_draft * k + (n_target + n_draft) * (k + 1)
+    print(f"  [9] {label}: one replayed draft + verify (k = {k}) under the "
+          f"profiler: {got:g} gdn_decode_kernel launches ({n_draft} x {k} "
+          f"+ {n_target + n_draft} x {k + 1} expected), "
+          f"{sum(counts.values()):g} kernels in all")
+    if got != want:
+        raise AssertionError(f"[9] {label}: a replayed draft + verify ran "
+                             f"{got} gdn_decode_kernel launches, not {want}")
+
+
+def spec_phase(cfg, params, lm, engine_mod, kdecode, card, plain,
+               kernel_counts):
+    """Speculative decode of full-width qwen3-next-gdn on phase 4's mix
+    and engine settings, through CUDA graphs: (a) a self-draft with
+    k_draft = 4; (b) a draft of the same architecture with weights drawn
+    from seed 1, ``adaptive_k``; each served cold (every program's first
+    call and capture), then warm (replayed: in (b) the rollback).  Every stream must be bitwise phase 4's plain
+    ``plain``.  ``gdn_decode`` launches per run, counted under replay,
+    must be (draft GDN layers) x (draft steps) + (target + draft GDN
+    layers) x (verify positions): bookkeeping under replay, so one
+    replayed draft + verify per engine runs under the profiler too."""
+    from repro_torch.runtime.graphs import add_launches, launch_counts
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
+              seed=0, device="cuda")
+    prompts = _phase4_prompts(cfg.vocab)
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32,
+                        temperature=0.8 if i == 2 else 0.0,
+                        top_k=40 if i == 2 else 0)
+                for i, p in enumerate(prompts)]
+
+    t0 = time.perf_counter()
+    dparams = lm.init_lm(torch.Generator(device="cuda").manual_seed(1), cfg,
+                         device="cuda")
+    torch.cuda.synchronize()
+    print(f"  seed-1 draft weights drawn in {time.perf_counter() - t0:.1f} "
+          f"s")
+    n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
+    out = {}
+    for label, extra in (
+            ("self-draft k=4", dict(k_draft=4)),
+            ("seed-1 draft adaptive k<=4",
+             dict(k_draft=4, adaptive_k=True, draft_cfg=cfg,
+                  draft_params=dparams))):
+        eng = Engine(cfg, params, speculative=True, **kw, **extra)
+        if not eng.executor.cuda_graphs:
+            raise AssertionError("the speculative engine replays no graphs")
+        for run in ("cold", "warm"):
+            reqs = requests()
+            eng.reset_metrics()
+            add_launches(launch_counts(), -1)           # zero every count
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = launch_counts()[(kdecode.__name__, "")]
+            streams = [list(r.output) for r in reqs]
+            m = eng.metrics()
+            want = n_gdn * eng.draft_steps + 2 * n_gdn * eng.verify_positions
+            print(f"  [9] {label} {run} [{card}]: acceptance "
+                  f"{m['acceptance_rate']:.4f} ({m['accepted_tokens']} of "
+                  f"{m['drafted_tokens']} drafted), {m['spec_ticks']} "
+                  f"ticks, {m['syncs_per_token']:.4f} syncs/token, decode "
+                  f"{m['decode_us_per_token']:.1f} us/token "
+                  f"({m['decoded_tokens']} tokens), mean TTFT "
+                  f"{m['mean_ttft_s'] * 1e3:.1f} ms, {m['tokens'] / wall:.1f}"
+                  f" tok/s ({wall:.3f} s), k effective "
+                  f"{m['k_draft_effective']}, {m['draft_prefills']} draft "
+                  f"rebuilds; gdn_decode launches {got} = {n_gdn} x "
+                  f"{eng.draft_steps} draft steps + {2 * n_gdn} x "
+                  f"{eng.verify_positions} verify positions; programs "
+                  f"{eng.executor.compiled_programs()}")
+            if streams != plain:
+                raise AssertionError(f"[9] {label} {run}: streams differ "
+                                     f"from plain decode's")
+            if got != want:
+                raise AssertionError(f"[9] {label} {run}: gdn_decode "
+                                     f"launches {got} != {want}")
+        print(f"  [9] {label}: checkpoint {m['checkpoint_bytes_per_slot']} "
+              f"B/slot, draft {m['draft_bytes_per_slot']} B/slot, "
+              f"{m['speculative_bytes']} B speculative buffers in all; "
+              f"streams bitwise equal to plain decode")
+        profile_verify(eng, kernel_counts, n_gdn, n_gdn, label)
+        out[label] = m
+        del eng
+    del dparams
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1148,14 +1566,16 @@ def danube_phase(card, lm, attention, engine_mod, kattn, configs):
 
 # ---------------------------------------------------------------- phase 7
 
-def mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs):
+def mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs,
+                 kernel_counts):
     """Full-width mamba2-1.3b (48 ssm layers, no FFN; random bf16 weights
     drawn on the card from seed 0) through the GDN kernels with
     ``delta_rule=False``: one decode step against the plain path (phase
     3's check), then phase 4's mix through the eager and the CUDA-graph
-    engine (``serve_twice``), with the kernels' launches under replay:
-    ``gdn_decode`` 48 x decode steps, ``gdn_prefill`` 48 x prefill chunks
-    (placeholder chunks included: each runs as a no-op launch)."""
+    engine (``serve_twice``), the GDN kernels' launches counted at the
+    wrappers in the eager warm run (``gdn_launches``: ``gdn_decode`` 48 x
+    decode steps, ``gdn_prefill`` 48 x prefill chunks, placeholder chunks
+    included) and one replayed batched round under the profiler."""
     cfg = configs.get_arch("mamba2-1.3b").replace(use_pallas_serving=True)
     t0 = time.perf_counter()
     params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
@@ -1177,20 +1597,14 @@ def mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs):
                         top_k=40 if i == 2 else 0)
                 for i, p in enumerate(prompts)]
 
-    eng, counts, steps = serve_twice(Engine, cfg, params, kw, requests, card,
-                                     "mamba2 serve")
-    chunks = sum(st.size if st.kind == "scan" else 1 for p in prompts
-                 for st in eng.executor.plan_prefill(len(p)))
+    eng, runs, _ = serve_twice(
+        Engine, cfg, params, kw, requests, card, "mamba2 serve",
+        variants=(("per-prompt", dict(prefill_batching=False), True),))
     n_ssm = sum(k == "ssm" for k in cfg.layer_kinds)
-    launches = {"gdn_decode_mamba2": counts[(kdecode.__name__, "")],
-                "gdn_prefill_mamba2": counts[(kprefill.__name__, "")]}
-    want = {"gdn_decode_mamba2": n_ssm * steps,
-            "gdn_prefill_mamba2": n_ssm * chunks}
-    print(f"  launches {launches} = {n_ssm} ssm layers x ({steps} decode "
-          f"steps, {chunks} prefill chunks), counted under replay")
-    if launches != want:
-        raise AssertionError(f"mamba2 launches {launches} != {want}")
-    return launches
+    got = gdn_launches(runs, kdecode, kprefill, n_ssm, "mamba2 serve")
+    profile_batched_round(eng, kernel_counts, n_ssm, "mamba2 serve")
+    return {"gdn_decode_mamba2": got["decode"],
+            "gdn_prefill_mamba2": got["prefill"]}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1228,8 +1642,10 @@ def gemma_phase(card, lm, engine_mod, configs):
                         top_k=40 if i == 1 else 0)
                 for i, p in enumerate(prompts)]
 
-    _, counts, _ = serve_twice(Engine, cfg, params, kw, requests, card,
-                               "recurrentgemma serve")
+    _, runs, _ = serve_twice(Engine, cfg, params, kw, requests, card,
+                             "recurrentgemma serve")
+    counts = {name: {k: n for k, n in c.items() if n}
+              for name, (c, _) in runs.items()}
     if any(counts.values()):
         raise AssertionError(f"a kernel launched on the rglru path: "
                              f"{counts}")
@@ -1284,6 +1700,7 @@ def main():
             prefill_phase(ops, ref, kprefill, time_launches,
                           "gdn_prefill_mamba2", PREFILL_MAMBA2_CASES,
                           PREFILL_MAMBA2 + (False,))]
+    prefill_pow2_checks(ops, ref)
     rows += flash_phase(ref, kflash, time_launches, kernels_per_call)
     rows.append(attn_decode_phase(ref, kattn, time_launches,
                                   kernels_per_call, ATTN_DECODE_SHAPES))
@@ -1308,8 +1725,12 @@ def main():
     model_phase(cfg, params, lm)
 
     print(f"[4] serving through DecodeEngine [{card}]")
-    launches = serve_phase(cfg, params, engine_mod, kdecode, kprefill,
-                           card, kernel_counts)
+    launches, plain = serve_phase(cfg, params, engine_mod, kdecode,
+                                  kprefill, card, kernel_counts)
+    print(f"[9] speculative decode of full-width {cfg.name} on phase 4's "
+          f"mix, through CUDA graphs [{card}]")
+    spec_phase(cfg, params, lm, engine_mod, kdecode, card, plain,
+               kernel_counts)
     del params
     torch.cuda.empty_cache()
 
@@ -1324,7 +1745,7 @@ def main():
                                  configs))
     torch.cuda.empty_cache()
     launches.update(mamba2_phase(card, lm, engine_mod, kdecode, kprefill,
-                                 configs))
+                                 configs, kernel_counts))
     torch.cuda.empty_cache()
     gemma_phase(card, lm, engine_mod, configs)
     for r in rows:

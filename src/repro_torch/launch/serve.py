@@ -1,8 +1,11 @@
 """Serving launcher of the port: continuous-batching decode with persistent
-state slots (the base flags of ``repro.launch.serve``).
+state slots (the one-engine flags of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
         --requests 8 --max-new 16 --decode-block 4 --kernels
+    # speculative decode, self-draft or a draft arch of the same vocab
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
+        --speculative --k-draft 4 --device cpu
 
 Runs on the card (``--device cuda``, the default) or, with
 ``--device cpu``, on the CPU through the kernels' plain versions.
@@ -13,7 +16,13 @@ has none.  On the card every decode and prefill program
 is replayed from a CUDA graph; ``--no-cuda-graphs`` runs them eagerly
 (the comparison run: the streams are the same).  ``--full`` serves the full-width config with
 weights drawn on the device from ``--seed``; the default is the reduced
-config.
+config.  Prompts are staged in batches (one scan and one admit program
+per tick for every staged prompt) unless ``--no-prefill-batching`` or
+``--plan-mode pow2``; ``--prefill-budget`` caps the packer's tokens per
+tick.  ``--speculative`` drafts ``--k-draft`` tokens per slot with
+``--draft-config`` (``self``, the default, shares the target's weights;
+an arch of the same vocab draws its weights from ``--seed + 1``) and
+verifies them in one program; the streams are those of plain decode.
 """
 from __future__ import annotations
 
@@ -39,9 +48,25 @@ def main(argv=None):
                          "(host syncs once per block)")
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="prompt chunk size for staged prefill")
+    ap.add_argument("--plan-mode", default="masked",
+                    choices=("masked", "pow2"),
+                    help="prefill chunk planning: 'masked' (default) "
+                         "dispatches one scan shape + one fixed-size "
+                         "valid_len-masked tail per prompt; 'pow2' keeps "
+                         "the power-of-two tail decomposition as the "
+                         "comparison baseline")
     ap.add_argument("--staging-depth", type=int, default=2,
                     help="staging-buffer ring size: ahead-of-slot "
                          "prefills outstanding under saturation")
+    ap.add_argument("--no-prefill-batching", dest="prefill_batching",
+                    action="store_false", default=None,
+                    help="dispatch one prefill program per staged prompt "
+                         "instead of fusing all staged prompts into one "
+                         "batched fixed-shape program per tick")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="per-tick prefill token budget of the batched "
+                         "packer under saturation (default: every "
+                         "staging row gets a full scan + admit)")
     ap.add_argument("--serialized", dest="overlap", action="store_false",
                     default=True,
                     help="disable prefill/decode overlap (admit prefills "
@@ -49,6 +74,23 @@ def main(argv=None):
     ap.add_argument("--no-budget-ticks", dest="budget_ticks",
                     action="store_false", default=True,
                     help="always run full decode-block ticks")
+    ap.add_argument("--speculative", action="store_true", default=False,
+                    help="draft-verify speculative decode: a draft model "
+                         "proposes --k-draft tokens per slot, one verify "
+                         "program scores them with the target and commits "
+                         "each slot through the tokens it emits; streams "
+                         "stay those of plain decode")
+    ap.add_argument("--draft-config", default="self",
+                    help="draft model for --speculative: 'self' (default; "
+                         "the target drafts for itself) or an arch name "
+                         "with the same vocab (weights from --seed + 1)")
+    ap.add_argument("--k-draft", type=int, default=4,
+                    help="draft tokens proposed per slot per speculative "
+                         "tick")
+    ap.add_argument("--adaptive-k-draft", dest="adaptive_k",
+                    action="store_true", default=False,
+                    help="acceptance-adaptive draft length within "
+                         "[1, --k-draft]; streams unchanged")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0,
                     help="device top-k sampling (0 = disabled)")
@@ -74,12 +116,31 @@ def main(argv=None):
     if args.kernels:
         cfg = cfg.replace(use_pallas_serving=True)
     params = lm.init_lm(args.seed, cfg, device=args.device)
+    draft_cfg = draft_params = None
+    if args.speculative and args.draft_config != "self":
+        draft_cfg = configs.get_arch(args.draft_config)
+        if args.reduced:
+            draft_cfg = draft_cfg.reduced()
+        if args.kernels:
+            draft_cfg = draft_cfg.replace(use_pallas_serving=True)
+        if draft_cfg.vocab != cfg.vocab:
+            raise SystemExit(f"--draft-config {args.draft_config}: vocab "
+                             f"{draft_cfg.vocab} != target vocab "
+                             f"{cfg.vocab}")
+        draft_params = lm.init_lm(args.seed + 1, draft_cfg,
+                                  device=args.device)
     eng = DecodeEngine(cfg, params, max_slots=args.slots,
                        max_len=args.max_len, seed=args.seed,
                        decode_block=args.decode_block, overlap=args.overlap,
                        prefill_chunk=args.prefill_chunk,
                        budget_ticks=args.budget_ticks,
-                       staging_depth=args.staging_depth, device=args.device,
+                       staging_depth=args.staging_depth,
+                       plan_mode=args.plan_mode,
+                       prefill_batching=args.prefill_batching,
+                       prefill_budget=args.prefill_budget,
+                       speculative=args.speculative, draft_cfg=draft_cfg,
+                       draft_params=draft_params, k_draft=args.k_draft,
+                       adaptive_k=args.adaptive_k, device=args.device,
                        cuda_graphs=args.cuda_graphs)
     print(f"engine: {args.slots} slots x (persistent state "
           f"{eng.state_bytes_per_slot / 2**10:.1f} KiB + window/KV "
@@ -87,8 +148,18 @@ def main(argv=None):
           f"{eng.cache_bytes / 2**20:.2f} MiB slot buffers on "
           f"{eng.executor.device}, decode_block={args.decode_block}, "
           f"prefill={'overlapped' if args.overlap else 'serialized'} "
-          f"chunks of {eng.prefill_chunk}, kernels={args.kernels}, "
+          f"chunks of {eng.prefill_chunk} ({eng.plan_mode} plans, "
+          f"{'batched' if eng.prefill_batching else 'per-prompt'} "
+          f"staging), kernels={args.kernels}, "
           f"cuda_graphs={eng.executor.cuda_graphs}")
+    if args.speculative:
+        ex = eng.executor
+        print(f"speculative: draft={args.draft_config}, "
+              f"k_draft={args.k_draft} — per slot "
+              f"{ex.checkpoint_bytes_per_slot / 2**10:.1f} KiB rollback "
+              f"checkpoint + {ex.draft_bytes_per_slot / 2**10:.1f} KiB "
+              f"draft state ({ex.speculative_bytes / 2**20:.2f} MiB total, "
+              f"from checkpoint_spec)")
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         prompt = rng.integers(1, cfg.vocab, size=rng.integers(4, 17),
@@ -107,6 +178,13 @@ def main(argv=None):
           f"({m['decoded_tokens']} tokens in {m['decode_s']:.2f}s, "
           f"{m['stage_dispatches']} staged prefill + "
           f"{m['scatter_dispatches']} scatter dispatches)")
+    if args.speculative:
+        print(f"  speculative: {m['drafted_tokens']} drafted / "
+              f"{m['accepted_tokens']} accepted "
+              f"({m['acceptance_rate']:.2f} acceptance), "
+              f"{m['spec_ticks']} draft-verify ticks, "
+              f"{m['syncs_per_token']:.3f} host syncs/token, "
+              f"{m['draft_prefills']} draft-state rebuilds")
     print(f"  per-request means: ttft {m['mean_ttft_s'] * 1e3:.1f} ms, "
           f"latency {m['mean_latency_s'] * 1e3:.1f} ms, "
           f"{m['mean_tokens_per_s']:.1f} tok/s")

@@ -25,6 +25,7 @@ Entry points:
   loss_fn(params, cfg, batch)                -> (loss, {"ce", "aux"})
                                                 (chunked cross entropy)
   cache_specs(cfg, batch, max_len)           -> CacheSpec (stacked)
+  checkpoint_specs(cfg, batch, max_len)      -> CacheSpec (rollback image)
   init_caches(cfg, batch, max_len, device)   -> caches
   prefill(params, cfg, caches, tokens|embeds)-> (last-token logits, caches)
   prefill_chunk(params, cfg, caches, ...)    -> (hidden (B, C, d), caches)
@@ -34,6 +35,10 @@ Entry points:
   decode_step(params, cfg, tokens, caches)   -> (logits (B, V) fp32, caches)
   decode_steps(params, cfg, tokens, caches, k, sampler, sample_fn)
                                              -> k fused decode+sample steps
+  verify_steps(params, cfg, draft_params, draft_cfg, tokens, drafts,
+               caches, draft_caches, run, draft_run, sampler, sample_fn)
+                                             -> speculative verify with a
+                                                per-position commit
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models.mixers import CacheSpec, get_mixer
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import copy_leaves, leaves, tree_map
 
 
 # ---------------------------------------------------------------- grouping
@@ -198,6 +203,16 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None):
     return cache_specs(cfg, batch, max_len).zeros(device)
 
 
+def checkpoint_specs(cfg: ArchConfig, batch: int, max_len: int) -> CacheSpec:
+    """Spec of the speculative-decode rollback image, stacked like
+    ``cache_specs``, from each mixer's ``checkpoint_spec`` (for every
+    built-in kind equal to its ``cache_spec``)."""
+    return CacheSpec([
+        [get_mixer(kind).checkpoint_spec(cfg, batch, max_len).stack(reps)
+         .tree for kind in kinds]
+        for kinds, reps in build_groups(cfg)])
+
+
 # ---------------------------------------------------------------- forward
 
 def _ffn_fwd(cfg: ArchConfig, lp, x):
@@ -205,14 +220,6 @@ def _ffn_fwd(cfg: ArchConfig, lp, x):
         return x
     h = layers.rmsnorm_fwd(lp["norm2"], x, cfg.norm_eps)
     return x + layers.mlp_fwd(lp["mlp"], h)
-
-
-def _write_back(dst, src):
-    """Copy a layer's new cache into its slice of the stacked buffers
-    (a no-op for leaves the mixer already updated in place)."""
-    for d, s in zip(leaves(dst), leaves(src)):
-        if s is not d:
-            d.copy_(s)
 
 
 def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
@@ -233,7 +240,9 @@ def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
                                                   valid_len=valid_len)
                 else:
                     mix, nc = mixer.decode(lp["mixer"], cfg, h, c)
-                _write_back(c, nc)
+                # the layer's new cache into its slice of the stacked
+                # buffers (a no-op where the mixer updated it in place)
+                copy_leaves(c, nc)
                 x = _ffn_fwd(cfg, lp, x + mix)
     return x, caches
 
@@ -344,3 +353,67 @@ def decode_steps(params, cfg: ArchConfig, tokens, caches, k: int,
         toks.append(tokens)
         valid.append(live)
     return (torch.stack(toks), torch.stack(valid), tokens, caches, sampler)
+
+
+def _commit_where(emit, run, com):
+    """``com = where(emit, run, com)`` leaf by leaf, in place; ``emit`` is
+    (B,) over the slot axis (axis 1 of every stacked leaf)."""
+    for r, c in zip(leaves(run), leaves(com)):
+        m = emit.reshape((1, emit.shape[0]) + (1,) * (r.ndim - 2))
+        torch.where(m, r, c, out=c)
+
+
+def verify_steps(params, cfg: ArchConfig, draft_params, draft_cfg, tokens,
+                 drafts, caches, draft_caches, run, draft_run, sampler,
+                 sample_fn):
+    """Speculative verify: score K drafted tokens per slot with the target
+    and commit each slot's state only through the tokens it emits.
+
+    K+1 teacher-forced ``decode_step`` positions feed the slot's last
+    emitted token, then its K drafts: the arithmetic of plain decode, so
+    every emitted token and the state it leaves are bitwise plain
+    decode's.  Position j samples with ``sample_fn(sampler, logits,
+    active)`` (``sampling.sample_where``: only active rows advance their
+    key), and a slot keeps accepting while its sample equals the draft it
+    feeds next.  A slot emits 1..K+1 tokens, none if it entered done.
+
+    The port's decode updates caches in place, so the run-ahead cannot
+    happen in the committed trees: ``run`` / ``draft_run`` (the
+    executor's checkpoint buffers) get a copy of ``caches`` /
+    ``draft_caches`` first, every position decodes in them, and
+    ``caches`` / ``draft_caches`` take the run-ahead state with a
+    ``where`` at each position where the slot is active.  A slot whose
+    draft is rejected at once ends the tick with the state of one plain
+    decode step; a slot done at entry keeps its committed state bitwise.
+    Bytes per tick and tree: one copy of the state (read and write), then
+    per position the decode's own state read and write plus the commit's
+    two reads and one write.
+
+    tokens: (B,) int32; drafts: (K, B) int32 (K may be 0: one position).
+    Returns ``(toks (K+1, B), valid (K+1, B), last tokens (B,), caches,
+    draft_caches, run, draft_run, sampler)``."""
+    tokens = tokens.to(torch.int32)
+    drafts = drafts.to(torch.int32)
+    inp = torch.cat([tokens[None], drafts], dim=0)
+    nxt = torch.cat([drafts, torch.full_like(tokens[None], -1)], dim=0)
+    copy_leaves(run, caches)
+    copy_leaves(draft_run, draft_caches)
+    acc = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    last = tokens
+    toks, valid = [], []
+    for j in range(inp.shape[0]):
+        active = acc & ~sampler["done"]
+        logits, _ = decode_step(params, cfg, inp[j], run)
+        decode_step(draft_params, draft_cfg, inp[j], draft_run)
+        tok, sampler = sample_fn(sampler, logits, active)
+        tok = torch.where(active, tok.to(torch.int32), last)
+        _commit_where(active, run, caches)
+        _commit_where(active, draft_run, draft_caches)
+        # stop at the first mismatch, and at EOS / budget exhaustion even
+        # when the draft guessed the EOS token
+        acc = active & (tok == nxt[j]) & ~sampler["done"]
+        last = tok
+        toks.append(tok)
+        valid.append(active)
+    return (torch.stack(toks), torch.stack(valid), last, caches,
+            draft_caches, run, draft_run, sampler)

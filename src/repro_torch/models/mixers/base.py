@@ -9,6 +9,7 @@ class implementing
   prefill_chunk(params, cfg, x, cache, valid_len)  -> ((B, C, d), cache)
   decode(params, cfg, x_t, cache)                  -> ((B, d), cache)
   cache_spec(cfg, batch, max_len)                  -> CacheSpec
+  checkpoint_spec(cfg, batch, max_len)             -> CacheSpec
 
 plus the declarative class attributes the serving executor consumes
 (``kind``, ``is_attention``, ``quadratic``, ``state_passes``,
@@ -124,6 +125,16 @@ class SequenceMixer:
     @classmethod
     def cache_spec(cls, cfg, batch: int, max_len: int) -> CacheSpec:
         raise NotImplementedError(cls.kind)
+
+    @classmethod
+    def checkpoint_spec(cls, cfg, batch: int, max_len: int) -> CacheSpec:
+        """Per-slot rollback image of speculative decode: the buffer the
+        verify runs ahead in while the committed state stays put.  Default:
+        the full ``cache_spec`` (decode overwrites every leaf; a rolling
+        KV insert destroys the wrapped position).  A narrower spec must
+        keep the tree structure of ``cache_spec``: the verify commits leaf
+        by leaf."""
+        return cls.cache_spec(cfg, batch, max_len)
 
 
 def state_dtype(cfg) -> torch.dtype:

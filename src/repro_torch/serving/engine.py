@@ -1,12 +1,16 @@
 """Continuous-batching decode engine — thin façade over the scheduler /
-executor split (port of ``repro.serving.engine``, base tick only).
+executor split (port of ``repro.serving.engine``).
 
   * ``repro_torch.serving.scheduler.Scheduler`` — host side: queue, slot
-    assignment, request lifecycle, overlapped chunked-prefill staging,
-    budget-aware ticks, metrics.
-  * ``repro_torch.serving.executor.DeviceExecutor`` — device side: slot and
-    staging buffers allocated once and updated in place, and the decode,
-    prefill and scatter programs.
+    assignment, request lifecycle, overlapped chunked-prefill staging
+    (batched by default, per prompt with ``prefill_batching=False`` or
+    ``plan_mode="pow2"``; ``prefill_budget`` caps the batched packer's
+    tokens per tick), budget-aware ticks, speculative draft-verify ticks
+    (``speculative=True``, ``k_draft``, ``adaptive_k``, ``draft_cfg`` /
+    ``draft_params``; a self-draft by default), metrics.
+  * ``repro_torch.serving.executor.DeviceExecutor`` — device side: slot,
+    staging, draft and checkpoint buffers allocated once and updated in
+    place, and the decode, prefill, speculative and scatter programs.
 
 ``DecodeEngine(cfg, params, ..., device=None)`` runs on ``cuda`` unless
 ``device="cpu"`` is passed.  With ``cfg.use_pallas_serving`` the GDN layers
@@ -14,7 +18,7 @@ go through the hand-written CUDA kernels on the card (their plain versions
 on the CPU).  ``cuda_graphs`` (default None: on the card, not on the CPU)
 replays each decode and prefill program from a CUDA graph;
 ``cuda_graphs=False`` runs them eagerly on the card, ``True`` on the CPU
-raises.  The router, RPC workers, paging and speculative decode of the
+raises.  The router, RPC workers, state paging and meshes of the
 reference come in later slices; asking for them raises
 ``NotImplementedError``.
 """

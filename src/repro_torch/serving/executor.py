@@ -1,5 +1,5 @@
 """Device executor: the serving engine's device buffers and programs (port
-of the base tick of ``repro.serving.executor``).
+of ``repro.serving.executor``).
 
 The executor owns
 
@@ -7,23 +7,32 @@ The executor owns
     leading slot axis, the per-slot sampler tensors and the per-slot last
     tokens.  They are allocated once and updated in place by every
     program: that is the port's form of the reference's buffer donation;
-  * the **staging ring** — ``staging_depth`` single-sequence cache trees
-    that chunked prefill streams into while the resident slots decode,
-    each copied into a real slot only once its staging completes;
+  * the **staging ring** — under the default **batched** staging
+    (``prefill_batching``), one ``(staging_depth, ...)`` cache tree whose
+    rows are the staged prompts, a ``staging_depth``-row sampler state and
+    per-row first tokens: every tick fuses all staged prompts into at most
+    one fixed-shape ``(staging_depth, _MAX_SCAN_CHUNKS, prefill_chunk)``
+    scan and one admit per input kind, with per-row valid lengths (rows
+    and chunks past a prompt's end are bitwise no-op placeholders), and
+    finished rows enter their slots through one multi-row scatter.  The
+    per-prompt path (pow2 plans, MoE FFNs, mixer kinds without per-row
+    masks, or ``prefill_batching=False``) keeps ``staging_depth``
+    single-sequence cache trees instead, each scattered into a slot once
+    its staging completes;
   * the **programs** — fixed-shape functions over those buffers and the
     static input buffers the executor fills before each call, one per
     shape as the reference compiles one per shape (``compiled_programs``):
     - ``decode(k)``: ``lm.decode_steps``, k fused decode+sample steps with
-      one host sync (the (k, slots) token read); one program per (k
-      bucket, stochastic);
-    - ``stage_chunk_scan`` / ``stage_admit``: masked chunked prefill into a
-      staging cache (``plan_prefill``), the admit fusing the first-token
-      draw on the device (``lm.prefill_sample``); one program per (ring
-      buffer, m, is_embeds) and per (ring buffer, is_embeds, stochastic).
-      A placeholder chunk (valid_len 0) runs as the exact no-op it is;
-    - ``scatter(slot, buf)``: copy a staging cache + sampler row + first
-      token into ``slot`` (eager copies).  Staging buffers never alias
-      slot buffers.
+      one host sync; one program per (k bucket, stochastic);
+    - per prompt: ``stage_chunk_scan`` / ``stage_chunk`` / ``stage_admit``
+      into a ring buffer (``plan_prefill``: masked, or the pow2 baseline's
+      unmasked power-of-two chunks), the admit fusing the first-token draw
+      (``lm.prefill_sample``); one program per (ring buffer, shape);
+    - batched: ``bstage_chunk_scan`` / ``bstage_admit``, one program per
+      input kind (the admit also per stochastic);
+    - speculative decode (``draft_cfg``): ``spec_draft(k)``,
+      ``spec_verify(k)`` and ``draft_prefill_slot``;
+    - ``scatter`` / ``bscatter``: eager copies into the slots.
 
 On the card each program is captured once into a CUDA graph and replayed
 (``runtime.graphs``); on the CPU, or with ``cuda_graphs=False``, it runs
@@ -31,12 +40,11 @@ eagerly.  Either way a program writes its results into the executor's
 buffers, so every call sees one set of addresses.
 
 Deferred to later slices (each raises ``NotImplementedError`` naming the
-reference module that holds it): ``plan_mode="pow2"``,
-``prefill_batching=True``, ``mesh``, speculative decode (draft models) and
-async paging.
+reference module that holds it): ``mesh`` and async paging.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -45,19 +53,22 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
+from repro_torch.models.mixers import get_mixer
 from repro_torch.runtime import graphs
 from repro_torch.serving import sampling
-from repro_torch.tree import leaves
+from repro_torch.tree import copy_leaves, leaves
 
 
 class PlanStep(NamedTuple):
     """One prefill dispatch (see the reference's ``PlanStep``).
 
-    kind   : "scan" (m full chunks) | "admit" (final chunk + fused draw)
-    size   : chunk count m for "scan", token capacity for "admit"
+    kind   : "scan" (m full chunks) | "chunk" (one interior pow2 tail
+             sub-chunk) | "admit" (final chunk + fused draw)
+    size   : chunk count m for "scan", token capacity for "chunk"/"admit"
     tokens : valid prompt tokens consumed by this step
     valid  : "scan": (m,) per-chunk valid lengths (0 = placeholder chunk);
-             "admit": valid tokens of the fixed-size tail
+             "admit": valid tokens of the fixed-size tail; None: unmasked
+             (pow2)
     """
     kind: str
     size: int
@@ -69,12 +80,37 @@ class PlanStep(NamedTuple):
 _MAX_SCAN_CHUNKS = 4
 
 
+def _pow2_floor(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
 def deferred(what: str, module: str):
     """The error for a setting this slice of the port does not implement:
     ``module`` is where the reference package ``repro`` holds it."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: the reference's "
         f"{module} (ROADMAP)")
+
+
+def _batching_blocked(cfg: ArchConfig, plan_mode: str) -> Optional[str]:
+    """Why batched staging cannot be bitwise per-prompt staging here, or
+    None (the reference's gates, in its order)."""
+    if plan_mode != "masked":
+        return ("batched staging rides on masked (valid_len) chunks; "
+                f"plan_mode is {plan_mode!r}")
+    if cfg.ffn in ("moe", "moe+dense"):
+        return ("MoE expert-capacity dispatch couples rows within a batch "
+                "(cumsum queue positions over the whole group), so batched "
+                "prefill cannot be bitwise-identical to per-prompt "
+                "dispatch")
+    unbatched = sorted({k for k in cfg.pattern
+                        if not get_mixer(k).supports_batched_ragged_prefill})
+    if unbatched:
+        return (f"mixer kind(s) {unbatched} do not support per-row (B,) "
+                f"valid_len prefill chunks (set "
+                f"supports_batched_ragged_prefill = True after "
+                f"generalizing the mask)")
+    return None
 
 
 class DeviceExecutor:
@@ -86,20 +122,13 @@ class DeviceExecutor:
                  plan_mode: str = "masked",
                  prefill_batching: Optional[bool] = None,
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
-                 async_paging: bool = False, device=None,
+                 k_draft: int = 4, async_paging: bool = False, device=None,
                  cuda_graphs: Optional[bool] = None):
-        if plan_mode == "pow2":
-            raise deferred("plan_mode='pow2'", "serving/executor.py")
-        if plan_mode != "masked":
+        if plan_mode not in ("masked", "pow2"):
             raise ValueError(f"plan_mode must be 'masked' or 'pow2', "
                              f"got {plan_mode!r}")
-        if prefill_batching:
-            raise deferred("prefill_batching=True", "serving/executor.py")
         if mesh is not None:
             raise deferred("mesh", "parallel/sharding.py")
-        if draft_cfg is not None or draft_params is not None:
-            raise deferred("speculative decode (draft model)",
-                           "serving/executor.py")
         if async_paging:
             raise deferred("async_paging", "serving/scheduler.py")
         if staging_depth < 1:
@@ -113,6 +142,23 @@ class DeviceExecutor:
                 f"prefill_chunk={prefill_chunk} exceeds max_len={max_len}: "
                 f"a prefill chunk can never hold more tokens than the "
                 f"context buffers — lower prefill_chunk or raise max_len")
+        if plan_mode == "masked":
+            unsupported = sorted({k for k in cfg.pattern
+                                  if not get_mixer(k)
+                                  .supports_ragged_prefill})
+            if unsupported:
+                warnings.warn(
+                    f"mixer kind(s) {unsupported} do not implement ragged "
+                    f"(valid_len-masked) prefill chunks — falling back to "
+                    f"plan_mode='pow2'", RuntimeWarning)
+                plan_mode = "pow2"
+        blocked = _batching_blocked(cfg, plan_mode)
+        if prefill_batching and blocked:
+            warnings.warn(f"prefill_batching disabled: {blocked}",
+                          RuntimeWarning)
+        self.prefill_batching = (blocked is None if prefill_batching is None
+                                 else bool(prefill_batching)
+                                 and blocked is None)
         self.device = _device.resolve(device)
         on_card = self.device.type == "cuda"
         if cuda_graphs and not on_card:
@@ -122,7 +168,6 @@ class DeviceExecutor:
         self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graphs
                       else None)
         self._programs: Dict[tuple, graphs.Program] = {}
-        self.prefill_batching = False
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -139,10 +184,7 @@ class DeviceExecutor:
         self.window_bytes_per_slot = slot_spec.window_bytes
         self.cache_bytes = self.spec.nbytes
 
-        for t in leaves(params):
-            if t.device != self.device:
-                raise ValueError(f"params live on {t.device}, the executor "
-                                 f"on {self.device}")
+        self._check_device(params, "params")
         self.params = params
         self.caches = self.spec.zeros(self.device)
         self.tokens = torch.zeros((max_slots,), dtype=torch.int32,
@@ -152,36 +194,69 @@ class DeviceExecutor:
         # sampling pipeline only when some slot may draw (see sampling.sample)
         self._slot_temp = np.zeros((max_slots,), np.float32)
 
-        self.staging: List[Any] = [lm.init_caches(cfg, 1, max_len,
-                                                  self.device)
-                                   for _ in range(staging_depth)]
-        self._staging_clean = [True] * staging_depth
-        self._staging_args: List[Optional[tuple]] = [None] * staging_depth
-        # per ring buffer: the admit's 1-row sampler state (filled from the
-        # host before the admit, advanced by it in place) and first token
+        self.speculative = draft_cfg is not None
+        self.k_draft = k_draft
+        if self.speculative:
+            self._init_speculative(draft_cfg, draft_params, params)
+
+        # per-prompt staging ring (batched staging allocates its own on
+        # first use, _ensure_batched): per ring buffer a one-row cache
+        # tree, the admit's 1-row sampler state (filled from the host
+        # before the admit, advanced by it in place) and first token
+        n_ring = 0 if self.prefill_batching else staging_depth
+        self.staging: List[Any] = [
+            lm.init_caches(cfg, 1, max_len, self.device)
+            for _ in range(n_ring)]
         self.staging_row = [sampling.init_state(1, self.device)
-                            for _ in range(staging_depth)]
+                            for _ in range(n_ring)]
         self.staging_tok = [torch.zeros((1,), dtype=torch.int32,
                                         device=self.device)
-                            for _ in range(staging_depth)]
-        # the prefill programs' static inputs, one per chunk layout
+                            for _ in range(n_ring)]
+        self._staging_clean = [True] * n_ring
+        self._staging_args: List[Optional[tuple]] = [None] * n_ring
+        # the programs' static inputs, one per layout (_fill)
         self._chunk_in: Dict[tuple, torch.Tensor] = {}
-        self._scan_vl: Dict[int, torch.Tensor] = {}
         self._admit_vl = torch.zeros((), dtype=torch.int32,
                                      device=self.device)
+        # batched staging: built on its first use (_ensure_batched)
+        self._batched_ready = False
+
+    def _check_device(self, tree, what: str):
+        for t in leaves(tree):
+            if t.device != self.device:
+                raise ValueError(f"{what} live on {t.device}, the executor "
+                                 f"on {self.device}")
 
     # ------------------------------------------------------------- plans
     def plan_prefill(self, length: int) -> List[PlanStep]:
-        """Masked plan: full chunks run under one scan shape m (the
-        balanced chunk count <= ``_MAX_SCAN_CHUNKS``; the last dispatch pads
-        with valid_len = 0 placeholder chunks), and the ragged tail is one
-        fixed-size masked admit chunk."""
+        """Decompose a prompt of ``length`` tokens into dispatch steps.
+
+        **masked** (default): full chunks run under one scan shape m (the
+        balanced chunk count <= ``_MAX_SCAN_CHUNKS``; the last dispatch
+        pads with valid_len = 0 placeholder chunks) and the ragged tail is
+        one fixed-size masked admit chunk.
+
+        **pow2** (baseline): power-of-two scan counts and power-of-two
+        unmasked tail sub-chunks, the last being the fused-sample admit;
+        no padding, O(log chunk) tail programs."""
         if length < 1:
             raise ValueError(f"cannot prefill an empty prompt ({length})")
         C = self.prefill_chunk
         tail = (length - 1) % C + 1
         n_full = (length - tail) // C
         steps: List[PlanStep] = []
+        if self.plan_mode == "pow2":
+            while n_full:
+                m = min(_pow2_floor(n_full), _MAX_SCAN_CHUNKS)
+                steps.append(PlanStep("scan", m, m * C))
+                n_full -= m
+            while tail:
+                s = _pow2_floor(tail)
+                steps.append(PlanStep("chunk", s, s))
+                tail -= s
+            last = steps[-1]
+            steps[-1] = PlanStep("admit", last.size, last.tokens)
+            return steps
         if n_full:
             n_disp = -(-n_full // _MAX_SCAN_CHUNKS)
             m = -(-n_full // n_disp)
@@ -194,7 +269,54 @@ class DeviceExecutor:
         steps.append(PlanStep("admit", C, tail, tail))
         return steps
 
-    # ----------------------------------------------------------- staging
+    # ---------------------------------------------------------- programs
+    def _program(self, key: tuple, fn) -> graphs.Program:
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = graphs.Program(fn, self._pool)
+        return prog
+
+    def _fill(self, key: tuple, x: np.ndarray, dtype) -> torch.Tensor:
+        """Copy host array ``x`` into the static input buffer ``key`` (made
+        on first use, one per layout)."""
+        dst = self._chunk_in.get(key)
+        if dst is None:
+            dst = self._chunk_in[key] = torch.empty(x.shape, dtype=dtype,
+                                                    device=self.device)
+        dst.copy_(torch.from_numpy(x).to(dtype))
+        return dst
+
+    def _host_chunk(self, chunk, shape, pad_to: int):
+        """Flat prompt slice -> (host array of ``shape`` (+ (d,) for
+        embeds), zero-padded to ``pad_to`` tokens; is_embeds)."""
+        chunk = np.asarray(chunk)
+        if pad_to > chunk.shape[0]:
+            pad = np.zeros((pad_to - chunk.shape[0],) + chunk.shape[1:],
+                           chunk.dtype)
+            chunk = np.concatenate([chunk, pad])
+        is_embeds = chunk.dtype.kind == "f"
+        if is_embeds:
+            return (chunk.astype(np.float32).reshape(shape
+                                                     + chunk.shape[-1:]),
+                    True)
+        return chunk.astype(np.int64).reshape(shape), False
+
+    def _input_dtype(self, is_embeds: bool) -> torch.dtype:
+        return (_device.dtype(self.cfg.act_dtype) if is_embeds
+                else torch.int64)
+
+    def _fill_chunk(self, chunk, shape, pad_to: int) -> tuple:
+        """Flat prompt slice -> the static input of its layout.  Returns
+        (buffer, is_embeds)."""
+        x, is_embeds = self._host_chunk(chunk, shape, pad_to)
+        return (self._fill(("chunk", x.shape, is_embeds), x,
+                           self._input_dtype(is_embeds)), is_embeds)
+
+    @staticmethod
+    def _inputs_kw(x, is_embeds: bool) -> dict:
+        return {"embeds" if is_embeds else "tokens": x}
+
+    # ------------------------------------------------- per-prompt staging
     def stage_begin(self, buf: int, *, seed: int, rid: int,
                     temperature: float, top_k: int, top_p: float,
                     eos_id, budget: int):
@@ -208,72 +330,59 @@ class DeviceExecutor:
                                    float(top_p),
                                    -1 if eos_id is None else eos_id, budget)
 
-    # ---------------------------------------------------------- programs
-    def _program(self, key: tuple, fn) -> graphs.Program:
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = graphs.Program(fn, self._pool)
-        return prog
-
-    def _fill_chunk(self, chunk, shape, pad_to: int) -> tuple:
-        """Flat prompt slice -> the static input of its layout: (n,) int
-        tokens or (n, d) float embeds, zero-padded to ``pad_to`` tokens,
-        as ``shape`` + (d,) for embeds.  Returns (buffer, is_embeds)."""
-        chunk = np.asarray(chunk)
-        if pad_to > chunk.shape[0]:
-            pad = np.zeros((pad_to - chunk.shape[0],) + chunk.shape[1:],
-                           chunk.dtype)
-            chunk = np.concatenate([chunk, pad])
-        is_embeds = chunk.dtype.kind == "f"
-        if is_embeds:
-            x = torch.from_numpy(chunk.astype(np.float32)).to(
-                _device.dtype(self.cfg.act_dtype))
-            shape = shape + (x.shape[-1],)
-        else:
-            x = torch.from_numpy(chunk.astype(np.int64))
-        key = (shape, is_embeds)
-        dst = self._chunk_in.get(key)
-        if dst is None:
-            dst = self._chunk_in[key] = torch.empty(shape, dtype=x.dtype,
-                                                    device=self.device)
-        dst.copy_(x.reshape(shape))
-        return dst, is_embeds
-
-    def stage_chunk_scan(self, buf: int, chunks, valid_lens):
-        """Advance ring buffer ``buf`` by m = len(valid_lens) chunks; the
-        flat slice holds sum(valid_lens) tokens, zero-padded into (m, C)."""
+    def stage_chunk_scan(self, buf: int, chunks, valid_lens=None):
+        """Advance ring buffer ``buf`` by m chunks in one dispatch: m * C
+        tokens unmasked (pow2), or, masked, ``sum(valid_lens)`` tokens
+        zero-padded into (m, C) with per-chunk valid lengths (a 0 entry is
+        a placeholder chunk)."""
         C = self.prefill_chunk
-        m = len(valid_lens)
+        masked = valid_lens is not None
+        m = len(valid_lens) if masked else len(chunks) // C
         x, is_embeds = self._fill_chunk(chunks, (1, m, C), m * C)
-        vl = self._scan_vl.get(m)
-        if vl is None:
-            vl = self._scan_vl[m] = torch.empty((m,), dtype=torch.int32,
-                                                device=self.device)
-        vl.copy_(torch.tensor([int(v) for v in valid_lens],
-                              dtype=torch.int32))
-        kw = "embeds" if is_embeds else "tokens"
+        vl = None
+        if masked:
+            vl = self._fill(("scan_vl", m),
+                            np.asarray(valid_lens, np.int32), torch.int32)
 
         def scan():
             lm.prefill_chunk_scan(self.params, self.cfg, self.staging[buf],
-                                  valid_lens=vl, **{kw: x})
+                                  valid_lens=vl,
+                                  **self._inputs_kw(x, is_embeds))
 
-        self._program(("scan", buf, m, is_embeds), scan)()
+        self._program(("scan", buf, m, is_embeds, masked), scan)()
 
-    def stage_admit(self, buf: int, chunk, valid_len: int) -> torch.Tensor:
-        """Final chunk (zero-padded to ``prefill_chunk``) + fused on-device
-        first-token draw from the last valid position.  The request's
-        sampler row is built on the host and copied into the ring buffer's
-        row, which the admit advances in place.  Returns the ring buffer's
-        (1,) token tensor (still on the device)."""
-        s = self.prefill_chunk
+    def stage_chunk(self, buf: int, chunk):
+        """Advance ring buffer ``buf`` by one interior tail sub-chunk,
+        unmasked (pow2 plans only)."""
+        s = len(chunk)
         x, is_embeds = self._fill_chunk(chunk, (1, s), s)
-        self._admit_vl.fill_(int(valid_len))
+
+        def step():
+            lm.prefill_chunk(self.params, self.cfg, self.staging[buf],
+                             **self._inputs_kw(x, is_embeds))
+
+        self._program(("chunk", buf, s, is_embeds), step)()
+
+    def stage_admit(self, buf: int, chunk, valid_len=None) -> torch.Tensor:
+        """Final chunk + fused on-device first-token draw.  Masked
+        (``valid_len`` set): the slice is zero-padded to ``prefill_chunk``
+        and the draw reads the last valid position; pow2: the chunk is
+        exactly the tail.  The request's sampler row is built on the host
+        and copied into the ring buffer's row, which the admit advances in
+        place.  Returns the ring buffer's (1,) token tensor (on the
+        device)."""
+        masked = valid_len is not None
+        s = self.prefill_chunk if masked else len(chunk)
+        x, is_embeds = self._fill_chunk(chunk, (1, s), s)
+        vl = None
+        if masked:
+            vl = self._admit_vl
+            vl.fill_(int(valid_len))
         seed, rid, temp, top_k, top_p, eos, budget = self._staging_args[buf]
         row = self.staging_row[buf]
-        _assign(row, sampling.admit_row(seed, rid, temp, top_k, top_p, eos,
-                                        budget, device="cpu"))
+        copy_leaves(row, sampling.admit_row(seed, rid, temp, top_k, top_p,
+                                            eos, budget, device="cpu"))
         stochastic = temp > 0.0
-        kw = "embeds" if is_embeds else "tokens"
 
         def sample_fn(st, logits):
             return sampling.sample(st, logits, stochastic=stochastic)
@@ -281,32 +390,348 @@ class DeviceExecutor:
         def admit():
             tok, new_row, _ = lm.prefill_sample(
                 self.params, self.cfg, self.staging[buf], dict(row),
-                sample_fn, valid_len=self._admit_vl, **{kw: x})
+                sample_fn, valid_len=vl, **self._inputs_kw(x, is_embeds))
             self.staging_tok[buf].copy_(tok)
-            _assign(row, new_row)
+            copy_leaves(row, new_row)
 
-        self._program(("admit", buf, is_embeds, stochastic), admit)()
+        self._program(("admit", buf, s, is_embeds, masked, stochastic),
+                      admit)()
         return self.staging_tok[buf]
 
     def scatter(self, slot: int, buf: int):
         """Copy ring buffer ``buf``'s completed staging cache + sampler row
-        + first token into slot ``slot`` (in place), then mark the ring
-        buffer for reset."""
-        for dst, src in zip(leaves(self.caches), leaves(self.staging[buf])):
-            dst[:, slot].copy_(src[:, 0])
-        for k, v in self.sampler.items():
-            v[slot].copy_(self.staging_row[buf][k][0])
-        self.tokens[slot] = self.staging_tok[buf][0]
-        self._slot_temp[slot] = self._staging_args[buf][2]
+        + first token into slot ``slot`` (eager copies, in place), then
+        mark the ring buffer for reset."""
+        self._fill_slot(slot, self.staging[buf], self.staging_row[buf],
+                        self.staging_tok[buf], 0,
+                        self._staging_args[buf][2])
         for t in leaves(self.staging[buf]):
             t.zero_()
         self._staging_clean[buf] = True
+
+    def _fill_slot(self, slot: int, caches, sampler, toks, row: int,
+                   temperature: float):
+        """Copy row ``row`` of a staging cache tree, sampler state and
+        first tokens into slot ``slot`` (eager copies, in place)."""
+        for dst, src in zip(leaves(self.caches), leaves(caches)):
+            dst[:, slot].copy_(src[:, row])
+        for k, v in self.sampler.items():
+            v[slot].copy_(sampler[k][row])
+        self.tokens[slot] = toks[row]
+        self._slot_temp[slot] = temperature
+
+    # ---------------------------------------------------- batched staging
+    def _ensure_batched(self):
+        """Allocate the batched staging buffers on first use: one
+        (staging_depth, ...) cache tree (every staged prompt is a row), a
+        staging_depth-row sampler state holding the advanced admit rows,
+        the (staging_depth,) first tokens, the admit's D-row sampling
+        parameters (a static buffer filled from the host before each
+        admit) and the host mirror of the rows' parameters."""
+        if self._batched_ready:
+            return
+        D = self.staging_depth
+        self.bspec = lm.cache_specs(self.cfg, D, self.max_len)
+        self.bstaging = self.bspec.zeros(self.device)
+        self.bsampler = sampling.init_state(D, self.device)
+        self.btoks = torch.zeros((D,), dtype=torch.int32, device=self.device)
+        self._brows = sampling.init_state(D, self.device)
+        self._bargs = {
+            "rid": np.zeros((D,), np.int32),
+            "temperature": np.zeros((D,), np.float32),
+            "top_k": np.zeros((D,), np.int32),
+            "top_p": np.ones((D,), np.float32),
+            "eos_id": np.full((D,), -1, np.int32),
+            "budget": np.ones((D,), np.int32),
+        }
+        self._bseed = 0
+        self._batched_ready = True
+
+    def bstage_begin(self, row: int, *, seed: int, rid: int,
+                     temperature: float, top_k: int, top_p: float,
+                     eos_id, budget: int):
+        """Record a request's sampling parameters for staging row ``row``
+        (host only: rows are zeroed when the multi-row scatter releases
+        them, so beginning a row costs no device work)."""
+        self._ensure_batched()
+        self._bseed = seed
+        self._bargs["rid"][row] = rid
+        self._bargs["temperature"][row] = temperature
+        self._bargs["top_k"][row] = top_k
+        self._bargs["top_p"][row] = top_p
+        self._bargs["eos_id"][row] = -1 if eos_id is None else eos_id
+        self._bargs["budget"][row] = budget
+
+    def _batched_input(self, entries, lead, fill):
+        """Host (D, *lead) tokens or (D, *lead, d) embeds with each entry's
+        slice written by ``fill(x, row, chunk, n)``; returns (x,
+        is_embeds)."""
+        first = np.asarray(entries[0][1])
+        is_embeds = first.dtype.kind == "f"
+        shape = (self.staging_depth,) + lead
+        x = (np.zeros(shape + first.shape[-1:], np.float32) if is_embeds
+             else np.zeros(shape, np.int64))
+        for row, chunk, n in entries:
+            fill(x, row, np.asarray(chunk), n)
+        return x, is_embeds
+
+    def bstage_chunk_scan(self, entries):
+        """Advance several staging rows by their next full chunks in one
+        fixed-shape (D, _MAX_SCAN_CHUNKS, C) dispatch.  entries: list of
+        ``(row, flat_chunk, take)``, ``take`` full chunks for row ``row``;
+        rows taking fewer chunks, and rows with no entry, pad with
+        valid_len = 0 placeholder chunks (bitwise no-ops)."""
+        D, C, M = self.staging_depth, self.prefill_chunk, _MAX_SCAN_CHUNKS
+        self._ensure_batched()
+        vl = np.zeros((M, D), np.int32)
+
+        def fill(x, row, chunk, take):
+            x[row, :take] = chunk.reshape((take, C) + chunk.shape[1:])
+            vl[:take, row] = C
+
+        xh, is_embeds = self._batched_input(entries, (M, C), fill)
+        x = self._fill(("bscan_in", is_embeds), xh,
+                       self._input_dtype(is_embeds))
+        v = self._fill(("bscan_vl",), vl, torch.int32)
+
+        def scan():
+            lm.prefill_chunk_scan(self.params, self.cfg, self.bstaging,
+                                  valid_lens=v,
+                                  **self._inputs_kw(x, is_embeds))
+
+        self._program(("bscan", is_embeds), scan)()
+
+    def bstage_admit(self, entries):
+        """Final (ragged tail) chunk + fused first-token draw for several
+        staging rows in one dispatch.  The D rows' sampler states are
+        built on the host (``sampling.admit_rows``: keys folded from
+        (seed, rid) as the per-prompt path folds them) and copied into a
+        static buffer; the program prefills the fixed-size masked tail,
+        samples, and merges tokens and sampler rows under the admit mask
+        (rows not admitting are valid_len = 0 no-ops and keep their
+        values).  entries: list of ``(row, flat_chunk, valid_len)``."""
+        D, C = self.staging_depth, self.prefill_chunk
+        self._ensure_batched()
+        vl = np.zeros((D,), np.int32)
+        amask = np.zeros((D,), bool)
+
+        def fill(x, row, chunk, valid):
+            x[row, :valid] = chunk
+            vl[row] = valid
+            amask[row] = True
+
+        xh, is_embeds = self._batched_input(entries, (C,), fill)
+        x = self._fill(("badmit_in", is_embeds), xh,
+                       self._input_dtype(is_embeds))
+        v = self._fill(("badmit_vl",), vl, torch.int32)
+        am = self._fill(("badmit_mask",), amask, torch.bool)
+        a = self._bargs
+        copy_leaves(self._brows, sampling.admit_rows(
+            self._bseed, a["rid"], a["temperature"], a["top_k"], a["top_p"],
+            a["eos_id"], a["budget"], device="cpu"))
+        # the stochastic branch is neutral for greedy rows
+        stochastic = bool((a["temperature"][amask] > 0.0).any())
+
+        def sample_fn(st, logits):
+            return sampling.sample(st, logits, stochastic=stochastic)
+
+        def admit():
+            tok, rows, _ = lm.prefill_sample(
+                self.params, self.cfg, self.bstaging, dict(self._brows),
+                sample_fn, valid_len=v, **self._inputs_kw(x, is_embeds))
+            self.btoks.copy_(torch.where(am, tok, self.btoks))
+            for k, w in self.bsampler.items():
+                m = am.reshape((-1,) + (1,) * (w.ndim - 1))
+                w.copy_(torch.where(m, rows[k].to(w.dtype), w))
+
+        self._program(("badmit", is_embeds, stochastic), admit)()
+
+    def bscatter(self, assigns, release_rows=()):
+        """Admit finished staging rows into their slots and release rows.
+        assigns: ``(slot, row)`` pairs (distinct slots); release_rows:
+        extra rows to zero without scattering (requests that finished at
+        admit).  Assigned rows are always released.
+
+        Eager copies, as ``scatter``: one per leaf and assigned row, then
+        one zero per leaf and released row.  The reference's fixed-shape
+        program (a ``(D,)`` slot map with an out-of-range "no slot"
+        sentinel, dropped by ``mode="drop"``) has no torch counterpart
+        short of a ``where`` over the whole slot cache per call."""
+        self._ensure_batched()
+        release = set(release_rows)
+        for slot, row in assigns:
+            self._fill_slot(slot, self.bstaging, self.bsampler, self.btoks,
+                            row, self._bargs["temperature"][row])
+            release.add(row)
+        for row in sorted(release):
+            for t in leaves(self.bstaging):
+                t[:, row].zero_()
+
+    # ------------------------------------------------- speculative decode
+    def _init_speculative(self, draft_cfg, draft_params, params):
+        """Draft model buffers and the rollback checkpoints (see the
+        reference's executor): ``ckpt`` / ``dckpt`` from the mixers'
+        ``checkpoint_spec``, the committed draft state ``dcaches``, and the
+        static inputs of the draft, verify and draft-rebuild programs.  A
+        self-draft (``draft_params is params``) shares the target's
+        weights."""
+        if self.k_draft < 1:
+            raise ValueError(f"k_draft must be >= 1, got {self.k_draft}")
+        if draft_cfg.vocab != self.cfg.vocab:
+            raise ValueError(
+                f"draft model must share the target vocab "
+                f"({draft_cfg.vocab} != {self.cfg.vocab}) — draft proposals "
+                f"are token ids the target verifies")
+        unsupported = sorted({k for k in draft_cfg.pattern
+                              if not get_mixer(k).supports_ragged_prefill})
+        if unsupported:
+            raise ValueError(
+                f"draft mixer kind(s) {unsupported} do not support ragged "
+                f"(valid_len-masked) prefill chunks — the draft state "
+                f"rebuild at slot activation runs one fixed-shape masked "
+                f"chunk scan")
+        cfg, S, L = self.cfg, self.max_slots, self.max_len
+        self.draft_cfg = draft_cfg
+        self.ckpt_spec = lm.checkpoint_specs(cfg, S, L)
+        self.dspec = lm.cache_specs(draft_cfg, S, L)
+        self.dckpt_spec = lm.checkpoint_specs(draft_cfg, S, L)
+        self.checkpoint_bytes_per_slot = lm.checkpoint_specs(cfg, 1,
+                                                             L).nbytes
+        self.draft_bytes_per_slot = (
+            lm.cache_specs(draft_cfg, 1, L).nbytes
+            + lm.checkpoint_specs(draft_cfg, 1, L).nbytes)
+        self.speculative_bytes = (self.ckpt_spec.nbytes + self.dspec.nbytes
+                                  + self.dckpt_spec.nbytes)
+        if draft_params is not params:
+            self._check_device(draft_params, "draft params")
+        self.draft_params = draft_params
+        self.dcaches = self.dspec.zeros(self.device)
+        self.ckpt = self.ckpt_spec.zeros(self.device)
+        self.dckpt = self.dckpt_spec.zeros(self.device)
+        # the draft rebuild: one (1, n, C) masked scan from zero state in a
+        # one-row scratch cache, then a copy into the slot; C is the
+        # target's staged chunk, so a self-draft rebuild hits the same
+        # chunk boundaries
+        dlimit = (min(L, draft_cfg.window) if draft_cfg.window else L)
+        self._dchunk = min(self.prefill_chunk, dlimit)
+        self._dchunks = -(-L // self._dchunk)
+        self._dstage = lm.init_caches(draft_cfg, 1, L, self.device)
+        self._dslot = torch.zeros((1,), dtype=torch.int64,
+                                  device=self.device)
+        # the draft tokens of each k, read by the verify of that k
+        self._dtoks: Dict[int, torch.Tensor] = {}
+
+    def _draft_buffer(self, k: int) -> torch.Tensor:
+        buf = self._dtoks.get(k)
+        if buf is None:
+            buf = self._dtoks[k] = torch.zeros(
+                (k, self.max_slots), dtype=torch.int32, device=self.device)
+        return buf
+
+    def _stochastic(self) -> bool:
+        return bool((self._slot_temp > 0.0).any())
+
+    def spec_draft(self, k: int) -> torch.Tensor:
+        """Propose ``k`` draft tokens per slot: ``lm.decode_steps`` on the
+        draft model, on the device with no host sync.  The port's decode
+        updates caches in place, so the draft runs in ``dckpt``, a scratch
+        copy of the committed ``dcaches`` (which the verify advances);
+        the sampler is never updated in place, so the draft reads the
+        slots' own and leaves it as it was.  The draw stream is the
+        slot's (seed, rid)-folded key sequence, the keys the verify will
+        consume.  Returns the (k, slots) draft tokens (a static buffer the
+        verify of that k reads); k = 0 dispatches nothing."""
+        out = self._draft_buffer(k)
+        if k == 0:
+            return out
+        stochastic = self._stochastic()
+
+        def sample_fn(st, logits):
+            return sampling.sample(st, logits, stochastic=stochastic)
+
+        def draft():
+            copy_leaves(self.dckpt, self.dcaches)
+            toks, _, _, _, _ = lm.decode_steps(
+                self.draft_params, self.draft_cfg, self.tokens, self.dckpt,
+                k, sampler=dict(self.sampler), sample_fn=sample_fn)
+            out.copy_(toks)
+
+        self._program(("draft", k, stochastic), draft)()
+        return out
+
+    def spec_verify(self, k: int, dtoks: torch.Tensor):
+        """Score a pending k-token draft with ``lm.verify_steps`` and commit
+        each slot's state through its emitted prefix: the single host sync
+        of a speculative tick (up to k+1 tokens per slot).
+
+        The reference swaps the roles of ``caches`` and ``ckpt`` every
+        tick (the run-ahead finals land in the donated checkpoint).  A
+        captured graph needs fixed addresses, and the slot scatter, the
+        draft rebuild and plain decode all write the committed state, so
+        here the committed state stays in ``caches`` / ``dcaches``: the
+        verify copies it into ``ckpt`` / ``dckpt``, runs ahead there and
+        commits back with a ``where`` per position (one state copy per
+        tick more than the swap; one program per k, not per parity).
+        Returns host (k+1, slots) toks/valid, ``decode``'s layout."""
+        buf = self._draft_buffer(k)
+        if dtoks is not buf:
+            buf.copy_(dtoks)
+        stochastic = self._stochastic()
+
+        def sample_fn(st, logits, active):
+            return sampling.sample_where(st, logits, active,
+                                         stochastic=stochastic)
+
+        def verify():
+            toks, valid, last, _, _, _, _, st = lm.verify_steps(
+                self.params, self.cfg, self.draft_params, self.draft_cfg,
+                self.tokens, buf, self.caches, self.dcaches, self.ckpt,
+                self.dckpt, dict(self.sampler), sample_fn)
+            self.tokens.copy_(last)
+            copy_leaves(self.sampler, st)
+            return toks, valid
+
+        toks, valid = self._program(("verify", k, stochastic), verify)()
+        return toks.cpu().numpy(), valid.cpu().numpy()
+
+    def draft_prefill_slot(self, slot: int, tokens_1d):
+        """Rebuild slot ``slot``'s draft state from the request's consumed
+        tokens (prompt + every emitted token but the last), at every slot
+        activation: one fixed-shape program, a masked (1, n, C) chunk scan
+        from zero state into a one-row scratch cache, then a copy into the
+        slot.  Streams longer than max_len keep their last max_len
+        tokens."""
+        toks = np.asarray(tokens_1d, np.int64).reshape(-1)[-self.max_len:]
+        if toks.size == 0:
+            raise ValueError("draft_prefill_slot needs >= 1 consumed "
+                             "token (prompts are never empty)")
+        C, n = self._dchunk, self._dchunks
+        flat = np.zeros((n * C,), np.int64)
+        flat[:toks.size] = toks
+        vls = np.zeros((n,), np.int32)
+        full, tail = divmod(toks.size, C)
+        vls[:full] = C
+        if tail:
+            vls[full] = tail
+        x = self._fill(("dprefill_in",), flat.reshape(1, n, C), torch.int64)
+        vl = self._fill(("dprefill_vl",), vls, torch.int32)
+        self._dslot.fill_(slot)
+
+        def dprefill():
+            for t in leaves(self._dstage):
+                t.zero_()
+            lm.prefill_chunk_scan(self.draft_params, self.draft_cfg,
+                                  self._dstage, tokens=x, valid_lens=vl)
+            for dst, src in zip(leaves(self.dcaches), leaves(self._dstage)):
+                dst.index_copy_(1, self._dslot, src)
+
+        self._program(("dprefill",), dprefill)()
 
     # ------------------------------------------------------------- ticks
     def decode(self, k: int):
         """One fused k-step decode+sample tick over all slots; the single
         host sync reads the (k, slots) token/validity tensors."""
-        stochastic = bool((self._slot_temp > 0.0).any())
+        stochastic = self._stochastic()
 
         def sample_fn(st, logits):
             return sampling.sample(st, logits, stochastic=stochastic)
@@ -316,7 +741,7 @@ class DeviceExecutor:
                 self.params, self.cfg, self.tokens, self.caches, k,
                 sampler=dict(self.sampler), sample_fn=sample_fn)
             self.tokens.copy_(tokens)
-            _assign(self.sampler, sampler)
+            copy_leaves(self.sampler, sampler)
             return toks, valid
 
         toks, valid = self._program(("decode", k, stochastic), decode)()
@@ -325,19 +750,34 @@ class DeviceExecutor:
     def compiled_programs(self) -> Dict[str, int]:
         """Program shapes per family, counted as the reference counts its
         jitted programs: one decode program per k (stochastic is a branch
-        inside it), one scan per (m, is_embeds), one admit per is_embeds,
-        and the slot scatter in ``total``; ``cuda_graphs`` counts the
-        graphs captured (one per program and ring buffer; 0 when eager)."""
-        decode = {key[1] for key in self._programs if key[0] == "decode"}
-        scan = {key[2:] for key in self._programs if key[0] == "scan"}
-        admit = {key[2] for key in self._programs if key[0] == "admit"}
-        prefill = len(scan) + len(admit)
+        inside it), one per-prompt scan per (m, is_embeds, masked), chunk
+        per (size, is_embeds), admit per (size, is_embeds, masked), one
+        batched scan and admit per is_embeds, the speculative programs
+        (draft and verify per k, the draft rebuild), and in ``total`` the
+        slot scatter and, once built, the batched ring's multi-row
+        scatter; ``cuda_graphs`` counts the graphs captured (one per
+        program, ring buffer and stochastic flag; 0 when eager)."""
+        def shapes(family, sl):
+            return {key[sl] for key in self._programs if key[0] == family}
+
+        decode = shapes("decode", 1)
+        scan = shapes("scan", slice(2, 5))
+        chunk = shapes("chunk", slice(2, 4))
+        admit = shapes("admit", slice(2, 5))
+        bscan, badmit = shapes("bscan", 1), shapes("badmit", 1)
+        prefill = (len(scan) + len(chunk) + len(admit) + len(bscan)
+                   + len(badmit))
+        spec = (len(shapes("draft", 1)) + len(shapes("verify", 1))
+                + len(shapes("dprefill", 0)))
         return {
             "decode": len(decode),
-            "prefill_scan": len(scan),
-            "prefill_admit": len(admit),
+            "prefill_scan": len(scan) + len(bscan),
+            "prefill_chunk": len(chunk),
+            "prefill_admit": len(admit) + len(badmit),
             "prefill": prefill,
-            "total": len(decode) + prefill + 1,
+            "speculative": spec,
+            "total": (len(decode) + prefill + spec + 1
+                      + (1 if self._batched_ready else 0)),
             "cuda_graphs": sum(p.graph is not None
                                for p in self._programs.values()),
         }
@@ -346,10 +786,3 @@ class DeviceExecutor:
         """A finished request left ``slot``: its sampler row is done on the
         device already; drop its temperature from the host mirror."""
         self._slot_temp[slot] = 0.0
-
-
-def _assign(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
-    """Copy a sampler state into the buffers of ``dst`` in place."""
-    for k, v in src.items():
-        if v is not dst[k]:
-            dst[k].copy_(v)

@@ -141,6 +141,32 @@ def admit_row(seed, rid, temperature, top_k, top_p, eos_id, budget,
     }
 
 
+def admit_rows(seed, rids, temperature, top_k, top_p, eos_id, budget,
+               device=None) -> SamplerState:
+    """Batched ``admit_row``: (D,) parameter vectors -> a D-row sampler
+    state for the batched admit.  Row d's key is ``fold_in(PRNGKey(seed),
+    rids[d])``, bit for bit the key ``admit_row`` builds for that request,
+    so a request draws the same stream admitted alone or batched.  Rows
+    not admitting carry stale parameters; the admit mask discards them.
+    ``eos_id`` entries are -1 for "no EOS"."""
+    z = dict(device=device)
+    base = prng_key(seed, device)
+    rids = [int(r) for r in np.asarray(rids).reshape(-1)]
+    return {
+        "key": torch.stack([fold_in(base, r) for r in rids]),
+        "temperature": torch.tensor(np.asarray(temperature, np.float32),
+                                    **z).reshape(-1),
+        "top_k": torch.tensor(np.asarray(top_k, np.int32), **z).reshape(-1),
+        "top_p": torch.tensor(np.asarray(top_p, np.float32),
+                              **z).reshape(-1),
+        "eos_id": torch.tensor(np.asarray(eos_id, np.int32),
+                               **z).reshape(-1),
+        "remaining": torch.tensor(np.asarray(budget, np.int32),
+                                  **z).reshape(-1),
+        "done": torch.zeros((len(rids),), dtype=torch.bool, **z),
+    }
+
+
 def admit_slot(state: SamplerState, slot: int, *, seed: int, rid: int,
                temperature: float, top_k: int, top_p: float, eos_id,
                budget: int) -> SamplerState:
@@ -211,6 +237,23 @@ def sample(state: SamplerState, logits, stochastic=None):
     done = state["done"] | (active & (hit_eos | (remaining <= 0)))
     return tok, {**state, "key": new_key, "remaining": remaining,
                  "done": done}
+
+
+def sample_where(state: SamplerState, logits, active, stochastic=None):
+    """``sample``, but only rows where ``active`` ((S,) bool) advance their
+    state: the speculative verify stops a slot's key at its first rejected
+    position, so the key splits once per emitted token, as plain decode
+    splits it.  Rows are computed by the unmodified ``sample`` and masked
+    back to the old state where inactive; inactive rows' tokens are
+    whatever ``sample`` drew (callers mask them).  ``stochastic`` as in
+    ``sample``: the stochastic branch is neutral for greedy rows, so a
+    caller may pass ``True`` whenever any row it can touch draws."""
+    tok, advanced = sample(state, logits, stochastic=stochastic)
+    out = {}
+    for k, old in state.items():
+        mask = active.reshape(active.shape + (1,) * (old.ndim - 1))
+        out[k] = torch.where(mask, advanced[k], old)
+    return tok, out
 
 
 # -------------------------------------------- NumPy mirror (host + tests)

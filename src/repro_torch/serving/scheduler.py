@@ -20,9 +20,21 @@ The scheduler never touches a device buffer; it decides *what* the
      ``decode_block``; one host sync per tick.
   4. finished slots (device EOS/budget flags) are freed at tick boundaries.
 
-Staging is per prompt: the reference's batched staging emits bitwise the
-same streams as its per-prompt path, so this port is held against the
-reference's default engine.  Settings of later slices raise
+**Batched staging** (``prefill_batching``, on by default wherever the
+reference turns it on): the staged prompts share one ``(staging_depth,
+...)`` cache tree; each tick an oldest-first packer under a per-tick
+token budget (``prefill_budget``) fuses them into at most one batched
+scan and one batched admit per input kind, and every finished row enters
+its slot through one multi-row scatter (``_admit_batched``).
+
+**Speculative decode** (``speculative``): a draft model proposes
+``k_draft`` tokens per slot at the end of a step; the next step's verify
+scores them with the target and commits each slot only through the
+tokens it emits (``_step_speculative``), streams bitwise those of plain
+decode.  ``adaptive_k`` shrinks or grows the draft length with the
+acceptance rate.
+
+State paging, roles and meshes of the reference raise
 ``NotImplementedError`` naming the reference module that holds them.
 """
 from __future__ import annotations
@@ -36,7 +48,8 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.serving.executor import DeviceExecutor, PlanStep, deferred
+from repro_torch.serving.executor import (_MAX_SCAN_CHUNKS, DeviceExecutor,
+                                         PlanStep, deferred)
 
 QUEUED, STAGING, READY, ACTIVE, DONE = ("queued", "staging", "ready",
                                         "active", "done")
@@ -99,6 +112,9 @@ class _Staging:
     plan_pos: int = 0
     prompt_pos: int = 0
     ready: bool = False
+    chunks_left: int = 0      # batched path: full C-chunks not yet staged
+    tail: int = 0             # batched path: valid tokens in the admit chunk
+    admitted: bool = False    # batched path: admit dispatched, token pending
 
 
 class Scheduler:
@@ -118,21 +134,26 @@ class Scheduler:
                  host_swap_bytes: Optional[int] = None,
                  swap_spool_dir: Optional[str] = None,
                  speculative: bool = False, draft_cfg=None,
-                 draft_params=None,
+                 draft_params=None, k_draft: int = 4,
                  adaptive_k: bool = False, role: str = "both",
                  device=None, cuda_graphs: Optional[bool] = None):
         if decode_block < 1:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
-        if prefill_budget is not None:
-            raise deferred("prefill_budget (batched staging)",
-                           "serving/scheduler.py")
+        if prefill_budget is not None and prefill_budget < 1:
+            raise ValueError(f"prefill_budget must be >= 1 token, got "
+                             f"{prefill_budget}")
+        if (draft_cfg is not None or draft_params is not None) \
+                and not speculative:
+            raise ValueError("draft_cfg/draft_params given without "
+                             "speculative=True")
+        if adaptive_k and not speculative:
+            raise ValueError("adaptive_k tunes the speculative draft "
+                             "length — set speculative=True")
         if (swap_policy != "manual" or idle_swap_ms is not None
                 or max_live_requests is not None
                 or host_swap_bytes is not None or swap_spool_dir is not None):
             raise deferred("state paging (swap policies, admission caps, "
                            "spill)", "serving/scheduler.py")
-        if speculative or adaptive_k:
-            raise deferred("speculative decode", "serving/scheduler.py")
         if role != "both":
             raise deferred(f"role={role!r} (disaggregated serving)",
                            "serving/router.py and serving/rpc.py")
@@ -144,19 +165,49 @@ class Scheduler:
         self.decode_block = decode_block
         self.overlap = overlap
         self.budget_ticks = budget_ticks
+        # speculative decode: the default draft is the target itself
+        # (self-draft, sharing its weights)
+        self.speculative = speculative
+        self.k_draft = k_draft
+        self.adaptive_k = bool(adaptive_k)
+        self._k_eff = k_draft
+        self._accept_window: Deque[tuple] = deque(maxlen=4)
+        if speculative and draft_cfg is None:
+            draft_cfg, draft_params = cfg, params
         self.executor = DeviceExecutor(
             cfg, params, max_slots=max_slots, max_len=max_len,
             decode_block=decode_block, prefill_chunk=prefill_chunk,
             mesh=mesh, staging_depth=staging_depth, plan_mode=plan_mode,
-            prefill_batching=prefill_batching, draft_cfg=draft_cfg,
-            draft_params=draft_params, async_paging=async_paging,
-            device=device, cuda_graphs=cuda_graphs)
+            prefill_batching=prefill_batching,
+            draft_cfg=draft_cfg if speculative else None,
+            draft_params=draft_params if speculative else None,
+            k_draft=k_draft, async_paging=async_paging, device=device,
+            cuda_graphs=cuda_graphs)
+        # per-tick prefill budget of the batched packer, in scan-chunk
+        # units (an admit costs one); the default lets every staging row
+        # take a full scan + admit per tick
+        C = self.executor.prefill_chunk
+        self._budget_chunks = (
+            max(1, prefill_budget // C) if prefill_budget is not None
+            else self.executor.staging_depth * (_MAX_SCAN_CHUNKS + 1))
         self.free: Deque[int] = deque(range(max_slots))
         self.active: Dict[int, Request] = {}
         self.queue: Deque[Request] = deque()
         self._all: List[Request] = []
         self._stagings: List[_Staging] = []
         self._free_bufs: Deque[int] = deque(range(staging_depth))
+        # batched rows whose request finished at admit, zeroed by the next
+        # multi-row scatter
+        self._dirty_rows: set = set()
+        # the speculative tick's draft, pending across the step boundary:
+        # (k, device draft tokens, live rids)
+        self._pending = None
+        self.spec_ticks = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.draft_prefills = 0     # draft-state rebuild dispatches
+        self.draft_steps = 0        # draft decode steps (sum of k)
+        self.verify_positions = 0   # verify positions (sum of k + 1)
         self.ticks = 0
         self.decode_steps = 0       # decode steps run by ticks (sum of k)
         self.decode_s = 0.0         # wall time inside decode ticks (+ sync)
@@ -237,6 +288,13 @@ class Scheduler:
                 f"req {req.rid}: prompt length {T} exceeds max_len "
                 f"{self.max_len} — the window caches would wrap "
                 f"mid-prompt and silently corrupt the context")
+        if self.speculative and req.prompt is None:
+            raise ValueError(
+                f"req {req.rid}: prompt_embeds requests cannot run on a "
+                f"speculative engine — the draft-state rebuild at slot "
+                f"activation (draft_prefill_slot) replays the consumed "
+                f"*token* stream, and embeds have no token ids to "
+                f"replay; submit to a non-speculative engine")
         if any(r.rid == req.rid and not r.done for r in self._all):
             raise ValueError(f"req {req.rid}: rid already live on this "
                              f"engine")
@@ -273,24 +331,42 @@ class Scheduler:
     def _stage_start(self, req: Request):
         buf = self._free_bufs.popleft()
         req.state = STAGING
+        args = dict(seed=self.seed, rid=req.rid, temperature=req.temperature,
+                    top_k=req.top_k, top_p=req.top_p, eos_id=req.eos_id,
+                    budget=req.max_new_tokens)
+        if self.executor.prefill_batching:
+            # no fixed plan: the per-tick packer allocates chunks; begin is
+            # host-only (rows are zeroed by the multi-row scatter)
+            T, C = req.prompt_len, self.executor.prefill_chunk
+            tail = (T - 1) % C + 1
+            self._stagings.append(_Staging(req=req, plan=[], buf=buf,
+                                           chunks_left=(T - tail) // C,
+                                           tail=tail))
+            self.executor.bstage_begin(buf, **args)
+            return
         self._stagings.append(_Staging(
             req=req, plan=self.executor.plan_prefill(req.prompt_len),
             buf=buf))
-        self.executor.stage_begin(
-            buf, seed=self.seed, rid=req.rid, temperature=req.temperature,
-            top_k=req.top_k, top_p=req.top_p, eos_id=req.eos_id,
-            budget=req.max_new_tokens)
+        self.executor.stage_begin(buf, **args)
 
     def _stage_dispatch_one(self, st: _Staging):
         step = st.plan[st.plan_pos]
         chunk = st.req._inputs[st.prompt_pos:st.prompt_pos + step.tokens]
         if step.kind == "scan":
-            self.executor.stage_chunk_scan(st.buf, chunk, step.valid)
+            self.executor.stage_chunk_scan(st.buf, chunk,
+                                           valid_lens=step.valid)
+        elif step.kind == "chunk":
+            self.executor.stage_chunk(st.buf, chunk)
         else:
-            self.executor.stage_admit(st.buf, chunk, step.valid)
+            self.executor.stage_admit(st.buf, chunk, valid_len=step.valid)
         st.prompt_pos += step.tokens
         st.plan_pos += 1
         self.stage_dispatches += 1
+
+    def _complete(self, req: Request, now: float):
+        req.done = True
+        req.state = DONE
+        req.t_done = now
 
     def _stage_finish(self, st: _Staging):
         """Plan complete: sync the fused first token (TTFT is stamped here)
@@ -301,14 +377,17 @@ class Scheduler:
         req.t_first = time.perf_counter()
         req.output.append(tok)
         if self._finished(req, tok):
-            req.done = True
-            req.state = DONE
-            req.t_done = req.t_first
+            self._complete(req, req.t_first)
             self._stagings.remove(st)
             self._free_bufs.append(st.buf)
             return
         st.ready = True
         req.state = READY
+
+    def _activate(self, slot: int, req: Request):
+        self.active[slot] = req
+        req.state = ACTIVE
+        self._draft_activate(slot, req)
 
     def _stage_scatter(self):
         st = self._stagings.pop(0)
@@ -316,15 +395,30 @@ class Scheduler:
         self.executor.scatter(slot, st.buf)
         self.scatter_dispatches += 1
         self._free_bufs.append(st.buf)
-        self.active[slot] = st.req
-        st.req.state = ACTIVE
+        self._activate(slot, st.req)
+
+    def _draft_activate(self, slot: int, req: Request):
+        """Rebuild the draft model's state of ``slot`` at its activation by
+        replaying the request's consumed tokens: the prompt and every
+        emitted token but the last (the next decode input)."""
+        if not self.speculative:
+            return
+        toks = np.asarray(req.prompt, np.int64).reshape(-1)
+        if len(req.output) > 1:
+            toks = np.concatenate([toks, np.asarray(req.output[:-1],
+                                                    np.int64)])
+        self.executor.draft_prefill_slot(slot, toks)
+        self.draft_prefills += 1
 
     def _admit(self):
         """Advance the admit pipeline at a tick boundary: FIFO scatter of
         staged-ready requests into free slots, new stagings while ring
         buffers allow (behind a free slot unless ``overlap``), then one
         chunk dispatch per staging — every chunk while slots are free, one
-        per staging per tick once they are all busy."""
+        per staging per tick once they are all busy.  Batched staging
+        replaces this loop with ``_admit_batched``."""
+        if self.executor.prefill_batching:
+            return self._admit_batched()
         yielded = set()
         while True:
             if self._stagings and self._stagings[0].ready and self.free:
@@ -344,23 +438,225 @@ class Scheduler:
             elif not self.free and self.active:
                 yielded.add(id(st))
 
+    # --------------------------------------------------- batched staging
+    def _flush_scatter(self, assigns):
+        """One multi-row scatter covering every slot assignment plus the
+        dirty (finished-at-admit) rows; released rows return to the free
+        pool clean."""
+        self.executor.bscatter(assigns, self._dirty_rows)
+        self.scatter_dispatches += 1
+        self._free_bufs.extend(row for _, row in assigns)
+        self._free_bufs.extend(self._dirty_rows)
+        self._dirty_rows.clear()
+
+    def _stage_finish_batch(self, sts: List[_Staging]):
+        """Every request admitted by one batched dispatch syncs its first
+        token from the same host read and stamps the same ``t_first``: a
+        batch admit is one device event."""
+        toks = self.executor.btoks.cpu().numpy()    # the one host sync
+        now = time.perf_counter()
+        for st in sts:
+            req = st.req
+            tok = int(toks[st.buf])
+            req.t_first = now
+            req.output.append(tok)
+            if self._finished(req, tok):
+                self._complete(req, now)
+                self._stagings.remove(st)
+                self._dirty_rows.add(st.buf)    # zeroed at next scatter
+            else:
+                st.ready = True
+                req.state = READY
+
+    def _dispatch_batched(self, budget: int) -> bool:
+        """One packed prefill round: walk the staging FIFO oldest-first,
+        allocating each entry up to ``budget`` scan-chunk units (an admit
+        costs one), then fuse all allocations into at most one batched
+        scan and one batched admit per input kind.  The walk never skips
+        past an unfinished older entry once the budget runs out (the
+        fairness guard).  Interior chunks are C-quantized, so each
+        prompt's chunk decomposition is that of per-prompt dispatch."""
+        C = self.executor.prefill_chunk
+        scan_e: Dict[bool, list] = {}
+        admit_e: Dict[bool, list] = {}
+        admitted: List[_Staging] = []
+        for st in self._stagings:
+            if st.ready or st.admitted:
+                continue
+            if budget <= 0:
+                break               # strict oldest-first: no skip-ahead
+            is_embeds = st.req.prompt is None
+            if st.chunks_left:
+                take = min(st.chunks_left, _MAX_SCAN_CHUNKS, budget)
+                chunk = st.req._inputs[st.prompt_pos:
+                                       st.prompt_pos + take * C]
+                scan_e.setdefault(is_embeds, []).append(
+                    (st.buf, chunk, take))
+                st.prompt_pos += take * C
+                st.chunks_left -= take
+                budget -= take
+            if st.chunks_left == 0 and budget > 0:
+                chunk = st.req._inputs[st.prompt_pos:
+                                       st.prompt_pos + st.tail]
+                admit_e.setdefault(is_embeds, []).append(
+                    (st.buf, chunk, st.tail))
+                st.prompt_pos += st.tail
+                st.admitted = True
+                admitted.append(st)
+                budget -= 1
+        for entries in scan_e.values():
+            self.executor.bstage_chunk_scan(entries)
+            self.stage_dispatches += 1
+        for entries in admit_e.values():
+            self.executor.bstage_admit(entries)
+            self.stage_dispatches += 1
+        if admitted:
+            self._stage_finish_batch(admitted)
+        return bool(scan_e or admit_e)
+
+    def _admit_batched(self):
+        """Batched admit pipeline: per round at most one multi-row scatter,
+        then new stagings (host only), then one packed prefill round.
+        While slots are free the loop drains work-conservingly; under
+        saturation one round per tick keeps the resident slots decoding
+        between prefill programs."""
+        while True:
+            progressed = False
+            assigns = []
+            while self.free and self._stagings and self._stagings[0].ready:
+                st = self._stagings.pop(0)
+                slot = self.free.popleft()
+                assigns.append((slot, st.buf))
+                self._activate(slot, st.req)
+            if assigns:
+                self._flush_scatter(assigns)
+                progressed = True
+            # start staging while rows allow; a dirty row blocks a start
+            # only until a release-only scatter cleans it
+            while self.queue and (self.free or self.overlap):
+                if not self._free_bufs:
+                    if self._dirty_rows:
+                        self._flush_scatter([])
+                        progressed = True
+                        continue
+                    break
+                self._stage_start(self.queue.popleft())
+                progressed = True
+            # infinite budget while a slot is free (work-conserving)
+            budget = self._budget_chunks if not self.free else 1 << 30
+            if self._dispatch_batched(budget):
+                progressed = True
+            if not self.free and self.active:
+                return              # saturated: one round per tick
+            if not progressed:
+                return
+
     # -------------------------------------------------------------- tick
-    def _tick_k(self) -> int:
+    def _bucket(self, cap: int, verify: int = 0) -> int:
         """Budget-aware tick length: the smallest power-of-two bucket
-        (capped at ``decode_block``) covering the largest remaining
-        per-slot budget."""
+        (capped at ``cap``) covering the largest remaining per-slot budget
+        less the ``verify`` tokens a speculative verify emits itself."""
         if not self.budget_ticks:
-            return self.decode_block
+            return cap
         need = max(r.max_new_tokens - len(r.output)
-                   for r in self.active.values())
+                   for r in self.active.values()) - verify
         k = 1
-        while k < need and k < self.decode_block:
+        while k < need and k < cap:
             k <<= 1
-        return min(k, self.decode_block)
+        return min(k, cap)
+
+    def _tick_k(self) -> int:
+        return self._bucket(self.decode_block)
+
+    def _spec_k(self) -> int:
+        """Draft length: capped at ``k_draft``, or at the adapted k with
+        ``adaptive_k``; 0 (a verify-only tick) when no slot needs more
+        than the verify's own token."""
+        kmax = self._k_eff if self.adaptive_k else self.k_draft
+        if self.budget_ticks and max(r.max_new_tokens - len(r.output)
+                                     for r in self.active.values()) <= 1:
+            return 0
+        return self._bucket(kmax, verify=1)
+
+    def _adapt_k(self, accepted: int, drafted: int):
+        """Acceptance-adaptive draft length: over a window of 4 verify
+        ticks, a rate below 0.5 halves the effective k (floor 1), above
+        0.8 doubles it (cap ``k_draft``); each change clears the window.
+        Streams do not depend on k."""
+        self._accept_window.append((accepted, drafted))
+        if len(self._accept_window) < self._accept_window.maxlen:
+            return
+        d = sum(x[1] for x in self._accept_window)
+        if d == 0:
+            return
+        rate = sum(x[0] for x in self._accept_window) / d
+        if rate < 0.5 and self._k_eff > 1:
+            self._k_eff = max(1, self._k_eff // 2)
+            self._accept_window.clear()
+        elif rate > 0.8 and self._k_eff < self.k_draft:
+            self._k_eff = min(self.k_draft, self._k_eff * 2)
+            self._accept_window.clear()
+
+    def _emit(self, toks, valid, now: float) -> Dict[int, int]:
+        """Append each active slot's valid tokens, free finished slots;
+        returns tokens emitted per slot."""
+        emitted = {}
+        for slot, req in list(self.active.items()):
+            n = 0
+            for j in range(toks.shape[0]):
+                if not valid[j, slot]:
+                    break
+                tok = int(toks[j, slot])
+                req.output.append(tok)
+                self.decoded_tokens += 1
+                n += 1
+                if self._finished(req, tok):
+                    self._complete(req, now)
+                    del self.active[slot]
+                    self.free.append(slot)
+                    self.executor.release_slot(slot)
+                    break
+            emitted[slot] = n
+        return emitted
+
+    def _step_speculative(self):
+        """One speculative tick, pipelined across the step boundary: verify
+        the draft dispatched at the end of the previous step (the tick's
+        one host sync), emit, then admit and dispatch the next draft, so
+        admits happen only between a verify and the next draft."""
+        if self._pending is not None:
+            k, dtoks, live = self._pending
+            self._pending = None
+            t0 = time.perf_counter()
+            toks, valid = self.executor.spec_verify(k, dtoks)
+            now = time.perf_counter()
+            self.decode_s += now - t0
+            self.ticks += 1
+            self.spec_ticks += 1
+            self.verify_positions += k + 1
+            self.drafted_tokens += k * len(live)
+            # every emission beyond the first rode on an accepted draft
+            accepted = sum(max(n - 1, 0)
+                           for n in self._emit(toks, valid, now).values())
+            self.accepted_tokens += accepted
+            if self.adaptive_k and k > 0:
+                self._adapt_k(accepted, k * len(live))
+        self._admit()
+        if not self.active:
+            return
+        k = self._spec_k()
+        t0 = time.perf_counter()
+        dtoks = self.executor.spec_draft(k)     # no host sync
+        self.decode_s += time.perf_counter() - t0
+        self.draft_steps += k
+        self._pending = (k, dtoks, [r.rid for r in self.active.values()])
 
     def step(self):
         """One engine tick: advance the admit pipeline, then one fused
-        decode+sample tick, then emit and free — one host sync per tick."""
+        decode+sample tick, then emit and free — one host sync per tick.
+        Speculative engines run the draft-verify tick instead."""
+        if self.speculative:
+            return self._step_speculative()
         self._admit()
         if not self.active:
             return
@@ -371,21 +667,7 @@ class Scheduler:
         self.decode_s += now - t0
         self.ticks += 1
         self.decode_steps += k
-        for slot, req in list(self.active.items()):
-            for j in range(toks.shape[0]):
-                if not valid[j, slot]:
-                    break
-                tok = int(toks[j, slot])
-                req.output.append(tok)
-                self.decoded_tokens += 1
-                if self._finished(req, tok):
-                    req.done = True
-                    req.state = DONE
-                    req.t_done = now
-                    del self.active[slot]
-                    self.free.append(slot)
-                    self.executor.release_slot(slot)
-                    break
+        self._emit(toks, valid, now)
 
     def run_until_done(self, max_ticks: int = 10_000, *,
                        strict: bool = True) -> List[Request]:
@@ -413,6 +695,12 @@ class Scheduler:
         self.decoded_tokens = 0
         self.stage_dispatches = 0
         self.scatter_dispatches = 0
+        self.spec_ticks = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.draft_prefills = 0
+        self.draft_steps = 0
+        self.verify_positions = 0
         self._metrics_seen = {id(r) for r in self._all if r.done}
 
     def metrics(self) -> Dict[str, float]:
@@ -442,7 +730,28 @@ class Scheduler:
             "compiled_programs": progs["total"],
             "prefill_programs": progs["prefill"],
             "staging_depth": self.staging_depth,
+            "speculative": int(self.speculative),
+            "k_draft": self.k_draft if self.speculative else 0,
+            "adaptive_k": int(self.adaptive_k),
+            "k_draft_effective":
+                (self._k_eff if self.speculative and self.adaptive_k
+                 else (self.k_draft if self.speculative else 0)),
+            "spec_ticks": self.spec_ticks,
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "acceptance_rate":
+                self.accepted_tokens / max(1, self.drafted_tokens),
             "syncs_per_token": self.ticks / max(1, self.decoded_tokens),
+            "draft_prefills": self.draft_prefills,
+            "checkpoint_bytes_per_slot":
+                (self.executor.checkpoint_bytes_per_slot
+                 if self.speculative else 0),
+            "draft_bytes_per_slot":
+                (self.executor.draft_bytes_per_slot
+                 if self.speculative else 0),
+            "speculative_bytes":
+                (self.executor.speculative_bytes
+                 if self.speculative else 0),
             "mean_ttft_s": float(np.mean(ttfts)) if ttfts else 0.0,
             "mean_latency_s": float(np.mean(lats)) if lats else 0.0,
             "mean_tokens_per_s": float(np.mean(tps)) if tps else 0.0,

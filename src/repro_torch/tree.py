@@ -38,3 +38,12 @@ def leaves(tree, is_leaf: Callable = None) -> List[Any]:
     if tree is None:
         return []
     return [tree]
+
+
+def copy_leaves(dst, src):
+    """Copy each leaf of ``src`` into the leaf of ``dst`` at its place, in
+    place (trees of one structure; a leaf that already is ``dst``'s is
+    left alone)."""
+    for d, s in zip(leaves(dst), leaves(src)):
+        if s is not d:
+            d.copy_(s)

@@ -950,3 +950,164 @@ def test_train_graph_capture_failure_raises(cuda):
     # the eager first step and the failed capture: no third, eager run
     assert (res["ran"], res["restarts"], res["graph"], res["steps"]) == \
         (2, 0, False, 1)
+
+
+# ------------------------------------- batched staging, speculative decode
+
+def _reduced_gdn(seed=0):
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get_arch("qwen3-next-gdn").reduced().replace(
+        use_pallas_serving=True)
+    return cfg, lm.init_lm(seed, cfg, device="cuda")
+
+
+def _slot_state(eng):
+    from repro_torch.tree import leaves
+    ex = eng.executor
+    return ([t.clone() for t in leaves(ex.caches)]
+            + [v.clone() for _, v in sorted(ex.sampler.items())]
+            + [ex.tokens.clone()])
+
+
+@pytest.mark.cuda
+def test_batched_graphs_bitwise_equal_eager(cuda):
+    """The batched scan and admit (three staging rows, prompts of 1 to 57
+    tokens: placeholder rows and chunks, greedy and stochastic admits)
+    replayed from graphs give the eager engine's streams and leave the
+    slot buffers bitwise equal; the prefill programs are the batched
+    ones."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg, params = _reduced_gdn()
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(1, 256, size=n, dtype=np.int32)
+               for n in (1, 57, 23, 40, 16, 9)]
+    out = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, params, max_slots=2, max_len=64, seed=0,
+                           decode_block=4, prefill_chunk=8, staging_depth=3,
+                           device="cuda", cuda_graphs=graphs)
+        assert eng.prefill_batching
+        runs = []
+        for _ in range(2):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=3 + i,
+                            temperature=0.8 if i % 2 else 0.0)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            runs.append([list(r.output) for r in reqs])
+        out[graphs] = (runs, _slot_state(eng),
+                       eng.executor.compiled_programs())
+    assert out[True][0] == out[False][0]
+    assert out[True][0][0] == out[True][0][1]
+    assert all(torch.equal(a, b) for a, b in zip(out[True][1],
+                                                 out[False][1]))
+    progs = out[True][2]
+    assert progs["cuda_graphs"] > 0
+    assert progs["prefill_scan"] == progs["prefill_admit"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 4, 8, 16, 32])
+def test_prefill_kernel_pow2_tails_vs_plain(cuda, T):
+    """The pow2 plans' unmasked tail chunks, T = C < 64, at the served head
+    dim (bf16, d_k 128: the tensor-core kernel, which pads its 64-token
+    tile) against the plain scan."""
+    rng = np.random.default_rng(40 + T)
+    B, Hk, Hv, d = 1, 2, 4, 128
+    q = _normal(rng, B, T, Hk, d).to(cuda, torch.bfloat16)
+    k = torch.nn.functional.normalize(_normal(rng, B, T, Hk, d),
+                                      dim=-1).to(cuda, torch.bfloat16)
+    v = _normal(rng, B, T, Hv, d).to(cuda, torch.bfloat16)
+    lg = -torch.nn.functional.softplus(_normal(rng, B, T, Hv)).to(cuda)
+    beta = torch.sigmoid(_normal(rng, B, T, Hv)).to(cuda)
+    S0 = _normal(rng, B, Hv, d, d, scale=0.1).to(cuda)
+    S_k = S0.clone()
+    n = tprefill.launches
+    O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=64)
+    rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
+            .contiguous() for x in (q, k, v, lg, beta)]
+    O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * Hv, d, d), None,
+                                   n_rep=Hv // Hk)
+    torch.cuda.synchronize()
+    assert tprefill.launches == n + 1
+    _close(S_k.reshape(B * Hv, d, d), S_p, CHUNKWISE)
+    _close(O_k.transpose(1, 2).reshape(B * Hv, T, d), O_p, BF16)
+
+
+@pytest.mark.cuda
+def test_spec_verify_graphs_bitwise_equal_eager(cuda):
+    """Speculative decode with a draft of other weights (most drafts
+    rejected: the rollback runs every tick), replayed from graphs, gives
+    the eager engine's streams and slot state, and the plain engine's
+    streams; the decode kernel ran on the checkpoint buffers."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg, params = _reduced_gdn()
+    dparams = lm.init_lm(99, cfg, device="cuda")
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(1, 256, size=n, dtype=np.int32)
+               for n in (5, 30, 17)]
+    kw = dict(max_slots=2, max_len=64, seed=0, decode_block=2,
+              prefill_chunk=8, device="cuda")
+
+    def serve(eng):
+        runs = []
+        for _ in range(2):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=10 + i,
+                            temperature=0.8 if i == 1 else 0.0)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            runs.append([list(r.output) for r in reqs])
+        return runs
+
+    plain = serve(DecodeEngine(cfg, params, **kw))
+    out = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, params, speculative=True, k_draft=4,
+                           draft_cfg=cfg, draft_params=dparams,
+                           cuda_graphs=graphs, **kw)
+        n = tdecode.launches
+        runs = serve(eng)
+        assert tdecode.launches > n
+        out[graphs] = (runs, _slot_state(eng), eng.metrics())
+    assert out[True][0] == out[False][0] == plain
+    assert all(torch.equal(a, b) for a, b in zip(out[True][1],
+                                                 out[False][1]))
+    assert out[True][2]["acceptance_rate"] < 0.5
+
+
+@pytest.mark.cuda
+def test_bscatter_leaves_unassigned_slots_unchanged(cuda):
+    """The multi-row scatter writes only its assigned slots: every other
+    slot's caches, sampler row and token stay bitwise as they were, and
+    the released rows are zero."""
+    from repro_torch.serving.engine import DecodeEngine, Request
+    from repro_torch.tree import leaves
+    cfg, params = _reduced_gdn()
+    eng = DecodeEngine(cfg, params, max_slots=3, max_len=64, seed=0,
+                       decode_block=2, prefill_chunk=8, device="cuda")
+    rng = np.random.default_rng(33)
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt=rng.integers(1, 256, size=20,
+                                                      dtype=np.int32),
+                           max_new_tokens=30))
+    for _ in range(3):
+        eng.step()
+    ex = eng.executor
+    assert len(eng.active) == 3
+    before = _slot_state(eng)
+    ex.bstage_begin(1, seed=0, rid=7, temperature=0.0, top_k=0, top_p=1.0,
+                    eos_id=None, budget=5)
+    ex.bstage_admit([(1, rng.integers(1, 256, size=6, dtype=np.int32), 6)])
+    ex.bscatter([(2, 1)])
+    after = _slot_state(eng)
+    for a, b in zip(before, after):
+        if a.ndim >= 2 and a.shape[1] == 3:         # stacked cache leaves
+            assert torch.equal(a[:, :2], b[:, :2])
+        else:                                       # sampler, tokens
+            assert torch.equal(a[:2], b[:2])
+    assert all(not t[:, 1].any() for t in leaves(ex.bstaging))

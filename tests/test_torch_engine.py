@@ -3,9 +3,8 @@ qwen3-next-gdn with ``use_pallas_serving=True`` (the reference runs its
 Pallas kernels in interpret mode; the port's CPU tensors take the kernels'
 plain versions).  Parameters come from the reference's init through the
 bridge.  Token streams must be identical — greedy and stochastic, with
-prefill/decode overlap on and off (the reference's streams do not depend
-on overlap or on its batched staging, so its default engine is the
-reference for both).
+prefill/decode overlap on and off, both packages' default engines
+staging in batches.
 """
 import jax
 import numpy as np
@@ -104,10 +103,8 @@ def test_engine_rejects_bad_requests_and_deferred_settings(reference):
             eng.submit(req)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.pause(0)
-    for kw in (dict(plan_mode="pow2"), dict(prefill_batching=True),
-               dict(mesh=object()), dict(speculative=True),
-               dict(async_paging=True), dict(swap_policy="idle",
-                                             idle_swap_ms=5.0),
+    for kw in (dict(mesh=object()), dict(async_paging=True),
+               dict(swap_policy="idle", idle_swap_ms=5.0),
                dict(role="prefill")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecodeEngine(tcfg, tp, device="cpu", **ENGINE, **kw)
@@ -129,6 +126,34 @@ def test_serve_cli_on_cpu(capsys):
                  "--kernels", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served 3 requests, 9 tokens" in out
+
+
+def _cli_streams(capsys, flags):
+    tserve.main(["--arch", "qwen3-next-gdn", "--requests", "4",
+                 "--max-new", "6", "--slots", "2", "--max-len", "48",
+                 "--kernels", "--device", "cpu"] + flags)
+    out = capsys.readouterr().out
+    assert "served 4 requests, 24 tokens" in out
+    return out, [line.split(":", 1)[0] + line.rsplit("toks:", 1)[1]
+                 for line in out.splitlines() if "toks:" in line]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--plan-mode", "pow2"], ["--no-prefill-batching"],
+    ["--prefill-budget", "16"], ["--speculative"],
+    ["--speculative", "--draft-config", "qwen3-next-gdn",
+     "--adaptive-k-draft", "--k-draft", "2"]])
+def test_serve_cli_flags_print_the_plain_streams(capsys, flags):
+    """The serve CLI's staging and speculative flags print the streams of
+    the plain run, and the staging or speculative report."""
+    _, plain = _cli_streams(capsys, [])
+    out, got = _cli_streams(capsys, flags)
+    assert got == plain and len(plain) == 4
+    if "--speculative" in flags:
+        assert "speculative: draft=" in out and "accepted" in out
+    else:
+        assert ("per-prompt staging" in out) == (
+            "--prefill-budget" not in flags)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])

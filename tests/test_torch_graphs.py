@@ -5,9 +5,9 @@ CPU, where every program runs eagerly.
   * ``compiled_programs()`` counts the same program shapes as the
     reference's ``executor.compiled_programs()`` for the same requests
     (the prompt lengths of ``tests/test_ragged_prefill.py``'s masked
-    planner test).  The reference stages per prompt here, as the port
-    does: its default batched staging adds its multi-row scatter to
-    ``total`` (its streams are the same, ``tests/test_torch_engine.py``);
+    planner test), both engines staging per prompt
+    (``prefill_batching=False``; the batched default is held in
+    ``tests/test_torch_batched.py``);
   * token streams through the static-buffer programs equal the live JAX
     engine's — greedy and stochastic requests, a prompt with a placeholder
     chunk (valid_len 0, run as a no-op), an embeds prompt, overlap on and
@@ -80,7 +80,8 @@ def test_program_counts_per_prompt_match_reference(gdn, T):
     reqs = [(0, T, 2)]
     jeng = _serve(JEngine, JRequest, jcfg, jp, reqs, prefill_batching=False,
                   **kw)
-    teng = _serve(DecodeEngine, Request, tcfg, tp, reqs, device="cpu", **kw)
+    teng = _serve(DecodeEngine, Request, tcfg, tp, reqs, device="cpu",
+                  prefill_batching=False, **kw)
     want = jeng.executor.compiled_programs()
     got = teng.executor.compiled_programs()
     assert {k: got[k] for k in PROGRAM_KEYS} == \
@@ -101,7 +102,8 @@ def test_program_counts_across_prompts_match_reference(gdn):
             enumerate(zip(LENGTHS, (2, 9, 3, 2, 2, 4, 6, 3)))]
     jeng = _serve(JEngine, JRequest, jcfg, jp, reqs, prefill_batching=False,
                   **kw)
-    teng = _serve(DecodeEngine, Request, tcfg, tp, reqs, device="cpu", **kw)
+    teng = _serve(DecodeEngine, Request, tcfg, tp, reqs, device="cpu",
+                  prefill_batching=False, **kw)
     want = jeng.executor.compiled_programs()
     got = teng.executor.compiled_programs()
     assert {k: got[k] for k in PROGRAM_KEYS} == \
@@ -165,7 +167,8 @@ def reference(request):
 @pytest.mark.parametrize("overlap", [True, False])
 def test_streams_through_programs_match_reference(reference, overlap):
     tcfg, tp, streams, want = reference
-    eng = DecodeEngine(tcfg, tp, overlap=overlap, device="cpu", **ENGINE)
+    eng = DecodeEngine(tcfg, tp, overlap=overlap, device="cpu",
+                       prefill_batching=False, **ENGINE)
     reqs = _mix(Request, tcfg.d_model)
     for r in reqs:
         eng.submit(r)
@@ -183,7 +186,8 @@ def test_programs_stay_on_the_device_after_their_first_call(reference,
     capture refuses) nor read a tensor on the host (a sync)."""
     tcfg, tp, streams, _ = reference
     calls = guard_programs(monkeypatch)
-    eng = DecodeEngine(tcfg, tp, device="cpu", **ENGINE)
+    eng = DecodeEngine(tcfg, tp, device="cpu", prefill_batching=False,
+                       **ENGINE)
     reqs = _mix(Request, tcfg.d_model)
     for r in reqs:
         eng.submit(r)
