@@ -57,6 +57,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
      draft steps + 72 x verify positions, and one replayed draft + verify
      of each engine under the profiler must run 36 x k + 72 x (k + 1)
      ``gdn_decode_kernel`` launches;
+  10. (run right after phase 9, on phase 4's weights) state paging of the
+     same model on phase 4's mix through CUDA graphs, every stream bitwise
+     phase 4's plain one: (a) synchronous — a pause after 2 decoded
+     tokens, two steps, the resume; ``preempt()`` of the policy victim; a
+     pause of a staged-ready request at the admit boundary (this engine
+     serves the mix once first, so the paged run is warm and its decode
+     us/token prints beside phase 4's); (b) ``swap_policy="pressure"``,
+     two priority-1 requests arriving while four of priority 0 hold the
+     slots; (c) ``async_paging`` through a gather ring of 2: three pauses
+     in one tick (one forced harvest), a resume taken from a prefetch;
+     (d) spill (``host_swap_bytes=0``, a spool directory under
+     ``build/``): the spooled file written, read back and gone, its write
+     and read seconds printed; (e) a self-draft speculative engine: a
+     pause during a pending draft swapped out at the verify.  In each
+     part the launch counters are set to 0 just before the paged run and
+     read just after: ``gdn_decode`` added under replay 36 x decode
+     steps (36 x draft steps + 72 x verify positions in (e)); no paging
+     call adds or captures a program; every image is
+     ``swap_bytes_per_slot`` bytes and ``swap_bytes`` whole images; no
+     slot buffer (caches, sampler, tokens; draft caches and checkpoints)
+     changes its address; swap-outs and ins, us/MiB, the gather / put /
+     scatter and dispatch / stall splits and the overlap ratio printed;
   5. training full-width qwen3-next-gdn through the port's ``Trainer``
      with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 5
      steps): first ``loss_fn`` and its gradients at the initial parameters
@@ -119,7 +141,9 @@ in the port).
 
 The second line before the last is a JSON object with one entry per
 kernel (the flash-decode entry carries its three shapes, its top-level
-numbers are those of the h2o-danube-1.8b shape that phase 6 drives); the
+numbers are those of the h2o-danube-1.8b shape that phase 6 drives; the
+two GDN entries carry phase 10's launches per part, ``launches_paging``,
+beside phase 4's in ``launches``); the
 line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -129,6 +153,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -949,7 +974,7 @@ def profile_batched_round(eng, kernel_counts, n_layers, label):
         ex.bstage_admit(admit)
 
     progs = ex.compiled_programs()
-    counts = kernel_counts(round_, calls=2)
+    counts = kernel_counts(round_, calls=1)
     ex.bscatter([], release_rows=range(D))
     if ex.compiled_programs() != progs:
         raise AssertionError(f"{label}: the profiled round added or "
@@ -1086,6 +1111,7 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
         Engine, cfg, params, kw, requests, card, "serve",
         variants=(("per-prompt", dict(prefill_batching=False), True),
                   ("pow2", dict(plan_mode="pow2"), False)))
+    warm_us = eng.metrics()["decode_us_per_token"]     # its warm run
     n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
     got = gdn_launches(runs, kdecode, kprefill, n_gdn, "serve")
     launches = {"gdn_decode": got["decode"], "gdn_prefill": got["prefill"]}
@@ -1114,7 +1140,7 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
         eng.step()
         ks.append(eng.decode_steps - steps0)
 
-    counts = kernel_counts(tick, calls=2)
+    counts = kernel_counts(tick, calls=1)
     k = ks[-1]
     if set(ks) != {8}:
         raise AssertionError(f"profiled ticks of k = {ks}, not 8")
@@ -1125,7 +1151,7 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
     if got != n_gdn * k:
         raise AssertionError(f"a replayed tick ran {got} gdn_decode_kernel "
                              f"launches, not {n_gdn} x {k}")
-    return launches, streams[("graphs", "warm")]
+    return launches, streams[("graphs", "warm")], warm_us
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1151,7 +1177,7 @@ def profile_verify(eng, kernel_counts, n_target, n_draft, label):
     k = max(ks)
     progs = ex.compiled_programs()
     counts = kernel_counts(lambda: ex.spec_verify(k, ex.spec_draft(k)),
-                           calls=2)
+                           calls=1)
     if ex.compiled_programs() != progs:
         raise AssertionError(f"{label}: the profiled tick added or "
                              f"captured a program")
@@ -1246,6 +1272,296 @@ def spec_phase(cfg, params, lm, engine_mod, kdecode, card, plain,
         out[label] = m
         del eng
     del dparams
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+
+# the executor's paging calls, each watched by watch_swaps
+SWAP_CALLS = ("gather_slot_async", "gather_staging_async",
+              "bgather_row_async", "harvest", "prestage_restore",
+              "restore_slot")
+
+
+def watch_swaps(eng):
+    """Wrap ``eng``'s executor's paging calls: none may add or capture a
+    program (``compiled_programs()`` the same before and after the call),
+    and every image harvested or put back is ``swap_bytes_per_slot``
+    bytes.  Returns the counts of calls made, by name."""
+    ex, calls = eng.executor, {name: 0 for name in SWAP_CALLS}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            before = ex.compiled_programs()
+            out = fn(*args, **kw)
+            if ex.compiled_programs() != before:
+                raise AssertionError(f"[10] {name} added or captured a "
+                                     f"program")
+            image = (out if name == "harvest" else args[0]
+                     if name == "prestage_restore" else args[1]
+                     if name == "restore_slot" else None)
+            if image is not None and image.nbytes != ex.swap_bytes_per_slot:
+                raise AssertionError(f"[10] {name}: an image of "
+                                     f"{image.nbytes} B, not "
+                                     f"{ex.swap_bytes_per_slot}")
+            calls[name] += 1
+            return out
+        return call
+
+    for name in SWAP_CALLS:
+        setattr(ex, name, wrap(name, getattr(ex, name)))
+    return calls
+
+
+def buffer_ptrs(ex):
+    """The address of every slot buffer the captured programs read: the
+    caches, sampler and tokens, and a speculative engine's draft caches
+    and checkpoints."""
+    from repro_torch.tree import leaves
+    trees = [ex.caches, ex.sampler, ex.tokens]
+    if ex.speculative:
+        trees += [ex.dcaches, ex.ckpt, ex.dckpt]
+    return [t.data_ptr() for t in leaves(trees)]
+
+
+def step_until(eng, pred, what, max_ticks=200):
+    for _ in range(max_ticks):
+        eng.step()
+        if pred():
+            return
+    raise AssertionError(f"[10] never reached: {what}")
+
+
+def paged_run(eng, script, plain, card, label):
+    """One paged serve of phase 4's mix on ``eng``: the launch counters
+    set to 0 just before, read just after; every stream bitwise
+    ``plain``; ``gdn_decode`` launches added = 36 x decode steps (target
+    and draft layers x verify positions on a speculative engine); every
+    swap whole images; no slot buffer moved.  Prints the swap counts,
+    us/MiB, the time split and the overlap ratio.  Returns (metrics,
+    {"gdn_decode": launches, "gdn_prefill": launches})."""
+    from repro_torch.kernels import gdn_decode as kdecode
+    from repro_torch.kernels import gdn_prefill as kprefill
+    from repro_torch.runtime.graphs import add_launches, launch_counts
+    ex = eng.executor
+    ptrs = buffer_ptrs(ex)
+    calls = watch_swaps(eng)
+    eng.reset_metrics()
+    add_launches(launch_counts(), -1)               # zero every count
+    t0 = time.perf_counter()
+    reqs = script(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts[(kdecode.__name__, "")]
+    prefills = counts[(kprefill.__name__, "")]
+    streams = [list(r.output) for r in reqs]
+    m = eng.metrics()
+    n_gdn = sum(k == "gdn" for k in eng.cfg.layer_kinds)
+    want = (n_gdn * eng.draft_steps + 2 * n_gdn * eng.verify_positions
+            if eng.speculative else n_gdn * eng.decode_steps)
+    print(f"  [10] {label} [{card}]: {m['swap_outs']} swap-outs / "
+          f"{m['swap_ins']} swap-ins of {m['swap_bytes_per_slot']} B, "
+          f"{m['swap_us_per_mb']:.1f} us/MiB (swap {m['swap_s'] * 1e3:.3f} "
+          f"ms: gather {m['swap_gather_s'] * 1e3:.3f} / put "
+          f"{m['swap_put_s'] * 1e3:.3f} / scatter "
+          f"{m['swap_scatter_s'] * 1e3:.3f}; dispatch "
+          f"{m['swap_dispatch_s'] * 1e3:.3f} / stall "
+          f"{m['swap_stall_s'] * 1e3:.3f}), harvests "
+          f"{m['swap_harvests_overlapped']} overlapped + "
+          f"{m['swap_harvests_forced']} forced (overlap ratio "
+          f"{m['swap_overlap_ratio']:.3f}), prefetches "
+          f"{m['swap_prefetch_hits']}/{m['swap_prefetches']} hit; decode "
+          f"{m['decode_us_per_token']:.1f} us/token, {wall:.3f} s; "
+          f"gdn_decode launches {launches}, gdn_prefill {prefills}; swap "
+          f"calls "
+          f"{ {k: n for k, n in calls.items() if n} }")
+    if streams != plain:
+        raise AssertionError(f"[10] {label}: streams differ from phase 4's "
+                             f"plain ones, first index per request "
+                             f"{first_difference(streams, plain)}")
+    if launches != want or launches <= 0:
+        raise AssertionError(f"[10] {label}: gdn_decode launches "
+                             f"{launches} != {want}")
+    if m["swap_bytes"] != ((m["swap_outs"] + m["swap_ins"])
+                           * ex.swap_bytes_per_slot):
+        raise AssertionError(f"[10] {label}: swap_bytes {m['swap_bytes']} "
+                             f"not whole images")
+    if buffer_ptrs(ex) != ptrs:
+        raise AssertionError(f"[10] {label}: a slot buffer moved")
+    if m["swap_outs"] < 1 or m["swap_ins"] != m["swap_outs"] \
+            or m["swapped"] or m["draining_swaps"]:
+        raise AssertionError(f"[10] {label}: swaps out {m['swap_outs']}, "
+                             f"in {m['swap_ins']}, {m['swapped']} still "
+                             f"swapped")
+    return m, {"gdn_decode": launches, "gdn_prefill": prefills}
+
+
+def paging_phase(cfg, params, engine_mod, card, plain, plain_decode_us):
+    """State paging of full-width qwen3-next-gdn on phase 4's mix and
+    engine settings, through CUDA graphs, every stream bitwise phase 4's
+    plain ``plain``: (a) synchronous pause / resume of an active request,
+    ``preempt()`` of the policy victim and a pause at the admit boundary
+    (its engine serves the mix once first, so this run is warm); (b) the
+    pressure policy; (c) async paging, three pauses in one tick through a
+    gather ring of 2, a resume taken from a prefetch; (d) spill to a
+    spool directory with a watermark of 0 bytes; (e) a pause during a
+    pending draft on a self-draft engine, swapped out at the verify.
+    Returns the GDN kernels' launches of each part, by kernel."""
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
+              seed=0, device="cuda")
+    prompts = _phase4_prompts(cfg.vocab)
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32,
+                        temperature=0.8 if i == 2 else 0.0,
+                        top_k=40 if i == 2 else 0)
+                for i, p in enumerate(prompts)]
+
+    def decoded(r, n):
+        return r.state == "active" and len(r.output) >= n + 1
+
+    def part_a(eng):
+        reqs = requests()
+        for r in reqs:
+            eng.submit(r)
+        step_until(eng, lambda: decoded(reqs[0], 2), "rid 0 decoding")
+        eng.pause(0)
+        eng.step()
+        eng.step()
+        eng.resume(0)
+        if eng.preempt() is None:
+            raise AssertionError("[10] (a): no preempt victim")
+        step_until(eng, lambda: any(st.ready for st in eng._stagings),
+                   "a staged-ready request")
+        st = next(st for st in eng._stagings if st.ready)
+        rid = st.req.rid
+        eng.pause(rid)
+        if eng.swapped[rid].state is None:
+            raise AssertionError("[10] (a): no admit-boundary image")
+        eng.step()
+        eng.resume(rid)
+        eng.run_until_done()
+        return reqs
+
+    def part_b(eng):
+        reqs = requests()
+        for r in reqs[4:]:
+            r.priority = 1
+        for r in reqs[:4]:
+            eng.submit(r)
+        step_until(eng, lambda: len(eng.active) == 4, "4 active")
+        for r in reqs[4:]:
+            eng.submit(r)
+        eng.run_until_done()
+        if eng.swap_outs < 2:
+            raise AssertionError("[10] (b): the priority-1 requests "
+                                 "evicted fewer than 2")
+        return reqs
+
+    def part_c(eng):
+        reqs = requests()
+        for r in reqs:
+            eng.submit(r)
+        step_until(eng, lambda: len(eng.active) == 4 and all(
+            decoded(r, 2) for r in eng.active.values()), "4 decoding")
+        rids = sorted(r.rid for r in eng.active.values())[:3]
+        for rid in rids:                        # 3 pauses, a ring of 2
+            eng.pause(rid)
+        if eng.swap_harvests_forced < 1:
+            raise AssertionError("[10] (c): no forced harvest")
+        for rid in rids:
+            eng.resume(rid)
+        eng.run_until_done()
+        if eng.swap_prefetch_hits < 1:
+            raise AssertionError("[10] (c): no resume took a prefetch")
+        return reqs
+
+    spill = {"write": [], "read": [], "bytes": []}
+
+    def timed(fn, key):
+        def call(rec):
+            t0 = time.perf_counter()
+            path = rec.spool
+            fn(rec)
+            spill[key].append(time.perf_counter() - t0)
+            if key == "write":
+                spill["bytes"].append(os.path.getsize(rec.spool))
+            elif os.path.exists(path):
+                raise AssertionError("[10] (d): the spool file outlived "
+                                     "its reload")
+        return call
+
+    def part_d(eng):
+        eng._spill = timed(eng._spill, "write")
+        eng._load_spill = timed(eng._load_spill, "read")
+        reqs = requests()
+        for r in reqs:
+            eng.submit(r)
+        step_until(eng, lambda: decoded(reqs[0], 2), "rid 0 decoding")
+        eng.pause(0)
+        step_until(eng, lambda: eng.swapped[0].spool is not None,
+                   "the image spilled", max_ticks=3)
+        eng.resume(0)
+        eng.run_until_done()
+        if os.listdir(eng.swap_spool_dir):
+            raise AssertionError("[10] (d): the spool dir is not empty")
+        return reqs
+
+    def part_e(eng):
+        reqs = requests()
+        for r in reqs:
+            eng.submit(r)
+        step_until(eng, lambda: decoded(reqs[0], 2) and eng._pending,
+                   "a pending draft over rid 0")
+        eng.pause(0)
+        if reqs[0].state != "active" or 0 in eng.swapped:
+            raise AssertionError("[10] (e): the pause was not deferred")
+        eng.step()
+        if 0 not in eng.swapped:
+            raise AssertionError("[10] (e): no swap at the verify")
+        eng.step()
+        eng.resume(0)
+        eng.run_until_done()
+        return reqs
+
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as spool:
+        for part, label, extra, script in (
+                ("a", "(a) sync, warm", {}, part_a),
+                ("b", "(b) pressure", dict(swap_policy="pressure"), part_b),
+                ("c", "(c) async, ring 2",
+                 dict(async_paging=True, gather_ring=2), part_c),
+                ("d", "(d) spill", dict(host_swap_bytes=0,
+                                        swap_spool_dir=spool), part_d),
+                ("e", "(e) speculative, self-draft k=4",
+                 dict(speculative=True, k_draft=4), part_e)):
+            eng = Engine(cfg, params, **kw, **extra)
+            if not eng.executor.cuda_graphs:
+                raise AssertionError("[10] the engine replays no graphs")
+            if part == "a":                 # served whole once: warm
+                reqs = requests()
+                for r in reqs:
+                    eng.submit(r)
+                eng.run_until_done()
+                if [list(r.output) for r in reqs] != plain:
+                    raise AssertionError("[10] (a): the warm-up streams "
+                                         "differ from phase 4's")
+            m, counts = paged_run(eng, script, plain, card, label)
+            for name, n in counts.items():
+                out.setdefault(name, {})[part] = n
+            if part == "a":
+                print(f"  [10] warm decode {m['decode_us_per_token']:.1f} "
+                      f"us/token with 3 swaps out and in, phase 4's warm "
+                      f"graph engine {plain_decode_us:.1f} [{card}]")
+            del eng
+        print(f"  [10] (d) spill: {spill['bytes']} B written in "
+              f"{[round(s, 4) for s in spill['write']]} s, read back in "
+              f"{[round(s, 4) for s in spill['read']]} s [{card}]")
+        if not spill["read"] or len(spill["write"]) != len(spill["read"]):
+            raise AssertionError("[10] (d): no spill round trip")
     return out
 
 
@@ -1725,12 +2041,18 @@ def main():
     model_phase(cfg, params, lm)
 
     print(f"[4] serving through DecodeEngine [{card}]")
-    launches, plain = serve_phase(cfg, params, engine_mod, kdecode,
-                                  kprefill, card, kernel_counts)
+    launches, plain, warm_us = serve_phase(cfg, params, engine_mod, kdecode,
+                                           kprefill, card, kernel_counts)
     print(f"[9] speculative decode of full-width {cfg.name} on phase 4's "
           f"mix, through CUDA graphs [{card}]")
     spec_phase(cfg, params, lm, engine_mod, kdecode, card, plain,
                kernel_counts)
+    torch.cuda.empty_cache()
+    print(f"[10] state paging of full-width {cfg.name} on phase 4's mix, "
+          f"through CUDA graphs [{card}]")
+    t0 = time.perf_counter()
+    paging = paging_phase(cfg, params, engine_mod, card, plain, warm_us)
+    print(f"  [10] phase 10 took {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
 
@@ -1750,6 +2072,8 @@ def main():
     gemma_phase(card, lm, engine_mod, configs)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in paging:
+            r["launches_paging"] = paging[r["name"]]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": rows}))

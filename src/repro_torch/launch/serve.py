@@ -23,6 +23,9 @@ tick.  ``--speculative`` drafts ``--k-draft`` tokens per slot with
 ``--draft-config`` (``self``, the default, shares the target's weights;
 an arch of the same vocab draws its weights from ``--seed + 1``) and
 verifies them in one program; the streams are those of plain decode.
+The paging flags (``--swap-policy``, ``--idle-swap-ms``,
+``--max-live-requests``, ``--async-paging``, ``--gather-ring``,
+``--host-swap-bytes``, ``--swap-spool-dir``) are the reference's.
 """
 from __future__ import annotations
 
@@ -67,6 +70,43 @@ def main(argv=None):
                     help="per-tick prefill token budget of the batched "
                          "packer under saturation (default: every "
                          "staging row gets a full scan + admit)")
+    ap.add_argument("--swap-policy", default="manual",
+                    choices=("manual", "idle", "pressure", "auto"),
+                    help="slot-oversubscription eviction policy: "
+                         "'manual' (pause/resume/preempt API only), "
+                         "'idle' (swap out active requests whose "
+                         "activity lease exceeds --idle-swap-ms; touch() "
+                         "renews the lease), 'pressure' (evict the "
+                         "lowest-priority active request when a strictly "
+                         "higher-priority request waits without a free "
+                         "slot), 'auto' (both)")
+    ap.add_argument("--idle-swap-ms", type=float, default=None,
+                    help="activity-lease duration for --swap-policy "
+                         "idle/auto: an active request untouched this "
+                         "long is swapped to host, freeing its slot")
+    ap.add_argument("--max-live-requests", type=int, default=None,
+                    help="admission cap on live sessions (queued + "
+                         "staging + active + swapped) per engine "
+                         "(default: unlimited)")
+    ap.add_argument("--async-paging", action="store_true", default=False,
+                    help="overlap swap transfers with the decode tick: "
+                         "swap-outs drain to the host in the background "
+                         "through a ring of gather buffers (harvested at "
+                         "tick boundaries) and predictable resume grants "
+                         "put their image back one tick ahead; streams "
+                         "stay those of synchronous paging")
+    ap.add_argument("--gather-ring", type=int, default=2,
+                    help="gather buffers for async paging: how many "
+                         "swap-out drains may be outstanding before a "
+                         "dispatch force-harvests the oldest")
+    ap.add_argument("--host-swap-bytes", type=int, default=None,
+                    help="spill watermark: when in-memory swapped images "
+                         "exceed this many bytes, the coldest dormant one "
+                         "spills to --swap-spool-dir (default: 0 when a "
+                         "spool dir is set)")
+    ap.add_argument("--swap-spool-dir", default=None,
+                    help="directory for spilled swap images (wire codec); "
+                         "images reload on resume")
     ap.add_argument("--serialized", dest="overlap", action="store_false",
                     default=True,
                     help="disable prefill/decode overlap (admit prefills "
@@ -140,8 +180,15 @@ def main(argv=None):
                        prefill_budget=args.prefill_budget,
                        speculative=args.speculative, draft_cfg=draft_cfg,
                        draft_params=draft_params, k_draft=args.k_draft,
-                       adaptive_k=args.adaptive_k, device=args.device,
-                       cuda_graphs=args.cuda_graphs)
+                       adaptive_k=args.adaptive_k,
+                       swap_policy=args.swap_policy,
+                       idle_swap_ms=args.idle_swap_ms,
+                       max_live_requests=args.max_live_requests,
+                       async_paging=args.async_paging,
+                       gather_ring=args.gather_ring,
+                       host_swap_bytes=args.host_swap_bytes,
+                       swap_spool_dir=args.swap_spool_dir,
+                       device=args.device, cuda_graphs=args.cuda_graphs)
     print(f"engine: {args.slots} slots x (persistent state "
           f"{eng.state_bytes_per_slot / 2**10:.1f} KiB + window/KV "
           f"{eng.window_bytes_per_slot / 2**10:.1f} KiB) = "
@@ -152,6 +199,20 @@ def main(argv=None):
           f"{'batched' if eng.prefill_batching else 'per-prompt'} "
           f"staging), kernels={args.kernels}, "
           f"cuda_graphs={eng.executor.cuda_graphs}")
+    if (args.swap_policy != "manual" or args.max_live_requests
+            or args.async_paging or args.swap_spool_dir):
+        print(f"paging: swap_policy={args.swap_policy}"
+              + (f", idle lease {args.idle_swap_ms:.0f} ms"
+                 if args.idle_swap_ms is not None else "")
+              + (f", max {args.max_live_requests} live sessions"
+                 if args.max_live_requests else "")
+              + (f", async (gather ring {args.gather_ring})"
+                 if args.async_paging else ", synchronous")
+              + (f", spool {args.swap_spool_dir} @ "
+                 f"{(args.host_swap_bytes or 0) / 2**20:.1f} MiB watermark"
+                 if args.swap_spool_dir else "")
+              + f" — {eng.executor.swap_bytes_per_slot / 2**10:.1f} "
+              f"KiB/swap from cache_spec")
     if args.speculative:
         ex = eng.executor
         print(f"speculative: draft={args.draft_config}, "
@@ -188,6 +249,20 @@ def main(argv=None):
     print(f"  per-request means: ttft {m['mean_ttft_s'] * 1e3:.1f} ms, "
           f"latency {m['mean_latency_s'] * 1e3:.1f} ms, "
           f"{m['mean_tokens_per_s']:.1f} tok/s")
+    if m["swap_outs"] or m["swapped"]:
+        print(f"  paging: {m['swap_outs']} swap-outs / {m['swap_ins']} "
+              f"swap-ins, {m['swap_bytes'] / 2**20:.2f} MiB moved "
+              f"({m['swap_us_per_mb']:.0f} us/MiB), {m['swapped']} "
+              f"session(s) parked on host at exit")
+        print(f"    dispatch {m['swap_dispatch_s'] * 1e3:.2f} ms / stall "
+              f"{m['swap_stall_s'] * 1e3:.2f} ms"
+              + (f", {m['swap_harvests_overlapped']} overlapped + "
+                 f"{m['swap_harvests_forced']} forced harvests, "
+                 f"{m['swap_prefetch_hits']}/{m['swap_prefetches']} "
+                 f"prefetch hits" if args.async_paging else "")
+              + (f", {m['spills']} spills / {m['spill_loads']} reloads "
+                 f"({m['spill_bytes'] / 2**20:.2f} MiB spooled)"
+                 if args.swap_spool_dir else ""))
     print(f"  programs: {eng.executor.compiled_programs()}")
     for r in done[:4]:
         print(f"  req {r.rid}: ttft {r.ttft_s * 1e3:.1f} ms, "

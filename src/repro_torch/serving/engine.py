@@ -7,10 +7,15 @@ executor split (port of ``repro.serving.engine``).
     ``plan_mode="pow2"``; ``prefill_budget`` caps the batched packer's
     tokens per tick), budget-aware ticks, speculative draft-verify ticks
     (``speculative=True``, ``k_draft``, ``adaptive_k``, ``draft_cfg`` /
-    ``draft_params``; a self-draft by default), metrics.
+    ``draft_params``; a self-draft by default), state paging (``pause`` /
+    ``resume`` / ``preempt`` / ``touch``, ``swap_policy``,
+    ``idle_swap_ms``, ``max_live_requests``, ``async_paging`` with
+    ``gather_ring``, spill through ``host_swap_bytes`` /
+    ``swap_spool_dir``), metrics.
   * ``repro_torch.serving.executor.DeviceExecutor`` — device side: slot,
     staging, draft and checkpoint buffers allocated once and updated in
-    place, and the decode, prefill, speculative and scatter programs.
+    place, the decode, prefill, speculative and scatter programs, and the
+    swap images' gather ring and side copy stream.
 
 ``DecodeEngine(cfg, params, ..., device=None)`` runs on ``cuda`` unless
 ``device="cpu"`` is passed.  With ``cfg.use_pallas_serving`` the GDN layers
@@ -18,7 +23,7 @@ go through the hand-written CUDA kernels on the card (their plain versions
 on the CPU).  ``cuda_graphs`` (default None: on the card, not on the CPU)
 replays each decode and prefill program from a CUDA graph;
 ``cuda_graphs=False`` runs them eagerly on the card, ``True`` on the CPU
-raises.  The router, RPC workers, state paging and meshes of the
+raises.  The router, RPC workers, engine roles and meshes of the
 reference come in later slices; asking for them raises
 ``NotImplementedError``.
 """

@@ -32,20 +32,31 @@ The executor owns
       input kind (the admit also per stochastic);
     - speculative decode (``draft_cfg``): ``spec_draft(k)``,
       ``spec_verify(k)`` and ``draft_prefill_slot``;
-    - ``scatter`` / ``bscatter``: eager copies into the slots.
+    - ``scatter`` / ``bscatter``: eager copies into the slots;
+  * **state paging** — a request's whole device residency (its cache
+    column, sampler row and last token) gathers into a ring of
+    ``gather_ring`` buffers and drains to a host ``SwappedState``
+    (``gather_slot`` / ``gather_staging`` / ``bgather_row``, their
+    ``_async`` forms and ``harvest``); a swap-in copies the image back
+    through the copies every admit takes (``prestage_restore``,
+    ``restore_slot``), so every slot buffer keeps its address.  On the
+    card the drain and the put run on a side copy stream between device
+    buffers and pinned host buffers, ordered against the compute stream
+    by events, so they overlap the next tick's programs.
 
 On the card each program is captured once into a CUDA graph and replayed
 (``runtime.graphs``); on the CPU, or with ``cuda_graphs=False``, it runs
 eagerly.  Either way a program writes its results into the executor's
 buffers, so every call sees one set of addresses.
 
-Deferred to later slices (each raises ``NotImplementedError`` naming the
-reference module that holds it): ``mesh`` and async paging.
+Deferred to a later slice (raises ``NotImplementedError`` naming the
+reference module that holds it): ``mesh``.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, List, NamedTuple, Optional
+from collections import deque
+from typing import Any, Deque, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,7 +67,7 @@ from repro_torch.models import lm
 from repro_torch.models.mixers import get_mixer
 from repro_torch.runtime import graphs
 from repro_torch.serving import sampling
-from repro_torch.tree import copy_leaves, leaves
+from repro_torch.tree import copy_leaves, leaves, tree_map
 
 
 class PlanStep(NamedTuple):
@@ -113,6 +124,76 @@ def _batching_blocked(cfg: ArchConfig, plan_mode: str) -> Optional[str]:
     return None
 
 
+class SwappedState(NamedTuple):
+    """Host image of one request's device residency (the reference's
+    ``SwappedState``), a fixed-size record since every mixer's state is a
+    constant-shape block:
+
+    caches  : numpy tree of ``(repeats, 1, ...)`` leaves in the nesting
+              of the port's staging caches (recurrent state, rolling KV
+              window and position meta of every layer group);
+    sampler : the 1-row sampler state (the PRNG key mid-stream, remaining
+              budget, done flag);
+    token   : (1,) int32, the last emitted token (the next decode input).
+
+    bfloat16 leaves hold their raw 2-byte words (numpy dtype ``V2``)."""
+    caches: Any
+    sampler: Dict[str, np.ndarray]
+    token: np.ndarray
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes this image moves across the host boundary per swap."""
+        return int(sum(np.asarray(x).nbytes for x in
+                       leaves(self.caches) + list(self.sampler.values())
+                       + [self.token]))
+
+
+class PendingSwap:
+    """One swap-out in flight: its gather-ring ticket ``buf`` and, on the
+    card, the event recorded on the side copy stream after the image's
+    copy into the ticket's pinned host buffer.  ``harvest`` returns the
+    ticket, so a draining buffer is never handed out again before it."""
+
+    __slots__ = ("buf", "nbytes", "event")
+
+    def __init__(self, buf: int, nbytes: int, event=None):
+        self.buf, self.nbytes, self.event = buf, nbytes, event
+
+    def ready(self) -> bool:
+        """True when the drain has landed (``harvest`` will not wait)."""
+        return self.event is None or self.event.query()
+
+
+_BF16_HOST = np.dtype("V2")
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A fresh numpy copy of host tensor ``t``'s bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_HOST).copy()
+    return t.numpy().copy()
+
+
+def _host_tensor(a, dtype: torch.dtype, shape) -> torch.Tensor:
+    """Host array -> CPU tensor of ``dtype`` and ``shape``, bit for bit
+    (bfloat16 from raw 2-byte words); raises when the image does not fit
+    the slot's leaf."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if dtype == torch.bfloat16:
+        fits = a.dtype.itemsize == 2 and a.dtype.kind in "Vf" \
+            and a.dtype != np.float16
+    else:
+        fits = a.dtype == torch.empty((), dtype=dtype).numpy().dtype
+    if not fits or tuple(a.shape) != tuple(shape):
+        raise ValueError(f"swap image leaf {a.dtype}{tuple(a.shape)} does "
+                         f"not fit the slot's {dtype}{tuple(shape)}")
+    return torch.from_numpy(a.reshape(-1).view(np.uint8)).view(
+        dtype).reshape(shape)
+
+
 class DeviceExecutor:
     """Owns the device buffers and programs of one decode engine."""
 
@@ -122,18 +203,19 @@ class DeviceExecutor:
                  plan_mode: str = "masked",
                  prefill_batching: Optional[bool] = None,
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
-                 k_draft: int = 4, async_paging: bool = False, device=None,
+                 k_draft: int = 4, gather_ring: int = 2, device=None,
                  cuda_graphs: Optional[bool] = None):
         if plan_mode not in ("masked", "pow2"):
             raise ValueError(f"plan_mode must be 'masked' or 'pow2', "
                              f"got {plan_mode!r}")
         if mesh is not None:
             raise deferred("mesh", "parallel/sharding.py")
-        if async_paging:
-            raise deferred("async_paging", "serving/scheduler.py")
         if staging_depth < 1:
             raise ValueError(
                 f"staging_depth must be >= 1, got {staging_depth}")
+        if gather_ring < 1:
+            raise ValueError(
+                f"gather_ring must be >= 1, got {gather_ring}")
         if prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -190,6 +272,11 @@ class DeviceExecutor:
         self.tokens = torch.zeros((max_slots,), dtype=torch.int32,
                                   device=self.device)
         self.sampler = sampling.init_state(max_slots, self.device)
+        # what one swapped request moves across the host boundary each way:
+        # the cache column, one sampler row and the last token
+        self.swap_bytes_per_slot = (
+            slot_spec.nbytes + self.tokens[:1].nbytes
+            + sum(v[:1].nbytes for v in self.sampler.values()))
         # host mirror of each slot's temperature: a tick runs the stochastic
         # sampling pipeline only when some slot may draw (see sampling.sample)
         self._slot_temp = np.zeros((max_slots,), np.float32)
@@ -220,6 +307,17 @@ class DeviceExecutor:
                                      device=self.device)
         # batched staging: built on its first use (_ensure_batched)
         self._batched_ready = False
+        # state paging: ``gather_ring`` tickets bound the swap-outs
+        # draining at once; a ticket leaves _gather_free at the gather and
+        # returns at its harvest.  Each ticket's device and pinned host
+        # buffers and the side copy stream are made on first use.  Every
+        # gather drains on the side stream: synchronous paging is the
+        # scheduler harvesting at once.
+        self.gather_ring = gather_ring
+        self._gather_free: Deque[int] = deque(range(gather_ring))
+        self._gather_pending: Dict[int, PendingSwap] = {}
+        self._gather_bufs: Dict[int, tuple] = {}
+        self._copy_stream = None
 
     def _check_device(self, tree, what: str):
         for t in leaves(tree):
@@ -566,6 +664,158 @@ class DeviceExecutor:
         for row in sorted(release):
             for t in leaves(self.bstaging):
                 t[:, row].zero_()
+
+    # ------------------------------------------------------ state paging
+    def _acquire_ticket(self) -> int:
+        """Claim a gather-ring ticket.  The scheduler makes room first
+        (force-harvesting the oldest drain), so an empty ring here is a
+        bookkeeping fault, not backpressure."""
+        if not self._gather_free:
+            raise RuntimeError(
+                f"gather ring exhausted: all {self.gather_ring} buffers "
+                f"are draining — harvest a pending swap before "
+                f"dispatching another gather")
+        return self._gather_free.popleft()
+
+    def _side_copy(self, dst, src) -> torch.cuda.Event:
+        """Copy each leaf of ``src`` into ``dst`` on the side copy stream,
+        after the work queued so far on the compute stream; returns the
+        event recorded after the copies."""
+        side = self._copy_stream
+        if side is None:
+            side = self._copy_stream = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for d, s in zip(leaves(dst), leaves(src)):
+                d.copy_(s, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(side)
+        return event
+
+    def _gather(self, caches, row, tok) -> PendingSwap:
+        """Snapshot a one-row image into a gather-ring buffer on the
+        compute stream (so after every program queued before it, and
+        immune to what runs after), then, on the card, drain it into the
+        ticket's pinned host buffer on the side stream."""
+        buf = self._acquire_ticket()
+        ring = self._gather_bufs.get(buf)
+        if ring is None:
+            dev = (lm.init_caches(self.cfg, 1, self.max_len, self.device),
+                   sampling.init_state(1, self.device),
+                   torch.zeros((1,), dtype=torch.int32, device=self.device))
+            host = (tree_map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True), dev)
+                if self.device.type == "cuda" else dev)
+            ring = self._gather_bufs[buf] = (dev, host)
+        dev, host = ring
+        copy_leaves(dev, (caches, row, tok))
+        event = (self._side_copy(host, dev) if self.device.type == "cuda"
+                 else None)
+        pend = PendingSwap(buf, sum(t.nbytes for t in leaves(dev)), event)
+        self._gather_pending[buf] = pend
+        return pend
+
+    def gather_slot_async(self, slot: int) -> PendingSwap:
+        """Swap-out of resident slot ``slot`` without waiting for the
+        drain: its cache column, sampler row and last token go into a
+        gather-ring buffer, then the vacated slot's done flag is frozen
+        (an inert slot until the next admit writes it) and its
+        temperature leaves the host mirror.  The slot is reusable at
+        once: the gathered values are a snapshot."""
+        pend = self._gather(
+            tree_map(lambda t: t[:, slot:slot + 1], self.caches),
+            {k: v[slot:slot + 1] for k, v in self.sampler.items()},
+            self.tokens[slot:slot + 1])
+        self.sampler["done"][slot] = True
+        self.release_slot(slot)
+        return pend
+
+    def gather_staging_async(self, buf: int) -> PendingSwap:
+        """Swap-out of per-prompt ring buffer ``buf`` (a staged-ready
+        request pausing at the admit boundary): its staging caches,
+        admit-advanced sampler row and first token.  The ring buffer stays
+        dirty: the next ``stage_begin`` zeroes it."""
+        return self._gather(self.staging[buf], self.staging_row[buf],
+                            self.staging_tok[buf])
+
+    def bgather_row_async(self, row: int) -> PendingSwap:
+        """Swap-out of batched staging row ``row`` (the admit-boundary swap
+        on the batched path).  A pure read: the scheduler marks the row
+        dirty, so the next multi-row scatter zeroes it."""
+        self._ensure_batched()
+        return self._gather(
+            tree_map(lambda t: t[:, row:row + 1], self.bstaging),
+            {k: v[row:row + 1] for k, v in self.bsampler.items()},
+            self.btoks[row:row + 1])
+
+    def harvest(self, pend: PendingSwap) -> SwappedState:
+        """Materialize a drained swap-out as host numpy and return its
+        gather-ring ticket; waits only for what has not drained yet (on
+        the card, the side stream's event)."""
+        if self._gather_pending.get(pend.buf) is not pend:
+            raise RuntimeError(
+                f"harvest of gather buffer {pend.buf} that is not "
+                f"draining — double harvest or foreign PendingSwap")
+        if pend.event is not None:
+            pend.event.synchronize()
+        caches, row, tok = self._gather_bufs[pend.buf][1]
+        sw = SwappedState(caches=tree_map(_host_array, caches),
+                          sampler={k: _host_array(v) for k, v in row.items()},
+                          token=_host_array(tok))
+        del self._gather_pending[pend.buf]
+        self._gather_free.append(pend.buf)
+        return sw
+
+    # the synchronous forms: the same copies, harvested at once
+    def gather_slot(self, slot: int) -> SwappedState:
+        return self.harvest(self.gather_slot_async(slot))
+
+    def gather_staging(self, buf: int) -> SwappedState:
+        return self.harvest(self.gather_staging_async(buf))
+
+    def bgather_row(self, row: int) -> SwappedState:
+        return self.harvest(self.bgather_row_async(row))
+
+    def prestage_restore(self, sw: SwappedState) -> tuple:
+        """Put a host image back on the device for a later
+        ``restore_slot``: (cache leaves, sampler row, token, event).  On
+        the card the image is copied into pinned memory, then onto the
+        device on the side stream (``event`` marks its end; the tensors
+        are recorded on that stream, so their memory is not reused before
+        it); on the CPU the tensors view the image."""
+        slots = leaves(self.caches)
+        flat = leaves(sw.caches)
+        if len(flat) != len(slots) or set(sw.sampler) != set(self.sampler):
+            raise ValueError(f"swap image of {len(flat)} cache leaves and "
+                             f"sampler keys {sorted(sw.sampler)} does not "
+                             f"fit this engine's slots")
+        host = ([_host_tensor(a, t.dtype, (t.shape[0], 1) + t.shape[2:])
+                 for a, t in zip(flat, slots)],
+                {k: _host_tensor(sw.sampler[k], v.dtype, (1,) + v.shape[1:])
+                 for k, v in self.sampler.items()},
+                _host_tensor(sw.token, self.tokens.dtype, (1,)))
+        if self.device.type != "cuda":
+            return host + (None,)
+        host = tree_map(lambda t: t.pin_memory(), host)
+        dev = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                             device=self.device), host)
+        event = self._side_copy(dev, host)
+        for t in leaves(dev):
+            t.record_stream(self._copy_stream)
+        return dev + (event,)
+
+    def restore_slot(self, slot: int, sw: SwappedState, prestaged=None):
+        """Swap-in: copy the image (``prestaged``, or put now) into slot
+        ``slot`` through ``_fill_slot``, the copies every admit takes, so
+        every slot buffer keeps its address and the captured programs read
+        the restored state.  The compute stream waits for the put first."""
+        caches, row, tok, event = (prestaged if prestaged is not None
+                                   else self.prestage_restore(sw))
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+        self._fill_slot(slot, caches, row, tok, 0,
+                        float(np.asarray(sw.sampler["temperature"])
+                              .reshape(-1)[0]))
 
     # ------------------------------------------------- speculative decode
     def _init_speculative(self, draft_cfg, draft_params, params):

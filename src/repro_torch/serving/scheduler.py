@@ -34,11 +34,29 @@ tokens it emits (``_step_speculative``), streams bitwise those of plain
 decode.  ``adaptive_k`` shrinks or grows the draft length with the
 acceptance rate.
 
-State paging, roles and meshes of the reference raise
-``NotImplementedError`` naming the reference module that holds them.
+**State paging** (slot oversubscription): a request's whole device
+residency (recurrent state, rolling KV window, sampler row and last token)
+is a fixed-size block, so an idle session leaves its slot as one host
+``SwappedState`` and comes back bitwise.  ``pause(rid)`` swaps a request
+out wherever it is in the lifecycle (SWAPPED), ``resume(rid)`` queues it
+for a slot grant (RESUMING), ``preempt()`` evicts the policy victim with
+automatic resume, and ``swap_policy`` ("idle", "pressure" or "auto") runs
+an idle-lease and/or priority-pressure sweep at the start of each tick.
+A swap-in enters its slot through the copies every admit takes.  Freed
+slots alternate between the resume queue and staged-ready fresh admits;
+``max_live_requests`` caps the sessions an engine holds, swapped ones
+included.  ``async_paging`` drains swap-outs through a ring of
+``gather_ring`` buffers, harvested at tick boundaries, and prestages the
+head resume claim's put a tick ahead of a predictable grant; beyond
+``host_swap_bytes`` of held images the coldest dormant one spills to
+``swap_spool_dir`` through ``serving.wire``.
+
+Roles and meshes of the reference raise ``NotImplementedError`` naming
+the reference module that holds them.
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from collections import deque
@@ -48,11 +66,22 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.serving import wire
 from repro_torch.serving.executor import (_MAX_SCAN_CHUNKS, DeviceExecutor,
-                                         PlanStep, deferred)
+                                         PendingSwap, PlanStep,
+                                         SwappedState, deferred)
 
-QUEUED, STAGING, READY, ACTIVE, DONE = ("queued", "staging", "ready",
-                                        "active", "done")
+# request lifecycle: QUEUED, STAGING (chunked prefill into the ring), READY
+# (first token drawn, waiting for a slot), ACTIVE (slot-resident) and
+# DONE, plus paging's SWAPPED (image on the host, or paused straight out
+# of the queue) and RESUMING (waiting for a slot grant)
+QUEUED, STAGING, READY, ACTIVE = "queued", "staging", "ready", "active"
+SWAPPED, RESUMING, DONE = "swapped", "resuming", "done"
+# where a swapped request's image is: DRAINING (gather dispatched, the
+# drain in flight), HOSTED (host numpy), PREFETCHED (put back on the
+# device ahead of a predicted grant), SPILLED (a wire file in the spool)
+DRAINING, HOSTED = "draining", "hosted"
+PREFETCHED, SPILLED = "prefetched", "spilled"
 
 
 @dataclass
@@ -65,6 +94,8 @@ class Request:
     top_k: int = 0                      # 0 => disabled
     top_p: float = 1.0                  # 1.0 => disabled
     eos_id: Optional[int] = None
+    priority: int = 0                   # pressure: a strictly higher
+                                        # priority wins a slot from a lower
     output: List[int] = field(default_factory=list)
     done: bool = False
     state: str = "new"
@@ -72,12 +103,18 @@ class Request:
     t_submit: Optional[float] = None
     t_first: Optional[float] = None     # first token synced to the host
     t_done: Optional[float] = None
+    swapped_s: float = 0.0              # total wall time swapped out
+    _swapped_pre_first_s: float = 0.0   # swapped time before the first token
+    t_last_activity: Optional[float] = None  # idle lease: set at submit and
+                                        # activation, renewed by touch
+    _t_active: Optional[float] = None   # latest slot activation
 
     @property
     def ttft_s(self) -> Optional[float]:
+        """Submit to first token, less the time swapped out before it."""
         if self.t_first is None or self.t_submit is None:
             return None
-        return self.t_first - self.t_submit
+        return self.t_first - self.t_submit - self._swapped_pre_first_s
 
     @property
     def latency_s(self) -> Optional[float]:
@@ -86,8 +123,14 @@ class Request:
         return self.t_done - self.t_submit
 
     @property
-    def tokens_per_s(self) -> Optional[float]:
+    def active_latency_s(self) -> Optional[float]:
+        """Latency less the time swapped out: throughput's denominator."""
         lat = self.latency_s
+        return None if lat is None else lat - self.swapped_s
+
+    @property
+    def tokens_per_s(self) -> Optional[float]:
+        lat = self.active_latency_s
         return len(self.output) / lat if lat else None
 
     @property
@@ -115,6 +158,33 @@ class _Staging:
     chunks_left: int = 0      # batched path: full C-chunks not yet staged
     tail: int = 0             # batched path: valid tokens in the admit chunk
     admitted: bool = False    # batched path: admit dispatched, token pending
+    pause_pending: bool = False  # paused mid-prefill: swap out at the admit
+                                 # boundary instead of waiting staged-ready
+
+
+@dataclass(eq=False)
+class _Swapped:
+    """One swapped-out request: its host image (None when it was paused
+    straight out of the queue) and the time its swap began (the gather's
+    dispatch).  ``pending`` holds a drain in flight, ``prefetch`` an image
+    already put back on the device, ``spool`` the path of its spilled
+    file (see ``phase``)."""
+    req: Request
+    state: Optional[SwappedState]
+    t_swap: float
+    pending: Optional[PendingSwap] = None
+    prefetch: Optional[tuple] = None
+    spool: Optional[str] = None
+
+    @property
+    def phase(self) -> str:
+        if self.pending is not None:
+            return DRAINING
+        if self.prefetch is not None:
+            return PREFETCHED
+        if self.spool is not None:
+            return SPILLED
+        return HOSTED
 
 
 class Scheduler:
@@ -130,7 +200,7 @@ class Scheduler:
                  swap_policy: str = "manual",
                  idle_swap_ms: Optional[float] = None,
                  max_live_requests: Optional[int] = None,
-                 async_paging: bool = False,
+                 async_paging: bool = False, gather_ring: int = 2,
                  host_swap_bytes: Optional[int] = None,
                  swap_spool_dir: Optional[str] = None,
                  speculative: bool = False, draft_cfg=None,
@@ -142,6 +212,25 @@ class Scheduler:
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError(f"prefill_budget must be >= 1 token, got "
                              f"{prefill_budget}")
+        if swap_policy not in ("manual", "idle", "pressure", "auto"):
+            raise ValueError(f"swap_policy must be one of manual/idle/"
+                             f"pressure/auto, got {swap_policy!r}")
+        if swap_policy in ("idle", "auto") and idle_swap_ms is None:
+            raise ValueError(f"swap_policy={swap_policy!r} sweeps idle "
+                             f"leases — set idle_swap_ms")
+        if idle_swap_ms is not None and idle_swap_ms < 0:
+            raise ValueError(f"idle_swap_ms must be >= 0, got "
+                             f"{idle_swap_ms}")
+        if max_live_requests is not None and max_live_requests < 1:
+            raise ValueError(f"max_live_requests must be >= 1, got "
+                             f"{max_live_requests}")
+        if host_swap_bytes is not None and host_swap_bytes < 0:
+            raise ValueError(f"host_swap_bytes must be >= 0, got "
+                             f"{host_swap_bytes}")
+        if host_swap_bytes is not None and swap_spool_dir is None:
+            raise ValueError("host_swap_bytes is a spill watermark — set "
+                             "swap_spool_dir so cold images have "
+                             "somewhere to go")
         if (draft_cfg is not None or draft_params is not None) \
                 and not speculative:
             raise ValueError("draft_cfg/draft_params given without "
@@ -149,11 +238,6 @@ class Scheduler:
         if adaptive_k and not speculative:
             raise ValueError("adaptive_k tunes the speculative draft "
                              "length — set speculative=True")
-        if (swap_policy != "manual" or idle_swap_ms is not None
-                or max_live_requests is not None
-                or host_swap_bytes is not None or swap_spool_dir is not None):
-            raise deferred("state paging (swap policies, admission caps, "
-                           "spill)", "serving/scheduler.py")
         if role != "both":
             raise deferred(f"role={role!r} (disaggregated serving)",
                            "serving/router.py and serving/rpc.py")
@@ -181,7 +265,7 @@ class Scheduler:
             prefill_batching=prefill_batching,
             draft_cfg=draft_cfg if speculative else None,
             draft_params=draft_params if speculative else None,
-            k_draft=k_draft, async_paging=async_paging, device=device,
+            k_draft=k_draft, gather_ring=gather_ring, device=device,
             cuda_graphs=cuda_graphs)
         # per-tick prefill budget of the batched packer, in scan-chunk
         # units (an admit costs one); the default lets every staging row
@@ -199,9 +283,25 @@ class Scheduler:
         # batched rows whose request finished at admit, zeroed by the next
         # multi-row scatter
         self._dirty_rows: set = set()
+        # state paging: the swapped-out requests by rid (rids are unique
+        # among live requests), the FIFO resume queue, the rids whose
+        # drain is in flight (in dispatch order: the force-harvest order
+        # when the gather ring runs out) and the spill tier's watermark
+        self.swap_policy = swap_policy
+        self.idle_swap_ms = idle_swap_ms
+        self.max_live_requests = max_live_requests
+        self.swapped: Dict[int, _Swapped] = {}
+        self.resume_q: Deque[int] = deque()
+        self._grant_resume_next = True
+        self.async_paging = bool(async_paging)
+        self._draining_q: Deque[int] = deque()
+        self.host_swap_bytes = host_swap_bytes
+        self.swap_spool_dir = swap_spool_dir
         # the speculative tick's draft, pending across the step boundary:
-        # (k, device draft tokens, live rids)
+        # (k, device draft tokens, live rids); a pause or preempt of an
+        # active request meanwhile waits for the verify (rid, resume)
         self._pending = None
+        self._spec_deferred: List[tuple] = []
         self.spec_ticks = 0
         self.drafted_tokens = 0
         self.accepted_tokens = 0
@@ -214,7 +314,30 @@ class Scheduler:
         self.decoded_tokens = 0     # tokens emitted by ticks (not admit)
         self.stage_dispatches = 0   # prefill-chunk dispatches
         self.scatter_dispatches = 0  # slot scatters
+        self._zero_swap_counters()
         self._metrics_seen: set = set()
+
+    def _zero_swap_counters(self):
+        self.swap_outs = 0          # slot/staging gathers to the host
+        self.swap_ins = 0           # restores into a slot
+        self.swap_s = 0.0           # wall time inside swap transfers
+        self.swap_bytes = 0         # bytes moved (both directions)
+        # swap_s split two ways: dispatch (launches, and harvests of drains
+        # already landed) + stall (waits async paging exists to hide), and
+        # gather (with harvests) + put + scatter
+        self.swap_dispatch_s = 0.0
+        self.swap_stall_s = 0.0
+        self.swap_gather_s = 0.0
+        self.swap_put_s = 0.0
+        self.swap_scatter_s = 0.0
+        self.swap_prefetches = 0    # puts staged ahead of a grant
+        self.swap_prefetch_hits = 0  # grants that took a prefetch
+        self.swap_prefetch_drops = 0  # prefetches dropped unused
+        self.swap_harvests_overlapped = 0  # drain landed before the harvest
+        self.swap_harvests_forced = 0      # the harvest had to wait
+        self.spills = 0             # images written to the spool dir
+        self.spill_loads = 0        # images read back
+        self.spill_bytes = 0        # bytes written to disk
 
     # ---------------------------------------------------- compat surface
     @property
@@ -295,22 +418,25 @@ class Scheduler:
                 f"activation (draft_prefill_slot) replays the consumed "
                 f"*token* stream, and embeds have no token ids to "
                 f"replay; submit to a non-speculative engine")
-        if any(r.rid == req.rid and not r.done for r in self._all):
+        # the swap store and resume queue are keyed by rid, so a rid must
+        # be unique among the live requests (a finished rid may recur)
+        if req.rid in self.swapped or any(
+                r.rid == req.rid and not r.done for r in self._all):
             raise ValueError(f"req {req.rid}: rid already live on this "
-                             f"engine")
+                             f"engine (swap bookkeeping is rid-keyed)")
+        if self.max_live_requests is not None:
+            live = (len(self.queue) + len(self._stagings)
+                    + len(self.active) + len(self.swapped))
+            if live >= self.max_live_requests:
+                raise RuntimeError(
+                    f"max_live_requests={self.max_live_requests} reached "
+                    f"({live} live incl. swapped): admission refused — "
+                    f"oversubscription caps host memory, not just slots")
         req.t_submit = time.perf_counter()
+        req.t_last_activity = req.t_submit
         req.state = QUEUED
         self.queue.append(req)
         self._all.append(req)
-
-    def pause(self, rid: int):
-        raise deferred("pause (state paging)", "serving/scheduler.py")
-
-    def resume(self, rid: int):
-        raise deferred("resume (state paging)", "serving/scheduler.py")
-
-    def preempt(self, rid: Optional[int] = None):
-        raise deferred("preempt (state paging)", "serving/scheduler.py")
 
     @property
     def queue_len(self) -> int:
@@ -326,6 +452,349 @@ class Scheduler:
     def _finished(self, req: Request, tok: int) -> bool:
         return (len(req.output) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id))
+
+    # ------------------------------------------------------ state paging
+    def pause(self, rid: int) -> Request:
+        """Swap request ``rid`` out of the device (its client went idle),
+        wherever it is:
+
+          * active       -> its slot column, sampler row and last token
+                            gather to the host; the slot is freed;
+          * staged-ready -> its staging row (or ring buffer) is gathered;
+          * mid-prefill  -> marked pause-pending: the prefill finishes and
+                            the swap happens at the admit boundary;
+          * queued       -> leaves the queue with no image;
+          * resuming     -> back to dormant (its image stays on the host).
+
+        On a speculative engine an active request paused while a draft is
+        pending swaps out at the next verify boundary (until then its
+        committed state trails unverified proposals); a ``resume`` before
+        that cancels it.  Dormant requests do not hold up
+        ``run_until_done``."""
+        if rid in self.swapped:
+            rec = self.swapped[rid]
+            if rid in self.resume_q:
+                self.resume_q.remove(rid)
+                self._drop_prefetch(rec)
+                rec.req.state = SWAPPED
+                return rec.req
+            raise ValueError(f"req {rid} is already swapped out")
+        for slot, req in self.active.items():
+            if req.rid == rid:
+                if self._pending is not None:
+                    return self._defer(req, resume=False)
+                return self._swap_out_active(slot)
+        for st in self._stagings:
+            if st.req.rid == rid:
+                if st.ready:
+                    self._swap_out_ready(st)
+                else:
+                    st.pause_pending = True
+                return st.req
+        for req in self.queue:
+            if req.rid == rid:
+                self.queue = deque(r for r in self.queue if r is not req)
+                self.swapped[rid] = _Swapped(req=req, state=None,
+                                             t_swap=time.perf_counter())
+                req.state = SWAPPED
+                return req
+        raise KeyError(f"no live request with rid {rid} to pause")
+
+    def resume(self, rid: int) -> Request:
+        """Bring a paused request back: one paused out of the queue (no
+        image) rejoins the queue tail and prefills again; one with an
+        image joins the resume queue for the next granted slot.  A pause
+        still pending (mid-prefill, or deferred to a verify) is
+        cancelled."""
+        rec = self.swapped.get(rid)
+        if rec is None:
+            for i, (r, _) in enumerate(self._spec_deferred):
+                if r == rid:
+                    del self._spec_deferred[i]
+                    return next(q for q in self.active.values()
+                                if q.rid == rid)
+            for st in self._stagings:
+                if st.req.rid == rid and st.pause_pending:
+                    st.pause_pending = False
+                    return st.req
+            raise KeyError(f"req {rid} is not swapped out")
+        if rid in self.resume_q:
+            raise ValueError(f"req {rid} is already resuming")
+        req = rec.req
+        if rec.state is None and rec.pending is None and rec.spool is None:
+            now = time.perf_counter()
+            req.swapped_s += now - rec.t_swap
+            req._swapped_pre_first_s += now - rec.t_swap
+            del self.swapped[rid]
+            self.queue.append(req)
+            req.state = QUEUED
+            req.t_last_activity = now
+        else:
+            self.resume_q.append(rid)
+            req.state = RESUMING
+        return req
+
+    def preempt(self, rid: Optional[int] = None) -> Optional[Request]:
+        """Evict an active request to the host and queue it for automatic
+        resume: ``rid``, or the policy victim (lowest priority, ties to
+        the latest activation).  Returns it, or None with no slot
+        occupied; deferred to the verify boundary like ``pause``."""
+        if rid is not None:
+            for slot, req in self.active.items():
+                if req.rid == rid:
+                    if self._pending is not None:
+                        return self._defer(req, resume=True)
+                    return self._swap_out_active(slot, resume=True)
+            raise KeyError(f"req {rid} is not active")
+        if not self.active:
+            return None
+        slot = self._victim_slot()
+        if self._pending is not None:
+            return self._defer(self.active[slot], resume=True)
+        return self._swap_out_active(slot, resume=True)
+
+    def touch(self, rid: int):
+        """Renew request ``rid``'s activity lease (the idle policy swaps
+        out active requests whose lease is older than ``idle_swap_ms``)."""
+        for r in self._all:
+            if r.rid == rid and not r.done:
+                r.t_last_activity = time.perf_counter()
+                return
+        raise KeyError(f"no live request with rid {rid}")
+
+    def _defer(self, req: Request, resume: bool) -> Request:
+        if not any(r == req.rid for r, _ in self._spec_deferred):
+            self._spec_deferred.append((req.rid, resume))
+        return req
+
+    def _victim_slot(self) -> int:
+        return min(self.active,
+                   key=lambda s: (self.active[s].priority,
+                                  -(self.active[s]._t_active or 0.0)))
+
+    def _book(self, dt: float, part: str, stall: bool):
+        """Add ``dt`` seconds of swap work to ``swap_s``, to its direction
+        (gather / put / scatter) and to dispatch or stall."""
+        self.swap_s += dt
+        setattr(self, f"swap_{part}_s", getattr(self, f"swap_{part}_s") + dt)
+        if stall:
+            self.swap_stall_s += dt
+        else:
+            self.swap_dispatch_s += dt
+
+    def _ensure_gather_capacity(self):
+        """With every gather-ring buffer draining, force-harvest the oldest
+        drain: a draining buffer is never reused before its harvest."""
+        while not self.executor._gather_free:
+            self._harvest(self.swapped[self._draining_q[0]], forced=True)
+
+    def _harvest(self, rec: _Swapped, *, forced: bool):
+        """Materialize a draining record's host image; ``forced`` means the
+        tick loop waits on it (a stall), else the drain had landed."""
+        t0 = time.perf_counter()
+        rec.state = self.executor.harvest(rec.pending)
+        rec.pending = None
+        self._draining_q.remove(rec.req.rid)
+        self._book(time.perf_counter() - t0, "gather", stall=forced)
+        if forced:
+            self.swap_harvests_forced += 1
+        else:
+            self.swap_harvests_overlapped += 1
+
+    def _harvest_sweep(self):
+        """Tick-boundary harvest of every drain that has landed."""
+        for rid in list(self._draining_q):
+            rec = self.swapped[rid]
+            if rec.pending.ready():
+                self._harvest(rec, forced=False)
+
+    def flush_swaps(self):
+        """Harvest every draining swap-out now (landed drains count as
+        overlapped, the rest as stalls)."""
+        while self._draining_q:
+            rec = self.swapped[self._draining_q[0]]
+            self._harvest(rec, forced=not rec.pending.ready())
+
+    def _swap_out(self, req: Request, pend: PendingSwap, t0: float,
+                  resume: bool):
+        """Book one dispatched gather and file its record; the synchronous
+        path harvests it at once."""
+        self._book(time.perf_counter() - t0, "gather", stall=False)
+        self.swap_outs += 1
+        self.swap_bytes += pend.nbytes
+        # t_swap is the dispatch: parked time spans dispatch to restore,
+        # however late the drain is harvested
+        rec = _Swapped(req=req, state=None, t_swap=t0, pending=pend)
+        self.swapped[req.rid] = rec
+        self._draining_q.append(req.rid)
+        if not self.async_paging:
+            self._harvest(rec, forced=True)
+        if resume:
+            self.resume_q.append(req.rid)
+            req.state = RESUMING
+        else:
+            req.state = SWAPPED
+        return req
+
+    def _swap_out_active(self, slot: int, *, resume: bool = False):
+        req = self.active.pop(slot)
+        t0 = time.perf_counter()
+        self._ensure_gather_capacity()
+        pend = self.executor.gather_slot_async(slot)
+        self.free.append(slot)
+        return self._swap_out(req, pend, t0, resume)
+
+    def _swap_out_ready(self, st: _Staging):
+        """The admit-boundary swap: the request has its first token and an
+        advanced sampler row but no slot, so its staging row (or ring
+        buffer) is gathered."""
+        t0 = time.perf_counter()
+        self._ensure_gather_capacity()
+        if self.executor.prefill_batching:
+            pend = self.executor.bgather_row_async(st.buf)
+            self._dirty_rows.add(st.buf)    # zeroed by the next scatter
+        else:
+            pend = self.executor.gather_staging_async(st.buf)
+            self._free_bufs.append(st.buf)
+        self._stagings.remove(st)
+        self._swap_out(st.req, pend, t0, resume=False)
+
+    def _swap_in(self, rid: int, slot: int):
+        rec = self.swapped.pop(rid)
+        req = rec.req
+        if rec.pending is not None:     # the grant beat the drain
+            self._harvest(rec, forced=not rec.pending.ready())
+        if rec.spool is not None:
+            self._load_spill(rec)
+        t0 = time.perf_counter()
+        if rec.prefetch is not None:
+            prestaged, rec.prefetch = rec.prefetch, None
+            self.swap_prefetch_hits += 1
+        else:
+            # the put a prefetched grant avoids
+            prestaged = self.executor.prestage_restore(rec.state)
+            self._book(time.perf_counter() - t0, "put", stall=True)
+        t1 = time.perf_counter()
+        self.executor.restore_slot(slot, rec.state, prestaged=prestaged)
+        self.scatter_dispatches += 1
+        now = time.perf_counter()
+        self._book(now - t1, "scatter", stall=False)
+        self.swap_ins += 1
+        self.swap_bytes += rec.state.nbytes
+        req.swapped_s += now - rec.t_swap
+        self._activate(slot, req)
+
+    def _prefetch_resume(self):
+        """Put the head resume claim's image back on the device a tick
+        ahead of a predictable grant (a slot is free, or an active slot is
+        within a tick of its budget)."""
+        if not self.resume_q:
+            return
+        rec = self.swapped[self.resume_q[0]]
+        if rec.prefetch is not None:
+            return
+        if not (self.free or any(
+                r.max_new_tokens - len(r.output) <= self.decode_block
+                for r in self.active.values())):
+            return
+        if rec.pending is not None:
+            if not rec.pending.ready():
+                return              # let the drain land first
+            self._harvest(rec, forced=False)
+        if rec.spool is not None:
+            self._load_spill(rec)
+        t0 = time.perf_counter()
+        rec.prefetch = self.executor.prestage_restore(rec.state)
+        self._book(time.perf_counter() - t0, "put", stall=False)
+        self.swap_prefetches += 1
+
+    def _drop_prefetch(self, rec: _Swapped):
+        if rec.prefetch is not None:
+            rec.prefetch = None
+            self.swap_prefetch_drops += 1
+
+    # ---------------------------------------------------- spill to disk
+    def _spill_path(self, rid: int) -> str:
+        return os.path.join(self.swap_spool_dir, f"swap-{rid}.state")
+
+    def _apply_spill(self):
+        """Spill the coldest dormant images to the spool dir until the held
+        images fit under ``host_swap_bytes``; only images nothing is about
+        to touch (not draining, prefetched or resuming) may go."""
+        limit = self.host_swap_bytes or 0
+        while True:
+            held = [r for r in self.swapped.values() if r.state is not None]
+            if sum(r.state.nbytes for r in held) <= limit:
+                return
+            cold = [r for r in held
+                    if r.req.rid not in self.resume_q and r.prefetch is None]
+            if not cold:
+                return
+            self._spill(min(cold, key=lambda r: r.t_swap))
+
+    def _spill(self, rec: _Swapped):
+        """Write the image as its wire encoding and drop it from memory."""
+        os.makedirs(self.swap_spool_dir, exist_ok=True)
+        path = self._spill_path(rec.req.rid)
+        wire.dump_swapped(path, rec.state)
+        rec.spool = path
+        self.spills += 1
+        self.spill_bytes += rec.state.nbytes
+        rec.state = None
+
+    def _load_spill(self, rec: _Swapped):
+        """Read a spilled image back (bitwise) and delete its file."""
+        rec.state = wire.load_swapped(rec.spool)
+        os.remove(rec.spool)
+        rec.spool = None
+        self.spill_loads += 1
+
+    def _grant_resume(self) -> bool:
+        """True when the next freed slot goes to the resume queue rather
+        than a staged-ready fresh admit: when both wait, grants
+        alternate."""
+        if not self.resume_q:
+            return False
+        if not (self._stagings and self._stagings[0].ready):
+            return True
+        return self._grant_resume_next
+
+    def _apply_swap_policy(self):
+        """Tick-boundary eviction sweep.  idle: an active request whose
+        lease is older than ``idle_swap_ms`` is swapped out dormant.
+        pressure: while a strictly higher-priority request waits (resume
+        queue, staged-ready or queued) without a free slot, the policy
+        victim is evicted to the resume queue; equal priorities never
+        displace each other."""
+        now = time.perf_counter()
+        if self.swap_policy in ("idle", "auto"):
+            cutoff = self.idle_swap_ms / 1e3
+            for slot in [s for s, r in self.active.items()
+                         if now - r.t_last_activity > cutoff]:
+                self._swap_out_active(slot)
+        if self.swap_policy in ("pressure", "auto"):
+            while self.active:
+                waiting = sorted(
+                    [self.swapped[r].req.priority for r in self.resume_q]
+                    + [s.req.priority for s in self._stagings if s.ready]
+                    + [r.priority for r in self.queue], reverse=True)
+                if len(self.free) >= len(waiting):
+                    break
+                need = waiting[len(self.free)]
+                slot = self._victim_slot()
+                if need <= self.active[slot].priority:
+                    break
+                self._swap_out_active(slot, resume=True)
+
+    def _tick_start(self):
+        """The paging work at the start of every tick: harvest landed
+        drains, spill, run the swap policy."""
+        if self.async_paging and self._draining_q:
+            self._harvest_sweep()
+        if self.swap_spool_dir is not None:
+            self._apply_spill()
+        if self.swap_policy != "manual":
+            self._apply_swap_policy()
 
     # ----------------------------------------------------------- staging
     def _stage_start(self, req: Request):
@@ -381,12 +850,16 @@ class Scheduler:
             self._stagings.remove(st)
             self._free_bufs.append(st.buf)
             return
+        if st.pause_pending:
+            self._swap_out_ready(st)    # the admit-boundary swap
+            return
         st.ready = True
         req.state = READY
 
     def _activate(self, slot: int, req: Request):
         self.active[slot] = req
         req.state = ACTIVE
+        req._t_active = req.t_last_activity = time.perf_counter()
         self._draft_activate(slot, req)
 
     def _stage_scatter(self):
@@ -421,8 +894,15 @@ class Scheduler:
             return self._admit_batched()
         yielded = set()
         while True:
+            # resume swap-ins share freed slots with the FIFO scatter of
+            # staged-ready requests (alternating when both wait)
+            if self.free and self._grant_resume():
+                self._swap_in(self.resume_q.popleft(), self.free.popleft())
+                self._grant_resume_next = False
+                continue
             if self._stagings and self._stagings[0].ready and self.free:
                 self._stage_scatter()
+                self._grant_resume_next = True
                 continue
             if (self.queue and self._free_bufs
                     and (self.free or self.overlap)):
@@ -464,6 +944,8 @@ class Scheduler:
                 self._complete(req, now)
                 self._stagings.remove(st)
                 self._dirty_rows.add(st.buf)    # zeroed at next scatter
+            elif st.pause_pending:
+                self._swap_out_ready(st)        # the admit-boundary swap
             else:
                 st.ready = True
                 req.state = READY
@@ -522,12 +1004,22 @@ class Scheduler:
         between prefill programs."""
         while True:
             progressed = False
+            # slot grants: resume-queue swap-ins alternate with the
+            # multi-row scatter of head-run staged-ready requests
             assigns = []
-            while self.free and self._stagings and self._stagings[0].ready:
+            while self.free and (self.resume_q or (
+                    self._stagings and self._stagings[0].ready)):
+                if self._grant_resume():
+                    self._swap_in(self.resume_q.popleft(),
+                                  self.free.popleft())
+                    self._grant_resume_next = False
+                    progressed = True
+                    continue
                 st = self._stagings.pop(0)
                 slot = self.free.popleft()
                 assigns.append((slot, st.buf))
                 self._activate(slot, st.req)
+                self._grant_resume_next = True
             if assigns:
                 self._flush_scatter(assigns)
                 progressed = True
@@ -641,7 +1133,17 @@ class Scheduler:
             self.accepted_tokens += accepted
             if self.adaptive_k and k > 0:
                 self._adapt_k(accepted, k * len(live))
+            # pauses and preempts deferred to this verify boundary
+            deferred_, self._spec_deferred = self._spec_deferred, []
+            for rid, resume in deferred_:
+                slot = next((s for s, r in self.active.items()
+                             if r.rid == rid), None)
+                if slot is not None:    # it may have finished in the verify
+                    self._swap_out_active(slot, resume=resume)
+        self._tick_start()
         self._admit()
+        if self.async_paging:
+            self._prefetch_resume()
         if not self.active:
             return
         k = self._spec_k()
@@ -657,7 +1159,10 @@ class Scheduler:
         Speculative engines run the draft-verify tick instead."""
         if self.speculative:
             return self._step_speculative()
+        self._tick_start()
         self._admit()
+        if self.async_paging:
+            self._prefetch_resume()
         if not self.active:
             return
         k = self._tick_k()
@@ -671,15 +1176,22 @@ class Scheduler:
 
     def run_until_done(self, max_ticks: int = 10_000, *,
                        strict: bool = True) -> List[Request]:
-        """Tick until the queue, the staging ring and the slots drain."""
+        """Tick until the queue, the staging ring, the slots and the resume
+        queue drain.  Dormant swapped-out requests (paused, not resumed)
+        are no pending work: the loop returns with them on the host."""
+        def busy():
+            return (self.queue or self.active or self._stagings
+                    or self.resume_q)
+
         for _ in range(max_ticks):
-            if not self.queue and not self.active and not self._stagings:
+            if not busy():
                 break
             self.step()
-        if self.queue or self.active or self._stagings:
+        if busy():
             msg = (f"run_until_done: max_ticks={max_ticks} exhausted with "
                    f"{len(self.queue)} queued, {len(self.active)} active, "
-                   f"{len(self._stagings)} staging request(s) unfinished")
+                   f"{len(self._stagings)} staging, {len(self.resume_q)} "
+                   f"resuming request(s) unfinished")
             if strict:
                 raise RuntimeError(msg)
             warnings.warn(msg, RuntimeWarning)
@@ -695,6 +1207,7 @@ class Scheduler:
         self.decoded_tokens = 0
         self.stage_dispatches = 0
         self.scatter_dispatches = 0
+        self._zero_swap_counters()
         self.spec_ticks = 0
         self.drafted_tokens = 0
         self.accepted_tokens = 0
@@ -705,7 +1218,8 @@ class Scheduler:
 
     def metrics(self) -> Dict[str, float]:
         """Aggregate serving metrics over requests completed since the last
-        ``reset_metrics`` (the base-tick subset of the reference's keys)."""
+        ``reset_metrics`` (the reference's keys but those of meshes and
+        roles)."""
         done = [r for r in self._all
                 if r.done and id(r) not in self._metrics_seen]
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
@@ -730,6 +1244,39 @@ class Scheduler:
             "compiled_programs": progs["total"],
             "prefill_programs": progs["prefill"],
             "staging_depth": self.staging_depth,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "swapped": len(self.swapped),
+            "resuming": len(self.resume_q),
+            "swap_s": self.swap_s,
+            "swap_bytes": self.swap_bytes,
+            "swap_us_per_mb": (self.swap_s * 1e6
+                               / (self.swap_bytes / 2 ** 20)
+                               if self.swap_bytes else 0.0),
+            "swap_bytes_per_slot": self.executor.swap_bytes_per_slot,
+            "async_paging": int(self.async_paging),
+            "gather_ring": self.executor.gather_ring,
+            "swap_dispatch_s": self.swap_dispatch_s,
+            "swap_stall_s": self.swap_stall_s,
+            "swap_gather_s": self.swap_gather_s,
+            "swap_put_s": self.swap_put_s,
+            "swap_scatter_s": self.swap_scatter_s,
+            "swap_prefetches": self.swap_prefetches,
+            "swap_prefetch_hits": self.swap_prefetch_hits,
+            "swap_prefetch_drops": self.swap_prefetch_drops,
+            "swap_harvests_overlapped": self.swap_harvests_overlapped,
+            "swap_harvests_forced": self.swap_harvests_forced,
+            "swap_overlap_ratio": (
+                self.swap_harvests_overlapped
+                / max(1, self.swap_harvests_overlapped
+                      + self.swap_harvests_forced)),
+            "draining_swaps": len(self._draining_q),
+            "spills": self.spills,
+            "spill_loads": self.spill_loads,
+            "spill_bytes": self.spill_bytes,
+            "host_swap_bytes_held": sum(
+                r.state.nbytes for r in self.swapped.values()
+                if r.state is not None),
             "speculative": int(self.speculative),
             "k_draft": self.k_draft if self.speculative else 0,
             "adaptive_k": int(self.adaptive_k),

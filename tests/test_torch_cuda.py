@@ -1111,3 +1111,133 @@ def test_bscatter_leaves_unassigned_slots_unchanged(cuda):
         else:                                       # sampler, tokens
             assert torch.equal(a[:2], b[:2])
     assert all(not t[:, 1].any() for t in leaves(ex.bstaging))
+
+
+# ---------------------------------------------------------- state paging
+
+def _paging_engine(**kw):
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg, params = _reduced_gdn()
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(1, 256, size=n, dtype=np.int32)
+               for n in (20, 33, 9)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=16,
+                        temperature=0.8 if i == 0 else 0.0,
+                        top_k=10 if i == 0 else 0)
+                for i, p in enumerate(prompts)]
+    return DecodeEngine(cfg, params, max_slots=2, max_len=64, seed=0,
+                        decode_block=2, prefill_chunk=8, device="cuda",
+                        **kw), reqs
+
+
+@pytest.mark.cuda
+def test_paging_pinned_round_trip(cuda):
+    """A gathered image drains into pinned host buffers, equals the
+    slot's bits, and restored into another slot reproduces them."""
+    from repro_torch.tree import leaves
+    eng, reqs = _paging_engine()
+    for r in reqs()[:2]:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    ex = eng.executor
+    slot = next(iter(eng.active))
+    want = [t[:, slot].cpu() for t in leaves(ex.caches)]
+    row = {k: v[slot].cpu() for k, v in ex.sampler.items()}
+    pend = ex.gather_slot_async(slot)
+    assert all(t.is_pinned() for t in leaves(ex._gather_bufs[pend.buf][1]))
+    sw = ex.harvest(pend)
+    assert sw.nbytes == ex.swap_bytes_per_slot
+    assert bool(ex.sampler["done"][slot])           # the slot is frozen
+    other = 1 - slot
+    ex.restore_slot(other, sw)
+    for t, w in zip(leaves(ex.caches), want):
+        assert torch.equal(t[:, other].cpu(), w)
+    for k, v in row.items():
+        assert torch.equal(ex.sampler[k][other].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_paging_ready_turns_true_and_the_ring_holds(cuda):
+    """``ready()`` turns True once the side stream's drain lands; with one
+    gather buffer, a second gather before the harvest is refused, and the
+    harvest hands the ticket back."""
+    eng, reqs = _paging_engine(async_paging=True, gather_ring=1)
+    for r in reqs()[:2]:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    ex = eng.executor
+    a, b = sorted(eng.active)
+    pend = ex.gather_slot_async(a)
+    assert list(ex._gather_free) == [] and ex._gather_pending == {0: pend}
+    with pytest.raises(RuntimeError, match="gather ring exhausted"):
+        ex.gather_slot_async(b)
+    for _ in range(10000):
+        if pend.ready():
+            break
+    torch.cuda.synchronize()
+    assert pend.ready()
+    ex.harvest(pend)
+    assert list(ex._gather_free) == [0] and not ex._gather_pending
+    with pytest.raises(RuntimeError, match="not draining"):
+        ex.harvest(pend)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_paging", [False, True],
+                         ids=["sync", "async"])
+def test_paging_restore_keeps_every_address(cuda, async_paging):
+    """Pause, preempt and resume under replayed graphs: every slot buffer
+    keeps its address, no paging call adds a program or a capture (each
+    is watched), and the streams are the uninterrupted engine's."""
+    from repro_torch.tree import leaves
+    eng, reqs = _paging_engine(async_paging=async_paging)
+    ex = eng.executor
+    watched = []
+
+    def watch(name):
+        fn = getattr(ex, name)
+
+        def call(*args, **kw):
+            before = ex.compiled_programs()
+            out = fn(*args, **kw)
+            assert ex.compiled_programs() == before, name
+            watched.append(name)
+            return out
+        setattr(ex, name, call)
+
+    for name in ("gather_slot_async", "bgather_row_async", "harvest",
+                 "prestage_restore", "restore_slot"):
+        watch(name)
+    want = reqs()                   # served once whole: every program made
+    for r in want:
+        eng.submit(r)
+    eng.run_until_done()
+    got = reqs()
+    for r in got:
+        eng.submit(r)
+    while not (got[0].state == "active" and len(got[0].output) >= 6):
+        eng.step()
+    ptrs = [t.data_ptr() for t in leaves(ex.caches)] + \
+        [v.data_ptr() for v in ex.sampler.values()] + [ex.tokens.data_ptr()]
+    progs = ex.compiled_programs()
+    assert progs["cuda_graphs"] > 0
+    eng.pause(0)
+    eng.step()
+    eng.preempt()
+    eng.step()
+    eng.resume(0)
+    eng.run_until_done()
+    assert [list(r.output) for r in got] == [list(r.output) for r in want]
+    assert ptrs == [t.data_ptr() for t in leaves(ex.caches)] + \
+        [v.data_ptr() for v in ex.sampler.values()] + [ex.tokens.data_ptr()]
+    assert {k: v for k, v in ex.compiled_programs().items()
+            if k != "cuda_graphs"} == {k: v for k, v in progs.items()
+                                       if k != "cuda_graphs"}
+    assert {"gather_slot_async", "harvest", "restore_slot"} <= set(watched)
+    m = eng.metrics()
+    assert m["swap_outs"] == m["swap_ins"] >= 2
+    assert m["swap_bytes"] == 2 * m["swap_outs"] * ex.swap_bytes_per_slot

@@ -101,11 +101,17 @@ def test_engine_rejects_bad_requests_and_deferred_settings(reference):
                        (Request(rid=0), "prompt")):
         with pytest.raises(ValueError, match=match):
             eng.submit(req)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # paging's own errors: no live request to pause, bad settings
+    with pytest.raises(KeyError, match="no live request"):
         eng.pause(0)
-    for kw in (dict(mesh=object()), dict(async_paging=True),
-               dict(swap_policy="idle", idle_swap_ms=5.0),
-               dict(role="prefill")):
+    for kw, match in ((dict(swap_policy="lru"), "swap_policy"),
+                      (dict(swap_policy="idle"), "idle_swap_ms"),
+                      (dict(gather_ring=0), "gather_ring"),
+                      (dict(host_swap_bytes=1), "swap_spool_dir")):
+        with pytest.raises(ValueError, match=match):
+            DecodeEngine(tcfg, tp, device="cpu", **ENGINE, **kw)
+    # the refusals that stay: meshes and engine roles
+    for kw in (dict(mesh=object()), dict(role="prefill")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecodeEngine(tcfg, tp, device="cpu", **ENGINE, **kw)
 

@@ -18,7 +18,8 @@ reference's ``init_lm`` through the bridge.
     ``compiled_programs()`` equal the reference's speculative engine's for
     ``k_draft`` 1, 2 and 4 (self-draft) and ``adaptive_k`` with the
     ``PRNGKey(99)`` draft, and the streams equal plain decode's;
-  * validation, the refusals of what stays unported, and the host guard
+  * validation, paging's errors and the refusals of what stays unported
+    (meshes, engine roles), and the host guard
     (``tests/torch_host_guard.py``) over the draft, verify and draft
     rebuild programs.
 """
@@ -296,10 +297,14 @@ def test_spec_validation_and_refusals():
     emb = np.zeros((4, tcfg.d_model), np.float32)
     with pytest.raises(ValueError, match="prompt_embeds"):
         eng.submit(Request(rid=0, prompt_embeds=emb, max_new_tokens=2))
+    # paging runs on a speculative engine: with nothing live, each verb
+    # raises its own KeyError; meshes and engine roles stay refused
     for call in (eng.pause, eng.resume, eng.preempt):
-        with pytest.raises(NotImplementedError,
-                           match="serving/scheduler.py"):
+        with pytest.raises(KeyError):
             call(0)
+    for extra in (dict(mesh=object()), dict(role="decode")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DecodeEngine(tcfg, tp, speculative=True, **kw, **extra)
 
 
 def test_spec_programs_stay_on_the_device_after_their_first_call(
