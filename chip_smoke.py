@@ -79,6 +79,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
      slot buffer (caches, sampler, tokens; draft caches and checkpoints)
      changes its address; swap-outs and ins, us/MiB, the gather / put /
      scatter and dispatch / stall splits and the overlap ratio printed;
+  11. (run right after phase 10, on phase 4's weights) the router, engine
+     roles and worker processes on phase 4's mix and engine settings,
+     through CUDA graphs, every stream bitwise phase 4's plain one; the
+     card's compute mode must be ``Default`` (several processes share
+     it): (a) ``Router([prefill engine, decode engine])`` in this
+     process, cold then warm: 6 handoffs per run; each engine's launches
+     counted around its own steps: the prefill engine ``gdn_prefill`` 36
+     x its batched chunks (4 per scan, 1 per admit) and no decode step or
+     ``gdn_decode``, the decode engine ``gdn_decode`` 36 x its decode
+     steps and no stage dispatch or ``gdn_prefill``; no paging call adds
+     a program, no slot buffer moves; TTFT, the decode engine's us/token
+     and each handoff's gather / put / scatter us/MiB printed; (b) two
+     both-role engines: ``drain(1)`` while engine 1 holds 3 queued
+     requests, a request paused on engine 0, engine 0's slots refilled,
+     the request resumed and moved to engine 1 by ``rebalance_swapped``;
+     (c) three ``EngineProxy`` workers started together
+     (``params_seed=0``; prefill, decode and both; each one's spawn to
+     first reply printed), prefill -> decode through the pipes, cold then
+     warm: 6 handoffs per run, each handoff's ``withdraw_handoff`` +
+     ``readmit_swapped`` seconds and tok/s printed, both workers exit 0
+     after ``shutdown()``; (d) the both-role worker beside (b)'s engine
+     1, ``round_robin``, killed before its first tick: dead [0], its 3
+     queued requests re-homed and finished; the phase's wall time
+     printed;
   5. training full-width qwen3-next-gdn through the port's ``Trainer``
      with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 5
      steps): first ``loss_fn`` and its gradients at the initial parameters
@@ -143,7 +167,9 @@ The second line before the last is a JSON object with one entry per
 kernel (the flash-decode entry carries its three shapes, its top-level
 numbers are those of the h2o-danube-1.8b shape that phase 6 drives; the
 two GDN entries carry phase 10's launches per part, ``launches_paging``,
-beside phase 4's in ``launches``); the
+and phase 11's, ``launches_disagg``, (c)'s as its workers report them,
+beside phase
+4's in ``launches``); the
 line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -1565,6 +1591,444 @@ def paging_phase(cfg, params, engine_mod, card, plain, plain_decode_us):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+def compute_mode() -> str:
+    """The card's compute mode; several processes share the card only in
+    ``Default``."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def step_launches(engines):
+    """Attribute the kernels' launches to the engine whose ``step`` made
+    them (a router launches nothing outside its engines' steps).  Returns
+    {engine index: launch counts added, keyed as ``launch_counts``}."""
+    from repro_torch.runtime.graphs import launch_counts
+    got = {i: {} for i in range(len(engines))}
+
+    def wrap(i, fn):
+        def step():
+            before = launch_counts()
+            fn()
+            for k, n in launch_counts().items():
+                got[i][k] = got[i].get(k, 0) + n - before[k]
+        return step
+
+    for i, eng in enumerate(engines):
+        eng.step = wrap(i, eng.step)
+    return got
+
+
+def count_chunks(eng):
+    """Count the prefill chunks ``eng``'s batched programs run: each scan
+    runs ``_MAX_SCAN_CHUNKS`` chunks whatever its rows take, each admit
+    one.  Returns a dict holding the running count under "chunks"."""
+    from repro_torch.serving.executor import _MAX_SCAN_CHUNKS as M
+    ex, got = eng.executor, {"chunks": 0}
+
+    def wrap(fn, n):
+        def call(*args, **kw):
+            got["chunks"] += n
+            return fn(*args, **kw)
+        return call
+
+    ex.bstage_chunk_scan = wrap(ex.bstage_chunk_scan, M)
+    ex.bstage_admit = wrap(ex.bstage_admit, 1)
+    return got
+
+
+def worker_work(before, after):
+    """A worker's work between two ``EngineProxy.launch_counts`` reads, the
+    first with ``reset=True``: (its launch counts, the prefill chunks its
+    batched programs ran, counted as ``count_chunks`` counts them, its
+    decode steps)."""
+    from repro_torch.serving.executor import _MAX_SCAN_CHUNKS as M
+    calls = {key: n - before["program_calls"].get(key, 0)
+             for key, n in after["program_calls"].items()}
+    chunks = sum(n * (M if key[0] == "bscan" else 1)
+                 for key, n in calls.items() if key[0] in ("bscan", "badmit"))
+    steps = sum(n * key[1] for key, n in calls.items() if key[0] == "decode")
+    return after["launches"], chunks, steps
+
+
+def handoff_splits(pre, dec):
+    """Per handoff, its swap split in us/MiB: the gather (with its
+    harvest) on the prefill engine, the put and the scatter on the decode
+    engine, read from the engines' counters around each call.  Returns
+    {rid: {"gather": us/MiB, "put": ..., "scatter": ...}}."""
+    out = {}
+    mib = pre.executor.swap_bytes_per_slot / 2 ** 20
+
+    def wrap(eng, name, parts, rid_of):
+        fn = getattr(eng, name)
+
+        def call(*args):
+            before = {p: getattr(eng, f"swap_{p}_s") for p in parts}
+            res = fn(*args)
+            rid = rid_of(args)
+            for p in parts:
+                out.setdefault(rid, {})[p] = (
+                    (getattr(eng, f"swap_{p}_s") - before[p]) * 1e6 / mib)
+            return res
+        setattr(eng, name, call)
+
+    wrap(pre, "_swap_out_ready", ("gather",), lambda a: a[0].req.rid)
+    wrap(dec, "_swap_in", ("put", "scatter"), lambda a: a[0])
+    return out
+
+
+def disagg_run(router, requests, plain, label, card):
+    """Serve phase 4's mix through ``router``: every stream bitwise
+    ``plain``, every request's TTFT stamped.  Returns (requests, wall
+    seconds)."""
+    reqs = requests()
+    t0 = time.perf_counter()
+    for r in reqs:
+        router.submit(r)
+    router.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [list(r.output) for r in reqs]
+    if streams != plain:
+        raise AssertionError(f"[11] {label}: streams differ from phase 4's "
+                             f"plain ones, first index per request "
+                             f"{first_difference(streams, plain)}")
+    if not all(r.done and r.ttft_s is not None and r.ttft_s > 0
+               for r in reqs):
+        raise AssertionError(f"[11] {label}: a request without a TTFT")
+    tokens = sum(len(r.output) for r in reqs)
+    print(f"  [11] {label} [{card}]: streams bitwise phase 4's; {tokens} "
+          f"tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s), mean TTFT "
+          f"{np.mean([r.ttft_s for r in reqs]) * 1e3:.1f} ms")
+    return reqs, wall
+
+
+def disagg_phase(cfg, params, engine_mod, card, plain):
+    """The router, engine roles and worker processes on full-width
+    qwen3-next-gdn, phase 4's mix and engine settings, through CUDA
+    graphs, every stream bitwise phase 4's plain ``plain``: (a)
+    ``Router([prefill engine, decode engine])`` in this process, cold
+    then warm; (b) migration between two both-role engines: ``drain(1)``
+    with engine 1 holding queued requests, then a request paused on
+    engine 0, engine 0's slots refilled, the request resumed and moved
+    by ``rebalance_swapped`` to engine 1; (c) a prefill and a decode
+    worker process (``EngineProxy``, weights from seed 0 drawn in each
+    worker), cold then warm; (d) a both-role worker killed before its first tick beside
+    (b)'s engine 1, its requests re-homed.  Returns the GDN kernels'
+    launches by part: (c)'s are those the two workers report for
+    themselves (``EngineProxy.launch_counts``), the others this
+    process's."""
+    import warnings
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    Router, EngineProxy = engine_mod.Router, engine_mod.EngineProxy
+    from repro_torch.kernels import gdn_decode as kdecode
+    from repro_torch.kernels import gdn_prefill as kprefill
+    from repro_torch.runtime.graphs import add_launches, launch_counts
+    from repro_torch.serving import wire
+    dkey, pkey = (kdecode.__name__, ""), (kprefill.__name__, "")
+    kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
+              seed=0, device="cuda")
+    prompts = _phase4_prompts(cfg.vocab)
+    n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
+    out = {"gdn_decode": {}, "gdn_prefill": {}}
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32,
+                        temperature=0.8 if i == 2 else 0.0,
+                        top_k=40 if i == 2 else 0)
+                for i, p in enumerate(prompts)]
+
+    mode = compute_mode()
+    print(f"  [11] compute mode: {mode}")
+    if mode != "Default":
+        raise AssertionError(f"[11] compute mode {mode!r}: parts (c) and "
+                             f"(d) need several processes on the card "
+                             f"(Default)")
+
+    # (a) disaggregation in this process
+    pre = Engine(cfg, params, role="prefill", **kw)
+    dec = Engine(cfg, params, role="decode", **kw)
+    ptrs = [buffer_ptrs(e.executor) for e in (pre, dec)]
+    calls = [watch_swaps(e) for e in (pre, dec)]
+    chunks = count_chunks(pre)
+    per_engine = step_launches([pre, dec])
+    splits = handoff_splits(pre, dec)
+    router = Router([pre, dec])
+    handed = []                         # one record, for its wire size
+    withdraw = pre.withdraw_handoff
+
+    def keep(*args):
+        rec = withdraw(*args)
+        handed[:] = [rec]
+        return rec
+    pre.withdraw_handoff = keep
+    for run in ("cold", "warm"):
+        for e in (pre, dec):
+            e.reset_metrics()
+        for d in per_engine.values():
+            d.clear()
+        for c in calls:
+            c.update(dict.fromkeys(c, 0))
+        splits.clear()
+        chunks["chunks"] = 0
+        handoffs0 = router.handoffs
+        add_launches(launch_counts(), -1)           # zero every count
+        reqs, _ = disagg_run(router, requests, plain,
+                             f"(a) prefill -> decode, {run}", card)
+        counts = launch_counts()
+        pm, dm = pre.metrics(), dec.metrics()
+        got = {name: (per_engine[0].get(key, 0), per_engine[1].get(key, 0))
+               for name, key in (("decode", dkey), ("prefill", pkey))}
+        print(f"  [11] (a) {run}: {router.handoffs - handoffs0} handoffs; "
+              f"prefill engine {pm['stage_dispatches']} stage dispatches, "
+              f"{chunks['chunks']} batched chunks, {pre.decode_steps} decode "
+              f"steps, gdn_prefill {got['prefill'][0]}, gdn_decode "
+              f"{got['decode'][0]}; decode engine {dm['stage_dispatches']} "
+              f"stage dispatches, {dec.decode_steps} decode steps, "
+              f"gdn_decode {got['decode'][1]}, gdn_prefill "
+              f"{got['prefill'][1]}, {dm['decode_us_per_token']:.1f} "
+              f"us/token; swap calls "
+              f"{[{k: n for k, n in c.items() if n} for c in calls]}")
+        print(f"  [11] (a) {run}: per handoff, us/MiB (gather / put / "
+              f"scatter) "
+              + "; ".join(f"rid {rid}: {s['gather']:.1f} / {s['put']:.1f} "
+                          f"/ {s['scatter']:.1f}"
+                          for rid, s in sorted(splits.items())))
+        if router.handoffs - handoffs0 != 6 or pm["handoffs_out"] != 6:
+            raise AssertionError(f"[11] (a) {run}: "
+                                 f"{router.handoffs - handoffs0} handoffs, "
+                                 f"not 6")
+        if dm["stage_dispatches"] or got["prefill"][1] \
+                or pre.decode_steps or got["decode"][0]:
+            raise AssertionError(f"[11] (a) {run}: the decode engine "
+                                 f"prefilled or the prefill engine decoded")
+        if got["prefill"][0] != n_gdn * chunks["chunks"] \
+                or got["decode"][1] != n_gdn * dec.decode_steps \
+                or got["decode"][1] <= 0 or chunks["chunks"] <= 0:
+            raise AssertionError(f"[11] (a) {run}: launches {got}, not "
+                                 f"{n_gdn} x {chunks['chunks']} chunks / "
+                                 f"{n_gdn} x {dec.decode_steps} steps")
+        if (counts[dkey], counts[pkey]) != (sum(got["decode"]),
+                                            sum(got["prefill"])):
+            raise AssertionError(f"[11] (a) {run}: a launch outside the "
+                                 f"engines' steps")
+        out["gdn_decode"][f"a_{run}"] = counts[dkey]
+        out["gdn_prefill"][f"a_{run}"] = counts[pkey]
+    if [buffer_ptrs(e.executor) for e in (pre, dec)] != ptrs:
+        raise AssertionError("[11] (a): a slot buffer moved")
+    print(f"  [11] (a) warm: mean TTFT "
+          f"{np.mean([r.ttft_s for r in reqs]) * 1e3:.1f} ms, decode engine "
+          f"{dm['decode_us_per_token']:.1f} us/token [{card}]")
+    del pre, dec, router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) migration between two both-role engines
+    e0, e1 = Engine(cfg, params, **kw), Engine(cfg, params, **kw)
+    ptrs = [buffer_ptrs(e.executor) for e in (e0, e1)]
+    calls = [watch_swaps(e) for e in (e0, e1)]
+    router = Router([e0, e1], policy="round_robin")
+    add_launches(launch_counts(), -1)
+    reqs = requests()
+    t0 = time.perf_counter()
+    for r in reqs:
+        router.submit(r)
+    if e1.queue_len != 3:
+        raise AssertionError(f"[11] (b): engine 1 holds {e1.queue_len} "
+                             f"queued requests, not 3")
+    moved = router.drain(1)
+    if moved < 1 or e1.queue_len:
+        raise AssertionError(f"[11] (b): drain(1) moved {moved}")
+    for _ in range(200):
+        router.step()
+        if reqs[0].state == "active" and len(reqs[0].output) >= 3:
+            break
+    else:
+        raise AssertionError("[11] (b): rid 0 never decoded")
+    router.pause(0)
+    for _ in range(50):                 # engine 0's freed slot refilled
+        router.step()
+        if not e0.free_slots:
+            break
+    else:
+        raise AssertionError("[11] (b): engine 0's freed slot stayed free")
+    router.resume(0)
+    router.undrain(1)
+    migrated = router.migrated
+    router.step()                       # rebalance_swapped moves rid 0
+    if router.migrated <= migrated or not any(
+            r is reqs[0] for r in e1._all):
+        raise AssertionError("[11] (b): rebalance_swapped did not move "
+                             "rid 0 to engine 1")
+    router.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [list(r.output) for r in reqs]
+    if streams != plain:
+        raise AssertionError(f"[11] (b): streams differ from phase 4's, "
+                             f"first index per request "
+                             f"{first_difference(streams, plain)}")
+    if [buffer_ptrs(e.executor) for e in (e0, e1)] != ptrs:
+        raise AssertionError("[11] (b): a slot buffer moved")
+    counts = launch_counts()
+    steps = e0.decode_steps + e1.decode_steps
+    m = router.metrics()
+    print(f"  [11] (b) migration [{card}]: streams bitwise phase 4's; "
+          f"drain(1) moved {moved}, rebalance_swapped moved rid 0 "
+          f"(migrated {router.migrated}); {m['swap_outs']} swap-outs / "
+          f"{m['swap_ins']} swap-ins, "
+          f"{m['swap_s'] * 1e6 / (m['swap_bytes'] / 2 ** 20):.1f} "
+          f"us/MiB; {wall:.3f} s; gdn_decode {counts[dkey]} = {n_gdn} x "
+          f"{steps} steps, gdn_prefill {counts[pkey]}; swap calls "
+          f"{[{k: n for k, n in c.items() if n} for c in calls]}")
+    if counts[dkey] != n_gdn * steps or m["swap_ins"] != m["swap_outs"]:
+        raise AssertionError(f"[11] (b): launches {counts[dkey]} != "
+                             f"{n_gdn} x {steps}, or swaps out "
+                             f"{m['swap_outs']} != in {m['swap_ins']}")
+    out["gdn_decode"]["b"] = counts[dkey]
+    out["gdn_prefill"]["b"] = counts[pkey]
+    del e0, router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) and (d): three workers started together
+    def spawn(role):
+        t0 = time.perf_counter()
+        prox = EngineProxy(cfg, params_seed=0, role=role, **kw)
+        return prox, time.perf_counter() - t0
+
+    from concurrent.futures import ThreadPoolExecutor
+    roles = ("prefill", "decode", "both")
+    with ThreadPoolExecutor(len(roles)) as pool:
+        futs = [pool.submit(spawn, role) for role in roles]
+        started = [f.result() for f in futs]    # raises a failed start-up
+    workers = [p for p, _ in started]
+    try:
+        print(f"  [11] (c) workers started together, spawn to first reply "
+              f"[{card}]: "
+              + ", ".join(f"{p.role} pid {p.proc.pid} {s!r} s on "
+                          f"{p.device}" for p, s in started))
+        pre, dec, lone = workers
+        pipe, wire_bytes = {}, []
+
+        def timed(eng, name):
+            fn = getattr(eng, name)
+
+            def call(*args):
+                t0 = time.perf_counter()
+                res = fn(*args)
+                rec = res if res is not None else args[0]
+                if rec is not None:
+                    pipe.setdefault(rec.req.rid, {})[name] = (
+                        time.perf_counter() - t0)
+                return res
+            setattr(eng, name, call)
+
+        timed(pre, "withdraw_handoff")
+        timed(dec, "readmit_swapped")
+        wire_bytes.append(len(wire.encode_swap_record(handed[0])))
+        router = Router([pre, dec])
+        for run in ("cold", "warm"):    # warm: the workers' graphs replay
+            pipe.clear()
+            handoffs0 = router.handoffs
+            router.reset_metrics()
+            snaps = [p.launch_counts(reset=True) for p in (pre, dec)]
+            add_launches(launch_counts(), -1)
+            disagg_run(router, requests, plain,
+                       f"(c) prefill worker -> decode worker, {run}", card)
+            mine = launch_counts()
+            work = [worker_work(s, p.launch_counts())
+                    for s, p in zip(snaps, (pre, dec))]
+            m = router.metrics()
+            print(f"  [11] (c) {run}: per handoff through the pipes, s "
+                  f"(withdraw_handoff + readmit_swapped, each one swap "
+                  f"record of ~{wire_bytes[0]} B wire-encoded): "
+                  + "; ".join(f"rid {rid}: {t['withdraw_handoff']:.4f} + "
+                              f"{t['readmit_swapped']:.4f}"
+                              for rid, t in sorted(pipe.items())))
+            pm, dm = m["per_engine"]
+            print(f"  [11] (c) {run}: {router.handoffs - handoffs0} "
+                  f"handoffs; decode worker "
+                  f"{dm['decode_us_per_token']:.1f} us/token, prefill "
+                  f"worker {pm['decoded_tokens']} decoded tokens, decode "
+                  f"worker {dm['stage_dispatches']} stage dispatches")
+            (pl, pchunks, psteps), (dl, dchunks, dsteps) = work
+            print(f"  [11] (c) {run}: prefill worker {pchunks} batched "
+                  f"chunks, {psteps} decode steps, gdn_prefill {pl[pkey]}, "
+                  f"gdn_decode {pl[dkey]}; decode worker {dchunks} batched "
+                  f"chunks, {dsteps} decode steps, gdn_decode {dl[dkey]}, "
+                  f"gdn_prefill {dl[pkey]}; this process gdn_decode "
+                  f"{mine[dkey]}, gdn_prefill {mine[pkey]}")
+            if router.handoffs - handoffs0 != 6 or pm["handoffs_out"] != 6 \
+                    or pm["decoded_tokens"] or dm["stage_dispatches"]:
+                raise AssertionError(f"[11] (c) {run}: "
+                                     f"{router.handoffs - handoffs0} "
+                                     f"handoffs, or a worker outside its "
+                                     f"role")
+            if pl[pkey] != n_gdn * pchunks or pchunks <= 0 or pl[dkey] \
+                    or psteps or dl[dkey] != n_gdn * dsteps or dsteps <= 0 \
+                    or dl[pkey] or dchunks or mine[dkey] or mine[pkey]:
+                raise AssertionError(f"[11] (c) {run}: worker launches "
+                                     f"{pl} / {dl}, not {n_gdn} x "
+                                     f"{pchunks} chunks on the prefill "
+                                     f"worker and {n_gdn} x {dsteps} "
+                                     f"steps on the decode worker, or "
+                                     f"{mine} in this process")
+            out["gdn_decode"][f"c_{run}"] = dl[dkey]
+            out["gdn_prefill"][f"c_{run}"] = pl[pkey]
+        for p in (pre, dec):
+            p.shutdown()
+            if p.proc.returncode != 0:
+                raise AssertionError(f"[11] (c): worker {p.role} exited "
+                                     f"{p.proc.returncode}")
+        print(f"  [11] (c) both workers exited with code 0")
+
+        # (d) the both-role worker killed beside engine 1 of (b)
+        router = Router([lone, e1], policy="round_robin")
+        add_launches(launch_counts(), -1)
+        steps0 = e1.decode_steps
+        reqs = requests()
+        for r in reqs:
+            router.submit(r)
+        if router.placed != [3, 3]:
+            raise AssertionError(f"[11] (d): placed {router.placed}")
+        lone.proc.kill()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            router.run_until_done()
+        torch.cuda.synchronize()
+        streams = [list(r.output) for r in reqs]
+        m = router.metrics()
+        counts = launch_counts()
+        print(f"  [11] (d) worker killed before its first tick [{card}]: "
+              f"dead {m['dead']}, rehomed {m['rehomed']}, warned "
+              f"{[str(w.message)[:60] for w in caught]}; gdn_decode "
+              f"{counts[dkey]}, gdn_prefill {counts[pkey]}")
+        if m["dead"] != [0] or m["rehomed"] != 3 or not any(
+                "worker died" in str(w.message) for w in caught):
+            raise AssertionError(f"[11] (d): dead {m['dead']}, rehomed "
+                                 f"{m['rehomed']}")
+        if streams != plain:
+            raise AssertionError(f"[11] (d): streams differ from phase "
+                                 f"4's, first index per request "
+                                 f"{first_difference(streams, plain)}")
+        if counts[dkey] != n_gdn * (e1.decode_steps - steps0):
+            raise AssertionError(f"[11] (d): gdn_decode {counts[dkey]}")
+        out["gdn_decode"]["d"] = counts[dkey]
+        out["gdn_prefill"]["d"] = counts[pkey]
+        print(f"  [11] (d): every request finished, streams bitwise phase "
+              f"4's")
+    finally:
+        for p in workers:
+            p.shutdown()
+    del e1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 
 TRAIN_STEPS = 5
@@ -2053,6 +2517,13 @@ def main():
     t0 = time.perf_counter()
     paging = paging_phase(cfg, params, engine_mod, card, plain, warm_us)
     print(f"  [10] phase 10 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[11] router, engine roles and worker processes on full-width "
+          f"{cfg.name}, phase 4's mix, through CUDA graphs [{card}]")
+    t0 = time.perf_counter()
+    disagg = disagg_phase(cfg, params, engine_mod, card, plain)
+    print(f"  [11] phase 11 took {time.perf_counter() - t0:.1f} s [{card}]")
     del params
     torch.cuda.empty_cache()
 
@@ -2074,6 +2545,7 @@ def main():
         r["launches"] = launches[r["name"]]
         if r["name"] in paging:
             r["launches_paging"] = paging[r["name"]]
+            r["launches_disagg"] = disagg[r["name"]]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": rows}))

@@ -26,6 +26,19 @@ verifies them in one program; the streams are those of plain decode.
 The paging flags (``--swap-policy``, ``--idle-swap-ms``,
 ``--max-live-requests``, ``--async-paging``, ``--gather-ring``,
 ``--host-swap-bytes``, ``--swap-spool-dir``) are the reference's.
+
+``--engines N`` fronts N engines with a ``Router`` (``--router-policy``);
+all of them run on ``--device``.  ``--rpc`` puts each engine in its own
+worker process (``serving.rpc.EngineProxy``; each draws the weights from
+``--seed`` itself), ``--workers N`` is short for ``--rpc --engines N``.
+``--roles`` gives per-engine roles, cycled over the engines (e.g.
+``prefill,decode``): prefill engines pause every request at the admit
+boundary and the router ships its image to the least-loaded decode
+engine; the streams are the colocated ones.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
+        --requests 4 --max-new 6 --slots 2 --max-len 64 --kernels \
+        --device cpu --rpc --workers 2 --roles prefill,decode
 """
 from __future__ import annotations
 
@@ -36,7 +49,34 @@ import numpy as np
 
 from repro_torch import configs
 from repro_torch.models import lm
-from repro_torch.serving.engine import DecodeEngine, Request
+from repro_torch.serving.engine import (DecodeEngine, EngineProxy, Request,
+                                        Router)
+
+
+def _roles(args):
+    """Per-engine roles, cycled over ``--roles`` (default: every engine
+    serves both prefill and decode)."""
+    roles = [r.strip() for r in (args.roles or "both").split(",")]
+    for r in roles:
+        if r not in ("prefill", "decode", "both"):
+            raise SystemExit(f"--roles: unknown role {r!r} "
+                             f"(prefill/decode/both)")
+    return [roles[i % len(roles)] for i in range(args.engines)]
+
+
+def build_engines(cfg, params, args, common):
+    """One engine per ``--engines``, each with its role, all on
+    ``--device``; with ``--rpc`` each is an ``EngineProxy`` worker process
+    that draws the weights from ``--seed`` itself."""
+    engines = []
+    for i, role in enumerate(_roles(args)):
+        if args.rpc:
+            print(f"spawning worker {i} (role={role})...")
+            engines.append(EngineProxy(cfg, params_seed=args.seed,
+                                       role=role, **common))
+        else:
+            engines.append(DecodeEngine(cfg, params, role=role, **common))
+    return engines
 
 
 def main(argv=None):
@@ -107,6 +147,21 @@ def main(argv=None):
     ap.add_argument("--swap-spool-dir", default=None,
                     help="directory for spilled swap images (wire codec); "
                          "images reload on resume")
+    ap.add_argument("--engines", type=int, default=1,
+                    help="number of engines behind the router")
+    ap.add_argument("--rpc", action="store_true", default=False,
+                    help="run each engine in its own worker process "
+                         "(EngineWorker subprocess behind an "
+                         "EngineProxy) instead of in-process")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="shorthand for --rpc --engines N")
+    ap.add_argument("--roles", default=None,
+                    help="comma list of per-engine roles cycled over the "
+                         "engines, e.g. 'prefill,decode' for "
+                         "disaggregated serving (default: every engine "
+                         "is 'both')")
+    ap.add_argument("--router-policy", default="least_loaded",
+                    choices=("least_loaded", "round_robin"))
     ap.add_argument("--serialized", dest="overlap", action="store_false",
                     default=True,
                     help="disable prefill/decode overlap (admit prefills "
@@ -149,13 +204,17 @@ def main(argv=None):
                     help="run the programs eagerly on the card instead of "
                          "replaying CUDA graphs")
     args = ap.parse_args(argv)
+    if args.workers is not None:
+        args.rpc = True
+        args.engines = args.workers
 
     cfg = configs.get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.kernels:
         cfg = cfg.replace(use_pallas_serving=True)
-    params = lm.init_lm(args.seed, cfg, device=args.device)
+    params = (None if args.rpc
+              else lm.init_lm(args.seed, cfg, device=args.device))
     draft_cfg = draft_params = None
     if args.speculative and args.draft_config != "self":
         draft_cfg = configs.get_arch(args.draft_config)
@@ -169,26 +228,45 @@ def main(argv=None):
                              f"{cfg.vocab}")
         draft_params = lm.init_lm(args.seed + 1, draft_cfg,
                                   device=args.device)
-    eng = DecodeEngine(cfg, params, max_slots=args.slots,
-                       max_len=args.max_len, seed=args.seed,
-                       decode_block=args.decode_block, overlap=args.overlap,
-                       prefill_chunk=args.prefill_chunk,
-                       budget_ticks=args.budget_ticks,
-                       staging_depth=args.staging_depth,
-                       plan_mode=args.plan_mode,
-                       prefill_batching=args.prefill_batching,
-                       prefill_budget=args.prefill_budget,
-                       speculative=args.speculative, draft_cfg=draft_cfg,
-                       draft_params=draft_params, k_draft=args.k_draft,
-                       adaptive_k=args.adaptive_k,
-                       swap_policy=args.swap_policy,
-                       idle_swap_ms=args.idle_swap_ms,
-                       max_live_requests=args.max_live_requests,
-                       async_paging=args.async_paging,
-                       gather_ring=args.gather_ring,
-                       host_swap_bytes=args.host_swap_bytes,
-                       swap_spool_dir=args.swap_spool_dir,
-                       device=args.device, cuda_graphs=args.cuda_graphs)
+    common = dict(max_slots=args.slots, max_len=args.max_len, seed=args.seed,
+                  decode_block=args.decode_block, overlap=args.overlap,
+                  prefill_chunk=args.prefill_chunk,
+                  budget_ticks=args.budget_ticks,
+                  staging_depth=args.staging_depth,
+                  plan_mode=args.plan_mode,
+                  prefill_batching=args.prefill_batching,
+                  prefill_budget=args.prefill_budget,
+                  speculative=args.speculative, draft_cfg=draft_cfg,
+                  draft_params=draft_params, k_draft=args.k_draft,
+                  adaptive_k=args.adaptive_k,
+                  swap_policy=args.swap_policy,
+                  idle_swap_ms=args.idle_swap_ms,
+                  max_live_requests=args.max_live_requests,
+                  async_paging=args.async_paging,
+                  gather_ring=args.gather_ring,
+                  host_swap_bytes=args.host_swap_bytes,
+                  swap_spool_dir=args.swap_spool_dir,
+                  device=args.device, cuda_graphs=args.cuda_graphs)
+    engines = build_engines(cfg, params, args, common)
+    try:
+        router = Router(engines, policy=args.router_policy)
+        print(f"topology: {args.engines} "
+              f"{'worker process(es)' if args.rpc else 'engine(s)'} on "
+              f"{args.device} (staging ring depth {args.staging_depth}, "
+              f"router={args.router_policy}, "
+              f"roles={','.join(_roles(args))})")
+        if not args.rpc:
+            report(args, engines[0])
+        serve(cfg, args, router, engines)
+    finally:
+        if args.rpc:
+            for e in engines:
+                e.shutdown()
+
+
+def report(args, eng):
+    """Print an in-process engine's slot, paging and speculative
+    budgets."""
     print(f"engine: {args.slots} slots x (persistent state "
           f"{eng.state_bytes_per_slot / 2**10:.1f} KiB + window/KV "
           f"{eng.window_bytes_per_slot / 2**10:.1f} KiB) = "
@@ -221,20 +299,28 @@ def main(argv=None):
               f"checkpoint + {ex.draft_bytes_per_slot / 2**10:.1f} KiB "
               f"draft state ({ex.speculative_bytes / 2**20:.2f} MiB total, "
               f"from checkpoint_spec)")
+
+
+def serve(cfg, args, router, engines):
+    """Submit ``--requests`` prompts through the router, serve them and
+    print the summary."""
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         prompt = rng.integers(1, cfg.vocab, size=rng.integers(4, 17),
                               dtype=np.int32)
-        eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new,
-                           temperature=args.temperature, top_k=args.top_k,
-                           top_p=args.top_p))
+        router.submit(Request(rid=i, prompt=prompt,
+                              max_new_tokens=args.max_new,
+                              temperature=args.temperature,
+                              top_k=args.top_k, top_p=args.top_p))
     t0 = time.perf_counter()
-    done = eng.run_until_done()
+    done = sorted(router.run_until_done(), key=lambda r: r.rid)
     dt = time.perf_counter() - t0
-    m = eng.metrics()
+    m = router.metrics()
     print(f"served {m['requests']} requests, {m['tokens']} tokens in "
           f"{dt:.2f}s ({m['tokens'] / dt:.1f} tok/s) over {m['ticks']} "
-          f"engine ticks")
+          f"engine ticks (placed {m['placed']}, migrated {m['migrated']}"
+          + (f", {m['handoffs']} prefill→decode handoffs"
+             if m["handoffs"] else "") + ")")
     print(f"  decode: {m['decode_us_per_token']:.0f} us/token "
           f"({m['decoded_tokens']} tokens in {m['decode_s']:.2f}s, "
           f"{m['stage_dispatches']} staged prefill + "
@@ -250,9 +336,11 @@ def main(argv=None):
           f"latency {m['mean_latency_s'] * 1e3:.1f} ms, "
           f"{m['mean_tokens_per_s']:.1f} tok/s")
     if m["swap_outs"] or m["swapped"]:
+        us_mb = (m["swap_s"] * 1e6 / (m["swap_bytes"] / 2**20)
+                 if m["swap_bytes"] else 0.0)
         print(f"  paging: {m['swap_outs']} swap-outs / {m['swap_ins']} "
               f"swap-ins, {m['swap_bytes'] / 2**20:.2f} MiB moved "
-              f"({m['swap_us_per_mb']:.0f} us/MiB), {m['swapped']} "
+              f"({us_mb:.0f} us/MiB), {m['swapped']} "
               f"session(s) parked on host at exit")
         print(f"    dispatch {m['swap_dispatch_s'] * 1e3:.2f} ms / stall "
               f"{m['swap_stall_s'] * 1e3:.2f} ms"
@@ -263,7 +351,9 @@ def main(argv=None):
               + (f", {m['spills']} spills / {m['spill_loads']} reloads "
                  f"({m['spill_bytes'] / 2**20:.2f} MiB spooled)"
                  if args.swap_spool_dir else ""))
-    print(f"  programs: {eng.executor.compiled_programs()}")
+    if not args.rpc:
+        print(f"  programs: "
+              f"{[e.executor.compiled_programs() for e in engines]}")
     for r in done[:4]:
         print(f"  req {r.rid}: ttft {r.ttft_s * 1e3:.1f} ms, "
               f"{len(r.output)} toks: {list(r.output)}")

@@ -11,7 +11,8 @@ executor split (port of ``repro.serving.engine``).
     ``resume`` / ``preempt`` / ``touch``, ``swap_policy``,
     ``idle_swap_ms``, ``max_live_requests``, ``async_paging`` with
     ``gather_ring``, spill through ``host_swap_bytes`` /
-    ``swap_spool_dir``), metrics.
+    ``swap_spool_dir``), engine roles (``role="prefill"`` / ``"decode"``
+    / ``"both"``) and the router-facing surface, metrics.
   * ``repro_torch.serving.executor.DeviceExecutor`` — device side: slot,
     staging, draft and checkpoint buffers allocated once and updated in
     place, the decode, prefill, speculative and scatter programs, and the
@@ -23,12 +24,21 @@ go through the hand-written CUDA kernels on the card (their plain versions
 on the CPU).  ``cuda_graphs`` (default None: on the card, not on the CPU)
 replays each decode and prefill program from a CUDA graph;
 ``cuda_graphs=False`` runs them eagerly on the card, ``True`` on the CPU
-raises.  The router, RPC workers, engine roles and meshes of the
-reference come in later slices; asking for them raises
+raises.
+
+  * ``repro_torch.serving.router.Router`` fronts several engines
+    (placement, backlog and resume-claim migration, drain, the
+    prefill->decode handoff sweep, worker-death recovery);
+  * ``repro_torch.serving.rpc.EngineProxy`` runs an engine in a worker
+    process behind the same surface (``WorkerDied`` when it is gone).
+
+Meshes of the reference come in a later slice; asking for one raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
+from repro_torch.serving.router import Router
+from repro_torch.serving.rpc import EngineProxy, WorkerDied
 from repro_torch.serving.scheduler import Request, Scheduler
 
 
@@ -37,4 +47,5 @@ class DecodeEngine(Scheduler):
     ``metrics``."""
 
 
-__all__ = ["DecodeEngine", "Request"]
+__all__ = ["DecodeEngine", "EngineProxy", "Request", "Router",
+           "WorkerDied"]

@@ -51,8 +51,20 @@ head resume claim's put a tick ahead of a predictable grant; beyond
 ``host_swap_bytes`` of held images the coldest dormant one spills to
 ``swap_spool_dir`` through ``serving.wire``.
 
-Roles and meshes of the reference raise ``NotImplementedError`` naming
-the reference module that holds them.
+**Roles** (disaggregated serving): a ``role="prefill"`` engine pauses every
+request at the admit boundary (prompt consumed, first token drawn, sampler
+row advanced) and parks the swapped image on its handoff queue; a
+``role="decode"`` engine takes no fresh prompt, only images through
+``readmit_swapped``; ``"both"`` (the default) does both.  The narrow
+surface a ``Router`` reads (``load``, ``queue_len``, ``free_slots``,
+``idle_capacity``, ``handoffs``, ``owns``, ...) and the migration verbs
+(``withdraw``, ``readmit``, ``withdraw_swapped``, ``withdraw_handoff``,
+``readmit_swapped``) are the reference's; an ``rpc.EngineProxy`` mirrors
+them from a worker process.  A migrated image is host numpy, so it
+restores through the taker's own ``_fill_slot`` wherever the taker runs.
+
+Meshes of the reference raise ``NotImplementedError`` naming the
+reference module that holds them.
 """
 from __future__ import annotations
 
@@ -69,7 +81,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.serving import wire
 from repro_torch.serving.executor import (_MAX_SCAN_CHUNKS, DeviceExecutor,
                                          PendingSwap, PlanStep,
-                                         SwappedState, deferred)
+                                         SwappedState)
 
 # request lifecycle: QUEUED, STAGING (chunked prefill into the ring), READY
 # (first token drawn, waiting for a slot), ACTIVE (slot-resident) and
@@ -238,9 +250,10 @@ class Scheduler:
         if adaptive_k and not speculative:
             raise ValueError("adaptive_k tunes the speculative draft "
                              "length — set speculative=True")
-        if role != "both":
-            raise deferred(f"role={role!r} (disaggregated serving)",
-                           "serving/router.py and serving/rpc.py")
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role must be one of prefill/decode/both, "
+                             f"got {role!r}")
+        self.role = role
         self.cfg = cfg
         self.params = params
         self.max_slots = max_slots
@@ -297,6 +310,10 @@ class Scheduler:
         self._draining_q: Deque[int] = deque()
         self.host_swap_bytes = host_swap_bytes
         self.swap_spool_dir = swap_spool_dir
+        # disaggregation: a prefill-role engine parks each admit-boundary
+        # swap here until the router ships it to a decode engine
+        self._handoff_q: Deque[int] = deque()
+        self.handoffs_out = 0       # records shipped by withdraw_handoff
         # the speculative tick's draft, pending across the step boundary:
         # (k, device draft tokens, live rids); a pause or preempt of an
         # active request meanwhile waits for the verify (rid, resume)
@@ -386,6 +403,12 @@ class Scheduler:
 
     # ------------------------------------------------------------ submit
     def submit(self, req: Request):
+        # a decode-role engine never prefills: it adopts admitted state
+        # through readmit_swapped (the prefill->decode handoff)
+        if self.role == "decode":
+            raise ValueError(f"req {req.rid}: engine role is 'decode' — "
+                             f"it accepts handoff images "
+                             f"(readmit_swapped), not fresh prompts")
         if not 0.0 < req.top_p <= 1.0:
             raise ValueError(f"req {req.rid}: top_p must be in (0, 1], "
                              f"got {req.top_p}")
@@ -420,8 +443,7 @@ class Scheduler:
                 f"replay; submit to a non-speculative engine")
         # the swap store and resume queue are keyed by rid, so a rid must
         # be unique among the live requests (a finished rid may recur)
-        if req.rid in self.swapped or any(
-                r.rid == req.rid and not r.done for r in self._all):
+        if self.owns(req.rid):
             raise ValueError(f"req {req.rid}: rid already live on this "
                              f"engine (swap bookkeeping is rid-keyed)")
         if self.max_live_requests is not None:
@@ -438,6 +460,96 @@ class Scheduler:
         self.queue.append(req)
         self._all.append(req)
 
+    def withdraw(self, *, oldest: bool = False) -> Optional[Request]:
+        """Remove and return a queued (not yet staging) request, or None:
+        the router moves backlog across engines.  Rebalance takes the
+        newest (the queue head keeps its FIFO TTFT), drain the oldest
+        first so arrival order survives the move."""
+        if not self.queue:
+            return None
+        req = self.queue.popleft() if oldest else self.queue.pop()
+        self._forget(req)
+        return req
+
+    def readmit(self, req: Request):
+        """Put a withdrawn request back at the queue tail (the router's
+        undo when no other engine takes it); ``t_submit`` is kept."""
+        self.queue.append(req)
+        self._all.append(req)
+
+    def _forget(self, req: Request):
+        """Drop ``req`` from the request list by identity (two requests of
+        equal fields must not alias)."""
+        del self._all[next(i for i, r in enumerate(self._all) if r is req)]
+
+    def _release_record(self, rec: _Swapped) -> _Swapped:
+        """Make a record that leaves this engine whole: a draining gather
+        is harvested (forced if it has not landed), a spilled image read
+        back, a device prestage dropped (it lives on this engine's
+        device)."""
+        if rec.pending is not None:
+            self._harvest(rec, forced=not rec.pending.ready())
+        if rec.spool is not None:
+            self._load_spill(rec)
+        self._drop_prefetch(rec)
+        self._forget(rec.req)
+        return rec
+
+    def withdraw_swapped(self) -> Optional[_Swapped]:
+        """Remove and return the newest resuming request's swap record
+        (request + host image), or None: swap-aware rebalance migrates a
+        resume claim to any engine of the same config and ``max_len``.
+        Newest-first keeps this engine's resume-queue head.  The record
+        leaves with a complete host image."""
+        if not self.resume_q:
+            return None
+        return self._release_record(self.swapped.pop(self.resume_q.pop()))
+
+    def withdraw_handoff(self) -> Optional[_Swapped]:
+        """Remove and return the oldest completed-prefill swap record
+        awaiting dispatch to a decode engine, or None (a prefill-role
+        engine parks every admit-boundary swap on its handoff queue).  The
+        record leaves with a complete host image; under async paging the
+        drain has normally landed during the prefill ticks since."""
+        while self._handoff_q:
+            rec = self.swapped.pop(self._handoff_q.popleft(), None)
+            if rec is None:
+                continue            # withdrawn through another path
+            self._release_record(rec)
+            self.handoffs_out += 1
+            return rec
+        return None
+
+    def readmit_swapped(self, rec: _Swapped):
+        """Adopt a migrated swap record: the request joins this engine's
+        resume queue and its image enters a slot at the next grant
+        through this engine's own ``_fill_slot`` (every slot buffer keeps
+        its address; a speculative engine rebuilds the draft state at
+        the swap-in)."""
+        if self.owns(rec.req.rid):
+            raise ValueError(f"req {rec.req.rid}: rid already live on "
+                             f"this engine")
+        self._all.append(rec.req)
+        self.swapped[rec.req.rid] = rec
+        self.resume_q.append(rec.req.rid)
+        rec.req.state = RESUMING
+
+    @property
+    def load(self) -> int:
+        """Requests this engine still owes work to (router placement):
+        resuming requests claim a slot grant, dormant swapped ones cost
+        only host memory and are left out."""
+        return (len(self.active) + len(self.queue) + len(self._stagings)
+                + len(self.resume_q))
+
+    # ----------------------------------------------- router-facing surface
+    # the narrow read surface the Router uses; an rpc.EngineProxy mirrors
+    # exactly these from its worker's status snapshots
+    @property
+    def handoffs(self) -> int:
+        """Completed-prefill swap records awaiting handoff dispatch."""
+        return len(self._handoff_q)
+
     @property
     def queue_len(self) -> int:
         return len(self.queue)
@@ -445,6 +557,27 @@ class Scheduler:
     @property
     def free_slots(self) -> int:
         return len(self.free)
+
+    @property
+    def staging_len(self) -> int:
+        return len(self._stagings)
+
+    @property
+    def resume_len(self) -> int:
+        return len(self.resume_q)
+
+    @property
+    def idle_capacity(self) -> int:
+        """Free slots not already claimed by this engine's own backlog
+        (queue, staging ring or resume queue)."""
+        return (self.free_slots - self.queue_len - self.staging_len
+                - self.resume_len)
+
+    def owns(self, rid: int) -> bool:
+        """True when a live (not done) request ``rid`` is here: queued,
+        staging, active, resuming or swapped out."""
+        return rid in self.swapped or any(
+            r.rid == rid and not r.done for r in self._all)
 
     def done_requests(self) -> List[Request]:
         return [r for r in self._all if r.done]
@@ -658,6 +791,9 @@ class Scheduler:
             self._free_bufs.append(st.buf)
         self._stagings.remove(st)
         self._swap_out(st.req, pend, t0, resume=False)
+        if self.role == "prefill":
+            # a finished prefill whose image belongs on a decode engine
+            self._handoff_q.append(st.req.rid)
 
     def _swap_in(self, rid: int, slot: int):
         rec = self.swapped.pop(rid)
@@ -800,6 +936,10 @@ class Scheduler:
     def _stage_start(self, req: Request):
         buf = self._free_bufs.popleft()
         req.state = STAGING
+        # a prefill-role engine swaps out at the admit boundary instead of
+        # holding the request staged-ready (the mid-prefill pause's
+        # machinery); a request finished at its admit completes in place
+        handoff = self.role == "prefill"
         args = dict(seed=self.seed, rid=req.rid, temperature=req.temperature,
                     top_k=req.top_k, top_p=req.top_p, eos_id=req.eos_id,
                     budget=req.max_new_tokens)
@@ -810,12 +950,12 @@ class Scheduler:
             tail = (T - 1) % C + 1
             self._stagings.append(_Staging(req=req, plan=[], buf=buf,
                                            chunks_left=(T - tail) // C,
-                                           tail=tail))
+                                           tail=tail, pause_pending=handoff))
             self.executor.bstage_begin(buf, **args)
             return
         self._stagings.append(_Staging(
             req=req, plan=self.executor.plan_prefill(req.prompt_len),
-            buf=buf))
+            buf=buf, pause_pending=handoff))
         self.executor.stage_begin(buf, **args)
 
     def _stage_dispatch_one(self, st: _Staging):
@@ -1179,15 +1319,11 @@ class Scheduler:
         """Tick until the queue, the staging ring, the slots and the resume
         queue drain.  Dormant swapped-out requests (paused, not resumed)
         are no pending work: the loop returns with them on the host."""
-        def busy():
-            return (self.queue or self.active or self._stagings
-                    or self.resume_q)
-
         for _ in range(max_ticks):
-            if not busy():
+            if not self.load:
                 break
             self.step()
-        if busy():
+        if self.load:
             msg = (f"run_until_done: max_ticks={max_ticks} exhausted with "
                    f"{len(self.queue)} queued, {len(self.active)} active, "
                    f"{len(self._stagings)} staging, {len(self.resume_q)} "
@@ -1214,12 +1350,12 @@ class Scheduler:
         self.draft_prefills = 0
         self.draft_steps = 0
         self.verify_positions = 0
+        self.handoffs_out = 0
         self._metrics_seen = {id(r) for r in self._all if r.done}
 
     def metrics(self) -> Dict[str, float]:
         """Aggregate serving metrics over requests completed since the last
-        ``reset_metrics`` (the reference's keys but those of meshes and
-        roles)."""
+        ``reset_metrics`` (the reference's keys but those of meshes)."""
         done = [r for r in self._all
                 if r.done and id(r) not in self._metrics_seen]
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
@@ -1277,6 +1413,9 @@ class Scheduler:
             "host_swap_bytes_held": sum(
                 r.state.nbytes for r in self.swapped.values()
                 if r.state is not None),
+            "role": self.role,
+            "handoffs": len(self._handoff_q),
+            "handoffs_out": self.handoffs_out,
             "speculative": int(self.speculative),
             "k_draft": self.k_draft if self.speculative else 0,
             "adaptive_k": int(self.adaptive_k),

@@ -3,8 +3,8 @@
 
 One serializer for every path that moves a request's state across a
 process or storage boundary: the spill-to-disk tier of state paging
-(``Scheduler._spill`` / ``_load_spill``) today, and the router's RPC
-protocol in a later slice.
+(``Scheduler._spill`` / ``_load_spill``) and the frames of the worker
+processes' protocol (``serving.rpc``).
 
 The generic codec is byte for byte the reference's: a tiny tagged binary
 encoding (one-byte tags, 8-byte big-endian lengths and numbers) whose

@@ -155,7 +155,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.flash_attn", "repro_torch.models.ssm",
             "repro_torch.models.rglru", "repro_torch.models.mixers.ssm",
             "repro_torch.models.mixers.rglru",
-            "repro_torch.models.mixers.gdn_naive"} <= set(mods)
+            "repro_torch.models.mixers.gdn_naive",
+            "repro_torch.serving.router",
+            "repro_torch.serving.rpc"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -1241,3 +1241,65 @@ def test_paging_restore_keeps_every_address(cuda, async_paging):
     m = eng.metrics()
     assert m["swap_outs"] == m["swap_ins"] >= 2
     assert m["swap_bytes"] == 2 * m["swap_outs"] * ex.swap_bytes_per_slot
+
+
+# ------------------------------------------------ router, roles, workers
+
+@pytest.mark.cuda
+def test_router_disagg_through_graphs(cuda):
+    """A prefill engine handing every request to a decode engine, both
+    replaying CUDA graphs: the streams are one engine's, the decode
+    engine makes no stage dispatch and the prefill engine no decode
+    step."""
+    from repro_torch.serving.engine import Router
+    eng, reqs = _paging_engine()
+    want = reqs()
+    for r in want:
+        eng.submit(r)
+    eng.run_until_done()
+    pre, _ = _paging_engine(role="prefill")
+    dec, _ = _paging_engine(role="decode")
+    router = Router([pre, dec])
+    for run in range(2):                # cold (captures), then replayed
+        got = reqs()
+        for r in got:
+            router.submit(r)
+        router.run_until_done()
+        assert [list(r.output) for r in got] == \
+            [list(r.output) for r in want], run
+    assert router.handoffs == 2 * len(want)
+    assert dec.stage_dispatches == 0 and pre.decode_steps == 0
+    assert dec.executor.compiled_programs()["cuda_graphs"] > 0
+
+
+@pytest.mark.cuda
+def test_rpc_workers_on_the_card(cuda):
+    """A prefill and a decode worker process on the card, each drawing the
+    weights from seed 0 and loading the built kernels: the streams are
+    those of an in-process engine on the same seed, and both workers
+    exit 0."""
+    from repro_torch.serving.engine import EngineProxy, Router
+    eng, reqs = _paging_engine()
+    want = reqs()
+    for r in want:
+        eng.submit(r)
+    eng.run_until_done()
+    cfg = eng.cfg
+    kw = dict(max_slots=2, max_len=64, seed=0, decode_block=2,
+              prefill_chunk=8, device="cuda")
+    workers = [EngineProxy(cfg, params_seed=0, role=role, **kw)
+               for role in ("prefill", "decode")]
+    try:
+        assert all(w.device.startswith("cuda") for w in workers)
+        router = Router(workers)
+        got = reqs()
+        for r in got:
+            router.submit(r)
+        router.run_until_done()
+        assert [list(r.output) for r in got] == \
+            [list(r.output) for r in want]
+        assert router.metrics()["handoffs"] == len(want)
+    finally:
+        for w in workers:
+            w.shutdown()
+    assert [w.proc.returncode for w in workers] == [0, 0]

@@ -110,10 +110,12 @@ def test_engine_rejects_bad_requests_and_deferred_settings(reference):
                       (dict(host_swap_bytes=1), "swap_spool_dir")):
         with pytest.raises(ValueError, match=match):
             DecodeEngine(tcfg, tp, device="cpu", **ENGINE, **kw)
-    # the refusals that stay: meshes and engine roles
-    for kw in (dict(mesh=object()), dict(role="prefill")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecodeEngine(tcfg, tp, device="cpu", **ENGINE, **kw)
+    # the refusal that stays: meshes; an unknown engine role is the
+    # reference's ValueError
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(tcfg, tp, device="cpu", **ENGINE, mesh=object())
+    with pytest.raises(ValueError, match="role must be"):
+        DecodeEngine(tcfg, tp, device="cpu", **ENGINE, role="verifier")
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(reference):

@@ -298,13 +298,15 @@ def test_spec_validation_and_refusals():
     with pytest.raises(ValueError, match="prompt_embeds"):
         eng.submit(Request(rid=0, prompt_embeds=emb, max_new_tokens=2))
     # paging runs on a speculative engine: with nothing live, each verb
-    # raises its own KeyError; meshes and engine roles stay refused
+    # raises its own KeyError; meshes stay refused, an unknown engine
+    # role is the reference's ValueError
     for call in (eng.pause, eng.resume, eng.preempt):
         with pytest.raises(KeyError):
             call(0)
-    for extra in (dict(mesh=object()), dict(role="decode")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecodeEngine(tcfg, tp, speculative=True, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(tcfg, tp, speculative=True, **kw, mesh=object())
+    with pytest.raises(ValueError, match="role must be"):
+        DecodeEngine(tcfg, tp, speculative=True, **kw, role="verifier")
 
 
 def test_spec_programs_stay_on_the_device_after_their_first_call(
