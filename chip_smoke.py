@@ -142,7 +142,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
   8. full-width recurrentgemma-2b (RG-LRU + swa, window 2048; random bf16
      weights from seed 0): 4 requests of 300-2500 tokens, 16 new tokens
      each, eagerly and through CUDA graphs, streams bitwise equal; no
-     hand-written kernel launches on this path.
+     hand-written kernel launches on this path;
+  12. the MoE FFN at full width with the depth cut (neither model fits
+     the card whole; random weights from seed 0, each model freed before
+     the next): the sort-based top-k's ties on the card (those of
+     ``jax.lax.top_k``); (a) mixtral-8x7b, 2 of 32 layers, fp32,
+     dropless capacity: ``prefill(17)``'s last logits against
+     ``prefill(16)`` + ``decode_step`` within rtol = atol = 2e-3; (b)
+     mixtral-8x7b, 16 of 32 layers in bf16 (46.96 GB), the draw's
+     seconds and peak memory, the bf16 fp32-output expert product
+     (``layers.bmm_f32``) at the drawn full-width expert matrices
+     against fp32 operands (rtol 1e-5, atol 1e-4), phase 4's mix and engine settings through
+     the eager engine, the default CUDA-graph engine (its gate stages
+     per prompt) and a self-draft speculative one (k_draft 4), the graph
+     engines cold then warm: streams bitwise equal, every kernel counter
+     zeroed before and all six 0 after, the warm TTFT, us/token and
+     tok/s beside the floor of the dense all-expert decode; (c)
+     arctic-480b, 2 of 35 layers (~55.4 GB), the product check on 16
+     of its 128 experts, the eager and the default engine as (b); (d) mixtral-8x7b, 2 layers, bf16, training as phase
+     5 (``loss_fn`` at init flash against plain, 4 steps eagerly, 4 from
+     the step's CUDA graph, no checkpoint): loss, aux, grad norm and a
+     state digest bitwise equal, the flash launches exact (at the
+     wrappers eagerly, one replayed step profiled); the phase's wall
+     time.
 
 Phase 2 also holds the GDN prefill at qwen3-next-gdn's served shape on
 one staged prompt's unmasked chunks of T = C = 1, 2, 4, 8, 16 and 32 (the
@@ -153,7 +175,9 @@ and T=192 in chunks of 64 with ragged ``valid_len``), timed beside their
 bounds as the rows ``gdn_decode_mamba2`` and ``gdn_prefill_mamba2``, and
 the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
-Hkv=2, hd=128, bf16) and on windowed and ragged (``valid_len``) cases
+Hkv=2, hd=128, bf16), at phase 12 (d)'s (mixtral-8x7b: Hq=32, Hkv=8,
+window 4096, otherwise the same) and on windowed and ragged
+(``valid_len``) cases
 (each call one kernel launch, by the profiler; dq, dk and dv checked
 bitwise equal over 5 calls; SDPA's distance from the plain version
 printed beside the kernels'), and the flash-decode kernel at three
@@ -169,7 +193,8 @@ numbers are those of the h2o-danube-1.8b shape that phase 6 drives; the
 two GDN entries carry phase 10's launches per part, ``launches_paging``,
 and phase 11's, ``launches_disagg``, (c)'s as its workers report them,
 beside phase
-4's in ``launches``); the
+4's in ``launches``; the three flash entries carry phase 12 (d)'s eager
+run in ``launches_moe``); the
 line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -202,6 +227,9 @@ BF16_TC_FLOPS_PER_S = 989e12
 CFG = dict(B=4, Hk=16, Hv=32, d=128)
 # the trained attention shape: global batch 2, seq_len 2048, GQA 16:2
 FLASH = dict(B=2, T=2048, Hq=16, Hkv=2, hd=128)
+# the flash kernels' shape in phase 12 (d): mixtral-8x7b's attention at
+# global batch 2 x seq_len 2048
+MOE_FLASH = dict(B=2, T=2048, Hq=32, Hkv=8, hd=128, window=4096)
 
 
 def card_line() -> str:
@@ -583,6 +611,13 @@ def flash_phase(ref, kflash, time_launches, kernels_per_call):
         torch.tensor([300, 137], dtype=torch.int32, device="cuda"), 2)
     errs.append(_flash_check(ref, kflash, "flash valid_len=(300, 137) T=300",
                              *_flash_inputs(2, 300, 8, 2, 64, bf, gen), vl))
+    # phase 12 (d)'s trained shape: mixtral-8x7b's 32:8 heads (one head per
+    # dk/dv cluster rank), head dim 128, its window 4096 (>= T)
+    mx = MOE_FLASH
+    errs.append(_flash_check(
+        ref, kflash, f"flash mixtral-8x7b window={mx['window']} bf16",
+        *_flash_inputs(mx["B"], mx["T"], mx["Hq"], mx["Hkv"], mx["hd"], bf,
+                       gen), window=mx["window"]))
     err_fwd, err_dq, err_dkv = (max(max(e[i]) for e in errs)
                                 for i in range(3))
 
@@ -2092,11 +2127,15 @@ def _init_check(tr, cfg, tcfg):
 
 
 def _train_run(tr, cfg, kflash, kernel_mods, lf, card, label):
-    """``tr.run()`` over ``TRAIN_STEPS`` steps with every launch counter
+    """``tr.run()`` over its ``tc.steps`` steps with every launch counter
     zeroed just before and read just after; checks the history, step 1
-    against ``loss_fn`` at init and the flash launches.  Returns (flash
-    launches, [(loss, grad norm)] per step, median of steps 3-5)."""
-    steps, n_attn = TRAIN_STEPS, sum(k == "attn" for k in cfg.layer_kinds)
+    against ``loss_fn`` at init and the flash launches (one forward, run
+    again by remat, and one backward per attention layer and step).
+    Returns (flash launches, [(loss, aux, grad norm)] per step, median
+    step time from step 3 on)."""
+    from repro_torch.models.mixers import get_mixer
+    steps = tr.tc.steps
+    n_attn = sum(get_mixer(k).is_attention for k in cfg.layer_kinds)
     _zero_counts(kernel_mods)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2122,7 +2161,7 @@ def _train_run(tr, cfg, kflash, kernel_mods, lf, card, label):
     want = {"flash_fwd": fwd_runs * n_attn * steps,
             "flash_bwd_dq": n_attn * steps,
             "flash_bwd_dkv": n_attn * steps}
-    how = ("at the wrappers" if label == "eager" else
+    how = ("at the wrappers" if label.endswith("eager") else
            "under replay: each replay adds what the capture counted")
     print(f"  {label}: flash launches {launches} over {steps} steps, "
           f"counted {how} (expected {want}: {n_attn} attention layers, "
@@ -2130,14 +2169,32 @@ def _train_run(tr, cfg, kflash, kernel_mods, lf, card, label):
     if launches != want or any(others.values()):
         raise AssertionError("unexpected kernel launches in training")
     step_s = float(np.median(tr.step_times[2:steps]))
-    tokens = FLASH["B"] * FLASH["T"]
+    tokens = tr.tc.global_batch * tr.tc.seq_len
     print(f"  {label} [{card}]: step times "
           f"{[round(t, 4) for t in tr.step_times]} s; median of steps "
           f"3-{steps} {step_s:.4f} s = {tokens / step_s:.1f} tokens/s; "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated), "
           f"{reserved / 2**30:.2f} GiB reserved; run() {wall:.1f} s")
-    return launches, [(r["loss"], r["grad_norm"]) for r in tr.logged], \
-        step_s
+    return launches, [(r["loss"], r["aux"], r["grad_norm"])
+                      for r in tr.logged], step_s
+
+
+def _replayed_flash_step(tr, replayed, kernel_counts):
+    """One more replayed step under the profiler (the state is checked):
+    its flash kernels must be one step's share of ``replayed``, the
+    launches the graph run's replays added."""
+    counts = kernel_counts(tr.step, calls=1)
+    names = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_dq_",
+             "flash_bwd_dkv": "flash_dkv_"}
+    got = {n: sum(c for key, c in counts.items() if p in key)
+           for n, p in names.items()}
+    per_step = {n: c // tr.tc.steps for n, c in replayed.items()}
+    print(f"  one replayed step under the profiler: flash kernels "
+          f"{got} (one step's share of the run's {replayed}: "
+          f"{per_step}), {sum(counts.values()):g} kernels in all")
+    if got != per_step:
+        raise AssertionError(f"a replayed step ran flash kernels {got}, "
+                             f"not {per_step}")
 
 
 def train_phase(cfg, card, kflash, kernel_mods, kernel_counts):
@@ -2196,7 +2253,7 @@ def train_phase(cfg, card, kflash, kernel_mods, kernel_counts):
               f"{graph_s:.4f} s against {eager_s:.4f} s eagerly "
               f"({eager_s / graph_s:.2f}x)")
         same = graph == eager and state_digest(tr.state) == eager_digest
-        print(f"  per-step loss and grad norm, final state digest "
+        print(f"  per-step loss, aux and grad norm, final state digest "
               f"({len(eager_digest)} leaves): graphs == eager bitwise: "
               f"{same}")
         if not same:
@@ -2214,19 +2271,7 @@ def train_phase(cfg, card, kflash, kernel_mods, kernel_counts):
         if mgr.latest_step() != steps or manifest["nbytes"] != state_bytes:
             raise AssertionError("the final checkpoint is incomplete")
 
-        # one more replayed step under the profiler (the state is checked)
-        counts = kernel_counts(tr.step, calls=1)
-        names = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_dq_",
-                 "flash_bwd_dkv": "flash_dkv_"}
-        got = {n: sum(c for key, c in counts.items() if p in key)
-               for n, p in names.items()}
-        per_step = {n: c // steps for n, c in replayed.items()}
-        print(f"  one replayed step under the profiler: flash kernels "
-              f"{got} (one step's share of the run's {replayed}: "
-              f"{per_step}), {sum(counts.values()):g} kernels in all")
-        if got != per_step:
-            raise AssertionError(f"a replayed step ran flash kernels {got}, "
-                                 f"not {per_step}")
+        _replayed_flash_step(tr, replayed, kernel_counts)
     return launches
 
 
@@ -2431,6 +2476,232 @@ def gemma_phase(card, lm, engine_mod, configs):
                              f"{counts}")
 
 
+# ---------------------------------------------------------------- phase 12
+
+# full width with the depth cut to fit the card: the whole of either
+# model is over its 80 GB in bf16 (46.7 B and 476.9 B parameters)
+MOE_SERVE_LAYERS = {"mixtral-8x7b": 16, "arctic-480b": 2}
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 4
+
+
+def _moe_draw(card, lm, cfg, full_layers, label):
+    """Random weights of ``cfg`` drawn on the card from seed 0, each
+    expert matrix on its own (``moe.init_moe``); prints the draw's
+    seconds and peak memory."""
+    from repro_torch.tree import leaves
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"  {label}: full-width {cfg.name} at {cfg.n_layers} of "
+          f"{full_layers} layers: {lm.param_count(params) / 1e9:.3f} B "
+          f"params, {nbytes / 1e9:.2f} GB ({cfg.act_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return params
+
+
+def moe_consistency(card, lm, moe, configs):
+    """(a) mixtral-8x7b at full width, 2 layers, fp32 activations,
+    dropless capacity (cf = E / k, as the reference's
+    ``test_prefill_decode_consistency``): ``prefill(T + 1)``'s last
+    logits against ``prefill(T)`` then ``decode_step``, B = 2, T = 16,
+    within that test's rtol = atol = 2e-3 — the capacity dispatch and
+    the dense all-expert decode compute one function at the real expert
+    shapes.  First the sort-based top-k on the card: ties to the lower
+    expert index, as ``jax.lax.top_k``."""
+    rows = torch.tensor([[.125] * 8, [.1, .2, .2, .1, .1, .2, .05, .05]],
+                        device="cuda")
+    _, idx = moe.select_top_k(rows, 2)
+    _, idx128 = moe.select_top_k(torch.full((4, 128), 1 / 128,
+                                            device="cuda"), 2)
+    print(f"  ties on the card: {idx.tolist()} and {idx128[0].tolist()} "
+          f"(jax.lax.top_k: [[0, 1], [1, 2]] and [0, 1])")
+    if idx.tolist() != [[0, 1], [1, 2]] or idx128.tolist() != [[0, 1]] * 4:
+        raise AssertionError("the top-k breaks ties unlike jax.lax.top_k")
+    full = configs.get_arch("mixtral-8x7b")
+    cfg = full.replace(n_layers=2, act_dtype="float32",
+                       moe_capacity_factor=full.moe_experts / full.moe_top_k)
+    params = _moe_draw(card, lm, cfg, full.n_layers, "(a)")
+    B, T = 2, 16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen,
+                         device="cuda")
+    la, _ = lm.prefill(params, cfg, lm.init_caches(cfg, B, 64, "cuda"),
+                       tokens=toks)
+    _, caches = lm.prefill(params, cfg, lm.init_caches(cfg, B, 64, "cuda"),
+                           tokens=toks[:, :T])
+    lb, _ = lm.decode_step(params, cfg, toks[:, T], caches)
+    torch.cuda.synchronize()
+    experts = tuple(params["groups"][0][0]["moe"]["wi_gate"].shape[1:])
+    check(f"(a) prefill({T + 1}) vs prefill({T}) + decode_step logits, "
+          f"experts {experts}", lb, la, 2e-3, 2e-3)
+
+
+def bmm_f32_check(params, label, max_experts=16, rows=64):
+    """``layers.bmm_f32`` on bf16 operands at the drawn first layer's
+    full-width expert matrices (the first ``max_experts`` of them; their
+    fp32 copies must fit beside the model) against ``torch.bmm`` of the
+    same values as fp32 operands: summation order apart, within the card
+    test's rtol = 1e-5, atol = 1e-4."""
+    from repro_torch.models import layers
+    p = params["groups"][0][0]["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name in ("wi_gate", "wo"):
+        w = p[name][0, :max_experts]
+        x = torch.randn((w.shape[0], rows, w.shape[1]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        got = layers.bmm_f32(x, w)
+        want = torch.bmm(x.float(), w.float())
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{label}: bmm_f32 gave {got.dtype}")
+        check(f"{label} bmm_f32 bf16 {name} {tuple(x.shape)} @ "
+              f"{tuple(w.shape)} vs fp32 operands", got, want, 1e-5, 1e-4)
+        del x, got, want
+
+
+def moe_serve(card, lm, engine_mod, configs, arch, variants, label):
+    """(b), (c) ``arch`` at full width, ``MOE_SERVE_LAYERS`` deep, bf16
+    weights from seed 0, serving phase 4's mix and engine settings
+    through ``serve_twice`` (eager once, the default CUDA-graph engine
+    cold then warm, then ``variants``): streams bitwise equal, the
+    default engine's gate staging per prompt, and no hand-written kernel
+    launched (every counter zeroed before, all six 0 after).  Prints the
+    warm graph engine's TTFT, decode us/token and tok/s beside the floor
+    of the dense all-expert decode: every weight but the embedding table
+    read once per step."""
+    from repro_torch.runtime.graphs import add_launches, launch_counts
+    from repro_torch.tree import leaves
+    full = configs.get_arch(arch)
+    cfg = full.replace(n_layers=MOE_SERVE_LAYERS[arch])
+    params = _moe_draw(card, lm, cfg, full.n_layers, label)
+    bmm_f32_check(params, label)
+    Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+    kw = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
+              seed=0, device="cuda")
+    prompts = _phase4_prompts(cfg.vocab)
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=32,
+                        temperature=0.8 if i == 2 else 0.0,
+                        top_k=40 if i == 2 else 0)
+                for i, p in enumerate(prompts)]
+
+    add_launches(launch_counts(), -1)                   # zero every count
+    eng, runs, _ = serve_twice(Engine, cfg, params, kw, requests, card,
+                               f"{label} {arch} serve", variants=variants)
+    launched = {k: n for k, n in launch_counts().items() if n}
+    print(f"  {label}: kernel launches over every serve run {launched}; "
+          f"default engine prefill_batching {eng.prefill_batching}")
+    if launched or any(n for c, _ in runs.values() for n in c.values()):
+        raise AssertionError(f"{label}: a hand-written kernel launched on "
+                             f"the MoE serving path: {launched}")
+    if eng.prefill_batching:
+        raise AssertionError(f"{label}: the gate let an MoE arch stage "
+                             f"prompts in batches")
+    m = eng.metrics()                              # its warm run
+    table = params["embed"]["table"]
+    step_bytes = sum(t.numel() * t.element_size() for t in leaves(params)) \
+        - table.numel() * table.element_size()
+    floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    slots = kw["max_slots"]
+    print(f"  {label} [{card}]: graphs warm: decode "
+          f"{m['decode_us_per_token']:.1f} us/token, mean TTFT "
+          f"{m['mean_ttft_s'] * 1e3:.1f} ms (per-prompt staging), "
+          f"{m['mean_tokens_per_s']:.1f} tok/s per request; floor of the "
+          f"dense all-expert decode: {step_bytes / 1e9:.2f} GB / "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {floor_ms:.2f} ms per "
+          f"{slots}-slot step, {floor_ms * 1e3 / slots:.1f} us/token")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_train(card, configs, kflash, kernel_mods, kernel_counts):
+    """(d) mixtral-8x7b at full width, ``MOE_TRAIN_LAYERS`` deep, bf16,
+    ``use_flash_kernel``, global batch 2 x seq_len 2048 (two groups of
+    1024 tokens per row: C = 320): ``loss_fn`` at init through the flash
+    kernels against the plain path, then ``MOE_TRAIN_STEPS`` steps through
+    an eager ``Trainer`` and through the default one (step 1 eager, step
+    2 captured, then replayed), no checkpoint.  Loss, aux, grad norm and
+    a state digest bitwise equal; the flash launches exact (at the
+    wrappers eagerly; under replay one more replayed step profiled).
+    Returns the eager run's flash launches."""
+    from repro_torch.runtime.graphs import graph_nodes
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.models.lm import param_count
+    full = configs.get_arch("mixtral-8x7b")
+    cfg = full.replace(n_layers=MOE_TRAIN_LAYERS)
+    tcfg = cfg.replace(use_flash_kernel=True)
+
+    def trainer(cuda_graphs):
+        tc = TrainerConfig(steps=MOE_TRAIN_STEPS, seq_len=FLASH["T"],
+                           global_batch=FLASH["B"], warmup_steps=1,
+                           log_every=1)
+        t0 = time.perf_counter()
+        tr = Trainer(tcfg, tc, device="cuda",
+                     cuda_graphs=cuda_graphs).compile(keep_graph=True)
+        torch.cuda.synchronize()
+        print(f"  (d) {cfg.name} at {cfg.n_layers} of {full.n_layers} "
+              f"layers: state drawn in {time.perf_counter() - t0:.1f} s: "
+              f"{param_count(tr.state['params']) / 1e9:.3f} B "
+              f"{cfg.act_dtype} params, AdamW fp32 moments; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        return tr
+
+    tr = trainer(False)
+    lf = _init_check(tr, cfg, tcfg)
+    launches, eager, eager_s = _train_run(tr, cfg, kflash, kernel_mods, lf,
+                                          card, "(d) eager")
+    eager_digest = state_digest(tr.state)
+    del tr                         # two states do not fit the card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr = trainer(None)
+    if not tr.cuda_graphs:
+        raise AssertionError("the trainer does not default to graphs")
+    replayed, graph, graph_s = _train_run(tr, cfg, kflash, kernel_mods, lf,
+                                          card, "(d) graphs")
+    kernels, nodes = graph_nodes(tr.program.graph)
+    print(f"  (d) graphs [{card}]: one graph of {kernels} kernel nodes "
+          f"({nodes} nodes), captured in {tr.program.capture_s:.2f} s, "
+          f"instantiated in {tr.program.instantiate_s:.2f} s; replayed "
+          f"step {graph_s:.4f} s against {eager_s:.4f} s eagerly")
+    same = graph == eager and state_digest(tr.state) == eager_digest
+    print(f"  (d) per-step loss, aux and grad norm {graph}, final state "
+          f"digest: graphs == eager bitwise: {same}")
+    if not same:
+        raise AssertionError("(d) the replayed MoE step differs from the "
+                             "eager step")
+    if not all(aux > 0 for _, aux, _ in eager):
+        raise AssertionError("(d) the aux loss did not reach the metrics")
+    _replayed_flash_step(tr, replayed, kernel_counts)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(card, lm, engine_mod, configs, kflash, kernel_mods,
+              kernel_counts):
+    """Phase 12: the MoE FFN at full width, (a)-(d), each model freed
+    before the next.  Returns (d)'s flash launches."""
+    from repro_torch.models import moe
+    moe_consistency(card, lm, moe, configs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_serve(card, lm, engine_mod, configs, "mixtral-8x7b",
+              (("spec self-draft k=4", dict(speculative=True, k_draft=4),
+                True),), "(b)")
+    moe_serve(card, lm, engine_mod, configs, "arctic-480b", (), "(c)")
+    return moe_train(card, configs, kflash, kernel_mods, kernel_counts)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -2541,11 +2812,23 @@ def main():
                                  configs, kernel_counts))
     torch.cuda.empty_cache()
     gemma_phase(card, lm, engine_mod, configs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[12] MoE at full width with the depth cut: mixtral-8x7b and "
+          f"arctic-480b served, mixtral trained [{card}]")
+    t0 = time.perf_counter()
+    moe_launches = moe_phase(card, lm, engine_mod, configs, kflash,
+                             (kflash, kdecode, kprefill, kattn),
+                             kernel_counts)
+    print(f"  [12] phase 12 took {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in paging:
             r["launches_paging"] = paging[r["name"]]
             r["launches_disagg"] = disagg[r["name"]]
+        if r["name"] in moe_launches:
+            r["launches_moe"] = moe_launches[r["name"]]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,11 @@
 """Where a decode tick's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--arch mamba2-1.3b]
+        [--arch mamba2-1.3b] [--arch mixtral-8x7b --layers 16]
 
 The full-width ``--arch`` (default qwen3-next-gdn; random bf16 weights
-from ``--seed``) in a ``DecodeEngine`` with ``--slots`` requests
+from ``--seed``; ``--layers`` cuts the depth of a model that does not fit
+the card whole) in a ``DecodeEngine`` with ``--slots`` requests
 resident.  Prints
 
   * the wall time of a decode step (host clock around ticks that end in a
@@ -248,6 +249,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-next-gdn",
                     help="any arch of the port's registry, at full width")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: all)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--block", type=int, default=8)
     ap.add_argument("--ticks", type=int, default=4)
@@ -266,6 +269,8 @@ def main(argv=None):
         attn_decode_study()
         return
     base = configs.get_arch(args.arch)
+    if args.layers:
+        base = base.replace(n_layers=args.layers)
     if gdn_decode_shape(base) is not None:
         decode_kernel_study(base, args.slots)
     params = lm.init_lm(args.seed, base)

@@ -1,11 +1,14 @@
 """Where a full-width training step's time goes on the card, replayed
 from its CUDA graph and eagerly.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        [--arch mixtral-8x7b --layers 2]
 
-Full-width qwen3-next-gdn (random bf16 weights from ``--seed``) in the
-port's ``Trainer`` with the flash kernels (``use_flash_kernel``), global
-batch ``--global-batch`` x ``--seq-len`` tokens.  The trainer's step
+The full-width ``--arch`` (default qwen3-next-gdn; random bf16 weights
+from ``--seed``; ``--layers`` cuts the depth of a model whose training
+state does not fit the card whole) in the port's ``Trainer`` with the
+flash kernels (``use_flash_kernel``), global batch ``--global-batch`` x
+``--seq-len`` tokens.  The trainer's step
 program runs its eager first call, then captures its graph (capture and
 instantiation timed, kernel nodes counted).  Then, on the same state, the
 step is timed without the profiler in turns (replayed, eager, eager,
@@ -125,6 +128,10 @@ def _memory(pool) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-next-gdn",
+                    help="any arch of the port's registry, at full width")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: all)")
     ap.add_argument("--global-batch", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
@@ -141,7 +148,9 @@ def main(argv=None):
     if args.dkv_clusters:
         dkv_cluster_study()
         return
-    cfg = configs.get_arch("qwen3-next-gdn").replace(use_flash_kernel=True)
+    cfg = configs.get_arch(args.arch).replace(use_flash_kernel=True)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     tc = TrainerConfig(steps=8, seq_len=args.seq_len,
                        global_batch=args.global_batch, warmup_steps=1,
                        seed=args.seed)

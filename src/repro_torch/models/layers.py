@@ -90,39 +90,48 @@ def embed_fwd(p, tokens):
 
 
 def logits_matmul(x, w):
-    """x (..., d) @ w (d, V) with an fp32 result.
+    """x (..., d) @ w (d, V) with an fp32 result: ``bmm_f32`` at E = 1."""
+    out = bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None])
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
-    The reference computes this product from the activation-dtype operands
-    with fp32 output (``preferred_element_type``).  On the card bf16
-    operands go through ``torch.mm(..., out_dtype=torch.float32)``, which
-    keeps the fp32 accumulator and never materializes an fp32 copy of the
-    (d, V) head; elsewhere (fp32 configs, the CPU, which has no kernel for
-    that overload) both operands are fp32."""
+
+def bmm_f32(x, w):
+    """Batched x (E, M, d) @ w (E, d, n) with an fp32 result: the LM head
+    (E = 1) and the MoE expert products, the reference's
+    ``preferred_element_type=float32`` products of activation-dtype
+    operands.  On the card bf16 operands go through ``_MatmulF32``, which
+    keeps the fp32 accumulator and never materializes an fp32 copy of a
+    weight; elsewhere (fp32 configs, the CPU, which has no kernel for the
+    ``out_dtype`` overload) both operands are fp32."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.float(), w.float())
+        return _MatmulF32.apply(x, w)
+    return torch.bmm(x.float(), w.float())
 
 
 class _MatmulF32(torch.autograd.Function):
-    """bf16 x (N, d) @ w (d, V) -> fp32, with a gradient: the ``out_dtype``
-    overload of ``torch.mm`` has no autograd formula.  The cotangent stays
-    fp32 and each gradient is rounded to its operand's dtype once, as the
-    reference's transpose of a ``preferred_element_type`` product."""
+    """bf16 x (E, M, d) @ w (E, d, n) -> fp32 through ``torch.bmm(...,
+    out_dtype=torch.float32)``, with a gradient (that overload has none).
+    The one rule for the cotangent's precision: the fp32 cotangent is
+    rounded to bf16 once and both gradients are bf16 products with fp32
+    accumulation, rounded to bf16 — as a TPU's default matmul precision
+    takes the reference's fp32 cotangent.  Keeping it fp32 would need fp32
+    copies of the weights (1.9 GB per expert leaf at mixtral-8x7b's
+    width, 0.5 GB for its head) and fp32 products on the CUDA cores."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
+        return torch.bmm(x, w, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = torch.mm(g, w.float().t()).to(x.dtype)
+            gx = torch.bmm(g, w.transpose(1, 2))
         if ctx.needs_input_grad[1]:
-            gw = torch.mm(x.float().t(), g).to(w.dtype)
+            gw = torch.bmm(x.transpose(1, 2), g)
         return gx, gw
 
 

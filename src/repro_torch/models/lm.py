@@ -1,11 +1,12 @@
 """Unified hybrid causal LM for training and serving (port of
 ``repro.models.lm``).
 
-A model is a cycled ``pattern`` of mixer kinds plus a dense SwiGLU FFN per
-layer.  Layers are grouped into (pattern, repeats) groups with parameters
-and caches stacked on a leading repeats axis, exactly the nesting of the
-reference's ``init_lm``/``init_caches``, so the numpy bridge maps one tree
-onto the other.  The reference's ``lax.scan`` over repeats is a loop over
+A model is a cycled ``pattern`` of mixer kinds plus a per-layer FFN
+(dense SwiGLU, MoE, MoE beside a dense MLP, or none).  Layers are grouped
+into (pattern, repeats) groups with parameters and caches stacked on a
+leading repeats axis, exactly the nesting of the reference's
+``init_lm``/``init_caches``, so the numpy bridge maps one tree onto the
+other.  The reference's ``lax.scan`` over repeats is a loop over
 that axis here.
 
 Caches are updated in place: every function writes each layer's new cache
@@ -49,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.mixers import CacheSpec, get_mixer
 from repro_torch.tree import copy_leaves, leaves, tree_map
 
@@ -69,22 +70,23 @@ def build_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 # ---------------------------------------------------------------- init
 
-def _check_ffn(cfg: ArchConfig):
-    if cfg.ffn not in ("dense", "none"):
-        raise NotImplementedError(
-            f"ffn={cfg.ffn!r}: MoE FFNs are not ported yet: the reference's "
-            f"models/moe.py (ROADMAP)")
-
-
 def _init_position(generator, kind, cfg, dtype, device, reps):
     """Stacked (reps, ...) params of one pattern position."""
     p = {"norm1": layers.init_rmsnorm(cfg.d_model, device, reps),
          "mixer": get_mixer(kind).init_params(generator, cfg, dtype, device,
                                               reps)}
-    if cfg.ffn == "dense":
+    if cfg.ffn != "none":
         p["norm2"] = layers.init_rmsnorm(cfg.d_model, device, reps)
-        p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype,
-                                   device, reps)
+        if cfg.ffn == "dense":
+            p["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                       dtype, device, reps)
+        if cfg.ffn in ("moe", "moe+dense"):
+            p["moe"] = moe.init_moe(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.moe_experts, dtype, device, reps)
+        if cfg.ffn == "moe+dense":
+            p["mlp"] = layers.init_mlp(generator, cfg.d_model,
+                                       cfg.d_ff_dense or cfg.d_ff, dtype,
+                                       device, reps)
     return p
 
 
@@ -93,7 +95,6 @@ def init_lm(generator, cfg: ArchConfig, device=None):
     ``generator`` — a ``torch.Generator`` on that device, or an int seed.
     Same shapes, scales and dtypes as the reference's ``init_lm``; the
     draws themselves differ (the tests bridge the reference's params in)."""
-    _check_ffn(cfg)
     dev = _device.resolve(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -123,7 +124,7 @@ def param_count(params) -> int:
 def _layer_train(kind, cfg: ArchConfig, lp, x):
     h = layers.rmsnorm_fwd(lp["norm1"], x, cfg.norm_eps)
     x = x + get_mixer(kind).train(lp["mixer"], cfg, h)
-    return _ffn_fwd(cfg, lp, x)
+    return _ffn_fwd(cfg, lp, x, decode=False)
 
 
 def _unstack(tree, reps: int):
@@ -136,24 +137,28 @@ def _unstack(tree, reps: int):
 
 
 def forward_hidden(params, cfg: ArchConfig, tokens=None, embeds=None):
-    """Returns (final hidden (B, T, d), total MoE aux loss — 0, as no MoE
-    FFN is ported)."""
-    _check_ffn(cfg)
+    """Returns (final hidden (B, T, d), total MoE aux loss: the sum over
+    the MoE layers, 0 without one)."""
     x = _embed(params, cfg, tokens, embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kinds, reps), gp in zip(build_groups(cfg), params["groups"]):
 
         def block(x, lp_slice, kinds=kinds):
+            aux = []
             for i, kind in enumerate(kinds):
-                x = _layer_train(kind, cfg, lp_slice[i], x)
-            return x
+                x, a = _layer_train(kind, cfg, lp_slice[i], x)
+                if a is not None:
+                    aux.append(a)
+            return x, aux
 
         for lp_slice in _unstack(gp, reps):
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, lp_slice, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(block, x, lp_slice, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x = block(x, lp_slice)
+                x, aux = block(x, lp_slice)
+            for a in aux:
+                aux_total = aux_total + a
     return x, aux_total
 
 
@@ -215,16 +220,29 @@ def checkpoint_specs(cfg: ArchConfig, batch: int, max_len: int) -> CacheSpec:
 
 # ---------------------------------------------------------------- forward
 
-def _ffn_fwd(cfg: ArchConfig, lp, x):
+def _ffn_fwd(cfg: ArchConfig, lp, x, decode: bool):
+    """x + the layer's FFN of x; returns (x, MoE aux loss or None).  The
+    MoE runs its capacity dispatch on blocks and its dense all-expert
+    product at decode; arctic's dense MLP is added beside it."""
     if cfg.ffn == "none":
-        return x
+        return x, None
     h = layers.rmsnorm_fwd(lp["norm2"], x, cfg.norm_eps)
-    return x + layers.mlp_fwd(lp["mlp"], h)
+    y, aux = None, None
+    if "moe" in lp:
+        if decode:
+            y = moe.moe_decode(lp["moe"], h, top_k=cfg.moe_top_k)
+        else:
+            y, aux = moe.moe_fwd(lp["moe"], h, top_k=cfg.moe_top_k,
+                                 group_size=cfg.moe_group_size,
+                                 capacity_factor=cfg.moe_capacity_factor)
+    if "mlp" in lp:
+        m = layers.mlp_fwd(lp["mlp"], h)
+        y = m if y is None else y + m
+    return x + y, aux
 
 
 def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
                 valid_len=None):
-    _check_ffn(cfg)
     for (kinds, reps), gp, gc in zip(build_groups(cfg), params["groups"],
                                      caches):
         for r in range(reps):
@@ -243,7 +261,8 @@ def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
                 # the layer's new cache into its slice of the stacked
                 # buffers (a no-op where the mixer updated it in place)
                 copy_leaves(c, nc)
-                x = _ffn_fwd(cfg, lp, x + mix)
+                x, _ = _ffn_fwd(cfg, lp, x + mix,
+                                decode=(mode == "decode"))
     return x, caches
 
 

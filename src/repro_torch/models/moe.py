@@ -1,0 +1,144 @@
+"""Mixture-of-Experts FFN (port of ``repro.models.moe``).
+
+Top-k softmax router with GShard/Switch capacity dispatch at prefill and
+in training: tokens are processed in groups of ``group_size`` with a
+per-group expert capacity C = group_size * k * cf / E, dispatched and
+combined by one-hot (G, S, E, C) products; a slot past its expert's
+capacity is dropped.  Decode runs the dense all-expert product (every
+expert on every row, each weighted by its renormalised gate).  The
+Switch load-balancing auxiliary loss comes with the capacity path.
+
+As in the reference, each expert product takes its operands in the
+activation dtype and keeps an fp32 result: ``h`` and ``u`` stay fp32
+through the SiLU, ``silu(h) * u`` and the output of ``wo`` are cast back
+(``layers.bmm_f32``).  The top-k is a stable descending sort, so ties go
+to the lower expert index as ``jax.lax.top_k``'s do (``torch.topk``
+breaks them otherwise; an all-zero hidden row gives an all-equal
+softmax).  Every shape, the capacity included, is host arithmetic on
+static shapes and the one-hots compare with an ``arange``, so the path
+reads nothing on the host and can be captured in a CUDA graph.
+
+Parameters are stacked (reps, ...) like every leaf of the port:
+``router`` fp32 (d, E); ``wi_gate``, ``wi_up`` (E, d, f) and ``wo``
+(E, f, d) in the activation dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+
+def _draw_experts(generator, shape, std, dtype, device):
+    """N(0, std^2) expert matrices of ``shape`` (reps, E, d_in, d_out) in
+    ``dtype``, drawn one (d_in, d_out) matrix at a time into the
+    preallocated leaf: the fp32 transient stays at one matrix, where a
+    whole stacked leaf drawn in fp32 would be 30-36 GB at full width.  A
+    leaf on the ``meta`` device holds no values: nothing is drawn."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
+    for r in range(shape[0]):
+        for e in range(shape[1]):
+            out[r, e].copy_(layers.randn(generator, shape[2:], std,
+                                         torch.float32, device))
+    return out
+
+
+def init_moe(generator, d_model, d_ff, n_experts, dtype, device, reps):
+    s, sf = d_model ** -0.5, d_ff ** -0.5
+    return {
+        "router": layers.randn(generator, (reps, d_model, n_experts), s,
+                               torch.float32, device),
+        "wi_gate": _draw_experts(generator, (reps, n_experts, d_model, d_ff),
+                                 s, dtype, device),
+        "wi_up": _draw_experts(generator, (reps, n_experts, d_model, d_ff),
+                               s, dtype, device),
+        "wo": _draw_experts(generator, (reps, n_experts, d_ff, d_model), sf,
+                            dtype, device),
+    }
+
+
+def one_hot(idx, n, dtype):
+    """``F.one_hot(idx, n)`` in ``dtype`` from a comparison with an
+    ``arange`` (no host read); an index >= n gives an all-zero row."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def select_top_k(probs, k):
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index (``jax.lax.top_k``'s order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(x, router, k):
+    """fp32 router softmax, top-k and the renormalised gates."""
+    probs = torch.softmax(torch.matmul(x.float(), router), dim=-1)
+    gate, idx = select_top_k(probs, k)
+    gate = gate / torch.clamp(torch.sum(gate, -1, keepdim=True), min=1e-9)
+    return probs, gate, idx
+
+
+def _experts(p, xe, dtype):
+    """The SwiGLU of every expert on its rows: xe (E, M, d) -> (E, M, d)
+    in ``dtype``, each product with an fp32 result."""
+    h = layers.bmm_f32(xe, p["wi_gate"])
+    u = layers.bmm_f32(xe, p["wi_up"])
+    hh = (F.silu(h) * u).to(dtype)
+    return layers.bmm_f32(hh, p["wo"]).to(dtype)
+
+
+def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024):
+    """x: (B, T, d) -> (y (B, T, d), aux_loss 0-d fp32)."""
+    B, T, d = x.shape
+    E = p["router"].shape[-1]
+    N = B * T
+    S = min(group_size, N)
+    if N % S:
+        raise ValueError(f"{N} tokens do not split into groups of {S}")
+    G = N // S
+    C = max(1, int(S * top_k * capacity_factor / E))
+
+    xf = x.reshape(G, S, d)
+    probs, gate, idx = _route(xf, p["router"], top_k)          # (G, S, k)
+
+    # ----- load-balancing aux loss (Switch-style)
+    me = torch.mean(probs, dim=(0, 1))                         # (E,)
+    ce = torch.mean(one_hot(idx[..., 0], E, torch.float32), dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+
+    # ----- queue position of each (token, slot) within its expert, per
+    # group, token-major and slot-minor
+    oh = one_hot(idx, E, torch.int64)                          # (G, S, k, E)
+    flat = oh.reshape(G, S * top_k, E)
+    pos = torch.cumsum(flat, dim=1) - 1
+    pos = torch.sum(pos * flat, dim=-1).reshape(G, S, top_k)   # (G, S, k)
+    keep = pos < C
+    gate_kept = gate * keep
+
+    # dispatch and combine masks folded over k: (G, S, E, C); a dropped
+    # slot's position one-hot is all zero
+    pos_oh = one_hot(pos, C, x.dtype)                          # (G, S, k, C)
+    ohx = oh.to(x.dtype)
+    disp = torch.einsum("gske,gskc->gsec", ohx, pos_oh)
+    comb = torch.einsum("gske,gskc->gsec",
+                        ohx * gate_kept.to(x.dtype)[..., None], pos_oh)
+
+    xe = torch.einsum("gsec,gsd->egcd", disp, xf).reshape(E, G * C, d)
+    ye = _experts(p, xe, x.dtype).reshape(E, G, C, d)
+    y = torch.einsum("gsec,egcd->gsd", comb, ye)
+    return y.reshape(B, T, d), aux
+
+
+def moe_decode(p, x_t, *, top_k=2):
+    """Single-token-per-sequence MoE: every expert on every row, weighted
+    by the row's renormalised top-k gates. x_t: (B, d)."""
+    B, d = x_t.shape
+    E = p["router"].shape[-1]
+    _, gate, idx = _route(x_t, p["router"], top_k)             # (B, k)
+    w = torch.einsum("bke,bk->be", one_hot(idx, E, x_t.dtype),
+                     gate.to(x_t.dtype))
+    ye = _experts(p, x_t.expand(E, B, d), x_t.dtype)           # (E, B, d)
+    return torch.einsum("ebd,be->bd", ye, w)

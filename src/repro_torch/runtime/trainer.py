@@ -168,7 +168,8 @@ class Trainer:
         self.state = None
         self._batch = None
         self.step_times: list[float] = []
-        # {"step", "loss", "lr", "grad_norm"} at every logged step
+        # {"step", "loss", "aux", "lr", "grad_norm"} at every logged step
+        # (aux: the summed MoE load-balancing loss, 0 without MoE)
         self.logged: list[dict] = []
         self._ewma = None
         self._ewvar = 0.0
@@ -270,7 +271,7 @@ class Trainer:
                 step += 1
                 if step % self.tc.log_every == 0 or step == self.tc.steps:
                     rec = {k: float(metrics[k])
-                           for k in ("loss", "lr", "grad_norm")}
+                           for k in ("loss", "aux", "lr", "grad_norm")}
                     self.logged.append(dict(rec, step=step))
                     history.append((step, rec["loss"]))
                     log.info("step %d loss %.4f lr %.2e", step, rec["loss"],

@@ -1303,3 +1303,130 @@ def test_rpc_workers_on_the_card(cuda):
         for w in workers:
             w.shutdown()
     assert [w.proc.returncode for w in workers] == [0, 0]
+
+
+# ------------------------------------------------------------ MoE
+
+def _reduced_mixtral(**kw):
+    """Reduced mixtral-8x7b in bf16 (swa + MoE: the expert products
+    through the fp32-output batched product)."""
+    from repro_torch import configs
+    return configs.get_arch("mixtral-8x7b").reduced().replace(
+        act_dtype="bfloat16", **kw)
+
+
+@pytest.mark.cuda
+def test_bmm_f32_vs_fp32_operands(cuda):
+    """The bf16 batched product with an fp32 result (the MoE experts')
+    against the same product of the same values as fp32 operands: they
+    differ in summation order only.  An expanded input (the decode's one
+    row set for every expert) takes the same path.  Both gradients from
+    the cotangent rounded to bf16 once (bf16 products, fp32
+    accumulation): within 2% of the fp32 gradient's RMS.  The LM head
+    (``logits_matmul``, E = 1, a transposed weight as a tied head
+    passes it) takes the same product and the same rule."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(31)
+    x = _normal(rng, 8, 96, 256).to(cuda, torch.bfloat16)
+    w = _normal(rng, 8, 256, 192, scale=0.1).to(cuda, torch.bfloat16)
+    y = layers.bmm_f32(x, w)
+    assert y.dtype == torch.float32
+    want = torch.bmm(x.float(), w.float())
+    _close(y, want, dict(rtol=1e-5, atol=1e-4))
+    xt = x[0, :4]
+    _close(layers.bmm_f32(xt.expand(8, 4, 256), w),
+           torch.bmm(xt.float().expand(8, 4, 256), w.float()),
+           dict(rtol=1e-5, atol=1e-4))
+    g = _normal(rng, 8, 96, 192).to(cuda)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    layers.bmm_f32(xr, wr).backward(g)
+    assert xr.grad.dtype == wr.grad.dtype == torch.bfloat16
+    xf, wf = x.float().requires_grad_(True), w.float().requires_grad_(True)
+    torch.bmm(xf, wf).backward(g)
+    # the cotangent's rounding (2^-9 relative per term) summed over 96 or
+    # 192 terms of random sign, and the gradient's own: the error scales
+    # with the gradient's RMS, not with each element (a sum near 0 keeps
+    # the error of its terms)
+    for got, want in ((wr.grad, wf.grad), (xr.grad, xf.grad)):
+        rms = float(want.pow(2).mean().sqrt())
+        _close(got, want, dict(rtol=2e-2, atol=2e-2 * rms))
+    h = _normal(rng, 2, 48, 256).to(cuda, torch.bfloat16)
+    table = _normal(rng, 320, 256, scale=0.1).to(cuda, torch.bfloat16)
+    hr, tr = h.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    y = layers.logits_matmul(hr, tr.t())
+    assert y.dtype == torch.float32 and y.shape == (2, 48, 320)
+    hf, tf = h.float().requires_grad_(True), table.float().requires_grad_(True)
+    want = torch.matmul(hf, tf.t())
+    _close(y.detach(), want.detach(), dict(rtol=1e-5, atol=1e-4))
+    g = _normal(rng, 2, 48, 320).to(cuda)
+    y.backward(g)
+    want.backward(g)
+    assert hr.grad.dtype == tr.grad.dtype == torch.bfloat16
+    for got, want in ((tr.grad, tf.grad), (hr.grad, hf.grad)):
+        rms = float(want.pow(2).mean().sqrt())
+        _close(got, want, dict(rtol=2e-2, atol=2e-2 * rms))
+
+
+@pytest.mark.cuda
+def test_moe_graphs_streams_bitwise_equal_eager(cuda):
+    """Reduced bf16 mixtral served twice by a CUDA-graph engine and an
+    eager one, greedy and stochastic: the same streams (the MoE
+    dispatch, the dense decode and the sort-based top-k capture and
+    replay), per-prompt staging on both."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg = _reduced_mixtral()
+    params = lm.init_lm(0, cfg, device="cuda")
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(1, 256, size=n, dtype=np.int32)
+               for n in (4, 57, 23, 40)]
+    out = {}
+    for graphs in (True, False):
+        eng = DecodeEngine(cfg, params, max_slots=2, max_len=96, seed=0,
+                           decode_block=4, prefill_chunk=16, device="cuda",
+                           cuda_graphs=graphs)
+        assert not eng.prefill_batching
+        runs = []
+        for _ in range(2):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=9,
+                            temperature=0.8 if i % 2 else 0.0,
+                            top_k=20 if i % 2 else 0)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            runs.append([list(r.output) for r in reqs])
+        out[graphs] = (eng.executor.compiled_programs(), runs)
+    assert out[True][1] == out[False][1]
+    assert out[True][1][0] == out[True][1][1]
+    assert out[True][0]["cuda_graphs"] > 0 == out[False][0]["cuda_graphs"]
+
+
+@pytest.mark.cuda
+def test_moe_train_graphs_bitwise_equal_eager(cuda):
+    """Reduced bf16 mixtral (head dim 64, which the flash kernels take;
+    remat on) trained 3 steps of 2 x 512 tokens eagerly and through the
+    step's CUDA graph: losses, aux losses, gradient norms, parameters,
+    moments and counts bit for bit, the flash launches equal."""
+    from repro_torch.kernels import flash_attn as kflash
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = _reduced_mixtral(head_dim=64, use_flash_kernel=True, remat=True)
+    runs = {}
+    for graphs in (False, True):
+        before = dict(kflash.launches)
+        tc = TrainerConfig(steps=3, seq_len=512, global_batch=2,
+                           warmup_steps=1, log_every=1)
+        t = Trainer(cfg, tc, device="cuda", cuda_graphs=graphs)
+        t.run()
+        runs[graphs] = (t, {k: n - before[k]
+                            for k, n in kflash.launches.items()})
+    (e, e_launch), (g, g_launch) = runs[False], runs[True]
+    assert g.program.graph is not None and e.program.graph is None
+    for key in ("loss", "aux", "grad_norm"):
+        assert [r[key] for r in g.logged] == [r[key] for r in e.logged]
+    assert all(r["aux"] > 0 for r in e.logged)
+    _assert_same_bits(g, e)
+    n_swa = sum(k == "swa" for k in cfg.layer_kinds)
+    assert g_launch == e_launch == {"flash_fwd": 2 * n_swa * 3,
+                                    "flash_bwd_dq": n_swa * 3,
+                                    "flash_bwd_dkv": n_swa * 3}
