@@ -165,6 +165,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
      state digest bitwise equal, the flash launches exact (at the
      wrappers eagerly, one replayed step profiled); the phase's wall
      time.
+  13. (run right after phase 11, on phase 4's weights and mix) mesh
+     serving (``DecodeEngine(mesh=)``): (a) a (1,1) NCCL mesh in this
+     process on the default CUDA-graph engine, cold then warm, streams
+     bitwise phase 4's graph engine's, its collectives captured (the
+     warm run's run inside replayed graphs), us/token beside phase 4's
+     and the collectives of one decode step; (b) a (2,1) and (c) a
+     (1,2) mesh over two gloo ranks sharing the card (spawned processes,
+     each drawing the weights from seed 0; eager: gloo stages each
+     collective through host memory), each serving the mix: the ranks'
+     streams equal, the first token index leaving the one-device
+     streams printed, us/token, TTFT, the run's collectives and their
+     host seconds, one decode step's collectives, seconds and
+     ``gdn_decode`` launches (36 on every rank and layout), then one
+     decode step on phase 3's state and tokens against the one-device
+     step: no further from the fp32 logits than twice the one-device
+     bf16 step (phase 3's rule), the argmax equal wherever the
+     one-device top-2 gap exceeds its own error; in (c) request 0 paused
+     after 2 tokens and resumed; (d) its image restored into a
+     one-device eager engine, gathered back bitwise, its continuation
+     compared with (c)'s and phase 4's; the phase's wall time.
 
 Phase 2 also holds the GDN prefill at qwen3-next-gdn's served shape on
 one staged prompt's unmasked chunks of T = C = 1, 2, 4, 8, 16 and 32 (the
@@ -172,7 +192,11 @@ pow2 plans' tails) against its plain version, and both GDN kernels at
 mamba2-1.3b's shape (B=4, Hk=1,
 Hv=64, d_k=128, d_v=64, bf16, ``delta_rule=False``; the prefill at T=64
 and T=192 in chunks of 64 with ragged ``valid_len``), timed beside their
-bounds as the rows ``gdn_decode_mamba2`` and ``gdn_prefill_mamba2``, and
+bounds as the rows ``gdn_decode_mamba2`` and ``gdn_prefill_mamba2``, both
+GDN kernels at phase 13's local shapes (``gdn_*_model2``: B 4, Hk 8, Hv
+16, d 128; ``gdn_*_data2``: B 2, Hk 16, Hv 32, d 128; the prefill timed
+on one staged prompt; the rows' launches those of one rank's serve run
+in phase 13 (c) and (b)), and
 the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
 Hkv=2, hd=128, bf16), at phase 12 (d)'s (mixtral-8x7b: Hq=32, Hkv=8,
@@ -444,11 +468,25 @@ PREFILL_CASES = (
 PREFILL_MAMBA2_CASES = (
     (64, 64, (64, 0, 33, 3), False, PREFILL_MAMBA2),
     (192, 64, (192, 0, 100, 64), False, PREFILL_MAMBA2))
+# phase 13's local shapes of qwen3-next-gdn's GDN layers: the (1,2) mesh
+# halves the heads (B 4, Hk 8, Hv 16), the (2,1) mesh the slots (B 2) and
+# the batched staging ring's rows (one prompt per rank)
+MESH_MODEL2 = (CFG["B"], CFG["Hk"] // 2, CFG["Hv"] // 2, CFG["d"], CFG["d"])
+MESH_DATA2 = (CFG["B"] // 2, CFG["Hk"], CFG["Hv"], CFG["d"], CFG["d"])
+PREFILL_MODEL2 = MESH_MODEL2[1:] + (torch.bfloat16,)
+PREFILL_MESH_CASES = {
+    "gdn_prefill_model2": (
+        (64, 64, (64, 0, 33, 3), True, PREFILL_MODEL2),
+        (192, 64, (192, 0, 100, 64), True, PREFILL_MODEL2)),
+    "gdn_prefill_data2": (
+        (64, 64, (64, 0), True, PREFILL_FULL),
+        (192, 64, (100, 0), True, PREFILL_FULL))}
 
 
 def prefill_phase(ops, ref, kprefill, time_launches, name="gdn_prefill",
-                  cases=PREFILL_CASES, timed=PREFILL_FULL + (True,)):
-    """gdn_prefill on each of ``cases`` at B = 4 batch rows: T in {16, 64}
+                  cases=PREFILL_CASES, timed=PREFILL_FULL + (True,),
+                  B=CFG["B"]):
+    """gdn_prefill on each of ``cases`` at B batch rows: T in {16, 64}
     (chunk = T) and T = 192 in chunks of 64, ragged valid_len per batch
     row (crossing chunk edges, one row 0, one T).  qwen3-next-gdn's shape
     and mamba2-1.3b's (Hk = 1, Hv = 64, d_k = 128, d_v = 64) take the
@@ -463,7 +501,7 @@ def prefill_phase(ops, ref, kprefill, time_launches, name="gdn_prefill",
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = []
     for T, chunk, lens, delta_rule, shape in cases:
-        B = CFG["B"]
+        lens = lens[:B]
         hk, hv, dk, dv, dtype = shape
         q, k, v, lg, beta, S0 = prefill_inputs(B, T, gen, hk, hv, dk, dv,
                                                dtype)
@@ -483,7 +521,7 @@ def prefill_phase(ops, ref, kprefill, time_launches, name="gdn_prefill",
                  f"delta_rule={delta_rule}")
         errs.append(check(f"{label} S", S_k.reshape(B * hv, dk, dv), S_p,
                           1e-4, 1e-4))
-        if not torch.equal(S_k[1], S0[1]):
+        if lens[1] == 0 and not torch.equal(S_k[1], S0[1]):
             raise AssertionError("valid_len=0 row changed its state")
         O_k = O_k.transpose(1, 2).reshape(B * hv, T, dv)
         mask = (torch.arange(T, device="cuda")[None, :] < vl[:, None])
@@ -810,7 +848,8 @@ def model_phase(cfg, params, lm):
     tolerance is relative to bf16 itself — the kernel path may be no
     further from the fp32 logits than twice the plain bf16 path is, and
     the argmax must agree wherever the plain top-two gap exceeds the
-    plain path's own error."""
+    plain path's own error.  Returns the step's inputs, its fp32 logits
+    and the kernel path's bf16 ones (phase 13's model-axis bound)."""
     from repro_torch.tree import tree_map
     B = CFG["B"]
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -840,6 +879,8 @@ def model_phase(cfg, params, lm):
           f"plain top-2 gaps {[round(float(x), 4) for x in gap]}")
     if err_k > 2 * err_p or not bool((same | (gap <= err_p)).all()):
         raise AssertionError("bf16 decode_step: kernel path disagrees")
+    return dict(toks=toks.cpu(), tok=tok.cpu(), truth=truth.cpu(),
+                one=lk.cpu())
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2064,6 +2105,350 @@ def disagg_phase(cfg, params, engine_mod, card, plain):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+# phase 4's engine settings and mix
+PHASE4_KW = dict(max_slots=4, max_len=1024, prefill_chunk=64, decode_block=8,
+                 seed=0, device="cuda")
+
+
+def phase4_requests(Request, vocab):
+    return [Request(rid=i, prompt=p, max_new_tokens=32,
+                    temperature=0.8 if i == 2 else 0.0,
+                    top_k=40 if i == 2 else 0)
+            for i, p in enumerate(_phase4_prompts(vocab))]
+
+
+def zero_launches():
+    from repro_torch.runtime.graphs import add_launches, launch_counts
+    add_launches(launch_counts(), -1)
+
+
+def gdn_counts():
+    from repro_torch.runtime.graphs import launch_counts
+    c = launch_counts()
+    return {"gdn_decode": sum(n for (m, _), n in c.items()
+                              if m.endswith("gdn_decode")),
+            "gdn_prefill": sum(n for (m, _), n in c.items()
+                               if m.endswith("gdn_prefill"))}
+
+
+def one_step_collectives(eng, cfg):
+    """The collectives, their host seconds and the GDN decode launches of
+    one decode step of ``eng``'s model on its own shards (the model code
+    alone: a tick adds one gather of its tokens over "data")."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm
+    ex = eng.executor
+    zero_launches()
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with comm.use(ex._axes):
+        lm.decode_step(ex.params, cfg, ex.tokens, ex.caches)
+    torch.cuda.synchronize()
+    return dict(collectives=comm.stats["calls"],
+                collective_s=comm.stats["seconds"],
+                step_s=time.perf_counter() - t0,
+                gdn_decode=gdn_counts()["gdn_decode"])
+
+
+def mesh_nccl_phase(cfg, params, engine_mod, card, plain):
+    """(a) A (1,1) NCCL mesh in this process on the default CUDA-graph
+    engine, phase 4's mix cold then warm: streams bitwise phase 4's graph
+    engine's; the warm run's collectives run inside replayed graphs
+    (``comm.stats["replayed"]``), none from the host unless a program
+    takes its first, eager call in it."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import comm
+    mesh_mod.init_ranks(0, 1, mesh_mod.free_port(), "nccl")
+    try:
+        mesh = mesh_mod.make_serving_mesh(1, 1)
+        eng = engine_mod.DecodeEngine(cfg, params, mesh=mesh, **PHASE4_KW)
+        if not eng.executor.cuda_graphs:
+            raise AssertionError("[13] (a): the NCCL mesh engine replays "
+                                 "no CUDA graphs")
+        for run in ("cold", "warm"):
+            reqs = phase4_requests(engine_mod.Request, cfg.vocab)
+            eng.reset_metrics()
+            comm.reset_stats()
+            shapes = eng.executor.compiled_programs()["total"]
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            streams = [list(r.output) for r in reqs]
+            if streams != plain:
+                raise AssertionError(
+                    f"[13] (a) {run}: streams differ from phase 4's graph "
+                    f"engine's at {first_difference(streams, plain)}")
+            m = eng.metrics()
+            st = dict(comm.stats)
+            new = eng.executor.compiled_programs()["total"] - shapes
+            print(f"  [13] (a) (1,1) NCCL mesh, graphs, {run} [{card}]: "
+                  f"streams bitwise phase 4's; decode "
+                  f"{m['decode_us_per_token']:.1f} us/token, mean TTFT "
+                  f"{m['mean_ttft_s'] * 1e3:.1f} ms, {m['tokens'] / wall:.1f}"
+                  f" tok/s; collectives: {st['calls']} from the host, "
+                  f"{st['captured']} captured, {st['replayed']} replayed; "
+                  f"{new} program shapes added; mesh "
+                  f"{m['mesh_data']}x{m['mesh_model']}; programs "
+                  f"{eng.executor.compiled_programs()}")
+            if run == "warm" and (not st["replayed"]
+                                  or (st["calls"] and not new)):
+                raise AssertionError(f"[13] (a) warm: collectives {st}: "
+                                     f"not run inside the captured graphs")
+        step = one_step_collectives(eng, cfg)
+        print(f"  [13] (a) one decode step (eager, the model code): "
+              f"{step['collectives']} collectives, each captured in the "
+              f"decode graphs (a tick adds 1, the tokens' gather over "
+              f"data), {step['gdn_decode']} gdn_decode launches")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return m["decode_us_per_token"]
+
+
+def _mesh_serve(label, cfg, params, mesh, engine_mod, step3):
+    """One eager gloo-mesh engine serving phase 4's mix on this rank (in
+    (c) request 0 paused after 2 tokens and resumed, its image kept), then
+    one decode step's logits on the mesh against the one-device step from
+    phase 3's state and tokens (this rank's rows)."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as rules
+    eng = engine_mod.DecodeEngine(cfg, params, mesh=mesh, cuda_graphs=False,
+                                  **PHASE4_KW)
+    reqs = phase4_requests(engine_mod.Request, cfg.vocab)
+    zero_launches()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    out = {}
+    if label == "c":
+        while not (reqs[0].state == "active" and len(reqs[0].output) >= 2):
+            eng.step()
+        eng.pause(0)
+        out["image"] = eng.swapped[0].state
+        out["n"] = len(reqs[0].output)
+        eng.step()
+        eng.resume(0)
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    out.update(streams=[list(r.output) for r in reqs],
+               wall=time.perf_counter() - t0, us_token=m["decode_us_per_token"],
+               ttft_ms=m["mean_ttft_s"] * 1e3, decode_steps=eng.decode_steps,
+               ticks=m["ticks"], run_collectives=comm.stats["calls"],
+               run_collective_s=comm.stats["seconds"], launches=gdn_counts(),
+               swap_bytes_per_slot=eng.executor.swap_bytes_per_slot,
+               step=one_step_collectives(eng, cfg))
+    if "n" in out:
+        out["after"] = out["streams"][0][out["n"]:]
+    # phase 3's state (a plain 64-token prefill of 4 rows), cut into this
+    # rank's shards of a copy by the slot rules at batch 4
+    from repro_torch.tree import tree_map
+    B = step3["tok"].shape[0]
+    plain = cfg.replace(use_pallas_serving=False)
+    caches = lm.init_caches(plain, B, PHASE4_KW["max_len"], device="cuda")
+    lm.prefill_chunk(params, plain, caches, tokens=step3["toks"].cuda())
+    ex = eng.executor
+    parts = rules.slot_specs(cfg, mesh, lm.cache_specs(
+        cfg, B, PHASE4_KW["max_len"]).tree, B)
+    local = rules.shard_tree(tree_map(torch.clone, caches), parts,
+                             ex._axes.coords, ex._axes.sizes)
+    tok = step3["tok"].cuda()
+    one, _ = lm.decode_step(params, cfg, tok, caches)
+    b = B // ex._axes.data.size
+    rows = slice(ex._axes.data.index * b, (ex._axes.data.index + 1) * b)
+    zero_launches()
+    with comm.use(ex._axes):
+        got, _ = lm.decode_step(ex.params, cfg, tok[rows], local)
+    torch.cuda.synchronize()
+    # numpy, not tensors: a tensor would cross the queue as a handle to
+    # this process's memory, which ends before the parent reads it
+    out["logits"] = dict(mesh=got.float().cpu().numpy(),
+                         one=one[rows].float().cpu().numpy(),
+                         rows=(rows.start, rows.stop),
+                         gdn_decode=gdn_counts()["gdn_decode"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(rank, port, step3, q):
+    """A gloo rank of phase 13 (b) and (c) on card 0: phase 4's weights
+    drawn from seed 0 here, then each mesh's engine."""
+    import traceback
+    import torch.distributed as dist
+    out = {}
+    try:
+        torch.cuda.set_device(0)
+        from repro_torch import configs
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.models import lm
+        from repro_torch.serving import engine as engine_mod
+        mesh_mod.init_ranks(rank, 2, port, "gloo")
+        cfg = configs.get_arch("qwen3-next-gdn").replace(
+            use_pallas_serving=True)
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+        for label, shape in (("b", (2, 1)), ("c", (1, 2))):
+            mesh = mesh_mod.make_serving_mesh(*shape)
+            out[label] = _mesh_serve(label, cfg, params, mesh, engine_mod,
+                                     step3)
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    if rank:
+        out.get("c", {}).pop("image", None)
+    q.put((rank, out))
+
+
+def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
+    """Phase 13: mesh serving of full-width qwen3-next-gdn on phase 4's
+    mix (module docstring).  Returns the GDN kernels' launches per rank
+    at the local shapes, keyed by phase 2's rows."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as mesh_mod
+    us_a = mesh_nccl_phase(cfg, params, engine_mod, card, plain)
+    print(f"  [13] (a) warm {us_a:.1f} us/token against phase 4's warm "
+          f"{plain_us:.1f} ({us_a / plain_us:.4f}x)")
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = mesh_mod.free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, port, step3, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = dict(q.get(timeout=900) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r, out in res.items():
+        if "error" in out:
+            raise AssertionError(f"[13] rank {r}:\n{out['error']}")
+    print(f"  [13] two gloo ranks on card 0 (spawn, draw, (b), (c)) took "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
+    for label, shape, row in (("b", "(2,1)", "data2"),
+                              ("c", "(1,2)", "model2")):
+        outs = [res[r][label] for r in range(2)]
+        if outs[1]["streams"] != outs[0]["streams"]:
+            raise AssertionError(f"[13] ({label}): the ranks' streams "
+                                 f"differ")
+        o = outs[0]
+        for r, x in enumerate(outs):
+            st = x["step"]
+            if st["gdn_decode"] != n_gdn:
+                raise AssertionError(f"[13] ({label}) rank {r}: "
+                                     f"{st['gdn_decode']} gdn_decode "
+                                     f"launches per decode step, not "
+                                     f"{n_gdn}")
+            print(f"  [13] ({label}) {shape} gloo mesh, eager, rank {r} "
+                  f"[{card}]: decode {x['us_token']:.1f} us/token, mean "
+                  f"TTFT {x['ttft_ms']:.1f} ms, {x['decode_steps']} decode "
+                  f"steps in {x['ticks']} ticks; the run's "
+                  f"{x['run_collectives']} collectives took "
+                  f"{x['run_collective_s']:.3f} s; one decode step: "
+                  f"{st['collectives']} collectives, "
+                  f"{st['collective_s'] * 1e3:.1f} ms of "
+                  f"{st['step_s'] * 1e3:.1f} ms in them, "
+                  f"{st['gdn_decode']} gdn_decode launches; the run's "
+                  f"GDN launches {x['launches']}")
+        diff = first_difference(o["streams"], plain)
+        greedy = [d for i, d in enumerate(diff) if i != 2]
+        print(f"  [13] ({label}) first token index leaving the 1-device "
+              f"streams, per request (request 2 draws): {diff}")
+        if label == "b" and any(d is not None for d in diff):
+            print(f"  [13] (b): the data axis left the 1-device streams "
+                  f"(the GEMVs' row counts halve); see (c)'s logit bound")
+        if label == "c":
+            print(f"  [13] (c) greedy streams' first differences: {greedy}")
+        launches[f"gdn_decode_{row}"] = o["launches"]["gdn_decode"]
+        launches[f"gdn_prefill_{row}"] = o["launches"]["gdn_prefill"]
+
+    # each layout's logits: no further from the fp32 step than twice the
+    # 1-device bf16 step is (phase 3's rule), the argmax equal wherever
+    # the 1-device top-2 gap exceeds its own error
+    for label, r in ((label, r) for label in ("b", "c") for r in range(2)):
+        lg = res[r][label]["logits"]
+        rows = slice(*lg["rows"])
+        truth = step3["truth"][rows]
+        one, got = torch.from_numpy(lg["one"]), torch.from_numpy(lg["mesh"])
+        d = max_err(got, one)
+        err_mesh, err_one = max_err(got, truth), max_err(one, truth)
+        top2 = one.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = got.argmax(-1) == one.argmax(-1)
+        print(f"  [13] ({label}) rank {r}, rows {lg['rows']}: one decode "
+              f"step's logits, max|mesh - 1-device| {d:.3e}; from fp32: "
+              f"mesh {err_mesh:.3e}, 1-device {err_one:.3e} (limit 2x "
+              f"1-device); argmax equal {same.tolist()}, 1-device top-2 "
+              f"gaps {[round(float(x), 4) for x in gap]}; "
+              f"{lg['gdn_decode']} gdn_decode launches")
+        if err_mesh > 2 * err_one or not bool((same | (gap <= err_one))
+                                              .all()):
+            raise AssertionError(f"[13] ({label}): the mesh's logits leave "
+                                 f"the bound")
+        if lg["gdn_decode"] != n_gdn:
+            raise AssertionError(f"[13] ({label}): {lg['gdn_decode']} "
+                                 f"gdn_decode launches in the logit step")
+
+    # (d) (c)'s image of request 0 restored into a one-device engine
+    c = res[0]["c"]
+    sw = c["image"]
+    eng = engine_mod.DecodeEngine(cfg, params, cuda_graphs=False,
+                                  **PHASE4_KW)
+    ex = eng.executor
+    if sw.nbytes != ex.swap_bytes_per_slot or \
+            c["swap_bytes_per_slot"] != ex.swap_bytes_per_slot:
+        raise AssertionError(f"[13] (d): image of {sw.nbytes} B, slots of "
+                             f"{ex.swap_bytes_per_slot} B")
+    ex.restore_slot(1, sw)
+    back = ex.gather_slot(1)
+    from repro_torch.tree import leaves
+    for a, b in zip(leaves(back.caches) + [back.token],
+                    leaves(sw.caches) + [sw.token]):
+        if a.tobytes() != b.tobytes():
+            raise AssertionError("[13] (d): the restored image does not "
+                                 "gather back bitwise")
+    ex.restore_slot(1, back)
+    got = []
+    while True:
+        toks, valid = ex.decode(8)
+        got += [int(t) for t, v in zip(toks[:, 1], valid[:, 1]) if v]
+        if not valid[-1, 1]:
+            break
+    diff = first_difference([got], [c["after"]])[0]
+    diff1 = first_difference([got], [plain[0][c["n"]:]])[0]
+    print(f"  [13] (d) (1,2) image of request 0 ({sw.nbytes} B, after "
+          f"{c['n']} tokens) restored into a one-device eager engine: "
+          f"gathers back bitwise; its {len(got)}-token continuation leaves "
+          f"(c)'s at {diff}, phase 4's at {diff1} (None: equal)")
+    if len(got) != len(c["after"]):
+        raise AssertionError(f"[13] (d): {len(got)} tokens, (c) emitted "
+                             f"{len(c['after'])}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- phase 5
 
 TRAIN_STEPS = 5
@@ -2751,6 +3136,14 @@ def main():
             prefill_phase(ops, ref, kprefill, time_launches,
                           "gdn_prefill_mamba2", PREFILL_MAMBA2_CASES,
                           PREFILL_MAMBA2 + (False,))]
+    rows += [decode_phase(ref, kdecode, time_launches, "gdn_decode_model2",
+                          MESH_MODEL2, delta_rules=(True,)),
+             decode_phase(ref, kdecode, time_launches, "gdn_decode_data2",
+                          MESH_DATA2, delta_rules=(True,))]
+    rows += [prefill_phase(ops, ref, kprefill, time_launches, name,
+                           PREFILL_MESH_CASES[name], cases[0][4] + (True,),
+                           B=len(cases[0][2]))
+             for name, cases in PREFILL_MESH_CASES.items()]
     prefill_pow2_checks(ops, ref)
     rows += flash_phase(ref, kflash, time_launches, kernels_per_call)
     rows.append(attn_decode_phase(ref, kattn, time_launches,
@@ -2773,7 +3166,7 @@ def main():
     print(f"[3] full-width {cfg.name}: {lm.param_count(params) / 1e9:.3f} B "
           f"params ({cfg.act_dtype}) drawn in "
           f"{time.perf_counter() - t0:.1f} s")
-    model_phase(cfg, params, lm)
+    step3 = model_phase(cfg, params, lm)
 
     print(f"[4] serving through DecodeEngine [{card}]")
     launches, plain, warm_us = serve_phase(cfg, params, engine_mod, kdecode,
@@ -2795,6 +3188,14 @@ def main():
     t0 = time.perf_counter()
     disagg = disagg_phase(cfg, params, engine_mod, card, plain)
     print(f"  [11] phase 11 took {time.perf_counter() - t0:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[13] mesh serving of full-width {cfg.name} on phase 4's mix "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    launches.update(mesh_phase(cfg, params, engine_mod, card, plain, step3,
+                               warm_us))
+    print(f"  [13] phase 13 took {time.perf_counter() - t0:.1f} s [{card}]")
     del params
     torch.cuda.empty_cache()
 

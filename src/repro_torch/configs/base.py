@@ -140,3 +140,60 @@ class ArchConfig:
         if self.rglru_width:
             kw.update(rglru_width=64)
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class ServingTopology:
+    """Mesh topology of one serving engine (the reference's
+    ``ServingTopology``): slot-axis data parallelism plus head/context
+    tensor parallelism, the paper's head-parallelism axis scaled out.
+
+    ``data``  shards the engine's slot axis (slot counts must be a
+    multiple — ``pad_slots`` rounds up);
+    ``model`` shards GDN state heads and the attention KV context dim;
+    ``staging_depth`` is the executor's staging-ring size.  In the port
+    each mesh device is one ``torch.distributed`` rank."""
+    data: int = 1
+    model: int = 1
+    staging_depth: int = 2
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.model)
+
+    @property
+    def axes(self) -> Tuple[str, str]:
+        return ("data", "model")
+
+    @property
+    def devices(self) -> int:
+        return self.data * self.model
+
+    def pad_slots(self, slots: int) -> int:
+        """Round a slot count up to a multiple of the data-axis size so the
+        slot axis shards evenly."""
+        return -(-slots // self.data) * self.data
+
+    @classmethod
+    def parse(cls, text: str, *, staging_depth: int = 2
+              ) -> "ServingTopology":
+        """Parse a ``--mesh`` flag: "4,2" or "data=4,model=2"."""
+        parts = [p.strip() for p in text.split(",") if p.strip()]
+        try:
+            if any("=" in p for p in parts):
+                kv = dict(p.split("=", 1) for p in parts)
+                data, model = int(kv.pop("data", 1)), int(kv.pop("model", 1))
+                if kv:
+                    raise ValueError(f"unknown mesh axes {sorted(kv)}")
+            else:
+                if len(parts) != 2:
+                    raise ValueError("expected two axis sizes")
+                data, model = int(parts[0]), int(parts[1])
+        except ValueError as e:
+            raise ValueError(
+                f"--mesh must be 'DATA,MODEL' or 'data=D,model=M', got "
+                f"{text!r} ({e})") from None
+        if data < 1 or model < 1:
+            raise ValueError(f"mesh axis sizes must be >= 1, got "
+                             f"data={data}, model={model}")
+        return cls(data=data, model=model, staging_depth=staging_depth)

@@ -39,15 +39,36 @@ engine; the streams are the colocated ones.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
         --requests 4 --max-new 6 --slots 2 --max-len 64 --kernels \
         --device cpu --rpc --workers 2 --roles prefill,decode
+
+``--mesh DATA,MODEL`` (or ``data=D,model=M``) serves one engine sharded
+over a ``("data", "model")`` mesh: the slot axis on "data" (``--slots`` is
+padded to a multiple of it), GDN state heads, attention heads and KV
+context, the MLP and the vocab on "model".  The CLI starts one rank per
+mesh device itself (``torch.multiprocessing.spawn``); each draws the
+weights from ``--seed`` and keeps its shards, every rank serves the same
+requests and rank 0 prints.  The backend is NCCL, one card per rank, on
+the card, and gloo on the CPU; ``--gloo`` runs the ranks over gloo on
+the cards there are (ranks may share a card; its collectives pass
+through host memory and the programs run eagerly).  A mesh needing more
+cards than NCCL sees raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
+        --requests 4 --max-new 6 --slots 4 --max-len 64 --kernels \
+        --device cpu --mesh 2,2
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import configs
+from repro_torch.configs.base import ServingTopology
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import lm
 from repro_torch.serving.engine import (DecodeEngine, EngineProxy, Request,
                                         Router)
@@ -147,6 +168,14 @@ def main(argv=None):
     ap.add_argument("--swap-spool-dir", default=None,
                     help="directory for spilled swap images (wire codec); "
                          "images reload on resume")
+    ap.add_argument("--mesh", default=None,
+                    help="engine mesh topology DATA,MODEL (slot axis on "
+                         "'data', heads / KV context / vocab on 'model'); "
+                         "one rank per mesh device")
+    ap.add_argument("--gloo", action="store_true", default=False,
+                    help="run the --mesh ranks over gloo on the card(s) "
+                         "there are (ranks may share one; eager) instead "
+                         "of NCCL with a card per rank")
     ap.add_argument("--engines", type=int, default=1,
                     help="number of engines behind the router")
     ap.add_argument("--rpc", action="store_true", default=False,
@@ -207,7 +236,57 @@ def main(argv=None):
     if args.workers is not None:
         args.rpc = True
         args.engines = args.workers
+    if args.mesh is not None:
+        return _spawn_mesh(args)
+    _serve_main(args)
 
+
+def _spawn_mesh(args):
+    """``--mesh``: validate, pad the slots, pick the backend and start one
+    rank per mesh device."""
+    topo = ServingTopology.parse(args.mesh, staging_depth=args.staging_depth)
+    if args.engines > 1 or args.rpc:
+        raise NotImplementedError(
+            "--mesh with --engines > 1 or --rpc is not ported to "
+            "repro_torch yet: ROADMAP queue 1 item 4d (the reference's "
+            "per-mesh engines behind the router, EngineProxy(mesh_shape=))")
+    backend = ("gloo" if args.gloo or args.device == "cpu" else "nccl")
+    cards = mesh_mod.visible_devices("nccl") if backend == "nccl" else None
+    if cards is not None and topo.devices > cards:
+        raise ValueError(
+            f"--mesh {args.mesh} needs {topo.devices} cards for its NCCL "
+            f"ranks (one each) but {cards} are visible — shrink the mesh, "
+            f"or pass --gloo to run its ranks over gloo on the cards there "
+            f"are (eager; ranks may share a card)")
+    padded = topo.pad_slots(args.slots)
+    if padded != args.slots:
+        print(f"--slots {args.slots} padded to {padded} (a multiple of the "
+              f"data axis {topo.data})")
+        args.slots = padded
+    if backend == "gloo" and args.device != "cpu":
+        args.cuda_graphs = False     # gloo collectives are host calls
+    port = mesh_mod.free_port()
+    torch.multiprocessing.spawn(_rank_main, args=(args, topo, backend, port),
+                                nprocs=topo.devices)
+
+
+def _rank_main(rank, args, topo, backend, port):
+    """One mesh rank of the serve CLI: rank 0 prints."""
+    mesh_mod.init_ranks(rank, topo.devices, port, backend)
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    if backend == "nccl":
+        args.device = f"cuda:{rank}"
+    try:
+        print(f"mesh: data={topo.data} x model={topo.model}, "
+              f"{topo.devices} {backend} ranks on {args.device}")
+        _serve_main(args, mesh_mod.make_serving_mesh(topo.data, topo.model))
+        torch.distributed.barrier()     # no rank tears down mid-collective
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _serve_main(args, mesh=None):
     cfg = configs.get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -247,6 +326,8 @@ def main(argv=None):
                   host_swap_bytes=args.host_swap_bytes,
                   swap_spool_dir=args.swap_spool_dir,
                   device=args.device, cuda_graphs=args.cuda_graphs)
+    if mesh is not None:
+        common["mesh"] = mesh
     engines = build_engines(cfg, params, args, common)
     try:
         router = Router(engines, policy=args.router_policy)

@@ -19,6 +19,17 @@ over a rolling KV cache (port of ``repro.models.attention``).
                              (``kernels.ops.attn_decode``), which no mixer
                              calls, as in the reference.
 
+On a mesh's "model" axis (``parallel.comm.model_axis()``) the projections
+hold this rank's heads while the KV cache holds a slice of the *context*
+(the reference's ``cache_specs``: (B, Hkv, Tmax / M, hd) on rank r holds
+positions [r Tmax / M, (r + 1) Tmax / M)): ``attn_decode_xla`` and
+``attn_prefill_chunk`` gather the new tokens' q, k, v heads over "model",
+write each position into the rank that owns it, and compute flash-decode
+split-K — each rank's (max, sum) over its slice, merged in rank order,
+then the probability-weighted values all-reduced — before keeping the
+local heads for ``wo``.  At a model axis of 1 this is the unsharded
+arithmetic bit for bit.
+
 KV cache layout: (B, Hkv, Tmax, hd) + lengths (B,) int32.  A rolling (SWA)
 cache of ``size`` slots holds token p at slot p mod size.  The functions
 write the new keys/values and lengths into the cache tensors in place and
@@ -36,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.kernels import flash_attn, ops
 from repro_torch.models import layers
+from repro_torch.parallel import comm
 
 _NEG = -1e30
 
@@ -162,6 +174,10 @@ def attn_prefill(p, x, cache: KVCache, *, rope_theta=10000.0, window=None,
     """Causal (optionally windowed) attention over the prompt; fills the
     cache.  All rows share length T; rolling caches keep the last ``size``
     tokens at slot p mod size."""
+    if comm.model_axis() is not None:
+        raise NotImplementedError(
+            "attn_prefill on a mesh: the serving path stages prompts "
+            "through attn_prefill_chunk")
     B, T, _ = x.shape
     pos = torch.arange(T, device=x.device)
     q, k, v = _qkv(p, x, pos.expand(B, T), rope_theta)
@@ -201,6 +217,10 @@ def attn_prefill_chunk(p, x, cache: KVCache, *, rope_theta=10000.0,
     each row are real: padded positions are not inserted into the rolling
     buffer and ``length`` advances by valid_len only.
     x: (B, C, d) with C <= cache size.  Returns (out (B, C, d), cache)."""
+    tp = comm.model_axis()
+    if tp is not None:
+        return _attn_prefill_chunk_split(tp, p, x, cache, rope_theta,
+                                         head_mask, valid_len)
     B, C, _ = x.shape
     size = cache.k.shape[2]
     if C > size:
@@ -288,6 +308,9 @@ def attn_decode_xla(p, x_t, cache: KVCache, *, rope_theta=10000.0,
                     window=None, head_mask=None):
     """One-token decode against the cache.  x_t: (B, d_model).
     Returns (out (B, d_model), cache)."""
+    tp = comm.model_axis()
+    if tp is not None:
+        return _attn_decode_split(tp, p, x_t, cache, rope_theta, head_mask)
     B = x_t.shape[0]
     pos = cache.length.long()
     x = x_t[:, None, :]
@@ -308,6 +331,162 @@ def attn_decode_xla(p, x_t, cache: KVCache, *, rope_theta=10000.0,
     o = _f32_matmul(pr.to(cache.v.dtype), cache.v)
     o = o.reshape(B, Hq, hd).to(x_t.dtype)
     return _out(_apply_head_mask(o, head_mask), p["wo"]), cache
+
+
+# ------------------------------------------- context-split (model axis)
+
+def _gather_heads(tp, *ts):
+    """The full heads (dim -2) of each of ``ts`` from every rank's local
+    heads, in one all-gather over "model"."""
+    counts = [t.shape[-2] for t in ts]
+    g = tp.all_gather(torch.cat(ts, dim=-2)[None], 0).unbind(0)
+    out, start = [], 0
+    for n in counts:
+        out.append(torch.cat([r[..., start:start + n, :] for r in g],
+                             dim=-2))
+        start += n
+    return out
+
+
+def _merge_stats(tp, m_r, l_r):
+    """Global max and softmax denominator from each rank's (max, sum of
+    exp(s - max)) over its context slice, merged in rank order (at one
+    rank: the rank's own, bit for bit)."""
+    g = tp.all_gather(torch.stack([m_r, l_r])[None], 0)
+    ms, ls = g[:, 0], g[:, 1]
+    m = ms[0]
+    for r in range(1, tp.size):
+        m = torch.maximum(m, ms[r])
+    l = torch.exp(ms[0] - m) * ls[0]
+    for r in range(1, tp.size):
+        l = l + torch.exp(ms[r] - m) * ls[r]
+    return m, l
+
+
+def _local_out(tp, p, o, n_local, head_mask):
+    """Keep this rank's ``n_local`` query heads of the full ``o`` (..., Hq,
+    hd) and project them through its ``wo`` rows: a partial sum the
+    caller all-reduces."""
+    o = o.narrow(-2, tp.index * n_local, n_local)
+    if head_mask is not None:
+        head_mask = head_mask.narrow(0, tp.index * n_local, n_local)
+    return _out(_apply_head_mask(o, head_mask), p["wo"])
+
+
+def _attn_decode_split(tp, p, x_t, cache: KVCache, rope_theta, head_mask):
+    """``attn_decode_xla`` on a context-sharded cache (module docstring)."""
+    B = x_t.shape[0]
+    dev = x_t.device
+    pos = cache.length.long()
+    q, k, v = _qkv(p, x_t[:, None, :], pos[:, None], rope_theta)
+    n_local = q.shape[2]
+    q, k, v = _gather_heads(tp, q[:, 0], k[:, 0], v[:, 0])
+    S = cache.k.shape[2]
+    off = tp.index * S
+    # the new token goes to the rank owning its slot; one position per
+    # row, so the clamped index of the other ranks rewrites its own value
+    slot = torch.remainder(pos, S * tp.size) - off
+    inside = ((slot >= 0) & (slot < S))[:, None, None]
+    idx = torch.clamp(slot, 0, S - 1)
+    b_idx = torch.arange(B, device=dev)
+    cache.k[b_idx, :, idx] = torch.where(inside, k.to(cache.k.dtype),
+                                         cache.k[b_idx, :, idx])
+    cache.v[b_idx, :, idx] = torch.where(inside, v.to(cache.v.dtype),
+                                         cache.v[b_idx, :, idx])
+    cache.length.add_(1)
+    Hq, hd = q.shape[1], q.shape[2]
+    Hkv = cache.k.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    s = (1.0 / math.sqrt(hd)) * _f32_matmul(qg, cache.k.transpose(-1, -2))
+    valid = (off + torch.arange(S, device=dev))[None, :] < \
+        cache.length[:, None]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), _NEG, device=dev))
+    m_r = s.amax(-1)
+    m, l = _merge_stats(tp, m_r, torch.exp(s - m_r[..., None]).sum(-1))
+    pr = torch.exp(s - m[..., None]) / torch.clamp(l, min=1e-30)[..., None]
+    o = tp.all_reduce(_f32_matmul(pr.to(cache.v.dtype), cache.v))
+    o = o.reshape(B, Hq, hd).to(x_t.dtype)
+    return _local_out(tp, p, o, n_local, head_mask), cache
+
+
+def _attn_prefill_chunk_split(tp, p, x, cache: KVCache, rope_theta,
+                              head_mask, valid_len):
+    """``attn_prefill_chunk`` on a context-sharded cache: the scores
+    against the pre-chunk cache are split over the ranks' slices (merged
+    as in ``_attn_decode_split``), the in-chunk causal part is computed
+    whole on every rank, and each rank writes the chunk positions its
+    slice owns."""
+    B, C, _ = x.shape
+    S = cache.k.shape[2]
+    size = S * tp.size
+    if C > size:
+        raise ValueError(f"prefill chunk of {C} tokens exceeds the rolling "
+                         f"KV buffer ({size}); lower the chunk size")
+    dev = x.device
+    length = cache.length.long()
+    ar = torch.arange(C, device=dev)
+    pos = length[:, None] + ar[None, :]                         # (B, C)
+    q, k, v = _qkv(p, x, pos, rope_theta)
+    n_local = q.shape[2]
+    q, k, v = _gather_heads(tp, q, k, v)
+    Hq, hd = q.shape[2], q.shape[3]
+    Hkv = cache.k.shape[1]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, C, Hkv, G, hd).permute(0, 2, 3, 1, 4)     # (B,Hkv,G,C,hd)
+    neg = torch.full((), _NEG, device=dev)
+
+    # scores against this rank's slice of the pre-chunk cache
+    t_idx = tp.index * S + torch.arange(S, device=dev)
+    Lc = length[:, None]
+    p_t = (Lc - 1) - torch.remainder(Lc - 1 - t_idx[None, :], size)
+    occupied = t_idx[None, :] < Lc
+    vis = occupied[:, None, :] & (p_t[:, None, :] > pos[:, :, None] - size)
+    s_cache = scale * _f32_matmul(qg, cache.k.unsqueeze(2).transpose(-1, -2))
+    s_cache = torch.where(vis[:, None, None], s_cache, neg)
+    m_r = s_cache.amax(-1)
+    m_cache, l_cache = _merge_stats(
+        tp, m_r, torch.exp(s_cache - m_r[..., None]).sum(-1))
+    e_cache = torch.exp(s_cache - m_cache[..., None])
+    o_cache = tp.all_reduce(
+        _f32_matmul(e_cache.to(cache.v.dtype), cache.v.unsqueeze(2)))
+
+    # in-chunk causal scores, whole on every rank
+    kc = k.permute(0, 2, 1, 3)                                  # (B,Hkv,C,hd)
+    vc = v.permute(0, 2, 1, 3)
+    s_chunk = scale * _f32_matmul(qg, kc.unsqueeze(2).transpose(-1, -2))
+    causal = ar[:, None] >= ar[None, :]
+    s_chunk = torch.where(causal, s_chunk, neg)
+    m_chunk = s_chunk.amax(-1)
+    e_chunk = torch.exp(s_chunk - m_chunk[..., None])
+    l_chunk = e_chunk.sum(-1)
+    o_chunk = _f32_matmul(e_chunk.to(vc.dtype), vc.unsqueeze(2))
+    m = torch.maximum(m_cache, m_chunk)
+    w_cache = torch.exp(m_cache - m)
+    w_chunk = torch.exp(m_chunk - m)
+    l_tot = w_cache * l_cache + w_chunk * l_chunk
+    o = ((w_cache[..., None] * o_cache + w_chunk[..., None] * o_chunk)
+         / torch.clamp(l_tot, min=1e-30)[..., None])
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, hd).to(x.dtype)
+    out = _local_out(tp, p, o, n_local, head_mask)
+
+    # each slot of this slice takes the chunk position that lands on it
+    # (c = (t - length) mod size, when c < valid_len): a gather, so
+    # positions owned by other ranks never collide with this rank's
+    c_idx = torch.remainder(t_idx[None, :] - Lc, size)           # (B, S)
+    limit = (C if valid_len is None else
+             _device.as_int(valid_len, torch.int64, dev).reshape(-1, 1))
+    hit = (c_idx < limit)[:, None, :, None]
+    src = torch.clamp(c_idx, max=C - 1)[:, :, None, None].expand(
+        B, S, Hkv, hd)
+    for buf, new in ((cache.k, k), (cache.v, v)):
+        rows = torch.gather(new.to(buf.dtype), 1, src).permute(0, 2, 1, 3)
+        buf.copy_(torch.where(hit, rows, buf))
+    adv = C if valid_len is None else _device.as_int(
+        valid_len, cache.length.dtype, dev)
+    cache.length.add_(adv)
+    return out, cache
 
 
 def attn_decode_pallas(p, x_t, cache: KVCache, *, rope_theta=10000.0,

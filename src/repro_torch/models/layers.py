@@ -5,6 +5,10 @@ Functional style over plain parameter dicts of tensors.  Matmuls run in
 the activation dtype (bf16 on the card, which accumulates in fp32 and
 rounds the result to bf16 — the reference's ``preferred_element_type``
 then ``astype``); norms in fp32.
+
+On a mesh's "model" axis (``parallel.comm.model_axis()``) the embedding
+table holds this rank's vocab rows: ``embed_fwd`` looks up the tokens it
+owns and all-reduces.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as _device
+from repro_torch.parallel import comm
 
 
 def dot(x, w):
@@ -86,7 +91,17 @@ def init_embedding(generator, vocab, d_model, dtype, device):
 
 
 def embed_fwd(p, tokens):
-    return p["table"][tokens]
+    tp = comm.model_axis()
+    if tp is None:
+        return p["table"][tokens]
+    # vocab-parallel: each rank holds rows [index * n, (index + 1) * n)
+    n = p["table"].shape[0]
+    local = tokens - tp.index * n
+    hit = (local >= 0) & (local < n)
+    x = p["table"][torch.where(hit, local, torch.zeros_like(local))]
+    x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return tp.all_reduce(x)
 
 
 def logits_matmul(x, w):

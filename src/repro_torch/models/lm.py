@@ -13,6 +13,13 @@ Caches are updated in place: every function writes each layer's new cache
 back into the stacked buffers it was given (the port's form of buffer
 donation) and returns them.
 
+On a mesh (``parallel.comm.use``) the serving functions run on this rank's
+shards, Megatron-style: the vocab-parallel embedding all-reduces, each
+mixer's and FFN's output is a row-parallel partial sum all-reduced over
+"model" (the mixers and the MLP are column-parallel before their per-head
+or per-unit blocks), and the logits are gathered over "model" before any
+sampler sees them, so every rank samples from the full vocabulary.
+
 Training runs each group's repeats in a loop; with ``cfg.remat`` each
 repeat is recomputed in the backward pass (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` of its scanned block), and so is each
@@ -52,6 +59,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, moe
 from repro_torch.models.mixers import CacheSpec, get_mixer
+from repro_torch.parallel import comm
 from repro_torch.tree import copy_leaves, leaves, tree_map
 
 
@@ -238,6 +246,9 @@ def _ffn_fwd(cfg: ArchConfig, lp, x, decode: bool):
     if "mlp" in lp:
         m = layers.mlp_fwd(lp["mlp"], h)
         y = m if y is None else y + m
+    tp = comm.model_axis()
+    if tp is not None:
+        y = tp.all_reduce(y)
     return x + y, aux
 
 
@@ -258,6 +269,9 @@ def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
                                                   valid_len=valid_len)
                 else:
                     mix, nc = mixer.decode(lp["mixer"], cfg, h, c)
+                tp = comm.model_axis()
+                if tp is not None:
+                    mix = tp.all_reduce(mix)
                 # the layer's new cache into its slice of the stacked
                 # buffers (a no-op where the mixer updated it in place)
                 copy_leaves(c, nc)
@@ -274,8 +288,11 @@ def _embed(params, cfg, tokens, embeds):
 
 def _logits(params, cfg: ArchConfig, h):
     if cfg.tie_embeddings:
-        return layers.logits_fwd(params["embed"], h)
-    return layers.logits_matmul(h, params["lm_head"]["w"])
+        out = layers.logits_fwd(params["embed"], h)
+    else:
+        out = layers.logits_matmul(h, params["lm_head"]["w"])
+    tp = comm.model_axis()
+    return out if tp is None else tp.all_gather(out, out.dim() - 1)
 
 
 def prefill(params, cfg: ArchConfig, caches, tokens=None, embeds=None):

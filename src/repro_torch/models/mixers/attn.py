@@ -75,6 +75,12 @@ class Attention(SequenceMixer):
                                                               x_t.device))
 
     @classmethod
+    def param_count(cls, cfg):
+        d = cfg.d_model
+        return (d * cfg.head_dim * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                + cfg.n_heads * cfg.head_dim * d)
+
+    @classmethod
     def cache_spec(cls, cfg, batch, max_len):
         w = cls._window(cfg)
         size = max_len if w is None else min(w, max_len)

@@ -10,6 +10,7 @@ class implementing
   decode(params, cfg, x_t, cache)                  -> ((B, d), cache)
   cache_spec(cfg, batch, max_len)                  -> CacheSpec
   checkpoint_spec(cfg, batch, max_len)             -> CacheSpec
+  param_count(cfg)                                 -> parameters per layer
 
 plus the declarative class attributes the serving executor consumes
 (``kind``, ``is_attention``, ``quadratic``, ``state_passes``,
@@ -135,6 +136,11 @@ class SequenceMixer:
         keep the tree structure of ``cache_spec``: the verify commits leaf
         by leaf."""
         return cls.cache_spec(cfg, batch, max_len)
+
+    @classmethod
+    def param_count(cls, cfg) -> int:
+        """Mixer parameter count per layer (sharding/footprint planning)."""
+        raise NotImplementedError(cls.kind)
 
 
 def state_dtype(cfg) -> torch.dtype:

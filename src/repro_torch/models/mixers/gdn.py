@@ -44,6 +44,12 @@ class GatedDeltaNet(SequenceMixer):
                                     fused=cls.fused)
 
     @classmethod
+    def param_count(cls, cfg):
+        d, hd = cfg.d_model, cfg.gdn_head_dim
+        return (d * hd * (2 * cfg.gdn_k_heads + cfg.gdn_v_heads)
+                + cfg.gdn_v_heads * hd * d + 2 * d * cfg.gdn_v_heads)
+
+    @classmethod
     def cache_spec(cls, cfg, batch, max_len):
         hd = cfg.gdn_head_dim
         return CacheSpec(gdn_layer.GDNState(

@@ -45,6 +45,11 @@ class RGLRU(SequenceMixer):
         return rglru_layer.rglru_decode(params, x_t, cache)
 
     @classmethod
+    def param_count(cls, cfg):
+        d, w = cfg.d_model, cfg.rglru_width
+        return 2 * d * w + 2 * w * w + w * d
+
+    @classmethod
     def cache_spec(cls, cfg, batch, max_len):
         # h is fp32 whatever state_dtype says, as in the reference
         return CacheSpec(rglru_layer.RGLRUState(

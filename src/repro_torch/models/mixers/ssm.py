@@ -51,6 +51,12 @@ class SSD(SequenceMixer):
                                     use_pallas=cfg.use_pallas_serving)
 
     @classmethod
+    def param_count(cls, cfg):
+        d = cfg.d_model
+        return (d * cfg.ssm_d_inner * 3 + 2 * d * cfg.ssm_d_state
+                + d * (cfg.ssm_d_inner // cfg.ssm_headdim))
+
+    @classmethod
     def cache_spec(cls, cfg, batch, max_len):
         nheads = cfg.ssm_d_inner // cfg.ssm_headdim
         act = _device.dtype(cfg.act_dtype)

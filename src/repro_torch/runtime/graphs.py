@@ -22,7 +22,9 @@ copied into the executor's buffers inside the graph).
 The kernels' ``launches`` counters are Python integers bumped by each
 wrapper when it launches.  A replay runs no wrapper, so each graph keeps
 the counts its capture made and adds them on every replay; the capture
-itself counts nothing.
+itself counts nothing.  Mesh collectives (``parallel.comm.stats``) are
+kept alike: a capture moves the ones it recorded from ``calls`` to
+``captured``, and each replay adds them to ``replayed``.
 
 ``capture_s`` is the time of the capture, instantiation included, except
 in a program made with ``keep_graph=True``: that one keeps the captured
@@ -41,6 +43,7 @@ import torch
 
 from repro_torch.kernels import attn_decode, flash_attn, gdn_decode, \
     gdn_prefill
+from repro_torch.parallel import comm
 
 # the kernel modules whose wrappers count their launches
 COUNTED = (gdn_decode, gdn_prefill, attn_decode, flash_attn)
@@ -81,6 +84,7 @@ class Program:
         self.graph = None
         self.out = None
         self.launches: Counts = {}     # launches one replay makes
+        self.collectives = 0           # collectives one replay runs
         self.capture_s = self.instantiate_s = None
 
     def __call__(self):
@@ -91,10 +95,12 @@ class Program:
             self._capture()
         self.graph.replay()
         add_launches(self.launches)
+        comm.stats["replayed"] += self.collectives
         return self.out
 
     def _capture(self):
         before = launch_counts()
+        calls = comm.stats["calls"]
         graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
         # A dropped engine's programs and executor form reference cycles
         # (each program's function holds the executor), which only the
@@ -121,6 +127,9 @@ class Program:
             after = launch_counts()
             delta = {k: after[k] - before[k] for k in after}
             add_launches(delta, -1)        # the capture launched nothing
+            self.collectives = comm.stats["calls"] - calls
+            comm.stats["calls"] = calls
+            comm.stats["captured"] += self.collectives
         self.launches = {k: n for k, n in delta.items() if n}
         self.graph, self.out = graph, out
 

@@ -21,8 +21,9 @@ Behaviours carried over from the reference:
     resume replays the exact batch stream;
   * microbatch gradient accumulation in ``accum_dtype``.
 
-The port runs on one device: there is no mesh and no sharding (the
-reference's ``parallel/sharding.py`` is not ported yet; ROADMAP).
+The port trains on one device: the trainer's mesh (DP, FSDP by
+``parallel.sharding.needs_fsdp``, elastic re-mesh) is ROADMAP queue 1
+item 4c; serving meshes are ported (``serving/executor.py``).
 """
 from __future__ import annotations
 
@@ -149,8 +150,9 @@ class Trainer:
         eagerly; ``True`` on the CPU raises."""
         if mesh is not None:
             raise NotImplementedError(
-                "the port trains on one device; meshes and sharding are not "
-                "ported yet: the reference's parallel/sharding.py (ROADMAP)")
+                "the port trains on one device; the trainer's mesh (DP, "
+                "FSDP, elastic re-mesh) is not ported to repro_torch yet: "
+                "ROADMAP queue 1 item 4c")
         self.cfg, self.tc = cfg, tc
         self.device = _device.resolve(device)
         on_card = self.device.type == "cuda"

@@ -32,8 +32,12 @@ raises.
   * ``repro_torch.serving.rpc.EngineProxy`` runs an engine in a worker
     process behind the same surface (``WorkerDied`` when it is gone).
 
-Meshes of the reference come in a later slice; asking for one raises
-``NotImplementedError``.
+``mesh=`` (a ``("data", "model")`` ``DeviceMesh``, ``launch/mesh.py``)
+shards one engine over several ranks, each a process running this engine
+on the same requests: the slot axis on "data" (streams bitwise the
+one-device engine's), GDN state heads, attention heads and KV context,
+the MLP and the vocab on "model" (the ``gdn`` and ``attn`` kinds; others
+raise ``NotImplementedError`` on a model axis).
 """
 from __future__ import annotations
 

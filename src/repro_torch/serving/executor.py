@@ -49,8 +49,29 @@ On the card each program is captured once into a CUDA graph and replayed
 eagerly.  Either way a program writes its results into the executor's
 buffers, so every call sees one set of addresses.
 
-Deferred to a later slice (raises ``NotImplementedError`` naming the
-reference module that holds it): ``mesh``.
+**Mesh sharding.**  With ``mesh`` set (a ``("data", "model")``
+``DeviceMesh``, ``launch/mesh.py``) the engine is multi-controller SPMD:
+one process per mesh device, each running the same scheduler on the same
+requests and calling the same programs on its own shards.  Every buffer
+is allocated as this rank's block under the rules of
+``parallel/sharding.py``, as the reference's ``_build_shardings`` places
+them: slot caches, sampler rows and last tokens with the slot axis on
+"data" (``slot_specs``, ``sampler_specs``, ``token_slot_spec``), GDN state
+heads and the attention KV context on "model"; the per-prompt staging
+ring replicated over "data" (``staging_specs``); the batched ring's rows
+on "data" when they divide it; the speculative checkpoints and draft
+buffers as the caches (``checkpoint_specs``), so the verify's commit
+needs no collective; parameters by ``params_specs(..., fsdp=False)``.
+The programs run with the mesh active (``parallel.comm.use``): the model
+code issues its collectives over "model", and the decode and verify
+programs gather their (k, slots) tokens over "data", so every rank's
+scheduler sees every slot at the tick's one host sync.  A slot count that
+does not divide the data axis replicates the slots over it (a warning
+names ``pad_slots``).  Swap images stay topology-free: a swap-out gathers
+the shards into one full image on every rank, a swap-in cuts it back into
+this rank's shards, so an image moves between layouts.  On a mesh a
+swap-out drains at once (a drain's landing time differs between ranks,
+and the schedulers must not).
 """
 from __future__ import annotations
 
@@ -65,9 +86,12 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
 from repro_torch.models.mixers import get_mixer
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as rules
 from repro_torch.runtime import graphs
 from repro_torch.serving import sampling
-from repro_torch.tree import copy_leaves, leaves, tree_map
+from repro_torch.tree import copy_leaves, leaves, tree_map, \
+    tree_map_with_path
 
 
 class PlanStep(NamedTuple):
@@ -95,12 +119,47 @@ def _pow2_floor(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
-def deferred(what: str, module: str):
-    """The error for a setting this slice of the port does not implement:
-    ``module`` is where the reference package ``repro`` holds it."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: the reference's "
-        f"{module} (ROADMAP)")
+# the mixer kinds whose math the port splits over the mesh's "model" axis
+MODEL_AXIS_KINDS = ("gdn", "attn")
+
+
+def check_model_axis(cfg: ArchConfig, model: int, max_len: int):
+    """Refuse a model axis of ``model`` > 1 that this port cannot run:
+    a mixer kind or FFN whose split is not ported (``NotImplementedError``
+    naming ROADMAP's item), or a dim the axis does not divide
+    (``ValueError``; the reference's ``fit_spec`` would move the axis to
+    another dim, which the port's model code does not follow)."""
+    if model == 1:
+        return
+    kinds = sorted(set(cfg.layer_kinds) - set(MODEL_AXIS_KINDS))
+    if cfg.ffn in ("moe", "moe+dense"):
+        kinds.append("moe")
+    if kinds:
+        raise NotImplementedError(
+            f"the mesh's model axis for {kinds} is not ported to "
+            f"repro_torch yet: ROADMAP queue 1 item 4b (the reference's "
+            f"parallel/sharding.py rules for them); the data axis serves "
+            f"every kind")
+    dims = {"vocab": cfg.vocab, "max_len (the KV context)": max_len}
+    if "attn" in cfg.layer_kinds:
+        dims.update(n_heads=cfg.hq_eff, n_kv_heads=cfg.hkv_eff)
+    if "gdn" in cfg.layer_kinds:
+        dims.update(gdn_k_heads=cfg.gdn_k_heads,
+                    gdn_v_heads=cfg.gdn_v_heads)
+    if cfg.ffn == "dense":
+        dims["d_ff"] = cfg.d_ff
+    bad = {k: v for k, v in dims.items() if v % model}
+    if bad:
+        raise ValueError(f"the model axis ({model}) must divide {bad}")
+
+
+def _drop_data(specs):
+    """Specs with every "data" entry removed (the slots replicated)."""
+    def drop(_, s):
+        return rules.P(*[None if a == "data" or (isinstance(a, tuple)
+                                                and "data" in a) else a
+                         for a in s])
+    return tree_map_with_path(drop, specs)
 
 
 def _batching_blocked(cfg: ArchConfig, plan_mode: str) -> Optional[str]:
@@ -208,8 +267,6 @@ class DeviceExecutor:
         if plan_mode not in ("masked", "pow2"):
             raise ValueError(f"plan_mode must be 'masked' or 'pow2', "
                              f"got {plan_mode!r}")
-        if mesh is not None:
-            raise deferred("mesh", "parallel/sharding.py")
         if staging_depth < 1:
             raise ValueError(
                 f"staging_depth must be >= 1, got {staging_depth}")
@@ -247,14 +304,15 @@ class DeviceExecutor:
             raise ValueError(f"cuda_graphs=True needs a CUDA device; the "
                              f"executor is on {self.device}")
         self.cuda_graphs = on_card if cuda_graphs is None else cuda_graphs
-        self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graphs
-                      else None)
-        self._programs: Dict[tuple, graphs.Program] = {}
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
         self.decode_block = decode_block
-        self.mesh = None
+        self.mesh = mesh
+        self._init_mesh(draft_cfg)
+        self._pool = (torch.cuda.graph_pool_handle() if self.cuda_graphs
+                      else None)
+        self._programs: Dict[tuple, graphs.Program] = {}
         self.staging_depth = staging_depth
         self.plan_mode = plan_mode
         limit = min(max_len, cfg.window) if cfg.window else max_len
@@ -267,11 +325,21 @@ class DeviceExecutor:
         self.cache_bytes = self.spec.nbytes
 
         self._check_device(params, "params")
-        self.params = params
-        self.caches = self.spec.zeros(self.device)
-        self.tokens = torch.zeros((max_slots,), dtype=torch.int32,
+        self.placements: Dict[str, Any] = {}
+        self.params = self._shard_params("params", cfg, params)
+        self.caches = self._alloc("caches", self.spec, self._slot_parts(
+            cfg, self.spec, max_slots))
+        self.tokens = torch.zeros((self._B,), dtype=torch.int32,
                                   device=self.device)
-        self.sampler = sampling.init_state(max_slots, self.device)
+        self.sampler = sampling.init_state(self._B, self.device)
+        if self.mesh is not None:
+            self.placements["staging"] = self._stage_parts(cfg)
+            self.placements["tokens"] = rules.token_slot_spec(mesh,
+                                                              max_slots)
+            self.placements["sampler"] = rules.sampler_specs(
+                mesh, {k: torch.empty((max_slots,) + v.shape[1:],
+                                      device="meta")
+                       for k, v in self.sampler.items()}, max_slots)
         # what one swapped request moves across the host boundary each way:
         # the cache column, one sampler row and the last token
         self.swap_bytes_per_slot = (
@@ -291,8 +359,9 @@ class DeviceExecutor:
         # tree, the admit's 1-row sampler state (filled from the host
         # before the admit, advanced by it in place) and first token
         n_ring = 0 if self.prefill_batching else staging_depth
+        one = lm.cache_specs(cfg, 1, max_len)
         self.staging: List[Any] = [
-            lm.init_caches(cfg, 1, max_len, self.device)
+            self._alloc("staging", one, self._stage_parts(cfg))
             for _ in range(n_ring)]
         self.staging_row = [sampling.init_state(1, self.device)
                             for _ in range(n_ring)]
@@ -318,6 +387,107 @@ class DeviceExecutor:
         self._gather_pending: Dict[int, PendingSwap] = {}
         self._gather_bufs: Dict[int, tuple] = {}
         self._copy_stream = None
+
+    # -------------------------------------------------------------- mesh
+    def _init_mesh(self, draft_cfg):
+        """This rank's axes and slot block (the whole slot axis without a
+        mesh): ``_B`` local slots from global slot ``_slot0``."""
+        S = self.max_slots
+        self._axes = None
+        self._sparts: Dict[ArchConfig, Any] = {}
+        self._B, self._slot0, self._slots_sharded = S, 0, False
+        if self.mesh is None:
+            return
+        if not hasattr(self.mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(launch.mesh.make_serving_mesh), got "
+                            f"{type(self.mesh).__name__}")
+        names = tuple(self.mesh.mesh_dim_names)
+        if names != ("data", "model"):
+            raise ValueError(f"a serving mesh has axes ('data', 'model'), "
+                             f"got {names} (launch.mesh.make_serving_mesh)")
+        axes = self._axes = comm.MeshAxes(self.mesh)
+        for cfg in (self.cfg,) + ((draft_cfg,) if draft_cfg else ()):
+            check_model_axis(cfg, axes.model.size, self.max_len)
+        backends = {a.backend for a in axes.axes.values()}
+        if "nccl" in backends and self.device.type != "cuda":
+            raise ValueError(f"an NCCL mesh needs a CUDA executor, not "
+                             f"{self.device}")
+        if "gloo" in backends and self.cuda_graphs:
+            raise ValueError(
+                "a gloo mesh's collectives are host calls, which a CUDA "
+                "graph cannot capture: pass cuda_graphs=False (or give "
+                "each rank its own card and an NCCL mesh)")
+        data = axes.data.size
+        if S % data:
+            warnings.warn(
+                f"max_slots={S} does not divide the data axis ({data}); the "
+                f"slot axis cannot shard evenly, so every rank holds every "
+                f"slot (replicated over 'data', where the reference may "
+                f"re-place 'data' on a state dim) — pad slots with "
+                f"ServingTopology.pad_slots", RuntimeWarning)
+            return
+        self._B = S // data
+        self._slot0 = axes.data.index * self._B
+        self._slots_sharded = True
+
+    def _local(self, slot: int) -> Optional[int]:
+        """The local index of global slot ``slot``, or None when another
+        data rank holds it."""
+        i = slot - self._slot0
+        return i if 0 <= i < self._B else None
+
+    def _slot_owner(self, slot: int) -> Optional[int]:
+        """The data coordinate holding ``slot`` (None: every rank)."""
+        return slot // self._B if self._slots_sharded else None
+
+    def _slot_parts(self, cfg, spec, slots: int):
+        """The slot buffers' specs (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        parts = rules.slot_specs(cfg, self.mesh, spec.tree, slots)
+        return parts if slots % self._axes.data.size == 0 \
+            else _drop_data(parts)
+
+    def _stage_parts(self, cfg):
+        """One-row staging specs: the slot specs with the slot cleared."""
+        if self.mesh is None:
+            return None
+        parts = self._sparts.get(cfg)
+        if parts is None:
+            spec = lm.cache_specs(cfg, self.max_slots, self.max_len)
+            parts = self._sparts[cfg] = rules.staging_specs(
+                self._slot_parts(cfg, spec, self.max_slots))
+        return parts
+
+    def _alloc(self, name: str, spec, parts):
+        """Zeroed buffers of ``spec``: this rank's blocks under ``parts``."""
+        if parts is None:
+            return spec.zeros(self.device)
+        self.placements.setdefault(name, parts)
+        sizes = self._axes.sizes
+        return rules.map_specs(
+            lambda s, p: torch.zeros(rules.local_shape(s.shape, p, sizes),
+                                     dtype=s.dtype, device=self.device),
+            spec.tree, parts)
+
+    def _shard_params(self, name: str, cfg, params):
+        """This rank's shards of a full parameter tree."""
+        if self.mesh is None:
+            return params
+        parts = rules.params_specs(cfg, params, False, self.mesh)
+        self.placements.setdefault(name, parts)
+        return rules.shard_tree(params, parts, self._axes.coords,
+                                self._axes.sizes)
+
+    def _slots_out(self, *ts):
+        """(k, local slots) results -> (k, slots) on every rank: one
+        all-gather over "data" (none when the slots are replicated)."""
+        if not self._slots_sharded:
+            return ts
+        packed = torch.stack([t.to(torch.int32) for t in ts])
+        g = self._axes.data.all_gather(packed, 2).unbind(0)
+        return tuple(x.to(t.dtype) for x, t in zip(g, ts))
 
     def _check_device(self, tree, what: str):
         for t in leaves(tree):
@@ -371,6 +541,10 @@ class DeviceExecutor:
     def _program(self, key: tuple, fn) -> graphs.Program:
         prog = self._programs.get(key)
         if prog is None:
+            if self.mesh is not None:
+                def fn(_fn=fn):
+                    with comm.use(self._axes):
+                        return _fn()
             prog = self._programs[key] = graphs.Program(fn, self._pool)
         return prog
 
@@ -510,12 +684,15 @@ class DeviceExecutor:
     def _fill_slot(self, slot: int, caches, sampler, toks, row: int,
                    temperature: float):
         """Copy row ``row`` of a staging cache tree, sampler state and
-        first tokens into slot ``slot`` (eager copies, in place)."""
-        for dst, src in zip(leaves(self.caches), leaves(caches)):
-            dst[:, slot].copy_(src[:, row])
-        for k, v in self.sampler.items():
-            v[slot].copy_(sampler[k][row])
-        self.tokens[slot] = toks[row]
+        first tokens into slot ``slot`` (eager copies, in place; on a mesh
+        by the ranks holding the slot)."""
+        i = self._local(slot)
+        if i is not None:
+            for dst, src in zip(leaves(self.caches), leaves(caches)):
+                dst[:, i].copy_(src[:, row])
+            for k, v in self.sampler.items():
+                v[i].copy_(sampler[k][row])
+            self.tokens[i] = toks[row]
         self._slot_temp[slot] = temperature
 
     # ---------------------------------------------------- batched staging
@@ -525,15 +702,30 @@ class DeviceExecutor:
         staging_depth-row sampler state holding the advanced admit rows,
         the (staging_depth,) first tokens, the admit's D-row sampling
         parameters (a static buffer filled from the host before each
-        admit) and the host mirror of the rows' parameters."""
+        admit) and the host mirror of the rows' parameters.  On a mesh the
+        rows shard on "data" like the slot axis (``slot_specs`` with batch
+        = staging_depth) when they divide it, and are replicated over it
+        otherwise (the reference's guard: a non-dividing count never
+        re-places "data" on a state dim)."""
         if self._batched_ready:
             return
         D = self.staging_depth
         self.bspec = lm.cache_specs(self.cfg, D, self.max_len)
-        self.bstaging = self.bspec.zeros(self.device)
-        self.bsampler = sampling.init_state(D, self.device)
-        self.btoks = torch.zeros((D,), dtype=torch.int32, device=self.device)
-        self._brows = sampling.init_state(D, self.device)
+        self._D, self._row0, self._rows_sharded = D, 0, False
+        if self.mesh is not None and D % self._axes.data.size == 0:
+            self._D = D // self._axes.data.size
+            self._row0 = self._axes.data.index * self._D
+            self._rows_sharded = True
+        self.bstaging = self._alloc("bstaging", self.bspec, self._slot_parts(
+            self.cfg, self.bspec, D))
+        self.bsampler = sampling.init_state(self._D, self.device)
+        self.btoks = torch.zeros((self._D,), dtype=torch.int32,
+                                 device=self.device)
+        # every row's first token, gathered over "data" by the admit
+        self._btoks_all = (torch.zeros((D,), dtype=torch.int32,
+                                       device=self.device)
+                           if self._rows_sharded else self.btoks)
+        self._brows = sampling.init_state(self._D, self.device)
         self._bargs = {
             "rid": np.zeros((D,), np.int32),
             "temperature": np.zeros((D,), np.float32),
@@ -588,9 +780,10 @@ class DeviceExecutor:
             vl[:take, row] = C
 
         xh, is_embeds = self._batched_input(entries, (M, C), fill)
-        x = self._fill(("bscan_in", is_embeds), xh,
+        rows = slice(self._row0, self._row0 + self._D)
+        x = self._fill(("bscan_in", is_embeds), xh[rows],
                        self._input_dtype(is_embeds))
-        v = self._fill(("bscan_vl",), vl, torch.int32)
+        v = self._fill(("bscan_vl",), vl[:, rows], torch.int32)
 
         def scan():
             lm.prefill_chunk_scan(self.params, self.cfg, self.bstaging,
@@ -619,14 +812,16 @@ class DeviceExecutor:
             amask[row] = True
 
         xh, is_embeds = self._batched_input(entries, (C,), fill)
-        x = self._fill(("badmit_in", is_embeds), xh,
+        rows = slice(self._row0, self._row0 + self._D)
+        x = self._fill(("badmit_in", is_embeds), xh[rows],
                        self._input_dtype(is_embeds))
-        v = self._fill(("badmit_vl",), vl, torch.int32)
-        am = self._fill(("badmit_mask",), amask, torch.bool)
+        v = self._fill(("badmit_vl",), vl[rows], torch.int32)
+        am = self._fill(("badmit_mask",), amask[rows], torch.bool)
         a = self._bargs
-        copy_leaves(self._brows, sampling.admit_rows(
+        brows = sampling.admit_rows(
             self._bseed, a["rid"], a["temperature"], a["top_k"], a["top_p"],
-            a["eos_id"], a["budget"], device="cpu"))
+            a["eos_id"], a["budget"], device="cpu")
+        copy_leaves(self._brows, {k: t[rows] for k, t in brows.items()})
         # the stochastic branch is neutral for greedy rows
         stochastic = bool((a["temperature"][amask] > 0.0).any())
 
@@ -641,6 +836,9 @@ class DeviceExecutor:
             for k, w in self.bsampler.items():
                 m = am.reshape((-1,) + (1,) * (w.ndim - 1))
                 w.copy_(torch.where(m, rows[k].to(w.dtype), w))
+            if self._rows_sharded:
+                self._btoks_all.copy_(self._axes.data.all_gather(
+                    self.btoks, 0))
 
         self._program(("badmit", is_embeds, stochastic), admit)()
 
@@ -658,12 +856,44 @@ class DeviceExecutor:
         self._ensure_batched()
         release = set(release_rows)
         for slot, row in assigns:
-            self._fill_slot(slot, self.bstaging, self.bsampler, self.btoks,
-                            row, self._bargs["temperature"][row])
+            self._fill_slot(slot, *self._brow(slot, row),
+                            self._bargs["temperature"][row])
             release.add(row)
         for row in sorted(release):
-            for t in leaves(self.bstaging):
-                t[:, row].zero_()
+            i = row - self._row0
+            if 0 <= i < self._D:
+                for t in leaves(self.bstaging):
+                    t[:, i].zero_()
+
+    def _brow(self, slot: int, row: int):
+        """Where staging row ``row`` is read for slot ``slot``: (caches,
+        sampler, tokens, index).  On a mesh whose rows shard on "data", a
+        row held by another data rank than the slot's is broadcast over
+        "data" from its holder first."""
+        if not self._rows_sharded:
+            return self.bstaging, self.bsampler, self.btoks, row
+        src = row // self._D
+        i = row - self._row0
+        if self._slot_owner(slot) == src:
+            return self.bstaging, self.bsampler, self.btoks, i
+        dp = self._axes.data
+        mine = dp.index == src
+        out = tree_map(lambda t: (t[:, i:i + 1].clone() if mine else
+                                  torch.empty_like(t[:, :1])),
+                       self.bstaging)
+        samp = {k: (v[i:i + 1].clone() if mine else torch.empty_like(v[:1]))
+                for k, v in self.bsampler.items()}
+        tok = (self.btoks[i:i + 1].clone() if mine
+               else torch.empty_like(self.btoks[:1]))
+        for t in leaves((out, samp, tok)):
+            dp.broadcast(t, src)
+        return out, samp, tok, 0
+
+    def btoks_host(self) -> np.ndarray:
+        """The batched ring's (staging_depth,) first tokens on the host
+        (every row's: the admit gathers them over "data" when the rows
+        shard on it)."""
+        return self._btoks_all.cpu().numpy()
 
     # ------------------------------------------------------ state paging
     def _acquire_ticket(self) -> int:
@@ -692,11 +922,17 @@ class DeviceExecutor:
             event.record(side)
         return event
 
-    def _gather(self, caches, row, tok) -> PendingSwap:
+    def _gather(self, caches, row, tok, owner=None) -> PendingSwap:
         """Snapshot a one-row image into a gather-ring buffer on the
         compute stream (so after every program queued before it, and
         immune to what runs after), then, on the card, drain it into the
-        ticket's pinned host buffer on the side stream."""
+        ticket's pinned host buffer on the side stream.
+
+        On a mesh the ring buffers hold the full image on every rank: the
+        ranks of data coordinate ``owner`` (every rank when None) gather
+        their "model" shards of ``caches`` (one-row slices, None on the
+        other ranks), then ``owner`` broadcasts the image over "data"; the
+        drain is synchronous (``PendingSwap.event`` None)."""
         buf = self._acquire_ticket()
         ring = self._gather_bufs.get(buf)
         if ring is None:
@@ -708,12 +944,32 @@ class DeviceExecutor:
                 if self.device.type == "cuda" else dev)
             ring = self._gather_bufs[buf] = (dev, host)
         dev, host = ring
-        copy_leaves(dev, (caches, row, tok))
-        event = (self._side_copy(host, dev) if self.device.type == "cuda"
-                 else None)
+        if self.mesh is None:
+            copy_leaves(dev, (caches, row, tok))
+        else:
+            self._assemble(dev, caches, row, tok, owner)
+        event = None
+        if self.device.type == "cuda":
+            event = self._side_copy(host, dev)
+            if self.mesh is not None:
+                event.synchronize()
+                event = None
         pend = PendingSwap(buf, sum(t.nbytes for t in leaves(dev)), event)
         self._gather_pending[buf] = pend
         return pend
+
+    def _assemble(self, dev, caches, row, tok, owner):
+        """Fill the full image ``dev`` from this rank's shards (``_gather``
+        on a mesh)."""
+        axes = self._axes
+        if owner is None or owner == axes.data.index:
+            full = rules.map_specs(
+                lambda t, s: rules.gather_shard(t, s, axes.axes), caches,
+                self._stage_parts(self.cfg))
+            copy_leaves(dev, (full, row, tok))
+        if owner is not None and axes.data.size > 1:
+            for t in leaves(dev):
+                axes.data.broadcast(t, owner)
 
     def gather_slot_async(self, slot: int) -> PendingSwap:
         """Swap-out of resident slot ``slot`` without waiting for the
@@ -722,11 +978,14 @@ class DeviceExecutor:
         (an inert slot until the next admit writes it) and its
         temperature leaves the host mirror.  The slot is reusable at
         once: the gathered values are a snapshot."""
-        pend = self._gather(
-            tree_map(lambda t: t[:, slot:slot + 1], self.caches),
-            {k: v[slot:slot + 1] for k, v in self.sampler.items()},
-            self.tokens[slot:slot + 1])
-        self.sampler["done"][slot] = True
+        i = self._local(slot)
+        src = (None, None, None) if i is None else (
+            tree_map(lambda t: t[:, i:i + 1], self.caches),
+            {k: v[i:i + 1] for k, v in self.sampler.items()},
+            self.tokens[i:i + 1])
+        pend = self._gather(*src, owner=self._slot_owner(slot))
+        if i is not None:
+            self.sampler["done"][i] = True
         self.release_slot(slot)
         return pend
 
@@ -743,10 +1002,14 @@ class DeviceExecutor:
         on the batched path).  A pure read: the scheduler marks the row
         dirty, so the next multi-row scatter zeroes it."""
         self._ensure_batched()
+        i = row - self._row0
+        if not 0 <= i < self._D:
+            return self._gather(None, None, None, owner=row // self._D)
         return self._gather(
-            tree_map(lambda t: t[:, row:row + 1], self.bstaging),
-            {k: v[row:row + 1] for k, v in self.bsampler.items()},
-            self.btoks[row:row + 1])
+            tree_map(lambda t: t[:, i:i + 1], self.bstaging),
+            {k: v[i:i + 1] for k, v in self.bsampler.items()},
+            self.btoks[i:i + 1],
+            owner=row // self._D if self._rows_sharded else None)
 
     def harvest(self, pend: PendingSwap) -> SwappedState:
         """Materialize a drained swap-out as host numpy and return its
@@ -782,15 +1045,22 @@ class DeviceExecutor:
         the card the image is copied into pinned memory, then onto the
         device on the side stream (``event`` marks its end; the tensors
         are recorded on that stream, so their memory is not reused before
-        it); on the CPU the tensors view the image."""
-        slots = leaves(self.caches)
+        it); on the CPU the tensors view the image.  On a mesh the image
+        is cut into this rank's "model" shards first."""
+        slots = self.spec.leaves()
         flat = leaves(sw.caches)
         if len(flat) != len(slots) or set(sw.sampler) != set(self.sampler):
             raise ValueError(f"swap image of {len(flat)} cache leaves and "
                              f"sampler keys {sorted(sw.sampler)} does not "
                              f"fit this engine's slots")
-        host = ([_host_tensor(a, t.dtype, (t.shape[0], 1) + t.shape[2:])
-                 for a, t in zip(flat, slots)],
+        full = [_host_tensor(a, t.dtype, (t.shape[0], 1) + t.shape[2:])
+                for a, t in zip(flat, slots)]
+        if self.mesh is not None:
+            full = [rules.local_shard(t, p, self._axes.coords,
+                                      self._axes.sizes).contiguous()
+                    for t, p in zip(full, leaves(
+                        self._stage_parts(self.cfg)))]
+        host = (full,
                 {k: _host_tensor(sw.sampler[k], v.dtype, (1,) + v.shape[1:])
                  for k, v in self.sampler.items()},
                 _host_tensor(sw.token, self.tokens.dtype, (1,)))
@@ -854,10 +1124,17 @@ class DeviceExecutor:
                                   + self.dckpt_spec.nbytes)
         if draft_params is not params:
             self._check_device(draft_params, "draft params")
+            draft_params = self._shard_params("draft_params", draft_cfg,
+                                              draft_params)
+        else:
+            draft_params = self.params
         self.draft_params = draft_params
-        self.dcaches = self.dspec.zeros(self.device)
-        self.ckpt = self.ckpt_spec.zeros(self.device)
-        self.dckpt = self.dckpt_spec.zeros(self.device)
+        self.dcaches = self._alloc("dcaches", self.dspec, self._slot_parts(
+            draft_cfg, self.dspec, S))
+        self.ckpt = self._alloc("ckpt", self.ckpt_spec, self._slot_parts(
+            cfg, self.ckpt_spec, S))
+        self.dckpt = self._alloc("dckpt", self.dckpt_spec, self._slot_parts(
+            draft_cfg, self.dckpt_spec, S))
         # the draft rebuild: one (1, n, C) masked scan from zero state in a
         # one-row scratch cache, then a copy into the slot; C is the
         # target's staged chunk, so a self-draft rebuild hits the same
@@ -865,9 +1142,12 @@ class DeviceExecutor:
         dlimit = (min(L, draft_cfg.window) if draft_cfg.window else L)
         self._dchunk = min(self.prefill_chunk, dlimit)
         self._dchunks = -(-L // self._dchunk)
-        self._dstage = lm.init_caches(draft_cfg, 1, L, self.device)
+        self._dstage = self._alloc("dstage", lm.cache_specs(draft_cfg, 1, L),
+                                   self._stage_parts(draft_cfg))
         self._dslot = torch.zeros((1,), dtype=torch.int64,
                                   device=self.device)
+        # on a mesh: whether this rank holds the rebuilt slot
+        self._down = torch.ones((), dtype=torch.bool, device=self.device)
         # the draft tokens of each k, read by the verify of that k
         self._dtoks: Dict[int, torch.Tensor] = {}
 
@@ -875,7 +1155,7 @@ class DeviceExecutor:
         buf = self._dtoks.get(k)
         if buf is None:
             buf = self._dtoks[k] = torch.zeros(
-                (k, self.max_slots), dtype=torch.int32, device=self.device)
+                (k, self._B), dtype=torch.int32, device=self.device)
         return buf
 
     def _stochastic(self) -> bool:
@@ -939,7 +1219,7 @@ class DeviceExecutor:
                 self.dckpt, dict(self.sampler), sample_fn)
             self.tokens.copy_(last)
             copy_leaves(self.sampler, st)
-            return toks, valid
+            return self._slots_out(toks, valid)
 
         toks, valid = self._program(("verify", k, stochastic), verify)()
         return toks.cpu().numpy(), valid.cpu().numpy()
@@ -965,7 +1245,10 @@ class DeviceExecutor:
             vls[full] = tail
         x = self._fill(("dprefill_in",), flat.reshape(1, n, C), torch.int64)
         vl = self._fill(("dprefill_vl",), vls, torch.int32)
-        self._dslot.fill_(slot)
+        i = self._local(slot)
+        self._dslot.fill_(0 if i is None else i)
+        self._down.fill_(i is not None)
+        mesh = self.mesh is not None
 
         def dprefill():
             for t in leaves(self._dstage):
@@ -973,6 +1256,9 @@ class DeviceExecutor:
             lm.prefill_chunk_scan(self.draft_params, self.draft_cfg,
                                   self._dstage, tokens=x, valid_lens=vl)
             for dst, src in zip(leaves(self.dcaches), leaves(self._dstage)):
+                if mesh:    # every rank scans; the slot's holders copy
+                    src = torch.where(self._down, src,
+                                      dst.index_select(1, self._dslot))
                 dst.index_copy_(1, self._dslot, src)
 
         self._program(("dprefill",), dprefill)()
@@ -992,7 +1278,7 @@ class DeviceExecutor:
                 sampler=dict(self.sampler), sample_fn=sample_fn)
             self.tokens.copy_(tokens)
             copy_leaves(self.sampler, sampler)
-            return toks, valid
+            return self._slots_out(toks, valid)
 
         toks, valid = self._program(("decode", k, stochastic), decode)()
         return toks.cpu().numpy(), valid.cpu().numpy()

@@ -75,7 +75,7 @@ import torch
 
 from repro_torch.runtime import graphs
 from repro_torch.serving import wire
-from repro_torch.serving.executor import _BF16_HOST, _host_array, deferred
+from repro_torch.serving.executor import _BF16_HOST, _host_array
 from repro_torch.tree import leaves
 
 _EXC: Dict[str, type] = {
@@ -286,7 +286,10 @@ class EngineProxy:
             raise ValueError("EngineProxy: pass exactly one of params / "
                              "params_seed")
         if mesh_shape is not None or mesh_axes is not None:
-            raise deferred("mesh", "parallel/sharding.py")
+            raise NotImplementedError(
+                "EngineProxy(mesh_shape=) is not ported to repro_torch yet: "
+                "ROADMAP queue 1 item 4d (a worker serving a mesh; "
+                "in-process engines take mesh=)")
         self.cfg = cfg
         self.role = engine_kwargs.get("role", "both")
         self.dead = False

@@ -63,8 +63,13 @@ surface a ``Router`` reads (``load``, ``queue_len``, ``free_slots``,
 them from a worker process.  A migrated image is host numpy, so it
 restores through the taker's own ``_fill_slot`` wherever the taker runs.
 
-Meshes of the reference raise ``NotImplementedError`` naming the
-reference module that holds them.
+**Meshes** (``mesh=``, a ``("data", "model")`` ``DeviceMesh``): every rank
+of the mesh runs this scheduler on the same requests, so its decisions —
+admits, plans, ticks, paging — are the same on every rank, and the
+executor's programs gather each tick's tokens over "data" at the tick's
+one host sync.  A decision must never read a rank's own clock, so the
+idle swap policy (``idle``, ``auto``) is refused on a mesh, and each rank
+spills into its own ``rank<N>`` folder of ``swap_spool_dir``.
 """
 from __future__ import annotations
 
@@ -253,6 +258,15 @@ class Scheduler:
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"role must be one of prefill/decode/both, "
                              f"got {role!r}")
+        if mesh is not None and swap_policy in ("idle", "auto"):
+            raise ValueError(
+                f"swap_policy={swap_policy!r} reads each rank's wall clock, "
+                f"so the ranks of a mesh would disagree on its evictions — "
+                f"use 'manual' or 'pressure' on a mesh")
+        if mesh is not None and swap_spool_dir is not None:
+            import torch.distributed as dist
+            swap_spool_dir = os.path.join(swap_spool_dir,
+                                          f"rank{dist.get_rank()}")
         self.role = role
         self.cfg = cfg
         self.params = params
@@ -388,6 +402,10 @@ class Scheduler:
     @property
     def cache_bytes(self) -> int:
         return self.executor.cache_bytes
+
+    @property
+    def mesh(self):
+        return self.executor.mesh
 
     @property
     def caches(self):
@@ -1073,7 +1091,7 @@ class Scheduler:
         """Every request admitted by one batched dispatch syncs its first
         token from the same host read and stamps the same ``t_first``: a
         batch admit is one device event."""
-        toks = self.executor.btoks.cpu().numpy()    # the one host sync
+        toks = self.executor.btoks_host()           # the one host sync
         now = time.perf_counter()
         for st in sts:
             req = st.req
@@ -1355,13 +1373,14 @@ class Scheduler:
 
     def metrics(self) -> Dict[str, float]:
         """Aggregate serving metrics over requests completed since the last
-        ``reset_metrics`` (the reference's keys but those of meshes)."""
+        ``reset_metrics`` (the reference's keys)."""
         done = [r for r in self._all
                 if r.done and id(r) not in self._metrics_seen]
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
         lats = [r.latency_s for r in done if r.latency_s is not None]
         tps = [r.tokens_per_s for r in done if r.tokens_per_s is not None]
         progs = self.executor.compiled_programs()
+        mesh = self.executor.mesh
         return {
             "requests": len(done),
             "tokens": sum(len(r.output) for r in done),
@@ -1418,6 +1437,11 @@ class Scheduler:
             "handoffs_out": self.handoffs_out,
             "speculative": int(self.speculative),
             "k_draft": self.k_draft if self.speculative else 0,
+            "mesh_data": (int(mesh.size(mesh.mesh_dim_names.index("data")))
+                          if mesh is not None else 1),
+            "mesh_model": (int(mesh.size(
+                mesh.mesh_dim_names.index("model"))) if mesh is not None
+                else 1),
             "adaptive_k": int(self.adaptive_k),
             "k_draft_effective":
                 (self._k_eff if self.speculative and self.adaptive_k

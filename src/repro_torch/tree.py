@@ -26,6 +26,24 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``tree_map`` whose ``fn(path, leaf)`` also gets the leaf's key path:
+    a tuple of dict keys, sequence indices and NamedTuple field names, the
+    entries of a jax key path."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, x, path + (f,))
+                            for f, x in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, x, path + (i,))
+                          for i, x in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
 def leaves(tree, is_leaf: Callable = None) -> List[Any]:
     """Leaves in a deterministic order (dict keys sorted, as jax does);
     ``is_leaf(node)`` true stops the descent at ``node``."""

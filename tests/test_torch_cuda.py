@@ -1430,3 +1430,128 @@ def test_moe_train_graphs_bitwise_equal_eager(cuda):
     assert g_launch == e_launch == {"flash_fwd": 2 * n_swa * 3,
                                     "flash_bwd_dq": n_swa * 3,
                                     "flash_bwd_dkv": n_swa * 3}
+
+
+# ----------------------------------------------------- mesh (PR 24 slice)
+
+# the GDN kernels at the local shapes of full-width qwen3-next-gdn's
+# serving mesh: (1,2) halves the heads, (2,1) the slots
+MESH_SHAPES = {"model2": (4, 8, 16, 128), "data2": (2, 16, 32, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(MESH_SHAPES))
+def test_gdn_kernels_at_mesh_local_shapes_vs_plain(cuda, shape):
+    B, Hk, Hv, d = MESH_SHAPES[shape]
+    rng = np.random.default_rng(24)
+    bf = torch.bfloat16
+    q = _normal(rng, B, Hk, d).to(cuda, bf)
+    k = torch.nn.functional.normalize(_normal(rng, B, Hk, d),
+                                      dim=-1).to(cuda, bf)
+    v = _normal(rng, B, Hv, d).to(cuda, bf)
+    S = _normal(rng, B, Hv, d, d, scale=0.2).to(cuda)
+    g, beta = (torch.sigmoid(_normal(rng, B, Hv)).to(cuda) for _ in range(2))
+    S_k = S.clone()
+    o_k, _ = ops.gdn_decode(q, k, v, S_k, g, beta)
+    o_p, S_p = ref.gdn_decode_ref(q, k, v, S, g, beta)
+    torch.cuda.synchronize()
+    _close(o_k, o_p, BF16)
+    _close(S_k, S_p, F32)
+    T, chunk = 128, 64
+    valid = torch.tensor((128, 70, 0, 5)[:B], dtype=torch.int32, device=cuda)
+    q = _normal(rng, B, T, Hk, d).to(cuda, bf)
+    k = torch.nn.functional.normalize(_normal(rng, B, T, Hk, d),
+                                      dim=-1).to(cuda, bf)
+    v = _normal(rng, B, T, Hv, d).to(cuda, bf)
+    lg = -torch.nn.functional.softplus(_normal(rng, B, T, Hv)).to(cuda)
+    beta = torch.sigmoid(_normal(rng, B, T, Hv)).to(cuda)
+    S0 = _normal(rng, B, Hv, d, d, scale=0.1).to(cuda)
+    S_k = S0.clone()
+    O_k, _ = ops.gdn_prefill(q, k, v, lg, beta, S_k, chunk=chunk,
+                             valid_len=valid)
+    rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
+            .contiguous() for x in (q, k, v, lg, beta)]
+    vl = torch.repeat_interleave(valid, Hv)
+    O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * Hv, d, d), vl,
+                                   n_rep=Hv // Hk)
+    torch.cuda.synchronize()
+    _close(S_k.reshape(B * Hv, d, d), S_p, CHUNKWISE)
+    O_k = O_k.transpose(1, 2).reshape(B * Hv, T, d)
+    for r, n_valid in enumerate(vl.tolist()):
+        _close(O_k[r, :n_valid], O_p[r, :n_valid], BF16)
+
+
+@pytest.mark.cuda
+def test_nccl_mesh_streams_equal_the_unsharded_engine(cuda):
+    """A (1,1) NCCL mesh in this process (world size 1) on the default
+    CUDA-graph engine: reduced qwen3-next-gdn through the GDN kernels,
+    cold then warm, streams bitwise the unsharded engine's; the warm run's
+    collectives run inside replayed graphs, none from the host unless a
+    program takes its first call in it."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm
+    from repro_torch.serving.engine import DecodeEngine, Request
+    cfg = configs.get_arch("qwen3-next-gdn").reduced().replace(
+        use_pallas_serving=True)
+    params = lm.init_lm(0, cfg, device="cuda")
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(1, cfg.vocab, size=n, dtype=np.int32)
+               for n in (4, 16, 23, 40, 9)]
+    kw = dict(max_slots=4, max_len=64, seed=0, decode_block=4,
+              prefill_chunk=16, device="cuda")
+
+    def serve(eng):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=8,
+                        temperature=0.8 if i == 1 else 0.0)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        return [list(r.output) for r in reqs]
+
+    base = serve(DecodeEngine(cfg, params, **kw))
+    mesh_mod.init_ranks(0, 1, mesh_mod.free_port(), "nccl")
+    try:
+        eng = DecodeEngine(cfg, params, mesh=mesh_mod.make_serving_mesh(),
+                           **kw)
+        assert eng.executor.cuda_graphs
+        assert serve(eng) == base
+        shapes = eng.executor.compiled_programs()["total"]
+        comm.reset_stats()
+        assert serve(eng) == base
+        assert comm.stats["replayed"] > 0
+        if eng.executor.compiled_programs()["total"] == shapes:
+            assert comm.stats["calls"] == 0
+        assert eng.executor.compiled_programs()["cuda_graphs"] > 0
+        assert eng.metrics()["mesh_model"] == 1
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_serve_cli_mesh_gloo_ranks_share_the_card(cuda, capfd):
+    """``--mesh 1,2 --gloo`` starts two ranks on the card (eager, gloo
+    staging each collective through host memory) and prints the streams
+    of the unsharded engine on the same weights, greedy; without
+    ``--gloo`` the mesh needs two cards for NCCL and raises naming the
+    flag when fewer are visible."""
+    import re
+    from repro_torch.launch import serve
+    argv = ["--arch", "qwen3-next-gdn", "--requests", "4", "--max-new", "6",
+            "--slots", "4", "--max-len", "64", "--kernels",
+            "--no-cuda-graphs"]
+    serve.main(argv)
+    plain = capfd.readouterr().out
+    serve.main(argv + ["--mesh", "1,2", "--gloo"])
+    mesh = capfd.readouterr().out
+    assert "mesh: data=1 x model=2, 2 gloo ranks on cuda" in mesh
+
+    def streams(text):
+        return re.findall(r"req (\d+): .* toks: (\[.*\])", text)
+    assert len(streams(plain)) == 4 and streams(mesh) == streams(plain)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="--gloo"):
+            serve.main(argv + ["--mesh", "1,2"])

@@ -110,9 +110,9 @@ def test_engine_rejects_bad_requests_and_deferred_settings(reference):
                       (dict(host_swap_bytes=1), "swap_spool_dir")):
         with pytest.raises(ValueError, match=match):
             DecodeEngine(tcfg, tp, device="cpu", **ENGINE, **kw)
-    # the refusal that stays: meshes; an unknown engine role is the
-    # reference's ValueError
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is a DeviceMesh (tests/test_torch_mesh_serving.py serves
+    # them); an unknown engine role is the reference's ValueError
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DecodeEngine(tcfg, tp, device="cpu", **ENGINE, mesh=object())
     with pytest.raises(ValueError, match="role must be"):
         DecodeEngine(tcfg, tp, device="cpu", **ENGINE, role="verifier")

@@ -298,12 +298,12 @@ def test_spec_validation_and_refusals():
     with pytest.raises(ValueError, match="prompt_embeds"):
         eng.submit(Request(rid=0, prompt_embeds=emb, max_new_tokens=2))
     # paging runs on a speculative engine: with nothing live, each verb
-    # raises its own KeyError; meshes stay refused, an unknown engine
-    # role is the reference's ValueError
+    # raises its own KeyError; a mesh must be a DeviceMesh, an unknown
+    # engine role is the reference's ValueError
     for call in (eng.pause, eng.resume, eng.preempt):
         with pytest.raises(KeyError):
             call(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DecodeEngine(tcfg, tp, speculative=True, **kw, mesh=object())
     with pytest.raises(ValueError, match="role must be"):
         DecodeEngine(tcfg, tp, speculative=True, **kw, role="verifier")

@@ -1,0 +1,344 @@
+"""Mesh ranks for the port's sharded-serving tests on the CPU
+(``tests/test_torch_mesh_*.py``).
+
+``start(world, jobs, shared)`` spawns ``world`` processes in one gloo group
+(``tcp://localhost``), each running every job whose mesh holds it;
+``results()`` of what it returns waits for each rank's results (so the
+caller can run the reference meanwhile).  This module imports torch and
+the port only, so a rank never starts jax.  A job is a dict: ``kind``
+(the function of ``JOBS`` that runs it), ``mesh`` (data, model) over the
+first ranks, and the job's own settings; ``shared`` holds what several
+jobs read (parameter trees as numpy by arch, request lists, images).
+Every serve job records the executor calls its engine made
+(``_Recorder``), so the tests can check that the ranks of a mesh agreed
+on every tick's plan.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+import traceback
+import warnings
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import configs
+from repro_torch.bridge import to_torch
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import lm
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as rules
+from repro_torch.serving.engine import DecodeEngine, Request
+from repro_torch.tree import leaves, tree_map_with_path
+
+# the executor calls that carry a tick's plan
+PLAN_CALLS = ("decode", "stage_begin", "stage_chunk_scan", "stage_chunk",
+              "stage_admit", "scatter", "bstage_begin", "bstage_chunk_scan",
+              "bstage_admit", "bscatter", "gather_slot_async",
+              "gather_staging_async", "bgather_row_async", "restore_slot",
+              "spec_draft", "spec_verify", "draft_prefill_slot",
+              "release_slot")
+
+
+class start:
+    """Spawn ``world`` gloo ranks over ``jobs``; ``results()`` returns
+    {rank: {job name: result}} (a failed job's result is {"error":
+    traceback})."""
+
+    def __init__(self, world: int, jobs, shared):
+        ctx = mp.get_context("spawn")
+        self.q = ctx.Queue()
+        port = mesh_mod.free_port()
+        self.procs = [ctx.Process(target=_rank, args=(
+            r, world, port, jobs, shared, self.q)) for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def results(self, timeout: float = 600.0):
+        try:
+            return dict(self.q.get(timeout=timeout) for _ in self.procs)
+        finally:
+            for p in self.procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+
+
+def _rank(rank, world, port, jobs, shared, q):
+    os.environ["OMP_NUM_THREADS"] = "1"
+    torch.set_num_threads(1)
+    mesh_mod.init_ranks(rank, world, port, "gloo")
+    out = {}
+    try:
+        meshes = {}
+        for job in jobs:
+            shape = tuple(job["mesh"])
+            if shape not in meshes:
+                # every rank builds every mesh (its groups are collective)
+                meshes[shape] = mesh_mod.make_serving_mesh(*shape)
+            mesh = meshes[shape]
+            if mesh.get_coordinate() is None:
+                continue
+            try:
+                t0 = time.perf_counter()
+                out[job["name"]] = JOBS[job["kind"]](job, shared, mesh)
+                out[job["name"]]["seconds"] = time.perf_counter() - t0
+            except Exception:
+                out[job["name"]] = {"error": traceback.format_exc()}
+        dist.barrier()          # no rank tears down mid-collective
+    finally:
+        q.put((rank, out))
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------- helpers
+
+def model(shared, arch):
+    """(cfg, params on the CPU) of ``arch``: the reduced config, with the
+    bridged reference parameters of ``shared["params"]``."""
+    cfg = configs.get_arch(arch).reduced()
+    return cfg, to_torch(shared["params"][arch])
+
+
+def requests(specs):
+    return [Request(**dict(s)) for s in specs]
+
+
+class _Recorder:
+    """Logs every plan call of an executor (name and arguments) into a
+    digest, so two ranks' plans compare as two strings."""
+
+    def __init__(self, ex):
+        self.h = hashlib.sha256()
+        self.calls = 0
+        for name in PLAN_CALLS:
+            real = getattr(ex, name)
+            setattr(ex, name, self._wrap(name, real))
+
+    def _wrap(self, name, real):
+        def call(*args, **kwargs):
+            self.calls += 1
+            self.h.update(name.encode())
+            for a in list(args) + sorted(kwargs.items()):
+                self.h.update(_digest(a))
+            return real(*args, **kwargs)
+        return call
+
+    def digest(self):
+        return self.h.hexdigest()
+
+
+def _digest(a) -> bytes:
+    if isinstance(a, torch.Tensor):
+        return repr((a.dtype, tuple(a.shape))).encode()
+    if isinstance(a, np.ndarray):
+        return a.tobytes()
+    if isinstance(a, (list, tuple)):
+        return b"(" + b",".join(_digest(x) for x in a) + b")"
+    if hasattr(a, "caches"):                 # a SwappedState
+        return b"".join(np.asarray(x).tobytes() for x in leaves(a.caches))
+    return repr(a).encode()
+
+
+def engine(cfg, params, mesh, kw):
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        eng = DecodeEngine(cfg, params, device="cpu", mesh=mesh, **kw)
+    return eng, [str(x.message) for x in w]
+
+
+def _step_until(eng, pred, max_ticks=100):
+    for _ in range(max_ticks):
+        eng.step()
+        if pred():
+            return
+    raise AssertionError("condition not reached")
+
+
+def _paused_run(eng, reqs, async_paging):
+    """The paging script: pause request 0 mid-decode, step, resume; on
+    an async engine harvest, prefetch ahead of the grant and consume it
+    (a prefetch hit)."""
+    for r in reqs:
+        eng.submit(r)
+    _step_until(eng, lambda: reqs[0].state == "active"
+                and len(reqs[0].output) >= 2)
+    eng.pause(0)
+    eng.step()
+    eng.resume(0)
+    if async_paging:
+        eng.flush_swaps()
+        eng._prefetch_resume()
+        assert eng.swapped[0].prefetch is not None, "prefetch did not stage"
+    eng.run_until_done()
+
+
+# ---------------------------------------------------------------- jobs
+
+def serve_job(job, shared, mesh):
+    """Serve ``job["reqs"]`` (optionally through the paging script) and
+    report the streams, the metrics the tests read, the warnings, the
+    plan digest and the buffers' placements and local shapes."""
+    cfg, params = model(shared, job["arch"])
+    eng, warns = engine(cfg, params, mesh, job["engine"])
+    rec = _Recorder(eng.executor)
+    reqs = requests(shared["reqs"][job["reqs"]])
+    script = job.get("script")
+    guard = None
+    if job.get("guard"):
+        # the host guard over every program call after its first
+        import pytest
+        from torch_host_guard import guard_programs
+        patch = pytest.MonkeyPatch()
+        guard = guard_programs(patch)
+    try:
+        if script is None:
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+        else:
+            _paused_run(eng, reqs, async_paging=script == "async")
+    finally:
+        if guard is not None:
+            patch.undo()
+    m = eng.metrics()
+    ex = eng.executor
+
+    def shapes(tree):
+        return [tuple(t.shape) for t in leaves(tree)]
+
+    def spec_list(tree):
+        return [tuple(s) for s in leaves(tree)]
+
+    out = {
+        "streams": [list(r.output) for r in reqs],
+        "done": all(r.done for r in reqs),
+        "metrics": {k: m[k] for k in (
+            "mesh_data", "mesh_model", "accepted_tokens", "drafted_tokens",
+            "swap_outs", "swap_ins", "swap_bytes", "swap_bytes_per_slot",
+            "swap_prefetch_hits", "swap_prefetches", "stage_dispatches",
+            "scatter_dispatches", "prefill_batching")},
+        "warnings": warns,
+        "plan": rec.digest(), "plan_calls": rec.calls,
+        "guarded": None if guard is None else guard["guarded"],
+        "placements": {k: ({n: tuple(s) for n, s in v.items()}
+                           if k == "sampler" else spec_list(v))
+                       for k, v in ex.placements.items()
+                       if k not in ("params", "draft_params")},
+        "param_placements": {
+            rules.path_str(p): tuple(s) for p, s in _flat(
+                ex.placements.get("params"))},
+        "shapes": {"caches": shapes(ex.caches),
+                   "tokens": tuple(ex.tokens.shape),
+                   "sampler": {k: tuple(v.shape)
+                               for k, v in ex.sampler.items()},
+                   "full_caches": [s.shape for s in ex.spec.leaves()]},
+        "cache_paths": [rules.path_str(p) for p, _ in _flat(ex.caches)],
+    }
+    if ex.speculative:
+        out["shapes"]["ckpt"] = shapes(ex.ckpt)
+        out["shapes"]["dcaches"] = shapes(ex.dcaches)
+    if getattr(ex, "_batched_ready", False):
+        out["shapes"]["bstaging"] = shapes(ex.bstaging)
+    return out
+
+
+def _flat(tree):
+    """[(key path, leaf)] of a port tree (NamedTuple fields by name)."""
+    out = []
+
+    def put(path, x):
+        out.append((path, x))
+    tree_map_with_path(put, tree)
+    return out
+
+
+def logits_job(job, shared, mesh):
+    """The reference's own check of the model axis on the port: a
+    ragged two-chunk prefill and one decode step on this rank's shards of
+    the bridged parameters and of zeroed caches (slots on "data"),
+    returning this rank's rows of the hidden states and the logits."""
+    cfg, params = model(shared, job["arch"])
+    axes = comm.MeshAxes(mesh)
+    B, L = job["batch"], job["max_len"]
+    spec = lm.cache_specs(cfg, B, L)
+    parts = rules.slot_specs(cfg, mesh, spec.tree, B)
+    caches = rules.map_specs(
+        lambda s, p: torch.zeros(rules.local_shape(s.shape, p, axes.sizes),
+                                 dtype=s.dtype), spec.tree, parts)
+    local = rules.shard_tree(params, rules.params_specs(cfg, params, False,
+                                                        mesh),
+                             axes.coords, axes.sizes)
+    b = B // axes.data.size
+    rows = slice(axes.data.index * b, (axes.data.index + 1) * b)
+    x = {k: torch.from_numpy(np.asarray(v)[rows]) for k, v in
+         job["inputs"].items()}
+    comm.reset_stats()
+    with comm.use(axes):
+        h1, _ = lm.prefill_chunk(local, cfg, caches, tokens=x["chunk1"])
+        h2, _ = lm.prefill_chunk(local, cfg, caches, tokens=x["chunk2"],
+                                 valid_len=x["valid"])
+        logits, _ = lm.decode_step(local, cfg, x["tok"], caches)
+    return {"rows": (rows.start, rows.stop), "h1": h1.numpy(),
+            "h2": h2.numpy(), "logits": logits.numpy(),
+            "collectives": comm.stats["calls"]}
+
+
+def swap_job(job, shared, mesh):
+    """Pause request 0 mid-decode on this mesh, keep its host image and
+    the stream it goes on to emit after the resume."""
+    cfg, params = model(shared, job["arch"])
+    eng, _ = engine(cfg, params, mesh, job["engine"])
+    reqs = requests(shared["reqs"][job["reqs"]])
+    for r in reqs:
+        eng.submit(r)
+    _step_until(eng, lambda: reqs[0].state == "active"
+                and len(reqs[0].output) >= 2)
+    eng.pause(0)
+    sw = eng.swapped[0].state
+    n = len(reqs[0].output)
+    eng.resume(0)
+    eng.run_until_done()
+    return {"image": sw, "n": n, "after": list(reqs[0].output[n:]),
+            "streams": [list(r.output) for r in reqs],
+            "swap_bytes_per_slot": eng.executor.swap_bytes_per_slot}
+
+
+def restore_job(job, shared, mesh):
+    """Restore a host image (``shared["images"][job["image"]]``) into slot
+    ``job["slot"]`` of this mesh's engine and decode it to its end."""
+    cfg, params = model(shared, job["arch"])
+    eng, _ = engine(cfg, params, mesh, job["engine"])
+    ex = eng.executor
+    slot = job["slot"]
+    ex.restore_slot(slot, shared["images"][job["image"]])
+    got = []
+    for _ in range(64):
+        toks, valid = ex.decode(2)
+        got += [int(t) for t, v in zip(toks[:, slot], valid[:, slot]) if v]
+        assert not np.delete(valid, slot, axis=1).any()  # the rest inert
+        if not valid[-1, slot]:
+            break
+    return {"got": got}
+
+
+def refuse_job(job, shared, mesh):
+    """An engine of ``job["arch"]`` on this mesh: the refusal it raises."""
+    cfg = configs.get_arch(job["arch"]).reduced()
+    if job.get("naive"):
+        cfg = cfg.replace(pattern=tuple("gdn_naive" if k == "gdn" else k
+                                        for k in cfg.pattern))
+    try:
+        DecodeEngine(cfg, lm.init_lm(0, cfg, device="cpu"), device="cpu",
+                     mesh=mesh, **job["engine"])
+    except NotImplementedError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+JOBS = {"serve": serve_job, "logits": logits_job, "swap": swap_job,
+        "restore": restore_job, "refuse": refuse_job}
