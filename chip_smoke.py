@@ -185,6 +185,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
      after 2 tokens and resumed; (d) its image restored into a
      one-device eager engine, gathered back bitwise, its continuation
      compared with (c)'s and phase 4's; the phase's wall time.
+  14. (run after phase 12) the mesh's model axis for the other kinds at
+     full width: (a) mamba2-1.3b on phase 7's weights (drawn again from
+     seed 0) and mix on a (1,1) NCCL mesh through CUDA graphs, cold then
+     warm, streams bitwise phase 7's graph engine's, no collective issued
+     from the host in the warm run; then (b) mamba2-1.3b, (c)
+     recurrentgemma-2b (two of phase 8's prompts, one past its 2048
+     window) and (d) mixtral-8x7b (16 of 32 layers, as phase 12 (b)) on
+     a (1,2) mesh
+     over two gloo ranks sharing the card, eager, two requests each: each
+     rank draws only its shards from seed 0 (``lm.init_lm(..., mesh=)``:
+     half the SSD heads, the RG-LRU width, the attention heads or
+     head_dim, half of mixtral's experts), the ranks' streams equal, the
+     first token index leaving the one-device streams printed, us/token,
+     TTFT, the run's collectives and their seconds, one decode step's
+     collectives, each rank's allocated bytes; mamba2's GDN kernels at
+     the local shape (B 4, Hk 1, Hv 32), 48 ``gdn_decode`` launches per
+     decode step on each rank, no kernel for the other two; then one
+     decode step on the arch's fixed state (a plain prefill saved after
+     (a), by phase 8 or by phase 12 (b)) against the one-device step by
+     phase 3's rule; the phase's wall time.
 
 Phase 2 also holds the GDN prefill at qwen3-next-gdn's served shape on
 one staged prompt's unmasked chunks of T = C = 1, 2, 4, 8, 16 and 32 (the
@@ -196,7 +216,10 @@ bounds as the rows ``gdn_decode_mamba2`` and ``gdn_prefill_mamba2``, both
 GDN kernels at phase 13's local shapes (``gdn_*_model2``: B 4, Hk 8, Hv
 16, d 128; ``gdn_*_data2``: B 2, Hk 16, Hv 32, d 128; the prefill timed
 on one staged prompt; the rows' launches those of one rank's serve run
-in phase 13 (c) and (b)), and
+in phase 13 (c) and (b)), both GDN kernels at phase 14's local shape of
+mamba2-1.3b (``gdn_*_mamba2_model2``: B 4, Hk 1, Hv 32, d_k 128, d_v 64,
+no delta rule; the rows' launches those of one rank's serve run in
+phase 14 (b)), and
 the three flash-attention kernels (forward, dq, dk/dv)
 against their plain versions at the trained shape (B=2, T=2048, Hq=16,
 Hkv=2, hd=128, bf16), at phase 12 (d)'s (mixtral-8x7b: Hq=32, Hkv=8,
@@ -468,6 +491,12 @@ PREFILL_CASES = (
 PREFILL_MAMBA2_CASES = (
     (64, 64, (64, 0, 33, 3), False, PREFILL_MAMBA2),
     (192, 64, (192, 0, 100, 64), False, PREFILL_MAMBA2))
+# phase 14's local shape of mamba2-1.3b's SSD layers on the (1,2) mesh:
+# half the value heads (B 4, Hk 1, Hv 32)
+PREFILL_MAMBA2_MODEL2 = (MAMBA2["Hk"], MAMBA2["Hv"] // 2, MAMBA2["d_k"],
+                         MAMBA2["d_v"], torch.bfloat16)
+PREFILL_MAMBA2_MODEL2_CASES = tuple(
+    c[:4] + (PREFILL_MAMBA2_MODEL2,) for c in PREFILL_MAMBA2_CASES)
 # phase 13's local shapes of qwen3-next-gdn's GDN layers: the (1,2) mesh
 # halves the heads (B 4, Hk 8, Hv 16), the (2,1) mesh the slots (B 2) and
 # the batched staging ring's rows (one prompt per rank)
@@ -2153,12 +2182,14 @@ def one_step_collectives(eng, cfg):
                 gdn_decode=gdn_counts()["gdn_decode"])
 
 
-def mesh_nccl_phase(cfg, params, engine_mod, card, plain):
+def mesh_nccl_phase(cfg, params, engine_mod, card, plain, label="[13] (a)",
+                    phase="phase 4"):
     """(a) A (1,1) NCCL mesh in this process on the default CUDA-graph
-    engine, phase 4's mix cold then warm: streams bitwise phase 4's graph
-    engine's; the warm run's collectives run inside replayed graphs
-    (``comm.stats["replayed"]``), none from the host unless a program
-    takes its first, eager call in it."""
+    engine, phase 4's mix cold then warm: streams bitwise ``plain``, the
+    graph engine's of ``phase`` on these weights; the warm run's
+    collectives run inside replayed graphs (``comm.stats["replayed"]``),
+    none from the host unless a program takes its first, eager call in
+    it."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.parallel import comm
@@ -2167,7 +2198,7 @@ def mesh_nccl_phase(cfg, params, engine_mod, card, plain):
         mesh = mesh_mod.make_serving_mesh(1, 1)
         eng = engine_mod.DecodeEngine(cfg, params, mesh=mesh, **PHASE4_KW)
         if not eng.executor.cuda_graphs:
-            raise AssertionError("[13] (a): the NCCL mesh engine replays "
+            raise AssertionError(f"{label}: the NCCL mesh engine replays "
                                  "no CUDA graphs")
         for run in ("cold", "warm"):
             reqs = phase4_requests(engine_mod.Request, cfg.vocab)
@@ -2183,13 +2214,13 @@ def mesh_nccl_phase(cfg, params, engine_mod, card, plain):
             streams = [list(r.output) for r in reqs]
             if streams != plain:
                 raise AssertionError(
-                    f"[13] (a) {run}: streams differ from phase 4's graph "
+                    f"{label} {run}: streams differ from {phase}'s graph "
                     f"engine's at {first_difference(streams, plain)}")
             m = eng.metrics()
             st = dict(comm.stats)
             new = eng.executor.compiled_programs()["total"] - shapes
-            print(f"  [13] (a) (1,1) NCCL mesh, graphs, {run} [{card}]: "
-                  f"streams bitwise phase 4's; decode "
+            print(f"  {label} (1,1) NCCL mesh, graphs, {run} [{card}]: "
+                  f"streams bitwise {phase}'s; decode "
                   f"{m['decode_us_per_token']:.1f} us/token, mean TTFT "
                   f"{m['mean_ttft_s'] * 1e3:.1f} ms, {m['tokens'] / wall:.1f}"
                   f" tok/s; collectives: {st['calls']} from the host, "
@@ -2199,10 +2230,10 @@ def mesh_nccl_phase(cfg, params, engine_mod, card, plain):
                   f"{eng.executor.compiled_programs()}")
             if run == "warm" and (not st["replayed"]
                                   or (st["calls"] and not new)):
-                raise AssertionError(f"[13] (a) warm: collectives {st}: "
+                raise AssertionError(f"{label} warm: collectives {st}: "
                                      f"not run inside the captured graphs")
         step = one_step_collectives(eng, cfg)
-        print(f"  [13] (a) one decode step (eager, the model code): "
+        print(f"  {label} one decode step (eager, the model code): "
               f"{step['collectives']} collectives, each captured in the "
               f"decode graphs (a tick adds 1, the tokens' gather over "
               f"data), {step['gdn_decode']} gdn_decode launches")
@@ -2332,7 +2363,7 @@ def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
     for p in procs:
         p.start()
     try:
-        res = dict(q.get(timeout=900) for _ in procs)
+        res = _rank_results(procs, q, 900)
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -2387,24 +2418,10 @@ def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
     # the 1-device top-2 gap exceeds its own error
     for label, r in ((label, r) for label in ("b", "c") for r in range(2)):
         lg = res[r][label]["logits"]
-        rows = slice(*lg["rows"])
-        truth = step3["truth"][rows]
-        one, got = torch.from_numpy(lg["one"]), torch.from_numpy(lg["mesh"])
-        d = max_err(got, one)
-        err_mesh, err_one = max_err(got, truth), max_err(one, truth)
-        top2 = one.topk(2, dim=-1).values
-        gap = top2[:, 0] - top2[:, 1]
-        same = got.argmax(-1) == one.argmax(-1)
-        print(f"  [13] ({label}) rank {r}, rows {lg['rows']}: one decode "
-              f"step's logits, max|mesh - 1-device| {d:.3e}; from fp32: "
-              f"mesh {err_mesh:.3e}, 1-device {err_one:.3e} (limit 2x "
-              f"1-device); argmax equal {same.tolist()}, 1-device top-2 "
-              f"gaps {[round(float(x), 4) for x in gap]}; "
-              f"{lg['gdn_decode']} gdn_decode launches")
-        if err_mesh > 2 * err_one or not bool((same | (gap <= err_one))
-                                              .all()):
-            raise AssertionError(f"[13] ({label}): the mesh's logits leave "
-                                 f"the bound")
+        logit_rule(f"[13] ({label}) rank {r}, rows {lg['rows']} "
+                   f"({lg['gdn_decode']} gdn_decode launches)",
+                   torch.from_numpy(lg["mesh"]), torch.from_numpy(lg["one"]),
+                   step3["truth"][slice(*lg["rows"])])
         if lg["gdn_decode"] != n_gdn:
             raise AssertionError(f"[13] ({label}): {lg['gdn_decode']} "
                                  f"gdn_decode launches in the logit step")
@@ -2446,6 +2463,316 @@ def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 14
+
+# the model axis of the other kinds at full width on (1,2): mamba2-1.3b
+# (ssm heads through both GDN kernels), recurrentgemma-2b (RG-LRU width,
+# MQA attention split on head_dim, prompts past its 2048 window) and
+# mixtral-8x7b (grouped heads, expert parallelism; 16 of 32 layers, as
+# phase 12 (b)).  Per arch: the depth served, the engine settings, the
+# two requests' prompts and budgets (phase 4's first two, phase 8's first
+# and last), and the fixed decode state's (B, T, prefill chunk, max_len).
+MESH14 = {
+    "mamba2-1.3b": dict(layers=None, kw=PHASE4_KW, step=(4, 64, 64, 1024)),
+    "recurrentgemma-2b": dict(
+        layers=None, step=(4, 2112, 1056, 4096),
+        kw=dict(PHASE4_KW, max_len=4096, prefill_chunk=256)),
+    "mixtral-8x7b": dict(layers=16, kw=PHASE4_KW, step=(4, 64, 64, 128)),
+}
+MESH14_LOCAL = dict(MAMBA2, Hv=MAMBA2["Hv"] // 2)   # mamba2's heads at (1,2)
+
+
+def mesh14_config(configs, arch):
+    cfg = configs.get_arch(arch)
+    if arch == "mamba2-1.3b":
+        cfg = cfg.replace(use_pallas_serving=True)
+    if MESH14[arch]["layers"]:
+        cfg = cfg.replace(n_layers=MESH14[arch]["layers"])
+    return cfg
+
+
+def mesh14_requests(Request, arch, vocab):
+    """Two requests of the arch's phase, greedy, 16 new tokens each (the
+    script's time limit): phase 4's first two prompts, or phase 8's first
+    and last (2500 tokens, past the window, and 300)."""
+    if arch == "recurrentgemma-2b":
+        rng = np.random.default_rng(8)
+        prompts = [rng.integers(1, vocab, n) for n in GEMMA_PROMPTS]
+        prompts = [prompts[0], prompts[3]]
+    else:
+        prompts = _phase4_prompts(vocab)[:2]
+    return [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+
+
+def fixed_step(cfg, params, lm, folder):
+    """The one-device decode step of phase 14 (b)-(d) on a fixed state: a
+    plain prefill of random tokens (seed 14) in chunks, its caches saved
+    under ``folder`` for the mesh ranks, then one step through ``cfg``'s
+    path (the kernels where it has them) in bf16, and the fp32 step (fp32
+    activations, the bf16 weights upcast in each product, no kernel) on
+    an fp32 prefill of the same tokens.  Returns {"path", "one",
+    "truth"}, the logits on the host."""
+    from repro_torch.tree import tree_map
+    B, T, chunk, max_len = MESH14[cfg.name]["step"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    toks = torch.randint(1, cfg.vocab, (B, T), generator=gen, device="cuda")
+    tok = torch.randint(1, cfg.vocab, (B,), generator=gen, device="cuda")
+    plain = cfg.replace(use_pallas_serving=False)
+    out = {"path": os.path.join(folder, f"{cfg.name}.pt")}
+    for key, c in (("one", plain), ("truth",
+                                    plain.replace(act_dtype="float32"))):
+        caches = lm.init_caches(c, B, max_len, device="cuda")
+        for i in range(0, T, chunk):
+            lm.prefill_chunk(params, c, caches, tokens=toks[:, i:i + chunk])
+        if key == "one":
+            torch.save({"caches": tree_map(lambda t: t.cpu(), caches),
+                        "tok": tok.cpu()}, out["path"])
+        logits, _ = lm.decode_step(params, cfg if key == "one" else c, tok,
+                                   caches)
+        out[key] = logits.float().cpu()
+        del caches
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out["one"]).all()):
+        raise AssertionError(f"[14] {cfg.name}: non-finite logits")
+    return out
+
+
+def _kernel_shapes(kdecode, kprefill, seen):
+    """Wrap the GDN kernels' launchers to record the shapes they are
+    called at: (Hk, Hv, d_k, d_v) of gdn_decode, (Hv per q/k head, d_k,
+    d_v) of gdn_prefill."""
+    real_d, real_p = kdecode.gdn_decode, kprefill.gdn_prefill
+
+    def dec(q, k, v, *a, **kw):
+        seen.add(("gdn_decode", q.shape[1], v.shape[1], q.shape[2],
+                  v.shape[2]))
+        return real_d(q, k, v, *a, **kw)
+
+    def pre(q, k, v, *a, n_rep=1, **kw):
+        seen.add(("gdn_prefill", n_rep, q.shape[2], v.shape[2]))
+        return real_p(q, k, v, *a, n_rep=n_rep, **kw)
+    kdecode.gdn_decode, kprefill.gdn_prefill = dec, pre
+
+
+def _mesh14_serve(arch, mesh, folder, configs, lm, engine_mod):
+    """One arch on this rank of the (1,2) gloo mesh: its shards drawn
+    alone from seed 0 (``lm.init_lm(..., mesh=)``), an eager engine
+    serving two requests (launch counters and collectives zeroed before,
+    read after), one decode step's collectives, then the decode step on
+    the fixed state of ``fixed_step`` cut into this rank's shards."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as rules
+    from repro_torch.tree import leaves, tree_map
+    cfg = mesh14_config(configs, arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"draw_s": time.perf_counter() - t0,
+           "params_bytes": sum(t.numel() * t.element_size()
+                               for t in leaves(params))}
+    eng = engine_mod.DecodeEngine(cfg, params, mesh=mesh, cuda_graphs=False,
+                                  **MESH14[arch]["kw"])
+    reqs = mesh14_requests(engine_mod.Request, arch, cfg.vocab)
+    zero_launches()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    out.update(streams=[list(r.output) for r in reqs],
+               wall=time.perf_counter() - t0,
+               us_token=m["decode_us_per_token"],
+               ttft_ms=m["mean_ttft_s"] * 1e3, decode_steps=eng.decode_steps,
+               ticks=m["ticks"], run_collectives=comm.stats["calls"],
+               run_collective_s=comm.stats["seconds"],
+               launches=gdn_counts(),
+               allocated=torch.cuda.memory_allocated(),
+               peak=torch.cuda.max_memory_allocated(),
+               step=one_step_collectives(eng, cfg))
+    blob = torch.load(os.path.join(folder, f"{arch}.pt"), weights_only=False)
+    B, _, _, max_len = MESH14[arch]["step"]
+    ex = eng.executor
+    parts = rules.slot_specs(cfg, mesh, lm.cache_specs(cfg, B, max_len).tree,
+                             B)
+    local = tree_map(lambda t: t.cuda(), rules.shard_tree(
+        blob["caches"], parts, ex._axes.coords, ex._axes.sizes))
+    zero_launches()
+    with comm.use(ex._axes):
+        got, _ = lm.decode_step(ex.params, cfg, blob["tok"].cuda(), local)
+    torch.cuda.synchronize()
+    out["logits"] = dict(mesh=got.float().cpu().numpy(),
+                         gdn_decode=gdn_counts()["gdn_decode"])
+    return out
+
+
+def _mesh14_rank(rank, port, folder, archs, q):
+    """A gloo rank of phase 14 (b)-(d) on card 0: each of ``archs`` in
+    turn."""
+    import traceback
+    import torch.distributed as dist
+    out = {}
+    try:
+        torch.cuda.set_device(0)
+        from repro_torch import configs
+        from repro_torch.kernels import gdn_decode as kdecode
+        from repro_torch.kernels import gdn_prefill as kprefill
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.models import lm
+        from repro_torch.serving import engine as engine_mod
+        seen = set()
+        _kernel_shapes(kdecode, kprefill, seen)
+        mesh_mod.init_ranks(rank, 2, port, "gloo")
+        mesh = mesh_mod.make_serving_mesh(1, 2)
+        for arch in archs:
+            seen.clear()
+            out[arch] = _mesh14_serve(arch, mesh, folder, configs, lm,
+                                      engine_mod)
+            out[arch]["kernel_shapes"] = sorted(seen)
+            # the arch's engine and weights (a cycle with its programs)
+            # go before the next is drawn
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    q.put((rank, out))
+
+
+def _rank_results(procs, q, timeout):
+    """{rank: result} from each of ``procs`` through ``q``; raises when a
+    rank exits without one or ``timeout`` seconds pass."""
+    import queue
+    res, end = {}, time.monotonic() + timeout
+    while len(res) < len(procs):
+        try:
+            r, out = q.get(timeout=5)
+            res[r] = out
+        except queue.Empty:
+            dead = [r for r, p in enumerate(procs)
+                    if r not in res and not p.is_alive()]
+            if dead or time.monotonic() > end:
+                raise AssertionError(f"ranks {dead or 'all'} gave no "
+                                     f"result (exit codes "
+                                     f"{[p.exitcode for p in procs]})")
+    return res
+
+
+def logit_rule(label, got, one, truth):
+    """Phase 3's rule: ``got`` no further from the fp32 logits ``truth``
+    than twice the one-device bf16 step ``one`` is, and its argmax equal
+    wherever the one-device top-2 gap exceeds that step's own error."""
+    d = max_err(got, one)
+    err, err_one = max_err(got, truth), max_err(one, truth)
+    top2 = one.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = got.argmax(-1) == one.argmax(-1)
+    print(f"  {label}: one decode step's logits, max|mesh - 1-device| "
+          f"{d:.3e}; from fp32: mesh {err:.3e}, 1-device {err_one:.3e} "
+          f"(limit 2x 1-device); argmax equal {same.tolist()}, 1-device "
+          f"top-2 gaps {[round(float(x), 4) for x in gap]}")
+    if err > 2 * err_one or not bool((same | (gap <= err_one)).all()):
+        raise AssertionError(f"{label}: the mesh's logits leave the bound")
+
+
+def mesh14_phase(card, steps, plain):
+    """Phase 14 (b)-(d): two gloo ranks on card 0 serve each arch on the
+    (1,2) mesh and step its fixed state (module docstring); ``steps``:
+    ``fixed_step``'s result per arch, ``plain``: the one-device graph
+    engine's streams of its phase.  Returns mamba2's GDN launches per
+    rank, keyed by phase 2's rows."""
+    import torch.multiprocessing as mp
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = mesh_mod.free_port()
+    folder = os.path.dirname(steps["mamba2-1.3b"]["path"])
+    t0 = time.perf_counter()
+    archs = [a for a in MESH14 if a in steps]
+    procs = [ctx.Process(target=_mesh14_rank,
+                         args=(r, port, folder, archs, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = _rank_results(procs, q, 900)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r, out in res.items():
+        if "error" in out:
+            raise AssertionError(f"[14] rank {r}:\n{out['error']}")
+    print(f"  [14] two gloo ranks on card 0 (spawn, then each arch's draw, "
+          f"serve and step) took {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for label, arch in zip("bcd", MESH14):
+        if arch not in steps:
+            continue
+        outs = [res[r][arch] for r in range(2)]
+        if outs[1]["streams"] != outs[0]["streams"]:
+            raise AssertionError(f"[14] ({label}) {arch}: the ranks' "
+                                 f"streams differ")
+        n_gdn = sum(k == "ssm" for k in
+                    mesh14_config(configs, arch).layer_kinds)
+        for r, x in enumerate(outs):
+            st = x["step"]
+            print(f"  [14] ({label}) {arch} (1,2) gloo mesh, eager, rank "
+                  f"{r} [{card}]: shards of {x['params_bytes'] / 1e9:.2f} "
+                  f"GB drawn in {x['draw_s']:.1f} s; decode "
+                  f"{x['us_token']:.1f} us/token, mean TTFT "
+                  f"{x['ttft_ms']:.1f} ms, {x['decode_steps']} decode steps "
+                  f"in {x['ticks']} ticks, the run's {x['run_collectives']} "
+                  f"collectives took {x['run_collective_s']:.3f} s; one "
+                  f"decode step: {st['collectives']} collectives, "
+                  f"{st['collective_s'] * 1e3:.1f} ms of "
+                  f"{st['step_s'] * 1e3:.1f} ms in them, "
+                  f"{st['gdn_decode']} gdn_decode launches; allocated "
+                  f"{x['allocated']} B (peak {x['peak']} B); GDN launches "
+                  f"{x['launches']} at {x['kernel_shapes']}")
+            if st["gdn_decode"] != n_gdn or \
+                    x["logits"]["gdn_decode"] != n_gdn:
+                raise AssertionError(f"[14] ({label}) rank {r}: "
+                                     f"{st['gdn_decode']} and "
+                                     f"{x['logits']['gdn_decode']} "
+                                     f"gdn_decode launches per step, not "
+                                     f"{n_gdn}")
+            if n_gdn:
+                hk, hv, dk, dv = (MESH14_LOCAL[k]
+                                  for k in ("Hk", "Hv", "d_k", "d_v"))
+                want = [("gdn_decode", hk, hv, dk, dv),
+                        ("gdn_prefill", hv // hk, dk, dv)]
+                if x["kernel_shapes"] != sorted(want) or \
+                        not x["launches"]["gdn_prefill"]:
+                    raise AssertionError(f"[14] ({label}) rank {r}: GDN "
+                                         f"kernels at {x['kernel_shapes']}, "
+                                         f"not {want}")
+            elif any(x["launches"].values()):
+                raise AssertionError(f"[14] ({label}) rank {r}: a GDN "
+                                     f"kernel launched: {x['launches']}")
+        print(f"  [14] ({label}) first token index leaving the 1-device "
+              f"streams, per request (greedy): "
+              f"{first_difference(outs[0]['streams'], plain[arch])}")
+        step = steps[arch]
+        for r in range(2):
+            logit_rule(f"[14] ({label}) {arch} rank {r}",
+                       torch.from_numpy(res[r][arch]["logits"]["mesh"]),
+                       step["one"], step["truth"])
+        if n_gdn:
+            launches["gdn_decode_mamba2_model2"] = \
+                outs[0]["launches"]["gdn_decode"]
+            launches["gdn_prefill_mamba2_model2"] = \
+                outs[0]["launches"]["gdn_prefill"]
     return launches
 
 
@@ -2785,7 +3112,10 @@ def mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs,
     engine (``serve_twice``), the GDN kernels' launches counted at the
     wrappers in the eager warm run (``gdn_launches``: ``gdn_decode`` 48 x
     decode steps, ``gdn_prefill`` 48 x prefill chunks, placeholder chunks
-    included) and one replayed batched round under the profiler."""
+    included) and one replayed batched round under the profiler.  Returns
+    the launches keyed by phase 2's rows, the config, the weights, the
+    graph engine's warm streams and us/token (phase 14 (a) takes the
+    last two)."""
     cfg = configs.get_arch("mamba2-1.3b").replace(use_pallas_serving=True)
     t0 = time.perf_counter()
     params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
@@ -2807,14 +3137,17 @@ def mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs,
                         top_k=40 if i == 2 else 0)
                 for i, p in enumerate(prompts)]
 
-    eng, runs, _ = serve_twice(
+    eng, runs, streams = serve_twice(
         Engine, cfg, params, kw, requests, card, "mamba2 serve",
         variants=(("per-prompt", dict(prefill_batching=False), True),))
     n_ssm = sum(k == "ssm" for k in cfg.layer_kinds)
     got = gdn_launches(runs, kdecode, kprefill, n_ssm, "mamba2 serve")
     profile_batched_round(eng, kernel_counts, n_ssm, "mamba2 serve")
-    return {"gdn_decode_mamba2": got["decode"],
-            "gdn_prefill_mamba2": got["prefill"]}
+    warm_us = eng.metrics()["decode_us_per_token"]
+    return dict(launches={"gdn_decode_mamba2": got["decode"],
+                          "gdn_prefill_mamba2": got["prefill"]},
+                cfg=cfg, params=params, warm_us=warm_us,
+                plain=streams[("graphs", "warm")])
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2822,14 +3155,16 @@ def mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs,
 GEMMA_PROMPTS = (2500, 1200, 600, 300)
 
 
-def gemma_phase(card, lm, engine_mod, configs):
+def gemma_phase(card, lm, engine_mod, configs, folder):
     """Full-width recurrentgemma-2b (26 layers: 18 rglru, 8 swa with a
     2048-token window and MQA q heads padded 10 -> 16; random bf16 weights
     drawn on the card from seed 0) serving 4 requests, one prompt past the
     window, 16 new tokens each (one at temperature 0.8 / top-k 40),
     eagerly and through CUDA graphs (``serve_twice``): the RG-LRU programs
     capture and replay, streams bitwise equal.  No hand-written kernel is
-    on this path: none may launch."""
+    on this path: none may launch.  Then phase 14's fixed step on these
+    weights (``fixed_step``, saved under ``folder``); returns it and the
+    warm streams of the requests phase 14 (c) serves."""
     cfg = configs.get_arch("recurrentgemma-2b")
     t0 = time.perf_counter()
     params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
@@ -2852,13 +3187,15 @@ def gemma_phase(card, lm, engine_mod, configs):
                         top_k=40 if i == 1 else 0)
                 for i, p in enumerate(prompts)]
 
-    _, runs, _ = serve_twice(Engine, cfg, params, kw, requests, card,
-                             "recurrentgemma serve")
+    _, runs, streams = serve_twice(Engine, cfg, params, kw, requests, card,
+                                   "recurrentgemma serve")
     counts = {name: {k: n for k, n in c.items() if n}
               for name, (c, _) in runs.items()}
     if any(counts.values()):
         raise AssertionError(f"a kernel launched on the rglru path: "
                              f"{counts}")
+    plain = streams[("graphs", "warm")]
+    return fixed_step(cfg, params, lm, folder), [plain[0], plain[3]]
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2949,7 +3286,8 @@ def bmm_f32_check(params, label, max_experts=16, rows=64):
         del x, got, want
 
 
-def moe_serve(card, lm, engine_mod, configs, arch, variants, label):
+def moe_serve(card, lm, engine_mod, configs, arch, variants, label,
+              folder=None):
     """(b), (c) ``arch`` at full width, ``MOE_SERVE_LAYERS`` deep, bf16
     weights from seed 0, serving phase 4's mix and engine settings
     through ``serve_twice`` (eager once, the default CUDA-graph engine
@@ -2958,7 +3296,9 @@ def moe_serve(card, lm, engine_mod, configs, arch, variants, label):
     launched (every counter zeroed before, all six 0 after).  Prints the
     warm graph engine's TTFT, decode us/token and tok/s beside the floor
     of the dense all-expert decode: every weight but the embedding table
-    read once per step."""
+    read once per step.  With ``folder``: then phase 14's fixed step on
+    these weights (``fixed_step``); returns it and the warm streams of
+    phase 14 (d)'s two requests."""
     from repro_torch.runtime.graphs import add_launches, launch_counts
     from repro_torch.tree import leaves
     full = configs.get_arch(arch)
@@ -2977,8 +3317,9 @@ def moe_serve(card, lm, engine_mod, configs, arch, variants, label):
                 for i, p in enumerate(prompts)]
 
     add_launches(launch_counts(), -1)                   # zero every count
-    eng, runs, _ = serve_twice(Engine, cfg, params, kw, requests, card,
-                               f"{label} {arch} serve", variants=variants)
+    eng, runs, streams = serve_twice(Engine, cfg, params, kw, requests,
+                                     card, f"{label} {arch} serve",
+                                     variants=variants)
     launched = {k: n for k, n in launch_counts().items() if n}
     print(f"  {label}: kernel launches over every serve run {launched}; "
           f"default engine prefill_batching {eng.prefill_batching}")
@@ -3001,9 +3342,17 @@ def moe_serve(card, lm, engine_mod, configs, arch, variants, label):
           f"dense all-expert decode: {step_bytes / 1e9:.2f} GB / "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {floor_ms:.2f} ms per "
           f"{slots}-slot step, {floor_ms * 1e3 / slots:.1f} us/token")
-    del eng, params
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
+    out = None
+    if folder is not None:
+        out = (fixed_step(cfg, params, lm, folder),
+               streams[("graphs", "warm")][:2])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def moe_train(card, configs, kflash, kernel_mods, kernel_counts):
@@ -3073,18 +3422,21 @@ def moe_train(card, configs, kflash, kernel_mods, kernel_counts):
 
 
 def moe_phase(card, lm, engine_mod, configs, kflash, kernel_mods,
-              kernel_counts):
+              kernel_counts, folder):
     """Phase 12: the MoE FFN at full width, (a)-(d), each model freed
-    before the next.  Returns (d)'s flash launches."""
+    before the next.  Returns (d)'s flash launches and phase 14's fixed
+    step of (b)'s mixtral with (b)'s streams."""
     from repro_torch.models import moe
     moe_consistency(card, lm, moe, configs)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_serve(card, lm, engine_mod, configs, "mixtral-8x7b",
-              (("spec self-draft k=4", dict(speculative=True, k_draft=4),
-                True),), "(b)")
+    mixtral = moe_serve(card, lm, engine_mod, configs, "mixtral-8x7b",
+                        (("spec self-draft k=4",
+                          dict(speculative=True, k_draft=4), True),), "(b)",
+                        folder)
     moe_serve(card, lm, engine_mod, configs, "arctic-480b", (), "(c)")
-    return moe_train(card, configs, kflash, kernel_mods, kernel_counts)
+    return (moe_train(card, configs, kflash, kernel_mods, kernel_counts),
+            mixtral)
 
 
 def main():
@@ -3136,6 +3488,15 @@ def main():
             prefill_phase(ops, ref, kprefill, time_launches,
                           "gdn_prefill_mamba2", PREFILL_MAMBA2_CASES,
                           PREFILL_MAMBA2 + (False,))]
+    mamba2_local = tuple(MESH14_LOCAL[k]
+                         for k in ("B", "Hk", "Hv", "d_k", "d_v"))
+    rows += [decode_phase(ref, kdecode, time_launches,
+                          "gdn_decode_mamba2_model2", mamba2_local,
+                          delta_rules=(False,)),
+             prefill_phase(ops, ref, kprefill, time_launches,
+                           "gdn_prefill_mamba2_model2",
+                           PREFILL_MAMBA2_MODEL2_CASES,
+                           PREFILL_MAMBA2_MODEL2 + (False,))]
     rows += [decode_phase(ref, kdecode, time_launches, "gdn_decode_model2",
                           MESH_MODEL2, delta_rules=(True,)),
              decode_phase(ref, kdecode, time_launches, "gdn_decode_data2",
@@ -3209,20 +3570,50 @@ def main():
     launches.update(danube_phase(card, lm, attention, engine_mod, kattn,
                                  configs))
     torch.cuda.empty_cache()
-    launches.update(mamba2_phase(card, lm, engine_mod, kdecode, kprefill,
-                                 configs, kernel_counts))
+    folder14 = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    steps14, plain14 = {}, {}
+    m2 = mamba2_phase(card, lm, engine_mod, kdecode, kprefill, configs,
+                      kernel_counts)
+    launches.update(m2.pop("launches"))
+    del m2["params"]
+    gc.collect()
     torch.cuda.empty_cache()
-    gemma_phase(card, lm, engine_mod, configs)
+    steps14["recurrentgemma-2b"], plain14["recurrentgemma-2b"] = \
+        gemma_phase(card, lm, engine_mod, configs, folder14.name)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[12] MoE at full width with the depth cut: mixtral-8x7b and "
           f"arctic-480b served, mixtral trained [{card}]")
     t0 = time.perf_counter()
-    moe_launches = moe_phase(card, lm, engine_mod, configs, kflash,
-                             (kflash, kdecode, kprefill, kattn),
-                             kernel_counts)
+    moe_launches, mixtral = moe_phase(card, lm, engine_mod, configs, kflash,
+                                      (kflash, kdecode, kprefill, kattn),
+                                      kernel_counts, folder14.name)
+    steps14["mixtral-8x7b"], plain14["mixtral-8x7b"] = mixtral
     print(f"  [12] phase 12 took {time.perf_counter() - t0:.1f} s "
           f"[{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[14] the mesh's model axis for the other kinds: (a) "
+          f"full-width {m2['cfg'].name} on a (1,1) NCCL mesh, phase 7's "
+          f"weights (drawn again from seed 0) and mix [{card}]")
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                        m2["cfg"], device="cuda")
+    us_a = mesh_nccl_phase(m2["cfg"], params, engine_mod, card, m2["plain"],
+                           label="[14] (a)", phase="phase 7")
+    print(f"  [14] (a) warm {us_a:.1f} us/token against phase 7's warm "
+          f"{m2['warm_us']:.1f} ({us_a / m2['warm_us']:.4f}x)")
+    steps14["mamba2-1.3b"] = fixed_step(m2["cfg"], params, lm,
+                                        folder14.name)
+    plain14["mamba2-1.3b"] = m2["plain"][:2]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[14] (b)-(d) the mesh's model axis at full width over two gloo "
+          f"ranks on card 0: {', '.join(MESH14)} [{card}]")
+    launches.update(mesh14_phase(card, steps14, plain14))
+    folder14.cleanup()
+    print(f"  [14] phase 14 took {time.perf_counter() - t0:.1f} s [{card}]")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in paging:

@@ -42,11 +42,14 @@ engine; the streams are the colocated ones.
 
 ``--mesh DATA,MODEL`` (or ``data=D,model=M``) serves one engine sharded
 over a ``("data", "model")`` mesh: the slot axis on "data" (``--slots`` is
-padded to a multiple of it), GDN state heads, attention heads and KV
-context, the MLP and the vocab on "model".  The CLI starts one rank per
-mesh device itself (``torch.multiprocessing.spawn``); each draws the
-weights from ``--seed`` and keeps its shards, every rank serves the same
-requests and rank 0 prints.  The backend is NCCL, one card per rank, on
+padded to a multiple of it); on "model" the vocab, the MLP, attention
+heads and KV context, GDN and SSD state heads, the RG-LRU width and the
+MoE experts (expert parallelism), for every arch of the registry.  The
+CLI starts one rank per mesh device itself
+(``torch.multiprocessing.spawn``); each draws the weights from ``--seed``
+and keeps only its shards (``lm.init_lm(..., mesh=)``: a rank of an MoE
+model never holds all its experts), every rank serves the same requests
+and rank 0 prints.  The backend is NCCL, one card per rank, on
 the card, and gloo on the CPU; ``--gloo`` runs the ranks over gloo on
 the cards there are (ranks may share a card; its collectives pass
 through host memory and the programs run eagerly).  A mesh needing more
@@ -55,6 +58,9 @@ cards than NCCL sees raises.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
         --requests 4 --max-new 6 --slots 4 --max-len 64 --kernels \
         --device cpu --mesh 2,2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --requests 4 --max-new 6 --slots 2 --max-len 64 --device cpu \
+        --mesh 1,2
 """
 from __future__ import annotations
 
@@ -292,8 +298,8 @@ def _serve_main(args, mesh=None):
         cfg = cfg.reduced()
     if args.kernels:
         cfg = cfg.replace(use_pallas_serving=True)
-    params = (None if args.rpc
-              else lm.init_lm(args.seed, cfg, device=args.device))
+    params = (None if args.rpc else
+              lm.init_lm(args.seed, cfg, device=args.device, mesh=mesh))
     draft_cfg = draft_params = None
     if args.speculative and args.draft_config != "self":
         draft_cfg = configs.get_arch(args.draft_config)
@@ -306,7 +312,7 @@ def _serve_main(args, mesh=None):
                              f"{draft_cfg.vocab} != target vocab "
                              f"{cfg.vocab}")
         draft_params = lm.init_lm(args.seed + 1, draft_cfg,
-                                  device=args.device)
+                                  device=args.device, mesh=mesh)
     common = dict(max_slots=args.slots, max_len=args.max_len, seed=args.seed,
                   decode_block=args.decode_block, overlap=args.overlap,
                   prefill_chunk=args.prefill_chunk,

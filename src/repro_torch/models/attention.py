@@ -27,8 +27,14 @@ positions [r Tmax / M, (r + 1) Tmax / M)): ``attn_decode_xla`` and
 write each position into the rank that owns it, and compute flash-decode
 split-K — each rank's (max, sum) over its slice, merged in rank order,
 then the probability-weighted values all-reduced — before keeping the
-local heads for ``wo``.  At a model axis of 1 this is the unsharded
-arithmetic bit for bit.
+local heads for ``wo``.  Where the axis does not divide the KV heads
+(recurrentgemma's one MQA head), ``fit_spec`` places it on ``wk`` /
+``wv``'s head_dim instead: each rank projects its half of every KV head,
+and k and v are gathered along head_dim before RoPE (which mixes the two
+halves of head_dim) and before the cache write.  A rolling (``swa``)
+cache of ``size`` slots is split the same way: rank r holds slots
+[r size / M, (r + 1) size / M).  At a model axis of 1 this is the
+unsharded arithmetic bit for bit.
 
 KV cache layout: (B, Hkv, Tmax, hd) + lengths (B,) int32.  A rolling (SWA)
 cache of ``size`` slots holds token p at slot p mod size.  The functions
@@ -335,17 +341,21 @@ def attn_decode_xla(p, x_t, cache: KVCache, *, rope_theta=10000.0,
 
 # ------------------------------------------- context-split (model axis)
 
-def _gather_heads(tp, *ts):
-    """The full heads (dim -2) of each of ``ts`` from every rank's local
-    heads, in one all-gather over "model"."""
-    counts = [t.shape[-2] for t in ts]
-    g = tp.all_gather(torch.cat(ts, dim=-2)[None], 0).unbind(0)
-    out, start = [], 0
-    for n in counts:
-        out.append(torch.cat([r[..., start:start + n, :] for r in g],
-                             dim=-2))
-        start += n
-    return out
+def _qkv_split(tp, p, x, positions, rope_theta):
+    """The whole q, k and v (every head) of the new tokens from this
+    rank's projections, in one all-gather over "model", and the number of
+    query heads this rank holds.  KV heads the axis does not divide come
+    split on head_dim (``fit_spec``): gathered along it, then rotated."""
+    q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, rope_theta)
+    k, v = _proj_heads(x, p["wk"]), _proj_heads(x, p["wv"])
+    n_local, lead = q.shape[-2], q.dim() - 2
+    if k.shape[-1] == q.shape[-1]:
+        k = layers.apply_rope(k, positions, rope_theta)
+        q, k, v = tp.all_gather_cat([q, k, v], [-2, -2, -2], lead)
+    else:
+        q, k, v = tp.all_gather_cat([q, k, v], [-2, -1, -1], lead)
+        k = layers.apply_rope(k, positions, rope_theta)
+    return q, k, v, n_local
 
 
 def _merge_stats(tp, m_r, l_r):
@@ -378,9 +388,9 @@ def _attn_decode_split(tp, p, x_t, cache: KVCache, rope_theta, head_mask):
     B = x_t.shape[0]
     dev = x_t.device
     pos = cache.length.long()
-    q, k, v = _qkv(p, x_t[:, None, :], pos[:, None], rope_theta)
-    n_local = q.shape[2]
-    q, k, v = _gather_heads(tp, q[:, 0], k[:, 0], v[:, 0])
+    q, k, v, n_local = _qkv_split(tp, p, x_t[:, None, :], pos[:, None],
+                                  rope_theta)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
     S = cache.k.shape[2]
     off = tp.index * S
     # the new token goes to the rank owning its slot; one position per
@@ -427,9 +437,7 @@ def _attn_prefill_chunk_split(tp, p, x, cache: KVCache, rope_theta,
     length = cache.length.long()
     ar = torch.arange(C, device=dev)
     pos = length[:, None] + ar[None, :]                         # (B, C)
-    q, k, v = _qkv(p, x, pos, rope_theta)
-    n_local = q.shape[2]
-    q, k, v = _gather_heads(tp, q, k, v)
+    q, k, v, n_local = _qkv_split(tp, p, x, pos, rope_theta)
     Hq, hd = q.shape[2], q.shape[3]
     Hkv = cache.k.shape[1]
     G = Hq // Hkv

@@ -165,6 +165,13 @@ def init_conv1d(generator, channels, width, dtype, device, reps):
             "b": torch.zeros((reps, channels), dtype=dtype, device=device)}
 
 
+def conv_block(p, n):
+    """A conv's filter and bias for ``n`` channels: on a mesh, each leaf
+    holding more (a replicated one) cut to this rank's slice."""
+    tp = comm.model_axis()
+    return p if tp is None else {k: tp.block(v, n) for k, v in p.items()}
+
+
 def conv1d_fwd(p, x):
     """Causal depthwise conv over (B, T, C): the reference's sum of the
     ``width`` shifted products in x's dtype, in order, then the bias."""

@@ -60,6 +60,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, moe
 from repro_torch.models.mixers import CacheSpec, get_mixer
 from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as rules
 from repro_torch.tree import copy_leaves, leaves, tree_map
 
 
@@ -78,8 +79,10 @@ def build_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 # ---------------------------------------------------------------- init
 
-def _init_position(generator, kind, cfg, dtype, device, reps):
-    """Stacked (reps, ...) params of one pattern position."""
+def _init_position(generator, kind, cfg, dtype, device, reps,
+                   experts=None):
+    """Stacked (reps, ...) params of one pattern position (``experts``:
+    the range of MoE experts to keep, all by default)."""
     p = {"norm1": layers.init_rmsnorm(cfg.d_model, device, reps),
          "mixer": get_mixer(kind).init_params(generator, cfg, dtype, device,
                                               reps)}
@@ -90,7 +93,8 @@ def _init_position(generator, kind, cfg, dtype, device, reps):
                                        dtype, device, reps)
         if cfg.ffn in ("moe", "moe+dense"):
             p["moe"] = moe.init_moe(generator, cfg.d_model, cfg.d_ff,
-                                    cfg.moe_experts, dtype, device, reps)
+                                    cfg.moe_experts, dtype, device, reps,
+                                    experts=experts)
         if cfg.ffn == "moe+dense":
             p["mlp"] = layers.init_mlp(generator, cfg.d_model,
                                        cfg.d_ff_dense or cfg.d_ff, dtype,
@@ -98,29 +102,69 @@ def _init_position(generator, kind, cfg, dtype, device, reps):
     return p
 
 
-def init_lm(generator, cfg: ArchConfig, device=None):
+def init_lm(generator, cfg: ArchConfig, device=None, mesh=None):
     """Random params drawn on ``device`` (default ``cuda``) from
     ``generator`` — a ``torch.Generator`` on that device, or an int seed.
     Same shapes, scales and dtypes as the reference's ``init_lm``; the
-    draws themselves differ (the tests bridge the reference's params in)."""
+    draws themselves differ (the tests bridge the reference's params in).
+
+    With ``mesh`` (a serving ``DeviceMesh`` holding this rank) the tree
+    holds only this rank's shards under ``parallel.sharding``'s rules:
+    every leaf is drawn whole in the one-device order and cut at once, so
+    the generator advances as there and the shards are the one-device
+    draw's, while the expert matrices, drawn one at a time, are kept for
+    this rank's experts only: no rank ever holds more than its shards and
+    one whole non-expert leaf."""
     dev = _device.resolve(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     dtype = _device.dtype(cfg.act_dtype)
+    cut, experts = _mesh_cut(cfg, mesh)
     params: Dict[str, Any] = {
-        "embed": layers.init_embedding(generator, cfg.vocab, cfg.d_model,
-                                       dtype, dev),
+        "embed": cut(("embed",), layers.init_embedding(
+            generator, cfg.vocab, cfg.d_model, dtype, dev)),
         "final_norm": layers.init_rmsnorm(cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": layers.randn(
+        params["lm_head"] = cut(("lm_head",), {"w": layers.randn(
             generator, (cfg.d_model, cfg.vocab), cfg.d_model ** -0.5, dtype,
-            dev)}
+            dev)})
     params["groups"] = [
-        [_init_position(generator, kind, cfg, dtype, dev, reps)
-         for kind in kinds]
-        for kinds, reps in build_groups(cfg)]
+        [cut(("groups", g, i), _init_position(
+            generator, kind, cfg, dtype, dev, reps, experts(g, i)))
+         for i, kind in enumerate(kinds)]
+        for g, (kinds, reps) in enumerate(build_groups(cfg))]
     return params
+
+
+def _mesh_cut(cfg: ArchConfig, mesh):
+    """(cut(key path, subtree) -> this rank's shards of it, experts(group,
+    position) -> the range of experts this rank keeps) for ``init_lm``;
+    without a mesh, the identity and every expert."""
+    if mesh is None:
+        return (lambda path, tree: tree), (lambda g, i: None)
+    full = init_lm(None, cfg, device="meta")
+    specs = rules.params_specs(cfg, full, False, mesh)
+    axes = comm.MeshAxes(mesh)
+
+    def sub(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def cut(path, tree):
+        return rules.shard_tree(tree, sub(specs, path), axes.coords,
+                                axes.sizes, full=sub(full, path))
+
+    def experts(g, i):
+        spec = sub(specs, ("groups", g, i)).get("moe", {}).get("wi_gate")
+        if spec is None:
+            return None
+        idx, n = rules.shard_block(spec, 1, axes.coords, axes.sizes)
+        step = cfg.moe_experts // n
+        return range(idx * step, (idx + 1) * step)
+
+    return cut, experts
 
 
 def param_count(params) -> int:

@@ -18,6 +18,15 @@ softmax).  Every shape, the capacity included, is host arithmetic on
 static shapes and the one-hots compare with an ``arange``, so the path
 reads nothing on the host and can be captured in a CUDA graph.
 
+On a mesh's "model" axis (``parallel.comm.model_axis()``) the experts are
+sharded (expert parallelism, the reference's rules): each rank holds E/M
+of them and the whole router, so every rank routes every token alike,
+computes the capacity positions over all E experts (the cumsum needs
+them), then keeps the dispatch, combine and gate columns of its own
+experts.  Its output is a partial sum that the LM's FFN all-reduce adds
+up (with arctic's row-parallel dense MLP in the same reduction).  A
+decode step reads only this rank's expert weights.
+
 Parameters are stacked (reps, ...) like every leaf of the port:
 ``router`` fp32 (d, E); ``wi_gate``, ``wi_up`` (E, d, f) and ``wo``
 (E, f, d) in the activation dtype.
@@ -28,35 +37,44 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import comm
 
 
-def _draw_experts(generator, shape, std, dtype, device):
+def _draw_experts(generator, shape, std, dtype, device, keep=None):
     """N(0, std^2) expert matrices of ``shape`` (reps, E, d_in, d_out) in
     ``dtype``, drawn one (d_in, d_out) matrix at a time into the
     preallocated leaf: the fp32 transient stays at one matrix, where a
-    whole stacked leaf drawn in fp32 would be 30-36 GB at full width.  A
+    whole stacked leaf drawn in fp32 would be 30-36 GB at full width.
+    ``keep`` (a range of experts) keeps only those, every matrix drawn all
+    the same (a mesh rank's experts, the one-device draw's values).  A
     leaf on the ``meta`` device holds no values: nothing is drawn."""
-    out = torch.empty(shape, dtype=dtype, device=device)
+    keep = range(shape[1]) if keep is None else keep
+    out = torch.empty((shape[0], len(keep)) + tuple(shape[2:]), dtype=dtype,
+                      device=device)
     if out.is_meta:
         return out
     for r in range(shape[0]):
         for e in range(shape[1]):
-            out[r, e].copy_(layers.randn(generator, shape[2:], std,
-                                         torch.float32, device))
+            m = layers.randn(generator, shape[2:], std, torch.float32, device)
+            if e in keep:
+                out[r, e - keep.start].copy_(m)
     return out
 
 
-def init_moe(generator, d_model, d_ff, n_experts, dtype, device, reps):
+def init_moe(generator, d_model, d_ff, n_experts, dtype, device, reps,
+             experts=None):
+    """The router and the experts' SwiGLU weights (``experts``: the range
+    of experts to keep, all by default)."""
     s, sf = d_model ** -0.5, d_ff ** -0.5
     return {
         "router": layers.randn(generator, (reps, d_model, n_experts), s,
                                torch.float32, device),
         "wi_gate": _draw_experts(generator, (reps, n_experts, d_model, d_ff),
-                                 s, dtype, device),
+                                 s, dtype, device, experts),
         "wi_up": _draw_experts(generator, (reps, n_experts, d_model, d_ff),
-                               s, dtype, device),
+                               s, dtype, device, experts),
         "wo": _draw_experts(generator, (reps, n_experts, d_ff, d_model), sf,
-                            dtype, device),
+                            dtype, device, experts),
     }
 
 
@@ -126,8 +144,11 @@ def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024):
     comb = torch.einsum("gske,gskc->gsec",
                         ohx * gate_kept.to(x.dtype)[..., None], pos_oh)
 
-    xe = torch.einsum("gsec,gsd->egcd", disp, xf).reshape(E, G * C, d)
-    ye = _experts(p, xe, x.dtype).reshape(E, G, C, d)
+    El = p["wi_gate"].shape[0]
+    if El != E:                      # this rank's experts (on a mesh)
+        disp, comb = (comm.model_axis().local(t, 2) for t in (disp, comb))
+    xe = torch.einsum("gsec,gsd->egcd", disp, xf).reshape(El, G * C, d)
+    ye = _experts(p, xe, x.dtype).reshape(El, G, C, d)
     y = torch.einsum("gsec,egcd->gsd", comb, ye)
     return y.reshape(B, T, d), aux
 
@@ -140,5 +161,8 @@ def moe_decode(p, x_t, *, top_k=2):
     _, gate, idx = _route(x_t, p["router"], top_k)             # (B, k)
     w = torch.einsum("bke,bk->be", one_hot(idx, E, x_t.dtype),
                      gate.to(x_t.dtype))
-    ye = _experts(p, x_t.expand(E, B, d), x_t.dtype)           # (E, B, d)
+    El = p["wi_gate"].shape[0]
+    if El != E:                      # this rank's experts (on a mesh)
+        w = comm.model_axis().local(w, 1)
+    ye = _experts(p, x_t.expand(El, B, d), x_t.dtype)          # (El, B, d)
     return torch.einsum("ebd,be->bd", ye, w)

@@ -12,6 +12,15 @@ none either).  Train/prefill scan over T with a log-depth doubling scan
 
 Block layout follows RecurrentGemma: linear in -> causal conv(4) -> RG-LRU
 -> gated (GeGLU-style) linear out.
+
+On a mesh's "model" axis (``parallel.comm.model_axis()``) the serving
+paths run on this rank's width slice under the reference's rules:
+``in_x``, ``in_y``, the conv filter, ``Lambda`` and the state h are
+column-parallel (the replicated conv bias is cut to the slice), and
+``out`` is row-parallel (a partial sum the LM all-reduces).  The gate
+matrices ``w_a`` and ``w_x`` hold this rank's output columns over the
+*whole* input, so the post-conv x is all-gathered over "model" before the
+two gate products.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as _device
 from repro_torch.models import layers
+from repro_torch.parallel import comm
 
 # causal-conv width (RecurrentGemma block); the mixer registry's cache_spec
 # must describe carries of exactly this width
@@ -57,10 +67,12 @@ def _gelu(x):
     return F.gelu(x.float(), approximate="tanh")
 
 
-def _gates(p, x):
-    """x: (..., width) -> (log_a, gated_input) in fp32."""
-    r = torch.sigmoid(layers.dot(x, p["w_a"]).float())
-    i = torch.sigmoid(layers.dot(x, p["w_x"]).float())
+def _gates(p, x, tp=None):
+    """x: (..., width) -> (log_a, gated_input) in fp32.  On a mesh ``x``
+    is this rank's slice: the gate products take the whole of it."""
+    xa = x if tp is None else tp.all_gather(x, x.dim() - 1)
+    r = torch.sigmoid(layers.dot(xa, p["w_a"]).float())
+    i = torch.sigmoid(layers.dot(xa, p["w_x"]).float())
     log_a = -_C * F.softplus(p["Lambda"]) * r          # <= 0
     gated = i * x.float()
     return log_a, gated
@@ -103,13 +115,15 @@ def rglru_prefill(p, x, state: RGLRUState, valid_len=None):
     exactly those after the valid prefix (padded output rows are garbage;
     callers ignore them)."""
     T = x.shape[1]
+    tp = comm.model_axis()
     xb = layers.dot(x, p["in_x"])
     yb = _gelu(layers.dot(x, p["in_y"]))
     conv_w = p["conv"]["w"].shape[0]
     full = torch.cat([state.conv.to(xb.dtype), xb], dim=1)
     new_conv = layers.conv1d_carry(full, conv_w - 1, valid_len)
-    xb = layers.conv1d_fwd(p["conv"], full)[:, -T:, :]
-    log_a, gated = _gates(p, xb)
+    xb = layers.conv1d_fwd(layers.conv_block(p["conv"], xb.shape[-1]),
+                           full)[:, -T:, :]
+    log_a, gated = _gates(p, xb, tp)
     if valid_len is not None:
         vl = _device.as_int(valid_len, torch.int32, x.device).reshape(-1, 1)
         vm = (torch.arange(T, device=x.device)[None, :] < vl)[:, :, None]
@@ -124,10 +138,12 @@ def rglru_prefill(p, x, state: RGLRUState, valid_len=None):
 
 def rglru_decode(p, x_t, state: RGLRUState):
     """One-token decode: a handful of elementwise ops."""
+    tp = comm.model_axis()
     xb = layers.dot(x_t, p["in_x"])
     yb = _gelu(layers.dot(x_t, p["in_y"]))
-    xb, new_conv = layers.conv1d_decode(p["conv"], xb, state.conv)
-    log_a, gated = _gates(p, xb)
+    xb, new_conv = layers.conv1d_decode(
+        layers.conv_block(p["conv"], xb.shape[-1]), xb, state.conv)
+    log_a, gated = _gates(p, xb, tp)
     a = torch.exp(log_a)
     h = a * state.h + torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
         * gated

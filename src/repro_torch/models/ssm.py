@@ -10,6 +10,17 @@ every value head (``n_groups = 1``), beta is one.
 Projections are kept separate (w_z / w_x / w_B / w_C / w_dt); the causal
 conv(4) applies depthwise to x, B and C with separate filters.  The kernel
 paths update ``state.S`` in place.
+
+On a mesh's "model" axis (``parallel.comm.model_axis()``) the serving
+paths run on this rank's shards under the reference's rules: its heads of
+z, x, dt, the state S, A_log, dt_bias and D, its rows of ``out_proj`` (a
+partial sum the LM all-reduces), and its ``d_state`` slice of the B and C
+conv carries.  ``w_B``, ``w_C`` and their conv filters are replicated, so
+each rank convolves its slice of B and C and one all-gather assembles
+them before the kernel, which takes them as its one shared k and q head.
+The RMSNorm over d_inner all-reduces the mean square of each rank's slice
+(divided by the axis size: at one rank the unsharded arithmetic, bit for
+bit) and scales by its slice of the replicated scale.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from repro_torch.core import gdn as gdn_core
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.gdn_layer import mask_ragged_inputs
+from repro_torch.parallel import comm
 
 # causal-conv width (fixed, as in Mamba-2); the mixer registry's cache_spec
 # must describe carries of exactly this width
@@ -81,13 +93,38 @@ def _ssd_terms(p, x_in, B_in, C_in, dt, headdim):
     return xh, v, log_g
 
 
-def _out(p, y, z, xh, x_dtype):
+def _block(tp, t, n):
+    """A replicated leaf's slice of this rank's ``n`` last-dim entries."""
+    return t if tp is None else tp.block(t, n)
+
+
+def _rmsnorm(tp, p, x, eps=1e-6):
+    """RMSNorm over the whole d_inner, which a mesh splits: the mean
+    square of each rank's slice, all-reduced over "model" and divided by
+    the axis size, then this rank's slice of the scale."""
+    if tp is None:
+        return layers.rmsnorm_fwd(p, x, eps)
+    xf = x.float()
+    var = tp.all_reduce(torch.mean(xf * xf, dim=-1, keepdim=True)) / tp.size
+    scale = _block(tp, p["scale"], x.shape[-1])
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def _out(p, y, z, xh, x_dtype, tp=None):
     d_shape = (1,) * (y.dim() - 2) + (p["D"].shape[0], 1)
     y = y + p["D"].reshape(d_shape) * xh.to(y.dtype)
     y = y.reshape(*y.shape[:-2], -1)
-    y = layers.rmsnorm_fwd(p["norm"], y.to(x_dtype))
+    y = _rmsnorm(tp, p["norm"], y.to(x_dtype))
     y = y * _silu(z)
     return layers.dot(y, p["out_proj"])
+
+
+def _gather_bc(tp, Bi, Ci):
+    """The whole of B and C from every rank's ``d_state`` slice (one
+    all-gather; nothing off a mesh)."""
+    if tp is None:
+        return Bi, Ci
+    return tuple(tp.all_gather_cat([Bi, Ci], [-1, -1], Bi.dim() - 1))
 
 
 def ssm_train(p, x, *, d_inner, headdim, d_state, chunk=64):
@@ -127,13 +164,18 @@ def ssm_prefill(p, x, state: SSMState, *, d_inner, headdim, d_state,
                 chunk=64, use_pallas=False, valid_len=None):
     """Prompt processing; returns (out (B, T, d), new state).
     ``valid_len`` (optional int or (B,) tensor) masks a ragged tail."""
+    tp = comm.model_axis()
+    ns, nx = state.conv_B.shape[-1], state.conv_x.shape[-1]
     z = layers.dot(x, p["w_z"])
-    xi, cx = _conv_prefill(p["conv_x"], layers.dot(x, p["w_x"]),
-                           state.conv_x, valid_len)
-    Bi, cB = _conv_prefill(p["conv_B"], layers.dot(x, p["w_B"]),
+    xi, cx = _conv_prefill(layers.conv_block(p["conv_x"], nx),
+                           layers.dot(x, p["w_x"]), state.conv_x, valid_len)
+    Bi, cB = _conv_prefill(layers.conv_block(p["conv_B"], ns),
+                           layers.dot(x, _block(tp, p["w_B"], ns)),
                            state.conv_B, valid_len)
-    Ci, cC = _conv_prefill(p["conv_C"], layers.dot(x, p["w_C"]),
+    Ci, cC = _conv_prefill(layers.conv_block(p["conv_C"], ns),
+                           layers.dot(x, _block(tp, p["w_C"], ns)),
                            state.conv_C, valid_len)
+    Bi, Ci = _gather_bc(tp, Bi, Ci)
     dt = layers.dot(x, p["w_dt"])
     xh, v, log_g = _ssd_terms(p, xi, Bi, Ci, dt, headdim)
     ones = torch.ones_like(log_g)
@@ -150,7 +192,7 @@ def ssm_prefill(p, x, state: SSMState, *, d_inner, headdim, d_state,
             Ci[:, :, None, :].float(), Bk.float(), vk.float(), log_gk, ones,
             state.S.float(), chunk=chunk, delta_rule=False)
         S = S.to(state.S.dtype)
-    out = _out(p, O.to(x.dtype), z, xh, x.dtype)
+    out = _out(p, O.to(x.dtype), z, xh, x.dtype, tp)
     return out, SSMState(S=S, conv_x=cx.to(state.conv_x.dtype),
                          conv_B=cB.to(state.conv_B.dtype),
                          conv_C=cC.to(state.conv_C.dtype))
@@ -160,14 +202,19 @@ def ssm_decode(p, x_t, state: SSMState, *, d_inner, headdim, d_state,
                use_pallas=False):
     """One-token decode step (the fused persistent-state step without the
     delta rule).  x_t: (B, d_model)."""
+    tp = comm.model_axis()
+    ns, nx = state.conv_B.shape[-1], state.conv_x.shape[-1]
     z = layers.dot(x_t, p["w_z"])
-    xi, cx = layers.conv1d_decode(p["conv_x"], layers.dot(x_t, p["w_x"]),
-                                  state.conv_x)
-    Bi, cB = layers.conv1d_decode(p["conv_B"], layers.dot(x_t, p["w_B"]),
+    xi, cx = layers.conv1d_decode(layers.conv_block(p["conv_x"], nx),
+                                  layers.dot(x_t, p["w_x"]), state.conv_x)
+    Bi, cB = layers.conv1d_decode(layers.conv_block(p["conv_B"], ns),
+                                  layers.dot(x_t, _block(tp, p["w_B"], ns)),
                                   state.conv_B)
-    Ci, cC = layers.conv1d_decode(p["conv_C"], layers.dot(x_t, p["w_C"]),
+    Ci, cC = layers.conv1d_decode(layers.conv_block(p["conv_C"], ns),
+                                  layers.dot(x_t, _block(tp, p["w_C"], ns)),
                                   state.conv_C)
     xi, Bi, Ci = _silu(xi), _silu(Bi), _silu(Ci)
+    Bi, Ci = _gather_bc(tp, Bi, Ci)
     dt = layers.dot(x_t, p["w_dt"])
     xh, v, log_g = _ssd_terms(p, xi, Bi, Ci, dt, headdim)
     g = torch.exp(log_g)
@@ -182,5 +229,5 @@ def ssm_decode(p, x_t, state: SSMState, *, d_inner, headdim, d_state,
             Ci[:, None, :].float(), Bi[:, None, :].float(), v.float(),
             state.S.float(), g, ones, fused=True, delta_rule=False)
         S = S.to(state.S.dtype)
-    out = _out(p, o.to(x_t.dtype), z, xh, x_t.dtype)
+    out = _out(p, o.to(x_t.dtype), z, xh, x_t.dtype, tp)
     return out, SSMState(S=S, conv_x=cx, conv_B=cB, conv_C=cC)

@@ -8,7 +8,8 @@ with the three collectives the port issues, all in a fixed order so that
 every rank of an axis computes the same bits:
 
   * ``all_gather(t, dim)``: the ranks' tensors concatenated along ``dim``
-    in axis order;
+    in axis order (``all_gather_cat``: several tensors, each along its own
+    dim, in one collective);
   * ``all_reduce(t)``: the sum of the ranks' tensors, added in axis order
     in fp32 (floats) and cast back — a gather then a local sum, so the
     order is fixed whatever the backend;
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 import time
 from typing import Dict, Optional
 
@@ -94,6 +96,32 @@ class Axis:
             out = out.view(torch.bool)
         self._count(t0, t)
         return out
+
+    def all_gather_cat(self, ts, dims, lead: int):
+        """The whole of each of ``ts`` (every rank's block of it along its
+        dim in ``dims``) from one all-gather: the tensors share their
+        first ``lead`` dims and dtype, and travel flattened past them."""
+        flat = torch.cat([t.reshape(*t.shape[:lead], -1) for t in ts], -1)
+        parts = self.all_gather(flat[None], 0).unbind(0)
+        out, start = [], 0
+        for t, dim in zip(ts, dims):
+            n = math.prod(t.shape[lead:])
+            out.append(torch.cat([p[..., start:start + n].reshape(t.shape)
+                                  for p in parts], dim=dim))
+            start += n
+        return out
+
+    def local(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of ``t`` (whole on every rank) along ``dim``:
+        a view."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n)
+
+    def block(self, t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+        """``t`` cut to this rank's ``n`` entries along ``dim``, unless it
+        holds just those already (a leaf the rules shard, where ``t``
+        whole is a replicated one)."""
+        return t if t.shape[dim] == n else self.local(t, dim)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         parts = self.all_gather(t[None], 0).unbind(0)

@@ -391,10 +391,26 @@ def map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
-def shard_tree(tree, specs, coords, sizes):
-    """``local_shard`` of every leaf of a full tree (contiguous copies)."""
-    return map_specs(lambda t, s: local_shard(t, s, coords, sizes)
-                     .contiguous(), tree, specs)
+def shard_tree(tree, specs, coords, sizes, full=None):
+    """``local_shard`` of every leaf of a full tree (contiguous copies).
+    With ``full`` (the tree of the full leaves, e.g. on the meta device) a
+    leaf may also come as this rank's block already (drawn so:
+    ``lm.init_lm(..., mesh=)``) and is kept as it is; a leaf of neither
+    shape raises."""
+    if full is None:
+        return map_specs(lambda t, s: local_shard(t, s, coords, sizes)
+                         .contiguous(), tree, specs)
+
+    def cut(t, spec_shape):
+        spec, shape = spec_shape
+        if tuple(t.shape) == shape:
+            return local_shard(t, spec, coords, sizes).contiguous()
+        if tuple(t.shape) == local_shape(shape, spec, sizes):
+            return t
+        raise ValueError(f"a leaf of {tuple(t.shape)} is neither the full "
+                         f"{shape} nor its block under {spec}")
+    return map_specs(cut, tree, map_specs(
+        lambda f, spec: (spec, tuple(f.shape)), full, specs))
 
 
 def local_shape(shape, spec: P, sizes: Dict[str, int]):

@@ -119,35 +119,55 @@ def _pow2_floor(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
-# the mixer kinds whose math the port splits over the mesh's "model" axis
-MODEL_AXIS_KINDS = ("gdn", "attn")
+# the mixer kinds whose math the port splits over the mesh's "model" axis:
+# every kind of the registry (a kind registered later is refused)
+MODEL_AXIS_KINDS = ("attn", "gdn", "gdn_naive", "rglru", "ssm", "swa")
 
 
 def check_model_axis(cfg: ArchConfig, model: int, max_len: int):
-    """Refuse a model axis of ``model`` > 1 that this port cannot run:
-    a mixer kind or FFN whose split is not ported (``NotImplementedError``
-    naming ROADMAP's item), or a dim the axis does not divide
-    (``ValueError``; the reference's ``fit_spec`` would move the axis to
-    another dim, which the port's model code does not follow)."""
+    """Refuse a model axis of ``model`` > 1 that this port cannot run: a
+    mixer kind outside ``MODEL_AXIS_KINDS`` (``NotImplementedError``), or
+    a dim the axis must divide (``ValueError``).
+
+    The port splits each dim where the reference's rules place "model":
+    the vocab, query heads, the KV context (``max_len``, a ``swa``
+    window), GDN k/v heads, SSD heads and d_state, the RG-LRU width, the
+    MLP's d_ff and the MoE experts.  Where one of these does not divide,
+    ``fit_spec`` would re-place the axis on another dim, which the model
+    code does not follow, so it is refused.  The one re-placement it
+    follows: KV heads the axis does not divide (MQA) move to head_dim."""
     if model == 1:
         return
     kinds = sorted(set(cfg.layer_kinds) - set(MODEL_AXIS_KINDS))
-    if cfg.ffn in ("moe", "moe+dense"):
-        kinds.append("moe")
     if kinds:
         raise NotImplementedError(
-            f"the mesh's model axis for {kinds} is not ported to "
-            f"repro_torch yet: ROADMAP queue 1 item 4b (the reference's "
-            f"parallel/sharding.py rules for them); the data axis serves "
-            f"every kind")
-    dims = {"vocab": cfg.vocab, "max_len (the KV context)": max_len}
-    if "attn" in cfg.layer_kinds:
-        dims.update(n_heads=cfg.hq_eff, n_kv_heads=cfg.hkv_eff)
-    if "gdn" in cfg.layer_kinds:
+            f"the mesh's model axis has no split for mixer kind(s) {kinds} "
+            f"(split kinds: {list(MODEL_AXIS_KINDS)}); the data axis "
+            f"serves every kind")
+    kinds = set(cfg.layer_kinds)
+    dims = {"vocab": cfg.vocab}
+    if kinds & {"attn", "swa"}:
+        dims["n_heads"] = cfg.hq_eff
+        if cfg.hkv_eff % model:         # fit_spec: onto head_dim
+            dims["n_kv_heads or head_dim"] = cfg.head_dim
+        if "attn" in kinds:
+            dims["max_len (the KV context)"] = max_len
+        if "swa" in kinds:
+            dims["the swa window's KV slots"] = min(cfg.window, max_len)
+    if kinds & {"gdn", "gdn_naive"}:
         dims.update(gdn_k_heads=cfg.gdn_k_heads,
                     gdn_v_heads=cfg.gdn_v_heads)
+    if "ssm" in kinds:
+        dims.update(ssm_heads=cfg.ssm_d_inner // cfg.ssm_headdim,
+                    ssm_d_state=cfg.ssm_d_state)
+    if "rglru" in kinds:
+        dims["rglru_width"] = cfg.rglru_width
     if cfg.ffn == "dense":
         dims["d_ff"] = cfg.d_ff
+    if cfg.ffn in ("moe", "moe+dense"):
+        dims["moe_experts"] = cfg.moe_experts
+    if cfg.ffn == "moe+dense":
+        dims["d_ff_dense"] = cfg.d_ff_dense or cfg.d_ff
     bad = {k: v for k, v in dims.items() if v % model}
     if bad:
         raise ValueError(f"the model axis ({model}) must divide {bad}")
@@ -472,13 +492,16 @@ class DeviceExecutor:
             spec.tree, parts)
 
     def _shard_params(self, name: str, cfg, params):
-        """This rank's shards of a full parameter tree."""
+        """This rank's shards of a parameter tree: each leaf whole (cut
+        here) or already this rank's block (``lm.init_lm(..., mesh=)``),
+        placed by the rules on the full shapes."""
         if self.mesh is None:
             return params
-        parts = rules.params_specs(cfg, params, False, self.mesh)
+        full = lm.init_lm(None, cfg, device="meta")
+        parts = rules.params_specs(cfg, full, False, self.mesh)
         self.placements.setdefault(name, parts)
         return rules.shard_tree(params, parts, self._axes.coords,
-                                self._axes.sizes)
+                                self._axes.sizes, full=full)
 
     def _slots_out(self, *ts):
         """(k, local slots) results -> (k, slots) on every rank: one

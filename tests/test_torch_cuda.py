@@ -1555,3 +1555,118 @@ def test_serve_cli_mesh_gloo_ranks_share_the_card(cuda, capfd):
     if torch.cuda.device_count() < 2:
         with pytest.raises(ValueError, match="--gloo"):
             serve.main(argv + ["--mesh", "1,2"])
+
+
+# ------------------------------- the mesh's model axis for the other kinds
+
+@pytest.mark.cuda
+def test_gdn_kernels_at_mamba2_model2_shape_vs_plain(cuda):
+    """Both GDN kernels at full-width mamba2-1.3b's local shape on the
+    (1,2) mesh (B 4, Hk 1, Hv 32, d_k 128, d_v 64, bf16, no delta rule)
+    against their plain versions."""
+    B, Hk, Hv, dk, dv = 4, 1, 32, 128, 64
+    rng = np.random.default_rng(25)
+    bf = torch.bfloat16
+    q = _normal(rng, B, Hk, dk).to(cuda, bf)
+    k = _normal(rng, B, Hk, dk).to(cuda, bf)
+    v = _normal(rng, B, Hv, dv).to(cuda, bf)
+    S = _normal(rng, B, Hv, dk, dv, scale=0.2).to(cuda)
+    g = torch.sigmoid(_normal(rng, B, Hv)).to(cuda)
+    ones = torch.ones_like(g)
+    S_k = S.clone()
+    o_k, _ = ops.gdn_decode(q, k, v, S_k, g, ones, delta_rule=False)
+    o_p, S_p = ref.gdn_decode_ref(q, k, v, S, g, ones, delta_rule=False)
+    torch.cuda.synchronize()
+    _close(o_k, o_p, BF16)
+    _close(S_k, S_p, F32)
+    T, chunk = 128, 64
+    valid = torch.tensor((128, 70, 0, 5), dtype=torch.int32, device=cuda)
+    q = _normal(rng, B, T, Hk, dk).to(cuda, bf)
+    k = _normal(rng, B, T, Hk, dk).to(cuda, bf)
+    v = _normal(rng, B, T, Hv, dv).to(cuda, bf)
+    lg = -torch.nn.functional.softplus(_normal(rng, B, T, Hv)).to(cuda)
+    ones = torch.ones_like(lg)
+    S0 = _normal(rng, B, Hv, dk, dv, scale=0.1).to(cuda)
+    S_k = S0.clone()
+    O_k, _ = ops.gdn_prefill(q, k, v, lg, ones, S_k, chunk=chunk,
+                             valid_len=valid, delta_rule=False)
+    rows = [x.transpose(1, 2).reshape(B * x.shape[2], T, *x.shape[3:])
+            .contiguous() for x in (q, k, v, lg, ones)]
+    vl = torch.repeat_interleave(valid, Hv)
+    O_p, S_p = ref.gdn_prefill_ref(*rows, S0.reshape(B * Hv, dk, dv), vl,
+                                   delta_rule=False, n_rep=Hv // Hk)
+    torch.cuda.synchronize()
+    _close(S_k.reshape(B * Hv, dk, dv), S_p, CHUNKWISE)
+    O_k = O_k.transpose(1, 2).reshape(B * Hv, T, dv)
+    for r, n_valid in enumerate(vl.tolist()):
+        _close(O_k[r, :n_valid], O_p[r, :n_valid], BF16)
+
+
+@pytest.mark.cuda
+def test_arctic_expert_parallel_step_on_the_card(cuda):
+    """Full-width arctic-480b cut to 1 layer: two gloo ranks on the card
+    each draw half of its 128 experts (``lm.init_lm(..., mesh=)``) and
+    take one decode step on the (1,2) mesh from a one-device prefill's
+    state, against the one-device bf16 step by ``chip_smoke.py`` phase
+    3's rule: no further from the fp32 step (fp32 activations, the bf16
+    weights upcast in each product) than twice the one-device step, the
+    argmax equal wherever its top-2 gap exceeds its own error."""
+    import torch_mesh_ranks as ranks
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = configs.get_arch("arctic-480b").replace(n_layers=1)
+    B, T, max_len = 4, 64, 128
+    rng = np.random.default_rng(26)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (B, T))).to(cuda)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab, (B,))).to(cuda)
+    params = lm.init_lm(0, cfg, device="cuda")
+    got = {}
+    for key, c in (("one", cfg), ("truth", cfg.replace(act_dtype="float32"))):
+        caches = lm.init_caches(c, B, max_len, device="cuda")
+        lm.prefill_chunk(params, c, caches, tokens=toks)
+        if key == "one":      # bf16 leaves as fp32 numpy (exact)
+            state = tree_map(lambda t: (t.float() if t.is_floating_point()
+                                        else t).cpu().numpy(), caches)
+        got[key], _ = lm.decode_step(params, c, tok, caches)
+        got[key] = got[key].float().cpu()
+        del caches
+    del params
+    torch.cuda.empty_cache()
+    group = ranks.start(2, [dict(name="step", kind="step", mesh=(1, 2),
+                                 arch=cfg.name, layers=1, device="cuda",
+                                 max_len=max_len)],
+                        dict(state=(state, tok.cpu().numpy())))
+    out = group.results(timeout=900)
+    one, truth = got["one"], got["truth"]
+    err_one = float((one - truth).abs().max())
+    gap = one.topk(2, dim=-1).values
+    gap = gap[:, 0] - gap[:, 1]
+    for r in range(2):
+        assert "error" not in out[r]["step"], out[r]["step"]["error"]
+        mesh = torch.from_numpy(out[r]["step"]["logits"])
+        assert mesh.shape == one.shape
+        assert float((mesh - truth).abs().max()) <= 2 * err_one, r
+        same = mesh.argmax(-1) == one.argmax(-1)
+        assert bool((same | (gap <= err_one)).all()), r
+
+
+@pytest.mark.cuda
+def test_serve_cli_mesh_mamba2_gloo_ranks_share_the_card(cuda, capfd):
+    """``--arch mamba2-1.3b --mesh 1,2 --gloo``: two ranks on the card
+    split the SSD heads (the GDN kernels at the local shape, B and C
+    gathered) and print the unsharded engine's streams, greedy."""
+    import re
+    from repro_torch.launch import serve
+    argv = ["--arch", "mamba2-1.3b", "--requests", "4", "--max-new", "6",
+            "--slots", "4", "--max-len", "64", "--kernels",
+            "--no-cuda-graphs"]
+    serve.main(argv)
+    plain = capfd.readouterr().out
+    serve.main(argv + ["--mesh", "1,2", "--gloo"])
+    mesh = capfd.readouterr().out
+    assert "mesh: data=1 x model=2, 2 gloo ranks on cuda" in mesh
+
+    def streams(text):
+        return re.findall(r"req (\d+): .* toks: (\[.*\])", text)
+    assert len(streams(plain)) == 4 and streams(mesh) == streams(plain)

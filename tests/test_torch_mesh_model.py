@@ -1,6 +1,7 @@
 """The model axis of the port's serving mesh for qwen3-next-gdn (GDN
-heads, attention heads and KV context, the MLP and the vocab) against the
-live JAX reference, on the CPU over gloo.
+heads, attention heads and KV context, the MLP and the vocab) and for the
+``("gdn_naive", "attn")`` pattern (the Alg. 1 GDN decode on the same head
+split) against the live JAX reference, on the CPU over gloo.
 
 Four spawned ranks (``tests/torch_mesh_ranks.py``) serve the (1,2) mesh
 on ranks 0-1 and the (2,2) mesh on all four, reduced fp32 config with the
@@ -11,8 +12,9 @@ asserts at ``tests/test_serving_mesh.py:370-383``), a ragged
 ``prefill_chunk``'s hidden states and a ``decode_step``'s logits within
 rtol = atol = 2e-4 of the reference's (its check at ``:387-410``),
 greedy streams equal, speculative decode on the mesh, the host guard,
-the ranks' plans equal, a swap image moved from (2,2) to one device, and
-the kinds the axis does not split refused (ROADMAP queue 1 item 4b).
+the ranks' plans equal, and a swap image moved from (2,2) to one device.
+``check_model_axis`` refuses what the model code does not split: a mixer
+kind outside the registry's and dims the axis does not divide.
 """
 import warnings
 
@@ -28,10 +30,13 @@ from repro.models import lm as jlm                        # noqa: E402
 from repro.serving.engine import DecodeEngine as JEngine  # noqa: E402
 from repro_torch import configs as tconfigs               # noqa: E402
 from repro_torch.bridge import to_torch                   # noqa: E402
+from repro_torch.models.mixers import MIXERS              # noqa: E402
 from repro_torch.serving.engine import DecodeEngine       # noqa: E402
-from repro_torch.serving.executor import check_model_axis  # noqa: E402
+from repro_torch.serving.executor import (MODEL_AXIS_KINDS,  # noqa: E402
+                                          check_model_axis)
 
 ARCH = "qwen3-next-gdn"
+NAIVE = ranks.NAIVE
 ENGINE = mref.ENGINE
 SPEC = dict(speculative=True, k_draft=2)
 REQS = {"greedy": mref.requests(5, False), "mixed": mref.requests(5, True)}
@@ -65,13 +70,18 @@ def run():
                   arch=ARCH, batch=4, max_len=64, inputs=inputs)
              for m in ((1, 2), (2, 2))]
     jobs += [dict(name="swap_2x2", kind="swap", mesh=(2, 2), arch=ARCH,
-                  engine=ENGINE, reqs="mixed"),
-             dict(name="refuse_ssm", kind="refuse", mesh=(1, 2),
-                  arch="mamba2-1.3b", engine=ENGINE)]
-    group = ranks.start(4, jobs, dict(params={ARCH: params}, reqs=REQS))
+                  engine=ENGINE, reqs="mixed")]
+    jobs += mref.model_jobs(NAIVE, (1, 2), reqs="naive")
+    ncfg, njp, nparams = mref.bridged(NAIVE)
+    group = ranks.start(4, jobs, dict(
+        params={ARCH: params, NAIVE: nparams},
+        reqs={**REQS, "naive": mref.REQS["mixed"]}))
 
     base = JEngine(jcfg, jp, **ENGINE)
     ref = {kind: mref.jserve(base, REQS[kind]) for kind in REQS}
+    ref[NAIVE, "default"] = mref.jserve(JEngine(ncfg, njp, **ENGINE),
+                                        mref.REQS["mixed"])
+    ref["numerics", NAIVE] = mref.jnumerics(ncfg, njp)
     ref["spec"] = mref.jserve(JEngine(jcfg, jp, **SPEC, **ENGINE),
                               REQS["mixed"])
     c = jlm.init_caches(jcfg, 4, 64)
@@ -225,30 +235,44 @@ def test_swap_images_move_between_layouts(run):
     assert got == sw["after"] == want[0][sw["n"]:]
 
 
-@pytest.mark.parametrize("kind", ["ssm", "rglru", "swa", "gdn_naive",
-                                  "moe"])
-def test_model_axis_refuses_unported_kinds(run, kind):
-    arch = {"ssm": "mamba2-1.3b", "rglru": "recurrentgemma-2b",
-            "swa": "h2o-danube-1.8b", "gdn_naive": ARCH,
-            "moe": "mixtral-8x7b"}[kind]
-    cfg = tconfigs.get_arch(arch).reduced()
-    if kind == "gdn_naive":
-        cfg = cfg.replace(pattern=("gdn_naive", "attn"))
-    with pytest.raises(NotImplementedError,
-                       match=rf"'{kind}'.*ROADMAP queue 1 item 4b"):
-        check_model_axis(cfg, 2, 64)
-    check_model_axis(cfg, 1, 64)        # the data axis serves every kind
-    if kind == "ssm":                   # and an engine on the mesh raises
-        raised = _rank0(run, "refuse_ssm")["raised"]
-        assert raised and "'ssm'" in raised and "item 4b" in raised
+@pytest.mark.parametrize("check", ["placements", "streams", "numerics"])
+def test_model_axis_gdn_naive_matches_the_reference(run, check):
+    mref.check_model((run["ref"], run["out"], None), NAIVE, (1, 2), check)
+
+
+def test_model_axis_refuses_a_kind_outside_the_registry():
+    """Every registered kind splits; a kind registered later, whose
+    model code knows no mesh, is refused (the data axis serves it)."""
+    cfg = tconfigs.get_arch(ARCH).reduced()
+    assert sorted(MIXERS) == sorted(MODEL_AXIS_KINDS)
+    custom = cfg.replace(pattern=("gdn", "custom"))
+    with pytest.raises(NotImplementedError, match=r"\['custom'\]"):
+        check_model_axis(custom, 2, 64)
+    check_model_axis(custom, 1, 64)
 
 
 def test_model_axis_refuses_a_dim_it_does_not_divide():
+    """The dims the model code splits where the rules place the axis are
+    refused when it does not divide them; KV heads it does not divide
+    move to head_dim (``fit_spec``), which the attention follows."""
     cfg = tconfigs.get_arch(ARCH).reduced()
-    with pytest.raises(ValueError, match="n_kv_heads"):
+    with pytest.raises(ValueError, match="gdn_k_heads"):
         check_model_axis(cfg, 4, 64)
     with pytest.raises(ValueError, match="max_len"):
         check_model_axis(cfg, 2, 63)
+    gemma = tconfigs.get_arch("recurrentgemma-2b")
+    with pytest.raises(ValueError, match="n_heads"):
+        check_model_axis(gemma.replace(n_heads_pad=0), 4, 4096)
+    with pytest.raises(ValueError, match="swa window"):
+        check_model_axis(gemma, 2, 2047)
+    mixtral = tconfigs.get_arch("mixtral-8x7b")
+    with pytest.raises(ValueError, match="moe_experts"):
+        check_model_axis(mixtral, 16, 4096)
+    with pytest.raises(ValueError, match="ssm_d_state"):
+        check_model_axis(tconfigs.get_arch("mamba2-1.3b").replace(
+            ssm_d_state=129), 2, 64)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         check_model_axis(cfg, 2, 64)
+        for m in (2, 4):     # MQA: its one KV head moves to head_dim
+            check_model_axis(gemma, m, 4096)

@@ -1,9 +1,19 @@
-"""The data axis of the port's serving mesh for the MoE FFN, against the
-live JAX reference's one-device engine, on the CPU over gloo: reduced
-fp32 mixtral-8x7b (staged per prompt by the MoE gate) on the (2,1) mesh
-of two spawned ranks, down every serving path of
-``tests/torch_mesh_reference.py``.  Then the serve CLI's ``--mesh``
-starts its own ranks and prints the one-engine run's streams.
+"""The port's serving mesh for the MoE FFN, against the live JAX
+reference, on the CPU over gloo: reduced fp32 mixtral-8x7b (staged per
+prompt by the MoE gate) and arctic-480b on the reference's parameters
+through the numpy bridge, two spawned ranks.
+
+The data axis, on the (2,1) mesh (mixtral), down every serving path of
+``tests/torch_mesh_reference.py``, bitwise the reference's one-device
+engine.  Expert parallelism, on the (1,2) mesh: each rank holds half the
+experts and routes every token alike, mixtral's MoE and arctic's MoE
+beside its column/row-parallel dense MLP summed by one all-reduce:
+placements by the reference's rules, greedy streams equal, a ragged
+prefill's hidden states and a decode step's logits within the
+reference's 2e-4.  ``lm.init_lm(..., mesh=)`` draws a rank's shards
+alone, bitwise the cut of the one-device draw, and an engine takes them.
+Then the serve CLI's ``--mesh`` starts its own ranks and prints the
+one-engine run's streams.
 """
 import re
 
@@ -15,12 +25,15 @@ import torch_mesh_reference as mref                       # noqa: E402
 from repro_torch.launch import serve                      # noqa: E402
 
 ARCH = "mixtral-8x7b"
+MODEL_ARCHS = (ARCH, "arctic-480b")
+DRAW = dict(name="draw_1x2", kind="draw", mesh=(1, 2), arch="arctic-480b",
+            engine=mref.ENGINE)
 
 
 @pytest.fixture(scope="module")
 def run():
     torch.set_num_threads(1)
-    return mref.run((ARCH,))
+    return mref.run((ARCH,), model_archs=MODEL_ARCHS, extra_jobs=[DRAW])
 
 
 @pytest.mark.parametrize("path", sorted(mref.PATHS))
@@ -29,8 +42,25 @@ def test_data_axis_streams_equal_the_reference(run, path):
 
 
 def test_moe_stages_per_prompt_on_the_mesh(run):
-    _, out = run
+    _, out, _ = run
     assert out[0][f"{ARCH}/default"]["metrics"]["prefill_batching"] == 0
+
+
+@pytest.mark.parametrize("check", ["placements", "streams", "numerics"])
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_expert_parallelism_matches_the_reference(run, arch, check):
+    mref.check_model(run, arch, (1, 2), check)
+
+
+def test_init_lm_draws_a_ranks_shards_alone(run):
+    """Each rank's draw holds its 2 of the 4 experts, bitwise the cut of
+    the one-device draw; an engine serves from it."""
+    _, out, _ = run
+    for r in range(2):
+        got = out[r]["draw_1x2"]
+        assert got["leaves"] > 0 and got["equal"], r
+        assert got["expert_rows"][:2] == (1, 2)
+        assert got["tokens"] == 3
 
 
 def _streams(text):

@@ -52,11 +52,17 @@ class start:
     def __init__(self, world: int, jobs, shared):
         ctx = mp.get_context("spawn")
         self.q = ctx.Queue()
+        # ``shared`` goes through a queue, not the spawn arguments: those
+        # are written to each child before ``start`` returns, which would
+        # wait for every rank's imports in turn
+        self.inbox = ctx.Queue()
         port = mesh_mod.free_port()
         self.procs = [ctx.Process(target=_rank, args=(
-            r, world, port, jobs, shared, self.q)) for r in range(world)]
+            r, world, port, jobs, self.inbox, self.q))
+            for r in range(world)]
         for p in self.procs:
             p.start()
+            self.inbox.put(shared)
 
     def results(self, timeout: float = 600.0):
         try:
@@ -68,9 +74,10 @@ class start:
                     p.kill()
 
 
-def _rank(rank, world, port, jobs, shared, q):
+def _rank(rank, world, port, jobs, inbox, q):
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
+    shared = inbox.get()
     mesh_mod.init_ranks(rank, world, port, "gloo")
     out = {}
     try:
@@ -97,11 +104,24 @@ def _rank(rank, world, port, jobs, shared, q):
 
 # ------------------------------------------------------------- helpers
 
+# a reduced config that is no arch of the registry: qwen3-next-gdn's with
+# the Alg. 1 GDN decode
+NAIVE = "gdn_naive"
+
+
+def config(arch):
+    """The reduced config of ``arch`` (``NAIVE``: qwen3-next-gdn's with the
+    pattern ("gdn_naive", "attn"))."""
+    if arch == NAIVE:
+        return configs.get_arch("qwen3-next-gdn").reduced().replace(
+            pattern=("gdn_naive", "attn"))
+    return configs.get_arch(arch).reduced()
+
+
 def model(shared, arch):
     """(cfg, params on the CPU) of ``arch``: the reduced config, with the
     bridged reference parameters of ``shared["params"]``."""
-    cfg = configs.get_arch(arch).reduced()
-    return cfg, to_torch(shared["params"][arch])
+    return config(arch), to_torch(shared["params"][arch])
 
 
 def requests(specs):
@@ -326,19 +346,55 @@ def restore_job(job, shared, mesh):
     return {"got": got}
 
 
-def refuse_job(job, shared, mesh):
-    """An engine of ``job["arch"]`` on this mesh: the refusal it raises."""
-    cfg = configs.get_arch(job["arch"]).reduced()
-    if job.get("naive"):
-        cfg = cfg.replace(pattern=tuple("gdn_naive" if k == "gdn" else k
-                                        for k in cfg.pattern))
-    try:
-        DecodeEngine(cfg, lm.init_lm(0, cfg, device="cpu"), device="cpu",
-                     mesh=mesh, **job["engine"])
-    except NotImplementedError as e:
-        return {"raised": str(e)}
-    return {"raised": None}
+def draw_job(job, shared, mesh):
+    """``lm.init_lm(seed, cfg, mesh=)`` on this rank (its shards alone,
+    the experts drawn one at a time) against the cut of the one-device
+    draw, leaf for leaf; then an engine takes the drawn shards as they
+    are and one decode tick runs."""
+    cfg = config(job["arch"])
+    axes = comm.MeshAxes(mesh)
+    local = lm.init_lm(0, cfg, device="cpu", mesh=mesh)
+    full = lm.init_lm(0, cfg, device="cpu")
+    cut = rules.shard_tree(full, rules.params_specs(cfg, full, False, mesh),
+                           axes.coords, axes.sizes)
+    pairs = list(zip(leaves(local), leaves(cut)))
+    eng, _ = engine(cfg, local, mesh, job["engine"])
+    eng.submit(Request(rid=0, prompt=np.arange(1, 9, dtype=np.int32),
+                       max_new_tokens=3))
+    eng.run_until_done()
+    return {"leaves": len(pairs),
+            "equal": all(a.shape == b.shape and torch.equal(a, b)
+                         for a, b in pairs),
+            "expert_rows": tuple(local["groups"][0][0]["moe"]["wo"].shape),
+            "tokens": eng.metrics()["tokens"]}
+
+
+def step_job(job, shared, mesh):
+    """One decode step of a full-width config cut to ``job["layers"]``
+    layers on ``job["device"]`` (card 0 when "cuda"): this rank's shards
+    of the weights drawn alone from seed 0 (``lm.init_lm(..., mesh=)``),
+    of the full caches ``shared["state"]`` (host numpy, a one-device
+    prefill's, bf16 leaves as fp32) and the step's tokens; returns this
+    rank's logits."""
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    cfg = configs.get_arch(job["arch"]).replace(n_layers=job["layers"])
+    axes = comm.MeshAxes(mesh)
+    params = lm.init_lm(0, cfg, device=device, mesh=mesh)
+    caches, tok = shared["state"]
+    B = tok.shape[0]
+    spec = lm.cache_specs(cfg, B, job["max_len"]).tree
+    parts = rules.slot_specs(cfg, mesh, spec, B)
+    local = rules.shard_tree(
+        rules.map_specs(lambda a, s: torch.from_numpy(a).to(s.dtype),
+                        caches, spec), parts, axes.coords, axes.sizes)
+    local = rules.map_specs(lambda t, _: t.to(device), local, parts)
+    with comm.use(axes):
+        logits, _ = lm.decode_step(params, cfg, torch.from_numpy(tok).to(
+            device), local)
+    return {"logits": logits.float().cpu().numpy()}
 
 
 JOBS = {"serve": serve_job, "logits": logits_job, "swap": swap_job,
-        "restore": restore_job, "refuse": refuse_job}
+        "restore": restore_job, "draw": draw_job, "step": step_job}
