@@ -12,7 +12,14 @@ Layout:  <dir>/step_<n>/shard_<p>.npz + manifest.json
   * async save on a background thread: tensors are copied to host numpy
     before the thread starts, so training may update them in place at once;
   * ``restore_latest`` picks the newest *complete* checkpoint (the manifest
-    is written last), so partial saves from a killed job are skipped.
+    is written last), so partial saves from a killed job are skipped;
+  * checkpoints do not depend on the mesh: a mesh's save (``specs`` and
+    ``axes``: the tree holds this rank's shards) gathers each leaf whole,
+    one at a time, into host memory, rank 0 writes the whole leaves and
+    every rank waits for the write; a restore reads whole leaves, which
+    each rank cuts into its shards (``parallel.sharding.shard_tree``), so
+    a job saved on one mesh resumes on another (the reference's elastic
+    re-mesh).
 """
 from __future__ import annotations
 
@@ -25,6 +32,9 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel import sharding
+from repro_torch.tree import leaves
 
 
 def _map_paths(fn, tree, prefix=()):
@@ -57,14 +67,44 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     return t.numpy(), ""
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
+def _flatten(tree, whole=None) -> Dict[str, np.ndarray]:
+    """Host numpy of every leaf by key; ``whole(key, leaf)``, when given,
+    makes each leaf whole first (None: this rank keeps nothing)."""
     flat = {}
 
     def put(key, leaf):
+        if whole is not None:
+            leaf = whole(key, leaf)
+            if leaf is None:
+                return
         arr, tag = _to_numpy(leaf)
         flat[key + tag] = arr
     _map_paths(put, tree)
     return flat
+
+
+def _gathered(specs, axes):
+    """``whole`` for ``_flatten`` on a mesh: each leaf all-gathered over
+    the axes of its spec (every rank joins), kept on rank 0 only."""
+    by_key = {}
+    _map_paths(by_key.__setitem__, specs)
+    rank0 = all(i == 0 for i in axes.coords.values())
+
+    def whole(key, leaf):
+        t = leaf.detach()
+        if axes.data.backend == "gloo":
+            t = t.cpu()         # gloo stages a device tensor there anyway
+        full = sharding.gather_shard(t, by_key[key], axes.axes)
+        return full if rank0 else None
+    return whole, rank0
+
+
+def _mesh_barrier(axes, device):
+    """Every rank of the mesh waits for rank 0: "model" first, so a rank
+    off rank 0's "model" group waits through one that waited for it."""
+    z = torch.zeros((1,), device=device)
+    axes.model.all_reduce(z)
+    axes.data.all_reduce(z)
 
 
 def _write(flat: Dict[str, np.ndarray], directory: str, step: int,
@@ -92,12 +132,13 @@ def save(tree, directory: str, step: int, process_index: int = 0) -> str:
 
 
 def _leaf_from(arr: np.ndarray, tag: str) -> torch.Tensor:
+    """A tensor on ``arr``'s memory (``np.load`` reads each array into a
+    fresh one, so nothing else holds it)."""
     if tag == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(
-            torch.bfloat16)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     if tag:
         raise TypeError(f"unsupported stored dtype tag {tag!r}")
-    return torch.from_numpy(np.array(arr, copy=True))
+    return torch.from_numpy(arr)
 
 
 def restore(tree_like, directory: str, step: int, process_index: int = 0):
@@ -105,17 +146,16 @@ def restore(tree_like, directory: str, step: int, process_index: int = 0):
     each leaf a CPU tensor in the dtype of its ``tree_like`` leaf."""
     d = os.path.join(directory, f"step_{step:09d}")
     with np.load(os.path.join(d, f"shard_{process_index}.npz")) as z:
-        stored = {}
-        for key in z.files:
-            base, _, tag = key.partition("::")
-            stored[base] = _leaf_from(z[key], tag)
+        names = {key.partition("::")[0]: key for key in z.files}
 
-    def take(key, like):
-        if tuple(stored[key].shape) != tuple(like.shape):
-            raise ValueError(f"{key}: stored {tuple(stored[key].shape)}, "
-                             f"expected {tuple(like.shape)}")
-        return stored[key].to(like.dtype)
-    return _map_paths(take, tree_like)
+        def take(key, like):            # reads only the leaves asked for
+            name = names[key]
+            leaf = _leaf_from(z[name], name.partition("::")[2])
+            if tuple(leaf.shape) != tuple(like.shape):
+                raise ValueError(f"{key}: stored {tuple(leaf.shape)}, "
+                                 f"expected {tuple(like.shape)}")
+            return leaf.to(like.dtype)
+        return _map_paths(take, tree_like)
 
 
 def completed_steps(directory: str) -> list[int]:
@@ -140,8 +180,22 @@ class CheckpointManager:
         steps = completed_steps(self.directory)
         return steps[-1] if steps else None
 
-    def save(self, tree, step: int, blocking: bool = True):
+    def save(self, tree, step: int, blocking: bool = True, specs=None,
+             axes=None):
+        """Write ``tree`` as the checkpoint of ``step``.  On a mesh
+        (``specs``: the tree's partition specs, ``axes``: this rank's
+        ``comm.MeshAxes``) every rank calls it: the leaves are gathered
+        whole one at a time, rank 0 writes them and every rank returns
+        after the write (``blocking`` is then implied)."""
         self.wait()                 # one save at a time
+        if specs is not None:
+            whole, rank0 = _gathered(specs, axes)
+            flat = _flatten(tree, whole)
+            if rank0:
+                _write(flat, self.directory, step)
+                self._gc()
+            _mesh_barrier(axes, leaves(tree)[0].device)
+            return
         flat = _flatten(tree)       # snapshot to host numpy, on this thread
 
         def do():

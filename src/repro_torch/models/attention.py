@@ -164,15 +164,46 @@ def attn_train(p, x, *, rope_theta=10000.0, window=None, block_kv=512,
     """Full-sequence causal attention for training.  x: (B, T, d).
     ``use_flash_kernel`` runs ``kernels.flash_attn.flash_attention`` (the
     hand-written kernels on the card, their plain versions on the CPU);
-    otherwise ``blockwise_attention``."""
+    otherwise ``blockwise_attention``.  On a mesh's "model" axis it runs
+    on this rank's heads (the caller's ``copy_to`` / ``reduce_from``
+    carry the column / row split): the kernels at the local shape."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
-    q, k, v = _qkv(p, x, positions, rope_theta)
+    tp = comm.model_axis()
+    if tp is not None and p["wk"].shape[-1] != p["wq"].shape[-1]:
+        q, k, v = _qkv_train_split(tp, p, x, positions, rope_theta)
+    else:
+        q, k, v = _qkv(p, x, positions, rope_theta)
     if use_flash_kernel:
         o = flash_attn.flash_attention(q, k, v, window=window)
     else:
         o = blockwise_attention(q, k, v, window=window, block_kv=block_kv)
+    if tp is not None and head_mask is not None:
+        n = q.shape[-2]
+        head_mask = head_mask.narrow(0, tp.index * n, n)
     return _out(_apply_head_mask(o, head_mask), p["wo"])
+
+
+def _qkv_train_split(tp, p, x, positions, rope_theta):
+    """q, k, v of this rank's query heads in training where ``fit_spec``
+    split the KV heads on head_dim (the axis does not divide them): k and
+    v are gathered along head_dim over "model" before RoPE (which mixes
+    the two halves of head_dim), then each rank keeps the KV head its
+    query heads read (its query heads all sit in one GQA group: the axis
+    is a multiple of the KV heads); their gradients, partial on each
+    rank, are summed over the axis before each rank keeps its block."""
+    q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, rope_theta)
+    # each rank's query heads take their part of k's and v's gradient
+    k = comm.gather_from(tp, _proj_heads(x, p["wk"]), -1, partial=True)
+    v = comm.gather_from(tp, _proj_heads(x, p["wv"]), -1, partial=True)
+    n_q, n_kv = q.shape[-2], k.shape[-2]
+    if tp.size % n_kv:
+        raise ValueError(f"a model axis of {tp.size} splits neither the "
+                         f"{n_kv} KV heads nor a whole number of them "
+                         f"per query-head group")
+    kv = tp.index * n_q // (n_q * tp.size // n_kv)
+    k = layers.apply_rope(k.narrow(-2, kv, 1), positions, rope_theta)
+    return q, k, v.narrow(-2, kv, 1)
 
 
 def attn_prefill(p, x, cache: KVCache, *, rope_theta=10000.0, window=None,

@@ -8,7 +8,8 @@ then ``astype``); norms in fp32.
 
 On a mesh's "model" axis (``parallel.comm.model_axis()``) the embedding
 table holds this rank's vocab rows: ``embed_fwd`` looks up the tokens it
-owns and all-reduces.
+owns and all-reduces; in training the gradient reaches only the rows a
+rank owns (``comm.reduce_from``).
 """
 from __future__ import annotations
 
@@ -101,7 +102,9 @@ def embed_fwd(p, tokens):
     x = p["table"][torch.where(hit, local, torch.zeros_like(local))]
     x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
-    return tp.all_reduce(x)
+    # in training each rank's rows take the gradient of the tokens they
+    # own (the sum's backward is the identity)
+    return comm.reduce_from(tp, x)
 
 
 def logits_matmul(x, w):

@@ -20,6 +20,17 @@ mixer's and FFN's output is a row-parallel partial sum all-reduced over
 or per-unit blocks), and the logits are gathered over "model" before any
 sampler sees them, so every rank samples from the full vocabulary.
 
+Training on a mesh (``runtime.trainer``, the mesh active) runs the same
+split through the differentiable collectives of ``parallel.comm``: each
+mixer and FFN input goes through ``copy_to`` (its gradient all-reduced
+over "model"), each row-parallel output through ``reduce_from``, the
+vocab-parallel embedding's sum through ``reduce_from`` and the logits
+through ``gather_from``, so every "model" rank computes the same loss
+and the gradients of the replicated leaves agree bit for bit.  The data
+axis holds each rank's rows; only the MoE's batch statistics cross it
+(``moe.moe_fwd``).  On a model axis larger than 1 only the ``gdn`` and
+``attn`` kinds and the dense FFN train (``check_train_model_axis``).
+
 Training runs each group's repeats in a loop; with ``cfg.remat`` each
 repeat is recomputed in the backward pass (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` of its scanned block), and so is each
@@ -102,7 +113,8 @@ def _init_position(generator, kind, cfg, dtype, device, reps,
     return p
 
 
-def init_lm(generator, cfg: ArchConfig, device=None, mesh=None):
+def init_lm(generator, cfg: ArchConfig, device=None, mesh=None,
+            fsdp: bool = False):
     """Random params drawn on ``device`` (default ``cuda``) from
     ``generator`` — a ``torch.Generator`` on that device, or an int seed.
     Same shapes, scales and dtypes as the reference's ``init_lm``; the
@@ -114,12 +126,14 @@ def init_lm(generator, cfg: ArchConfig, device=None, mesh=None):
     the generator advances as there and the shards are the one-device
     draw's, while the expert matrices, drawn one at a time, are kept for
     this rank's experts only: no rank ever holds more than its shards and
-    one whole non-expert leaf."""
+    one whole non-expert leaf.  ``fsdp`` takes the rules' FSDP specs (the
+    trainer's, ``parallel.sharding.needs_fsdp``): "data" also splits the
+    large matrices."""
     dev = _device.resolve(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     dtype = _device.dtype(cfg.act_dtype)
-    cut, experts = _mesh_cut(cfg, mesh)
+    cut, experts = _mesh_cut(cfg, mesh, fsdp)
     params: Dict[str, Any] = {
         "embed": cut(("embed",), layers.init_embedding(
             generator, cfg.vocab, cfg.d_model, dtype, dev)),
@@ -137,14 +151,14 @@ def init_lm(generator, cfg: ArchConfig, device=None, mesh=None):
     return params
 
 
-def _mesh_cut(cfg: ArchConfig, mesh):
+def _mesh_cut(cfg: ArchConfig, mesh, fsdp: bool = False):
     """(cut(key path, subtree) -> this rank's shards of it, experts(group,
     position) -> the range of experts this rank keeps) for ``init_lm``;
     without a mesh, the identity and every expert."""
     if mesh is None:
         return (lambda path, tree: tree), (lambda g, i: None)
     full = init_lm(None, cfg, device="meta")
-    specs = rules.params_specs(cfg, full, False, mesh)
+    specs = rules.params_specs(cfg, full, fsdp, mesh)
     axes = comm.MeshAxes(mesh)
 
     def sub(tree, path):
@@ -173,10 +187,27 @@ def param_count(params) -> int:
 
 # ---------------------------------------------------------------- train
 
+def check_train_model_axis(cfg: ArchConfig, model: int):
+    """Refuse training on a model axis of ``model`` > 1 where a layer has
+    no split for it: each mixer kind but ``gdn`` and ``attn``, and the
+    MoE FFN (``NotImplementedError`` naming the ROADMAP item)."""
+    for kind in dict.fromkeys(cfg.layer_kinds):
+        get_mixer(kind).check_train_model_axis(model)
+    if cfg.ffn in ("moe", "moe+dense"):
+        moe.check_train_model_axis(model)
+
+
 def _layer_train(kind, cfg: ArchConfig, lp, x):
+    mixer = get_mixer(kind)
     h = layers.rmsnorm_fwd(lp["norm1"], x, cfg.norm_eps)
-    x = x + get_mixer(kind).train(lp["mixer"], cfg, h)
-    return _ffn_fwd(cfg, lp, x, decode=False)
+    tp = comm.model_axis()
+    if tp is not None:
+        mixer.check_train_model_axis(tp.size)
+        h = comm.copy_to(tp, h)
+    mix = mixer.train(lp["mixer"], cfg, h)
+    if tp is not None:
+        mix = comm.reduce_from(tp, mix)
+    return _ffn_fwd(cfg, lp, x + mix, decode=False, train=True)
 
 
 def _unstack(tree, reps: int):
@@ -193,14 +224,18 @@ def forward_hidden(params, cfg: ArchConfig, tokens=None, embeds=None):
     the MoE layers, 0 without one)."""
     x = _embed(params, cfg, tokens, embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the recompute of a remat block runs in the backward pass, on
+    # autograd's device thread: it enters the mesh it ran on itself
+    axes = comm.active()
     for (kinds, reps), gp in zip(build_groups(cfg), params["groups"]):
 
         def block(x, lp_slice, kinds=kinds):
             aux = []
-            for i, kind in enumerate(kinds):
-                x, a = _layer_train(kind, cfg, lp_slice[i], x)
-                if a is not None:
-                    aux.append(a)
+            with comm.use(axes):
+                for i, kind in enumerate(kinds):
+                    x, a = _layer_train(kind, cfg, lp_slice[i], x)
+                    if a is not None:
+                        aux.append(a)
             return x, aux
 
         for lp_slice in _unstack(gp, reps):
@@ -227,9 +262,12 @@ def loss_fn(params, cfg: ArchConfig, batch, *, t_chunk=1024, z_loss=1e-4,
     tc = min(t_chunk, T)
     n = T // tc
 
+    axes = comm.active()
+
     def chunk_loss(hc, lc):
-        return layers.cross_entropy(_logits(params, cfg, hc), lc,
-                                    z_loss=z_loss)
+        with comm.use(axes):        # recomputed on autograd's thread
+            return layers.cross_entropy(_logits(params, cfg, hc), lc,
+                                        z_loss=z_loss)
 
     if n <= 1:
         ce = chunk_loss(h, labels)
@@ -272,13 +310,18 @@ def checkpoint_specs(cfg: ArchConfig, batch: int, max_len: int) -> CacheSpec:
 
 # ---------------------------------------------------------------- forward
 
-def _ffn_fwd(cfg: ArchConfig, lp, x, decode: bool):
+def _ffn_fwd(cfg: ArchConfig, lp, x, decode: bool, train: bool = False):
     """x + the layer's FFN of x; returns (x, MoE aux loss or None).  The
     MoE runs its capacity dispatch on blocks and its dense all-expert
-    product at decode; arctic's dense MLP is added beside it."""
+    product at decode; arctic's dense MLP is added beside it.
+    ``train``: the MoE takes its capacity groups and load statistics over
+    the data axis's global batch, as the reference's sharded step."""
     if cfg.ffn == "none":
         return x, None
     h = layers.rmsnorm_fwd(lp["norm2"], x, cfg.norm_eps)
+    tp = comm.model_axis()
+    if tp is not None:
+        h = comm.copy_to(tp, h)
     y, aux = None, None
     if "moe" in lp:
         if decode:
@@ -286,13 +329,13 @@ def _ffn_fwd(cfg: ArchConfig, lp, x, decode: bool):
         else:
             y, aux = moe.moe_fwd(lp["moe"], h, top_k=cfg.moe_top_k,
                                  group_size=cfg.moe_group_size,
-                                 capacity_factor=cfg.moe_capacity_factor)
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 data=comm.data_axis() if train else None)
     if "mlp" in lp:
         m = layers.mlp_fwd(lp["mlp"], h)
         y = m if y is None else y + m
-    tp = comm.model_axis()
     if tp is not None:
-        y = tp.all_reduce(y)
+        y = comm.reduce_from(tp, y)
     return x + y, aux
 
 
@@ -331,12 +374,17 @@ def _embed(params, cfg, tokens, embeds):
 
 
 def _logits(params, cfg: ArchConfig, h):
+    """fp32 logits over the whole vocabulary: on a model axis each rank
+    projects onto its vocab block (column-parallel) and the blocks are
+    gathered."""
+    tp = comm.model_axis()
+    if tp is not None:
+        h = comm.copy_to(tp, h)
     if cfg.tie_embeddings:
         out = layers.logits_fwd(params["embed"], h)
     else:
         out = layers.logits_matmul(h, params["lm_head"]["w"])
-    tp = comm.model_axis()
-    return out if tp is None else tp.all_gather(out, out.dim() - 1)
+    return out if tp is None else comm.gather_from(tp, out, out.dim() - 1)
 
 
 def prefill(params, cfg: ArchConfig, caches, tokens=None, embeds=None):

@@ -14,7 +14,10 @@ class implementing
 
 plus the declarative class attributes the serving executor consumes
 (``kind``, ``is_attention``, ``quadratic``, ``state_passes``,
-``supports_ragged_prefill``, ``supports_batched_ragged_prefill``).  Caches
+``supports_ragged_prefill``, ``supports_batched_ragged_prefill``) and
+``trains_on_model_axis``: whether ``train`` runs on a rank's heads of a
+mesh's "model" axis (``gdn`` and ``attn``; every other kind refuses a
+model axis larger than 1 in training, ``check_train_model_axis``).  Caches
 returned by ``prefill*``/``decode`` may share storage with the cache passed
 in (the GDN kernels update the state in place); callers write them back.
 """
@@ -83,6 +86,10 @@ class CacheSpec:
         return sum(l.nbytes for l in self.leaves())
 
 
+# the ROADMAP item that ports the rest of the model axis in training
+TRAIN_MODEL_AXIS_ITEM = "ROADMAP queue 1 item 4f"
+
+
 class SequenceMixer:
     """Base class for registered mixer kinds."""
 
@@ -92,6 +99,15 @@ class SequenceMixer:
     state_passes: int = 2
     supports_ragged_prefill: bool = False
     supports_batched_ragged_prefill: bool = False
+    trains_on_model_axis: bool = False
+
+    @classmethod
+    def check_train_model_axis(cls, model: int):
+        """Raise unless ``train`` can run on a model axis of ``model``."""
+        if model > 1 and not cls.trains_on_model_axis:
+            raise NotImplementedError(
+                f"training mixer kind {cls.kind!r} on a model axis of "
+                f"{model} is not ported: {TRAIN_MODEL_AXIS_ITEM}")
 
     @classmethod
     def init_params(cls, generator, cfg, dtype, device, reps: int):

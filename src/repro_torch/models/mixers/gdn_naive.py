@@ -22,3 +22,4 @@ class GatedDeltaNetNaive(GatedDeltaNet):
     kind = "gdn_naive"
     state_passes = 4           # Alg. 1: 3 read passes + 1 write pass
     fused = False
+    trains_on_model_axis = False

@@ -27,6 +27,16 @@ experts.  Its output is a partial sum that the LM's FFN all-reduce adds
 up (with arctic's row-parallel dense MLP in the same reduction).  A
 decode step reads only this rank's expert weights.
 
+In training on a mesh (``data``, the active "data" axis) the capacity
+groups and the load-balancing statistics are the reference's over the
+global batch, whose rows the data ranks hold in order: ``me`` and ``ce``
+are averaged over the axis (``comm.mean_over``), and a group of
+``S = min(group_size, global tokens)`` tokens that spans several ranks
+takes its queue positions from the routing indices of every rank it
+spans, gathered over the axis (small int tensors), each rank keeping its
+own rows.  The model axis (expert parallelism) does not train yet
+(``check_train_model_axis``).
+
 Parameters are stacked (reps, ...) like every leaf of the port:
 ``router`` fp32 (d, E); ``wi_gate``, ``wi_up`` (E, d, f) and ``wo``
 (E, f, d) in the activation dtype.
@@ -37,7 +47,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models.mixers.base import TRAIN_MODEL_AXIS_ITEM
 from repro_torch.parallel import comm
+
+
+def check_train_model_axis(model: int):
+    """Raise on a model axis larger than 1 in training (expert
+    parallelism's backward is not ported)."""
+    if model > 1:
+        raise NotImplementedError(
+            f"training the MoE FFN on a model axis of {model} (expert "
+            f"parallelism) is not ported: {TRAIN_MODEL_AXIS_ITEM}")
 
 
 def _draw_experts(generator, shape, std, dtype, device, keep=None):
@@ -108,31 +128,54 @@ def _experts(p, xe, dtype):
     return layers.bmm_f32(hh, p["wo"]).to(dtype)
 
 
-def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024):
-    """x: (B, T, d) -> (y (B, T, d), aux_loss 0-d fp32)."""
+def _queue_positions(idx, E):
+    """Queue position of each (token, slot) within its expert, per group,
+    token-major and slot-minor: idx (G, S, k) -> (G, S, k)."""
+    G, S, k = idx.shape
+    flat = one_hot(idx, E, torch.int64).reshape(G, S * k, E)
+    pos = torch.cumsum(flat, dim=1) - 1
+    return torch.sum(pos * flat, dim=-1).reshape(G, S, k)
+
+
+def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
+            data=None):
+    """x: (B, T, d) -> (y (B, T, d), aux_loss 0-d fp32).  ``data``: the
+    training mesh's "data" axis, whose ranks hold the global batch's rows
+    in order (module docstring)."""
     B, T, d = x.shape
     E = p["router"].shape[-1]
     N = B * T
-    S = min(group_size, N)
-    if N % S:
-        raise ValueError(f"{N} tokens do not split into groups of {S}")
-    G = N // S
+    D = 1 if data is None else data.size
+    S = min(group_size, N * D)
+    if (N * D) % S:
+        raise ValueError(f"{N * D} tokens do not split into groups of {S}")
+    span = max(1, S // N)            # data ranks one group spans
+    if N % S if span == 1 else S % N:
+        raise ValueError(f"groups of {S} tokens straddle the data ranks' "
+                         f"{N}-token blocks")
+    G = N // S if span == 1 else 1
     C = max(1, int(S * top_k * capacity_factor / E))
 
-    xf = x.reshape(G, S, d)
+    xf = x.reshape(G, min(S, N), d)
     probs, gate, idx = _route(xf, p["router"], top_k)          # (G, S, k)
 
-    # ----- load-balancing aux loss (Switch-style)
+    # ----- load-balancing aux loss (Switch-style), over the global batch
     me = torch.mean(probs, dim=(0, 1))                         # (E,)
     ce = torch.mean(one_hot(idx[..., 0], E, torch.float32), dim=(0, 1))
+    if data is not None:
+        me, ce = comm.mean_over(data, torch.stack([me, ce])).unbind(0)
     aux = E * torch.sum(me * ce)
 
-    # ----- queue position of each (token, slot) within its expert, per
-    # group, token-major and slot-minor
+    if span == 1:
+        pos = _queue_positions(idx, E)
+    else:
+        # this rank's rows of a group spanning ``span`` ranks: the
+        # positions over the whole group, from every rank's indices
+        first = data.index // span * span
+        grp = data.all_gather(idx, 1)[:, first * N:(first + span) * N]
+        pos = _queue_positions(grp, E)[:, (data.index - first) * N:
+                                       (data.index - first + 1) * N]
     oh = one_hot(idx, E, torch.int64)                          # (G, S, k, E)
-    flat = oh.reshape(G, S * top_k, E)
-    pos = torch.cumsum(flat, dim=1) - 1
-    pos = torch.sum(pos * flat, dim=-1).reshape(G, S, top_k)   # (G, S, k)
     keep = pos < C
     gate_kept = gate * keep
 

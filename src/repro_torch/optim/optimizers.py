@@ -18,6 +18,14 @@ state mirrors the reference's tree,
 checkpoints one to one.  The moment arithmetic is fp32, as in the
 reference; ``adamw_update`` writes the new parameters and moments into
 their tensors in place (the port's form of the reference's donated state).
+
+On a mesh (``split``: per leaf, the mesh axes each dim of its shard is cut
+along) every leaf is a rank's shard: the global norm sums each shard's
+squares and all-reduces them over exactly the axes the leaf is split on
+(a leaf replicated over an axis counts once), and the factored second
+moment's row and column means all-reduce over the axes of the dim they
+reduce (what GSPMD inserts for the reference).  With every axis of size
+1 the arithmetic is the one-device path's, bit for bit.
 """
 from __future__ import annotations
 
@@ -85,10 +93,34 @@ def cosine_schedule(peak_lr, warmup_steps, total_steps, final_frac=0.1):
 
 # ----------------------------------------------------------------- clipping
 
-def global_norm(tree):
-    """fp32 L2 norm over every leaf, as a 0-d tensor."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+def global_norm(tree, split=None):
+    """fp32 L2 norm over every leaf, as a 0-d tensor.  ``split`` (a mesh):
+    per leaf in ``leaves`` order, a tuple per dim of the ``comm.Axis``es
+    the leaf's shard is cut along; each leaf's sum of squares is then
+    all-reduced over its axes, one collective per axis, and the leaves'
+    sums are added in the one-device order."""
+    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if split is not None:
+        order = {}
+        for dims in split:
+            for ax in (a for d in dims for a in d):
+                order.setdefault(ax.name, ax)
+        for ax in order.values():
+            idx = [i for i, dims in enumerate(split)
+                   if any(a.name == ax.name for d in dims for a in d)]
+            red = ax.all_reduce(torch.stack([sq[i] for i in idx]))
+            for j, i in enumerate(idx):
+                sq[i] = red[j]
+    return torch.sqrt(sum(sq))
+
+
+def _mean(x, dim, axes=()):
+    """The mean over ``dim`` of a tensor whose ``dim`` is cut along
+    ``axes`` (equal blocks: the mean of the ranks' means)."""
+    m = torch.mean(x, dim=dim)
+    for ax in axes:
+        m = ax.all_reduce(m, mean=True)
+    return m
 
 
 def _clip_scale(norm, max_norm):
@@ -153,8 +185,10 @@ def init_adamw(params, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg: AdamWConfig):
-    """One parameter's AdamW step in fp32, written into p and st."""
+def _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg: AdamWConfig,
+                 dims=None):
+    """One parameter's AdamW step in fp32, written into p and st.
+    ``dims``: per dim of ``p``, the mesh axes its shard is cut along."""
     gf = (g.float() * clip).to(g.dtype).float()
     if "m" in st:
         gf_m = gf + st["ef"].float() if "ef" in st else gf
@@ -165,14 +199,16 @@ def _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg: AdamWConfig):
     else:
         m_new = gf          # momentum-free (Adafactor regime)
     if "v_row" in st:
-        r, c = _factored_dims(tuple(p.shape))
+        # the last two dims (the parameter's full shape chose to factor)
+        r, c = p.dim() - 2, p.dim() - 1
+        ax_r, ax_c = (((), ()) if dims is None else (dims[r], dims[c]))
         g2 = gf * gf
-        vr = cfg.b2 * st["v_row"] + (1 - cfg.b2) * torch.mean(g2, dim=c)
-        vc = cfg.b2 * st["v_col"] + (1 - cfg.b2) * torch.mean(g2, dim=r)
+        vr = cfg.b2 * st["v_row"] + (1 - cfg.b2) * _mean(g2, c, ax_c)
+        vc = cfg.b2 * st["v_col"] + (1 - cfg.b2) * _mean(g2, r, ax_r)
         st["v_row"].copy_(vr)
         st["v_col"].copy_(vc)
         # reconstruct v ~= vr * vc / mean(vr)
-        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+        denom = torch.clamp(_mean(vr, -1, ax_r).unsqueeze(-1), min=1e-30)
         v_hat = (vr / denom).unsqueeze(c) * vc.unsqueeze(r)
     else:
         v_hat = cfg.b2 * st["v"].float() + (1 - cfg.b2) * gf * gf
@@ -184,17 +220,18 @@ def _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, lr, cfg: AdamWConfig):
+def adamw_update(grads, state, params, lr, cfg: AdamWConfig, split=None):
     """One AdamW step: clips ``grads`` to ``cfg.clip_norm``, then updates
     ``params`` and ``state["mu"]`` in place and advances
     ``state["count"]``.  ``lr``: a float or a 0-d fp32 tensor.  The count
     and the bias corrections stay on the device (reference
-    ``adamw_update``), so the step reads nothing on the host.  Returns
-    (params, state, grad norm before clipping, a 0-d fp32 tensor)."""
+    ``adamw_update``), so the step reads nothing on the host.  ``split``:
+    on a mesh, the leaves' shard axes (``global_norm``).  Returns (params,
+    state, grad norm before clipping, a 0-d fp32 tensor)."""
     count = state["count"] + 1
     b1c = 1.0 - cfg.b1 ** count.float()
     b2c = 1.0 - cfg.b2 ** count.float()
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     clip = _clip_scale(gnorm, cfg.clip_norm)
     if not isinstance(lr, torch.Tensor):
         lr = _f32(lr)
@@ -202,16 +239,18 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig):
     flat_g = leaves(grads)
     flat_s = leaves(state["mu"], is_leaf=lambda t: isinstance(t, dict)
                     and ("v" in t or "v_row" in t))
-    for g, st, p in zip(flat_g, flat_s, flat_p):
+    flat_d = [None] * len(flat_p) if split is None else split
+    for g, st, p, dims in zip(flat_g, flat_s, flat_p, flat_d):
         if p.dim() >= 3 and p.numel() >= (1 << 26):
             # layer-stacked giants: one stack entry at a time, so the fp32
             # temporaries are one layer, not the whole stack (as the
-            # reference's lax.map)
+            # reference's lax.map); the stack dim is never split
             for i in range(p.shape[0]):
                 _update_leaf(g[i], {k: v[i] for k, v in st.items()}, p[i],
-                             lr, b1c, b2c, clip, cfg)
+                             lr, b1c, b2c, clip, cfg,
+                             None if dims is None else dims[1:])
         else:
-            _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg)
+            _update_leaf(g, st, p, lr, b1c, b2c, clip, cfg, dims)
     state["count"].copy_(count)
     return params, state, gnorm
 

@@ -4,8 +4,8 @@ communication GSPMD inserts into the reference's sharded programs).
 The port is multi-controller SPMD: one process per mesh device, each
 holding its local shards and calling the same programs.  ``Axis`` is one
 mesh axis as this rank sees it (its process group, size and coordinate)
-with the three collectives the port issues, all in a fixed order so that
-every rank of an axis computes the same bits:
+with the collectives the port issues, all in a fixed order so that every
+rank of an axis computes the same bits:
 
   * ``all_gather(t, dim)``: the ranks' tensors concatenated along ``dim``
     in axis order (``all_gather_cat``: several tensors, each along its own
@@ -13,6 +13,9 @@ every rank of an axis computes the same bits:
   * ``all_reduce(t)``: the sum of the ranks' tensors, added in axis order
     in fp32 (floats) and cast back — a gather then a local sum, so the
     order is fixed whatever the backend;
+  * ``mean_flat(ts, split)``: the mean of a list of tensors, of those in
+    ``split`` only this rank's block (a reduce-scatter: an all-to-all of
+    the ranks' blocks, then the same sum);
   * ``broadcast(t, src)``: ``t`` from axis coordinate ``src``.
 
 On NCCL the collectives run on the device and can be captured in a CUDA
@@ -21,8 +24,21 @@ collectives on CUDA tensors beyond ``all_reduce`` and ``broadcast``, so a
 gloo axis stages a CUDA tensor through host memory (a device sync: such
 runs are eager); on CPU tensors it runs gloo directly, with no sync.
 
+Training differentiates through the collectives: the Megatron pairs are
+``torch.autograd.Function``s over an ``Axis`` (``copy_to``: identity
+forward, all-reduce backward, before a column-parallel product;
+``reduce_from``: the all-reduce forward, identity backward, after a
+row-parallel one; ``gather_from``: the all-gather forward, this rank's
+block of the gradient backward, summed over the axis first where each
+rank's gradient is partial), and ``mean_over`` averages over the
+data axis both ways.  Outside autograd (``torch.no_grad``, or an input
+that needs no gradient) each is its plain collective, so the serving
+paths run the same calls bit for bit.  The trainer averages a step's
+gradients over "data" with ``Axis.mean_flat``.
+
 ``use(mesh_axes)`` makes a mesh the active one for the model code
-(``model_axis()``): the executor enters it around every program.
+(``model_axis()``, ``data_axis()``): the executor enters it around every
+program, the trainer around every step.
 ``stats`` counts the collectives issued from the host (``calls``, with
 the host seconds spent in them and their bytes), and, kept by
 ``runtime.graphs``, those recorded into a CUDA graph by a capture
@@ -123,19 +139,64 @@ class Axis:
         whole is a replicated one)."""
         return t if t.shape[dim] == n else self.local(t, dim)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, mean: bool = False
+                   ) -> torch.Tensor:
+        """The ranks' sum of ``t`` (``mean``: divided by the axis size in
+        fp32 before the cast back)."""
         parts = self.all_gather(t[None], 0).unbind(0)
-        if self.size == 1:                  # the one rank's own bits
-            return parts[0]
-        if not t.is_floating_point():
-            out = parts[0]
-            for p in parts[1:]:
-                out = out + p
-            return out
-        out = parts[0].float()
-        for p in parts[1:]:
-            out = out + p.float()
-        return out.to(t.dtype)
+        return parts[0] if self.size == 1 else _sum(parts, mean)
+
+    def mean_flat(self, ts, split=None):
+        """The mean over the axis of every tensor of ``ts``, from one
+        collective or two per dtype: each dtype's tensors travel as one
+        flat buffer (a step's gradients are hundreds of leaves, and gloo
+        stages each collective through the host).  ``split[i]``, where
+        not empty, holds the dims along which this rank keeps only its
+        block of tensor ``i`` (an FSDP shard): those blocks come from a
+        reduce-scatter (an all-to-all of the ranks' blocks, then the same
+        sum in axis order), so a rank receives no more than its blocks.
+        Returns the reduced tensors (or blocks) in order."""
+        split = split or [()] * len(ts)
+        out = [None] * len(ts)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for i, t in enumerate(ts):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            whole = [i for i in idx if not split[i]]
+            if whole:
+                red = self.all_reduce(
+                    torch.cat([ts[i].reshape(-1) for i in whole]), mean=True)
+                _unflatten(red, [ts[i].shape for i in whole], whole, out)
+            cut = [i for i in idx if split[i]]
+            if cut:
+                blocks = [[self._block(ts[i], split[i], r) for i in cut]
+                          for r in range(self.size)]
+                red = self._reduce_scatter(torch.cat(
+                    [b.reshape(-1) for row in blocks for b in row]))
+                _unflatten(red, [b.shape for b in blocks[0]], cut, out)
+        return out
+
+    def _block(self, t: torch.Tensor, dims, r: int) -> torch.Tensor:
+        for d in dims:
+            n = t.shape[d] // self.size
+            t = t.narrow(d, r * n, n)
+        return t
+
+    def _reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of this rank's chunk of ``t`` (the
+        ranks' chunks in axis order, equal in size): every rank sends
+        chunk r to rank r, which sums what it receives as ``all_reduce``
+        does."""
+        t0 = time.perf_counter()
+        src = t.contiguous()
+        host = src.cpu() if self._staged(src) else src
+        got = torch.empty_like(host)
+        dist.all_to_all_single(got, host, group=self.group)
+        if host is not src:
+            got = got.to(src.device)
+        self._count(t0, t)
+        parts = got.view(self.size, -1).unbind(0)
+        return parts[0] if self.size == 1 else _sum(parts, True)
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """``t`` (every rank's buffer of one shape) from coordinate
@@ -149,6 +210,113 @@ class Axis:
             buf.copy_(host)
         self._count(t0, t)
         return t
+
+
+def _sum(parts, mean: bool) -> torch.Tensor:
+    """The sum of ``parts`` in order, in fp32 for floats and cast back
+    (``mean``: divided by their number before the cast)."""
+    n = len(parts)
+    if not parts[0].is_floating_point():
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out // n if mean else out
+    out = parts[0].float()
+    for p in parts[1:]:
+        out = out + p.float()
+    return (out / n if mean else out).to(parts[0].dtype)
+
+
+def _unflatten(flat, shapes, idx, out):
+    """``out[i]`` for ``i`` in ``idx``: views of ``flat``'s consecutive
+    runs in ``shapes``."""
+    start = 0
+    for i, shape in zip(idx, shapes):
+        n = math.prod(shape)
+        out[i] = flat[start:start + n].view(shape)
+        start += n
+
+
+# ------------------------------------------------- differentiable collectives
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.axis.all_reduce(g)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x, dim, partial):
+        ctx.axis, ctx.dim, ctx.partial = axis, dim, partial
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = ctx.axis.all_reduce(g)
+        return None, ctx.axis.local(g, ctx.dim).contiguous(), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x):
+        ctx.axis = axis
+        return axis.all_reduce(x, mean=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.axis.all_reduce(g, mean=True)
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to(axis: Axis, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (replicated over ``axis``) into a column-parallel product:
+    identity forward, the gradient all-reduced over ``axis``."""
+    return _CopyTo.apply(axis, x) if _tracked(x) else x
+
+
+def reduce_from(axis: Axis, x: torch.Tensor) -> torch.Tensor:
+    """The row-parallel partial sums ``x`` all-reduced over ``axis``; the
+    gradient passes unchanged (every rank's loss is the same)."""
+    return _ReduceFrom.apply(axis, x) if _tracked(x) else axis.all_reduce(x)
+
+
+def gather_from(axis: Axis, x: torch.Tensor, dim: int,
+                partial: bool = False) -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim``; the
+    gradient is this rank's block of the gradient, which every rank holds
+    whole (the logits' loss), or, with ``partial`` (the gathered tensor
+    feeds only this rank's heads), of its sum over the axis."""
+    dim = dim % x.dim()
+    return (_GatherFrom.apply(axis, x, dim, partial) if _tracked(x)
+            else axis.all_gather(x, dim))
+
+
+def mean_over(axis: Axis, x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``axis`` (a batch statistic
+    over the data axis), and of its gradient: each rank's loss counts once
+    in the data-parallel mean of the gradients."""
+    return _MeanOver.apply(axis, x) if _tracked(x) \
+        else axis.all_reduce(x, mean=True)
 
 
 class MeshAxes:
@@ -189,7 +357,21 @@ def use(axes: Optional[MeshAxes]):
         _ACTIVE.reset(token)
 
 
+def active() -> Optional[MeshAxes]:
+    """The active mesh (None outside one).  Code that autograd runs again
+    in the backward pass (``torch.utils.checkpoint``'s recompute, on the
+    engine's device thread, which does not see this context) re-enters
+    it with ``use(active())`` captured at the forward."""
+    return _ACTIVE.get()
+
+
 def model_axis() -> Optional[Axis]:
     """The active mesh's "model" axis, or None outside a mesh."""
     axes = _ACTIVE.get()
     return None if axes is None else axes.model
+
+
+def data_axis() -> Optional[Axis]:
+    """The active mesh's "data" axis, or None outside a mesh."""
+    axes = _ACTIVE.get()
+    return None if axes is None else axes.data

@@ -245,6 +245,62 @@ def estimate_params(cfg: ArchConfig) -> int:
     return int(total)
 
 
+# ---------------------------------------------------------------- train state
+
+def pspecs_for_opt(p: P) -> P:
+    """An optimizer leaf's spec from its parameter's (the reference's
+    identity)."""
+    return p
+
+
+def opt_moment_specs(mu_shape, pspecs):
+    """Specs of AdamW's per-parameter moments (``opt["mu"]``): ``m``,
+    ``v`` and ``ef`` follow their parameter; the factored ``v_row`` and
+    ``v_col`` drop the entry of the dim they reduce, so each rank holds
+    the rows (columns) of its own block of the parameter.  The
+    reference's ``opt_moment_specs`` keeps the spec's leading entries,
+    which is the same for ``v_row`` and puts ``v_col``'s last dim under
+    the entry of the reduced one (GSPMD reshards it); the port's ranks
+    keep the layout their update computes in."""
+    def per_param(spec, st):
+        # the parameter's dims: a moment's own, or one more than v_row's
+        nd = len(st["v_row"].shape) + 1 if "v_row" in st \
+            else len(st["v"].shape)
+        axes = list(pspecs_for_opt(spec)) + [None] * (nd - len(spec))
+        out = {}
+        for k in st:
+            if k == "v_row":
+                out[k] = P(*axes[:nd - 1])
+            elif k == "v_col":
+                out[k] = P(*(axes[:nd - 2] + axes[nd - 1:]))
+            else:
+                out[k] = pspecs_for_opt(spec)
+        return out
+
+    return map_specs(lambda st, spec: per_param(spec, st), mu_shape, pspecs,
+                     is_leaf=lambda x: isinstance(x, dict) and (
+                         "v" in x or "v_row" in x))
+
+
+def train_state_specs(cfg: ArchConfig, state_shape, fsdp: bool, mesh):
+    """Specs of the train state ``{"params", "opt": {"mu", "count"},
+    "step"}`` (the reference's ``Trainer._shardings``): params by
+    ``params_specs``, the moments by ``opt_moment_specs``, the counters
+    replicated."""
+    pspecs = params_specs(cfg, state_shape["params"], fsdp, mesh)
+    return {"params": pspecs,
+            "opt": {"mu": opt_moment_specs(state_shape["opt"]["mu"], pspecs),
+                    "count": P()},
+            "step": P()}
+
+
+def dim_axes(spec: P, ndim: int):
+    """The mesh axis names of each of a leaf's ``ndim`` dims under
+    ``spec`` (a tuple per dim, empty where it is not split)."""
+    return tuple(_names(spec[d] if d < len(spec) else None)
+                 for d in range(ndim))
+
+
 # ---------------------------------------------------------------- batches
 
 def batch_specs(mesh, batch_shape: dict) -> dict:
@@ -379,15 +435,20 @@ def gather_shard(t: torch.Tensor, spec: P, axes) -> torch.Tensor:
     return t
 
 
-def map_specs(fn, tree, specs):
-    """``fn(leaf, spec)`` over a tree and its spec tree (same nesting)."""
+def map_specs(fn, tree, specs, is_leaf=None):
+    """``fn(leaf, spec)`` over a tree and its spec tree (same nesting);
+    ``is_leaf(node)`` true stops the descent at ``node``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, specs)
     if isinstance(tree, dict):
-        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+        return {k: map_specs(fn, v, specs[k], is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(map_specs(fn, x, s)
+        return type(tree)(*(map_specs(fn, x, s, is_leaf)
                             for x, s in zip(tree, specs)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_specs(fn, x, s) for x, s in zip(tree, specs))
+        return type(tree)(map_specs(fn, x, s, is_leaf)
+                          for x, s in zip(tree, specs))
     return fn(tree, specs)
 
 

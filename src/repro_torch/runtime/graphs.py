@@ -29,8 +29,8 @@ kept alike: a capture moves the ones it recorded from ``calls`` to
 ``capture_s`` is the time of the capture, instantiation included, except
 in a program made with ``keep_graph=True``: that one keeps the captured
 graph's template in host memory, instantiates it apart
-(``instantiate_s``) and lets ``graph_nodes`` count its nodes (a
-diagnostic, off by default).
+(``instantiate_s``) and lets ``graph_nodes`` count its nodes and
+``kernel_names`` name its kernels (diagnostics, off by default).
 """
 from __future__ import annotations
 
@@ -137,9 +137,21 @@ class Program:
 _KERNEL_NODE = 0          # CU_GRAPH_NODE_TYPE_KERNEL
 
 
-def graph_nodes(graph) -> Tuple[int, int]:
-    """(kernel nodes, all nodes) of the graph of a ``Program`` made with
-    ``keep_graph=True``, read with libcuda's ``cuGraphGetNodes``."""
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2``."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _ok(err, what):
+    if err:
+        raise RuntimeError(f"{what} failed: CUresult {err}")
+
+
+def _kernel_nodes(graph):
+    """(libcuda, [(node, is a kernel node)]) of a kept graph."""
     cu = ctypes.CDLL("libcuda.so.1")
     cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
                                    ctypes.POINTER(ctypes.c_void_p),
@@ -147,20 +159,54 @@ def graph_nodes(graph) -> Tuple[int, int]:
     cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
                                       ctypes.POINTER(ctypes.c_int)]
     cu.cuGraphGetNodes.restype = cu.cuGraphNodeGetType.restype = ctypes.c_int
-
-    def ok(err, what):
-        if err:
-            raise RuntimeError(f"{what} failed: CUresult {err}")
-
     g = graph.raw_cuda_graph()
     n = ctypes.c_size_t(0)
-    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    _ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
-    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    _ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
     kind = ctypes.c_int()
-    kernels = 0
+    out = []
     for node in nodes:
-        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
-           "cuGraphNodeGetType")
-        kernels += kind.value == _KERNEL_NODE
-    return kernels, n.value
+        _ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        out.append((node, kind.value == _KERNEL_NODE))
+    return cu, out
+
+
+def graph_nodes(graph) -> Tuple[int, int]:
+    """(kernel nodes, all nodes) of the graph of a ``Program`` made with
+    ``keep_graph=True``, read with libcuda's ``cuGraphGetNodes``."""
+    _, nodes = _kernel_nodes(graph)
+    return sum(k for _, k in nodes), len(nodes)
+
+
+def kernel_names(graph) -> Dict[str, int]:
+    """{kernel function name: kernel nodes} of a kept graph (the
+    kernels every replay launches, counted exactly: the profiler can
+    lose a record), from each node's parameters
+    (``cuGraphKernelNodeGetParams``) and ``cuFuncGetName`` (or
+    ``cuKernelGetName`` for a node that holds a library kernel)."""
+    cu, nodes = _kernel_nodes(graph)
+    cu.cuGraphKernelNodeGetParams_v2.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(_KernelNodeParams)]
+    for fn in (cu.cuFuncGetName, cu.cuKernelGetName):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    cu.cuGraphKernelNodeGetParams_v2.restype = ctypes.c_int
+    params = _KernelNodeParams()
+    name = ctypes.c_char_p()
+    out: Dict[str, int] = {}
+    for node, kernel in nodes:
+        if not kernel:
+            continue
+        _ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+            "cuGraphKernelNodeGetParams")
+        if params.func:
+            _ok(cu.cuFuncGetName(ctypes.byref(name), params.func),
+                "cuFuncGetName")
+        else:
+            _ok(cu.cuKernelGetName(ctypes.byref(name), params.kern),
+                "cuKernelGetName")
+        key = name.value.decode()
+        out[key] = out.get(key, 0) + 1
+    return out

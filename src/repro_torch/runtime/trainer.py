@@ -1,4 +1,4 @@
-"""Fault-tolerant training runtime on one device (port of
+"""Fault-tolerant training runtime, on one device or a mesh (port of
 ``repro.runtime.trainer``).
 
 Behaviours carried over from the reference:
@@ -7,23 +7,39 @@ Behaviours carried over from the reference:
     the step reads its batch from static device buffers and computes the
     learning rate and AdamW's bias corrections on the device, so on the
     card it is captured once into a CUDA graph (forward with remat,
-    backward, clipping and AdamW) and replayed (``runtime.graphs.Program``:
-    the first call runs eagerly, the second captures).  ``cuda_graphs=False``
-    runs the same step eagerly on the card, the comparison; a capture or a
-    replay that fails raises, and is never retried as an eager step;
+    backward, clipping and AdamW, a mesh's collectives on NCCL included)
+    and replayed (``runtime.graphs.Program``: the first call runs
+    eagerly, the second captures).  ``cuda_graphs=False`` runs the same
+    step eagerly on the card, the comparison; a gloo mesh runs eagerly
+    (its collectives are host calls); a capture or a replay that fails
+    raises, and is never retried as an eager step;
+  * a ``("data", "model")`` mesh (``Trainer(mesh=)``; without one, the
+    elastic data mesh over every rank of the running process group,
+    ``make_data_mesh``, or one device when none runs): one process per
+    mesh device.  The parameters and AdamW moments are sharded by the
+    reference's rules (``parallel.sharding.train_state_specs``) with FSDP
+    whenever ``needs_fsdp`` holds: each rank draws only its shards, each
+    F-sharded leaf is gathered over "data" for the step, the gradients
+    are averaged over "data" (an all-reduce per dtype; an F-sharded
+    leaf's by a reduce-scatter, which leaves each rank only its block),
+    and AdamW runs on the shards
+    (its global norm and factored moments reduce over the split axes).
+    Each rank reads the global batch and keeps its rows
+    (``batch_specs``; with microbatches the reference's resplit: rank r
+    of D holds block r of every microbatch).  The model axis trains the
+    ``gdn`` and ``attn`` kinds and the dense FFN (``models.lm``);
   * checkpoint/restart: atomic async checkpoints every ``ckpt_every``;
     ``run()`` auto-resumes from the latest complete checkpoint, and an
     exception inside the step loop triggers restore-and-continue with
-    bounded retries (``max_restarts``; ``fail_at`` injects one fault);
+    bounded retries (``max_restarts``; ``fail_at`` injects one fault).
+    Checkpoints hold whole leaves whatever the mesh (a mesh's saves
+    gather, and block): the elastic re-mesh is a restart on another
+    mesh, each rank cutting its shards from the restored leaves;
   * straggler detection: a per-step wall-time EWMA and deviation; slow
     steps are logged with a z-score;
   * deterministic data: the loader is keyed by (seed, host, step), so a
     resume replays the exact batch stream;
   * microbatch gradient accumulation in ``accum_dtype``.
-
-The port trains on one device: the trainer's mesh (DP, FSDP by
-``parallel.sharding.needs_fsdp``, elastic re-mesh) is ROADMAP queue 1
-item 4c; serving meshes are ported (``serving/executor.py``).
 """
 from __future__ import annotations
 
@@ -34,15 +50,19 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as _device
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, HostDataLoader
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import lm
 from repro_torch.optim import optimizers as opt
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as rules
 from repro_torch.runtime import graphs
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -68,6 +88,12 @@ class TrainerConfig:
     straggler_zscore: float = 3.0
 
 
+def make_data_mesh():
+    """Elastic data mesh over every rank of the running process group:
+    (data = world size, model = 1)."""
+    return mesh_mod.make_local_mesh(dist.get_world_size(), 1)
+
+
 def make_schedule(tc: TrainerConfig) -> Callable:
     if tc.schedule == "wsd":
         stable = max(1, int(0.8 * tc.steps) - tc.warmup_steps)
@@ -86,14 +112,64 @@ def init_state(generator, cfg: ArchConfig, tc: TrainerConfig, device=None):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def build_train_step(cfg: ArchConfig, tc: TrainerConfig):
+def init_mesh_state(generator, cfg: ArchConfig, tc: TrainerConfig,
+                    device, mesh, fsdp: bool):
+    """This rank's shards of ``init_state``'s tree on ``mesh`` (the
+    parameters those of the one-device draw, cut as it is drawn) and the
+    tree's specs.  The moments are laid out from the whole parameters'
+    shapes (a factored moment stays factored where a shard's dim is 1)."""
+    dev = _device.resolve(device)
+    full = init_state(None, cfg, tc, "meta")
+    specs = rules.train_state_specs(cfg, full, fsdp, mesh)
+    axes = comm.MeshAxes(mesh)
+    mu = rules.map_specs(
+        lambda m, s: torch.zeros(rules.local_shape(m.shape, s, axes.sizes),
+                                 dtype=m.dtype, device=dev),
+        full["opt"]["mu"], specs["opt"]["mu"])
+    state = {"params": lm.init_lm(generator, cfg, dev, mesh=mesh, fsdp=fsdp),
+             "opt": {"mu": mu,
+                     "count": torch.zeros((), dtype=torch.int32,
+                                          device=dev)},
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    return state, specs, full
+
+
+class MeshPlan:
+    """How the step treats each parameter leaf of a rank on a mesh: the
+    dims it is split on over "data" (FSDP: gathered for the step, the
+    gradient reduce-scattered back) and the axes of every dim (the optimizer's
+    ``split``)."""
+
+    def __init__(self, axes: comm.MeshAxes, pspecs, params):
+        self.axes = axes
+        self.data_dims, self.split = [], []
+        for spec, p in zip(leaves(pspecs), leaves(params)):
+            names = rules.dim_axes(spec, p.dim())
+            self.split.append(tuple(tuple(axes.axes[n] for n in ns)
+                                    for ns in names))
+            self.data_dims.append(tuple(d for d, ns in enumerate(names)
+                                        if "data" in ns))
+
+    def gather(self, i: int, p: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` whole over "data" (itself when not split on it)."""
+        for d in self.data_dims[i]:
+            p = self.axes.data.all_gather(p, d)
+        return p
+
+
+def build_train_step(cfg: ArchConfig, tc: TrainerConfig, plan=None):
     """``train_step(state, batch) -> (state, metrics)``: loss and
     gradients (summed over ``tc.microbatches`` slices of the batch in
     ``tc.accum_dtype``), one AdamW step at the schedule's lr for
     ``state["step"]``, all written into ``state`` in place.  ``batch``
     holds (B, T) int tensors on the state's device.  Nothing is read on
     the host: ``metrics`` ("loss", "lr", "grad_norm", ...) are 0-d
-    tensors on the device."""
+    tensors on the device.
+
+    ``plan`` (a ``MeshPlan``): ``state`` holds this rank's shards and
+    ``batch`` its rows; the step runs with the mesh active, gathers the
+    F-sharded leaves over "data", averages the gradients and the metrics
+    over "data" and steps AdamW on the shards."""
     schedule = make_schedule(tc)
 
     def loss_and_grads(plist, params, batch):
@@ -105,8 +181,19 @@ def build_train_step(cfg: ArchConfig, tc: TrainerConfig):
             grads
 
     def train_step(state, batch):
-        params = state["params"]
-        plist = leaves(params)
+        if plan is None:
+            return local_step(state, state["params"], leaves(state["params"]),
+                              batch)
+        with comm.use(plan.axes):
+            local = leaves(state["params"])
+            with torch.no_grad():
+                plist = [plan.gather(i, p) for i, p in enumerate(local)]
+            whole = {id(p): w for p, w in zip(local, plist)}
+            return local_step(state, tree_map(lambda p: whole[id(p)],
+                                              state["params"]), plist,
+                              batch)
+
+    def local_step(state, params, plist, batch):
         for p in plist:
             p.requires_grad_(True)
         n = tc.microbatches
@@ -129,9 +216,19 @@ def build_train_step(cfg: ArchConfig, tc: TrainerConfig):
             metrics = {k: v / n for k, v in msum.items()}
         else:
             loss, metrics, grads = loss_and_grads(plist, params, batch)
+        split = None
+        if plan is not None:
+            data = plan.axes.data
+            grads = data.mean_flat(grads, plan.data_dims)
+            names = sorted(metrics)
+            avg = data.all_reduce(torch.stack(
+                [loss.float()] + [metrics[k].float() for k in names]),
+                mean=True).unbind(0)
+            loss, metrics = avg[0], dict(zip(names, avg[1:]))
+            params, split = state["params"], plan.split
         lr = schedule(state["step"])
         _, _, gnorm = opt.adamw_update(grads, state["opt"], params, lr,
-                                       tc.adamw)
+                                       tc.adamw, split)
         state["step"].add_(1)
         return state, dict(metrics, loss=loss, lr=lr, grad_norm=gnorm)
 
@@ -145,20 +242,28 @@ class GraphStepError(RuntimeError):
 class Trainer:
     def __init__(self, cfg: ArchConfig, tc: TrainerConfig, mesh=None,
                  device=None, cuda_graphs: Optional[bool] = None):
-        """``cuda_graphs`` (default None: on the card, not on the CPU)
-        replays the compiled step from a CUDA graph; ``False`` runs it
-        eagerly; ``True`` on the CPU raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one device; the trainer's mesh (DP, "
-                "FSDP, elastic re-mesh) is not ported to repro_torch yet: "
-                "ROADMAP queue 1 item 4c")
+        """``mesh``: a ``("data", "model")`` ``DeviceMesh`` holding this
+        rank (``launch.mesh.make_local_mesh``); None trains on
+        ``make_data_mesh()`` when a process group runs, else on one
+        device.  ``cuda_graphs`` (default None: on the card, not on the
+        CPU nor on a gloo mesh) replays the compiled step from a CUDA
+        graph; ``False`` runs it eagerly; ``True`` on the CPU or on a gloo
+        mesh raises."""
         self.cfg, self.tc = cfg, tc
         self.device = _device.resolve(device)
         on_card = self.device.type == "cuda"
         if cuda_graphs and not on_card:
             raise ValueError(f"cuda_graphs=True needs a CUDA device; the "
                              f"trainer runs on {self.device}")
+        if mesh is None and dist.is_initialized():
+            mesh = make_data_mesh()
+        self.mesh = mesh
+        self.axes = self.fsdp = self.plan = self.specs = None
+        self._rows = None
+        if mesh is not None:
+            self._init_mesh(cuda_graphs)
+            if self.axes.data.backend == "gloo":
+                on_card = False
         self.cuda_graphs = on_card if cuda_graphs is None else cuda_graphs
         self.loader = HostDataLoader(DataConfig(
             vocab=cfg.vocab, seq_len=tc.seq_len,
@@ -168,6 +273,7 @@ class Trainer:
         self._step_fn = None
         self.program: Optional[graphs.Program] = None
         self.state = None
+        self._full = None
         self._batch = None
         self.step_times: list[float] = []
         # {"step", "loss", "aux", "lr", "grad_norm"} at every logged step
@@ -177,17 +283,56 @@ class Trainer:
         self._ewvar = 0.0
         self.restarts = 0
 
+    def _init_mesh(self, cuda_graphs):
+        """This rank's axes, FSDP by the reference's rule, and its rows of
+        every global batch."""
+        mesh = self.mesh
+        sizes = rules.mesh_sizes(mesh)
+        if tuple(sizes) != ("data", "model"):
+            raise ValueError(f"a training mesh has axes ('data', 'model'), "
+                             f"got {tuple(sizes)} "
+                             f"(launch.mesh.make_local_mesh)")
+        lm.check_train_model_axis(self.cfg, sizes["model"])
+        axes = self.axes = comm.MeshAxes(mesh)
+        backends = {a.backend for a in axes.axes.values()}
+        if "gloo" in backends and cuda_graphs:
+            raise ValueError("a gloo mesh's collectives are host calls, "
+                             "which a CUDA graph cannot capture: pass "
+                             "cuda_graphs=False or use an NCCL mesh")
+        if "nccl" in backends and self.device.type != "cuda":
+            raise ValueError(f"an NCCL mesh trains on CUDA, not "
+                             f"{self.device}")
+        self.fsdp = rules.needs_fsdp(self.cfg, mesh)
+        B, mb, D = self.tc.global_batch, self.tc.microbatches, \
+            axes.data.size
+        if B % (mb * D):
+            raise ValueError(f"global batch {B} does not split into {mb} "
+                             f"microbatches over a data axis of {D}")
+        # block r of every microbatch (the reference's resplit keeps each
+        # microbatch's rows on "data")
+        per = B // (mb * D)
+        self._rows = np.array([i * (B // mb) + axes.data.index * per + j
+                               for i in range(mb) for j in range(per)])
+
     def compile(self, keep_graph: bool = False):
-        """Draw the initial state on the device from ``tc.seed``, allocate
-        the static batch buffers and wrap the step function in the program
-        that runs it on them (the reference's ``jax.jit`` of the step).
-        ``keep_graph`` keeps the captured graph's template so that its
-        nodes can be counted and its instantiation timed
-        (``graphs.Program``)."""
+        """Draw the initial state on the device from ``tc.seed`` (on a
+        mesh, this rank's shards), allocate the static batch buffers and
+        wrap the step function in the program that runs it on them (the
+        reference's ``jax.jit`` of the step).  ``keep_graph`` keeps the
+        captured graph's template so that its nodes can be counted and its
+        instantiation timed (``graphs.Program``)."""
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        self.state = init_state(gen, self.cfg, self.tc, self.device)
-        self._step_fn = build_train_step(self.cfg, self.tc)
-        shape = (self.tc.global_batch, self.tc.seq_len)
+        rows = self.tc.global_batch
+        if self.mesh is None:
+            self.state = init_state(gen, self.cfg, self.tc, self.device)
+        else:
+            self.state, self.specs, self._full = init_mesh_state(
+                gen, self.cfg, self.tc, self.device, self.mesh, self.fsdp)
+            self.plan = MeshPlan(self.axes, self.specs["params"],
+                                 self.state["params"])
+            rows = len(self._rows)
+        self._step_fn = build_train_step(self.cfg, self.tc, self.plan)
+        shape = (rows, self.tc.seq_len)
         self._batch = {k: torch.zeros(shape, dtype=torch.int64,
                                       device=self.device)
                        for k in ("tokens", "labels")}
@@ -201,8 +346,11 @@ class Trainer:
 
     def batch(self, step: int) -> dict:
         """The loader's batch for ``step`` copied into the static batch
-        buffers (the same int64 device tensors every step)."""
+        buffers (the same int64 device tensors every step); on a mesh,
+        this rank's rows of it."""
         for k, v in self.loader.batch_at(step).items():
+            if self._rows is not None:
+                v = v[self._rows]
             self._batch[k].copy_(torch.from_numpy(v))
         return self._batch
 
@@ -239,14 +387,34 @@ class Trainer:
                         step, dt, z, self._ewma)
 
     def _maybe_restore(self):
+        """Restore the latest checkpoint into the state, if there is one;
+        on a mesh each rank reads the whole leaves and keeps its shards
+        (the elastic re-mesh).  Returns its step (0 without one)."""
         if self.ckpt is None:
             return 0
-        restored, step = self.ckpt.restore_latest(self.state)
+        if self.mesh is None:
+            restored, step = self.ckpt.restore_latest(self.state)
+        else:
+            restored, step = self.ckpt.restore_latest(self._full)
+            if restored is not None:
+                restored = rules.shard_tree(restored, self.specs,
+                                            self.axes.coords,
+                                            self.axes.sizes)
         if restored is None:
             return 0
         ckpt.copy_into(self.state, restored)
-        log.info("restored checkpoint at step %s", step)
+        log.info("restored checkpoint at step %s (mesh %s)", step,
+                 None if self.axes is None else self.axes.sizes)
         return int(step)
+
+    def save(self, step: int, blocking: bool = True):
+        """Checkpoint the state as step ``step``: whole leaves on a mesh,
+        every rank taking part (and waiting for the write)."""
+        if self.mesh is None:
+            self.ckpt.save(self.state, step, blocking=blocking)
+        else:
+            self.ckpt.save(self.state, step, specs=self.specs,
+                           axes=self.axes)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -279,8 +447,7 @@ class Trainer:
                     log.info("step %d loss %.4f lr %.2e", step, rec["loss"],
                              rec["lr"])
                 if self.ckpt and step % self.tc.ckpt_every == 0:
-                    self.ckpt.save(self.state, step,
-                                   blocking=not self.tc.ckpt_async)
+                    self.save(step, blocking=not self.tc.ckpt_async)
             except GraphStepError:
                 raise
             except Exception as e:  # noqa: BLE001 — node-failure recovery
@@ -292,5 +459,5 @@ class Trainer:
                             self.restarts, self.tc.max_restarts)
                 step = self._maybe_restore()
         if self.ckpt:
-            self.ckpt.save(self.state, step, blocking=True)
+            self.save(step)
         return history

@@ -35,9 +35,11 @@ raises.
 ``mesh=`` (a ``("data", "model")`` ``DeviceMesh``, ``launch/mesh.py``)
 shards one engine over several ranks, each a process running this engine
 on the same requests: the slot axis on "data" (streams bitwise the
-one-device engine's), GDN state heads, attention heads and KV context,
-the MLP and the vocab on "model" (the ``gdn`` and ``attn`` kinds; others
-raise ``NotImplementedError`` on a model axis).
+one-device engine's), and on "model" each kind's heads or width (GDN
+and SSD state heads, attention heads and the KV context, the RG-LRU
+width), the MLP, the MoE's experts and the vocab: every kind of the
+registry splits (``executor.check_model_axis`` refuses only a dim the
+axis does not divide).
 """
 from __future__ import annotations
 

@@ -26,6 +26,7 @@ its first call: what a CUDA graph capture refuses on the card), the static
 batch buffers, and a failed capture raising instead of running eagerly.
 """
 import logging
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -403,11 +404,47 @@ def test_trainer_microbatch_accumulation():
 
 
 def test_trainer_rejects_a_mesh():
-    cfg = tconfigs.get_arch("qwen3-next-gdn").reduced()
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 item 4c"):
-        ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=object(),
+    """The refusal that remains: a model axis larger than 1 in training
+    for a kind other than gdn and attn, or the MoE (checked from the
+    mesh's shape before any process group is touched)."""
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": 1, "model": 2})
+    for arch, what in (("mamba2-1.3b", "'ssm'"),
+                       ("recurrentgemma-2b", "'rglru'"),
+                       ("mixtral-8x7b", "'swa'")):
+        cfg = tconfigs.get_arch(arch).reduced()
+        with pytest.raises(NotImplementedError,
+                           match=rf"{what}.*ROADMAP queue 1 item 4f"):
+            ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=mesh,
+                             device="cpu")
+    cfg = tconfigs.get_arch("mixtral-8x7b").reduced().replace(
+        pattern=("attn",))
+    with pytest.raises(NotImplementedError, match=r"MoE.*item 4f"):
+        ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=mesh,
                          device="cpu")
+
+
+@pytest.mark.parametrize("arch,schedule", [("minicpm-2b", "wsd"),
+                                           ("qwen3-next-gdn", "cosine")])
+def test_train_cli_schedule(monkeypatch, arch, schedule):
+    """The train CLI trains minicpm-2b on WSD whatever ``--schedule``
+    says, as the reference's CLI does (its paper's schedule); other
+    archs take the flag's default, cosine."""
+    from repro_torch.launch import train as tcli
+    made = []
+
+    class Stub:
+        axes = None
+
+        def __init__(self, cfg, tc, **kw):
+            made.append(tc)
+
+        def run(self):
+            return []
+
+    monkeypatch.setattr(tcli, "Trainer", Stub)
+    tcli.main(["--arch", arch, "--device", "cpu", "--steps", "1"])
+    assert [tc.schedule for tc in made] == [schedule]
 
 
 # ------------------------------------------------------------ compiled step

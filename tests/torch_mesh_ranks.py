@@ -1,5 +1,5 @@
-"""Mesh ranks for the port's sharded-serving tests on the CPU
-(``tests/test_torch_mesh_*.py``).
+"""Mesh ranks for the port's sharded-serving and training tests on the
+CPU (``tests/test_torch_mesh_*.py``).
 
 ``start(world, jobs, shared)`` spawns ``world`` processes in one gloo group
 (``tcp://localhost``), each running every job whose mesh holds it;
@@ -109,12 +109,20 @@ def _rank(rank, world, port, jobs, inbox, q):
 NAIVE = "gdn_naive"
 
 
+# qwen3-next-gdn's reduced config with one KV head: a model axis of 2
+# splits its KV projections on head_dim (``fit_spec``)
+MQA = "qwen3-next-gdn-kv1"
+
+
 def config(arch):
     """The reduced config of ``arch`` (``NAIVE``: qwen3-next-gdn's with the
-    pattern ("gdn_naive", "attn"))."""
+    pattern ("gdn_naive", "attn"); ``MQA``: with one KV head)."""
     if arch == NAIVE:
         return configs.get_arch("qwen3-next-gdn").reduced().replace(
             pattern=("gdn_naive", "attn"))
+    if arch == MQA:
+        return configs.get_arch("qwen3-next-gdn").reduced().replace(
+            n_kv_heads=1)
     return configs.get_arch(arch).reduced()
 
 
@@ -396,5 +404,110 @@ def step_job(job, shared, mesh):
     return {"logits": logits.float().cpu().numpy()}
 
 
+def train_job(job, shared, mesh):
+    """Train the reduced ``job["arch"]`` on this mesh from the bridged
+    reference state ``shared["train"][job["init"]]`` (host numpy, the
+    port's tree), cut into this rank's shards: ``job["steps"]`` steps of
+    ``Trainer.step`` on the loader's batches from ``job["start"]`` (0),
+    ``job["tc"]`` the TrainerConfig's settings (``adamw``: AdamWConfig
+    settings), ``job["fsdp"]`` forcing FSDP (``sharding.needs_fsdp``
+    patched for the job), ``job["save"]`` a checkpoint directory written
+    after step ``job["save_at"]`` (default: the last) and
+    ``job["restore"]`` one to resume from instead of the shared state.
+    Returns the per-step metrics, the whole final state
+    (rank 0, gathered leaf by leaf), the local leaf shapes beside the
+    shapes the specs give, and ``fsdp``."""
+    from repro_torch.optim.optimizers import AdamWConfig
+    from repro_torch.runtime import trainer as tmod
+    cfg = config(job["arch"])
+    kw = dict(job.get("tc", {}))
+    if "adamw" in kw:
+        kw["adamw"] = AdamWConfig(**kw["adamw"])
+    tc = tmod.TrainerConfig(**kw)
+    patch = None
+    if job.get("fsdp"):
+        import pytest
+        patch = pytest.MonkeyPatch()
+        patch.setattr(rules, "needs_fsdp", lambda *a, **k: True)
+    try:
+        tr = tmod.Trainer(cfg, tc, mesh=mesh, device="cpu").compile()
+        if job.get("restore"):
+            tr.ckpt = tmod.ckpt.CheckpointManager(job["restore"])
+            start = tr._maybe_restore()
+        else:
+            start = job.get("start", 0)
+            src = to_torch(shared["train"][job["init"]])
+            tmod.ckpt.copy_into(tr.state, rules.shard_tree(
+                src, tr.specs, tr.axes.coords, tr.axes.sizes))
+        metrics = []
+        end = start + job["steps"]
+        for step in range(start, end):
+            tr.batch(step)
+            m = tr.step()
+            metrics.append({k: float(v) for k, v in m.items()})
+            if job.get("save") and step + 1 == job.get("save_at", end):
+                tr.ckpt = tmod.ckpt.CheckpointManager(job["save"])
+                tr.save(step + 1)
+        axes = tr.axes
+        whole = rules.map_specs(
+            lambda t, s: rules.gather_shard(t.detach(), s, axes.axes)
+            .numpy(), tr.state, tr.specs)
+        shapes = _local_shapes(tr)
+    finally:
+        if patch is not None:
+            patch.undo()
+    first = all(i == 0 for i in axes.coords.values())
+    return {"metrics": metrics, "fsdp": tr.fsdp, "shapes": shapes,
+            "state": whole if first else None, "start": start}
+
+
+def _local_shapes(tr):
+    """[(key path, the leaf's local shape, the specs' local shape, the
+    whole shape)] of a trainer's state."""
+    out = []
+    full = dict(_flat(tr._full))
+    specs = dict(_flat(tr.specs))
+    for path, t in _flat(tr.state):
+        whole = tuple(full[path].shape)
+        out.append((rules.path_str(path), tuple(t.shape), rules.local_shape(
+            whole, specs[path], tr.axes.sizes), whole))
+    return out
+
+
+def mean_flat_job(job, shared, mesh):
+    """``Axis.mean_flat`` over "data" against ``all_reduce(mean=True)``
+    and then the rank's block: per tensor (fp32 and bf16, whole, split on
+    one dim or on two) whether the two are equal bit for bit."""
+    axis = comm.MeshAxes(mesh).data
+    g = torch.Generator().manual_seed(1 + axis.index)
+    cases = [((8, 6), (0,), torch.float32),
+             ((4, 3, 8), (0, 2), torch.bfloat16),
+             ((5,), (), torch.float32), ((12, 2), (0,), torch.bfloat16),
+             ((3,), (), torch.bfloat16)]
+    ts = [torch.randn(s, generator=g).to(dt) for s, _, dt in cases]
+    split = [d for _, d, _ in cases]
+    got = axis.mean_flat(ts, split)
+    equal = []
+    for t, dims, a in zip(ts, split, got):
+        w = axis.all_reduce(t, mean=True)
+        for d in dims:
+            w = axis.local(w, d)
+        equal.append(a.shape == w.shape and bool(torch.equal(a, w)))
+    return {"equal": equal}
+
+
+def refuse_job(job, shared, mesh):
+    """The trainer's refusal of ``job["arch"]`` on this mesh: the
+    exception's type and message."""
+    from repro_torch.runtime import trainer as tmod
+    try:
+        tmod.Trainer(config(job["arch"]), tmod.TrainerConfig(), mesh=mesh,
+                     device="cpu")
+    except Exception as e:          # noqa: BLE001 — reported to the test
+        return {"type": type(e).__name__, "message": str(e)}
+    return {"type": None, "message": ""}
+
+
 JOBS = {"serve": serve_job, "logits": logits_job, "swap": swap_job,
-        "restore": restore_job, "draw": draw_job, "step": step_job}
+        "restore": restore_job, "draw": draw_job, "step": step_job,
+        "train": train_job, "refuse": refuse_job, "mean_flat": mean_flat_job}
