@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # every phase (needs one card)
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
     python3 chip_smoke.py --mesh-train-faults  # build, phase 15 (b)-(d)
-                                       # and its planted faults, then stop
+                                       # and phase 16 with their planted
+                                       # faults, then stop
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -152,7 +153,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      ``jax.lax.top_k``); (a) mixtral-8x7b, 2 of 32 layers, fp32,
      dropless capacity: ``prefill(17)``'s last logits against
      ``prefill(16)`` + ``decode_step`` within rtol = atol = 2e-3; (b)
-     mixtral-8x7b, 16 of 32 layers in bf16 (46.96 GB), the draw's
+     mixtral-8x7b, 8 of 32 layers in bf16 (the depth cut for the
+     script's time limit; 16 layers were 46.96 GB), the draw's
      seconds and peak memory, the bf16 fp32-output expert product
      (``layers.bmm_f32``) at the drawn full-width expert matrices
      against fp32 operands (rtol 1e-5, atol 1e-4), phase 4's mix and engine settings through
@@ -194,7 +196,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      warm, streams bitwise phase 7's graph engine's, no collective issued
      from the host in the warm run; then (b) mamba2-1.3b, (c)
      recurrentgemma-2b (two of phase 8's prompts, one past its 2048
-     window) and (d) mixtral-8x7b (16 of 32 layers, as phase 12 (b)) on
+     window) and (d) mixtral-8x7b (8 of 32 layers, as phase 12 (b)) on
      a (1,2) mesh
      over two gloo ranks sharing the card, eager, two requests each: each
      rank draws only its shards from seed 0 (``lm.init_lm(..., mesh=)``:
@@ -235,6 +237,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the state's bytes and the allocated bytes; the flash launches at
      the wrappers per rank (the
      ``flash_*_data2`` and ``flash_*_model2`` rows).
+  16. (run after phase 15) the model axis in training for every kind but
+     gdn and attn, and the MoE's experts, each arch at full width with
+     its depth cut (``MESH16``), the flash kernels on: mamba2-1.3b at 12
+     of 48 layers (1 x 2048 tokens, fp32 activations: in bf16 at that
+     depth a forward one bit off moves its parameters past the rule) and
+     in bf16 at 2 layers, where the one-device run with a forward one bit
+     off (1 in 1024 embedding entries, the witness) is made beside the
+     yardstick and must read within the rule, recurrentgemma-2b at one
+     (rglru, rglru, swa) group (1 x 4096, past its 2048 window; its one
+     KV head split on head_dim), h2o-danube-1.8b at 2 layers (1 x 4608,
+     past its 4096 window), mixtral-8x7b at 1 layer (2 x 2048; 4 of 8
+     experts per rank).  Each arch's one-device eager yardstick (same
+     depth, seed and batch, 2 steps) and two gloo ranks sharing the card
+     that train each on (1,2), each rank drawing only its shards, 2 eager
+     steps (mamba2's beside the yardsticks, the others after them);
+     each held by phase 15's rule (loss 1e-2, grad norm 2e-2 and aux 1e-2
+     relative per step; ``check_params``); the ranks' metrics equal; per
+     rank the state's bytes, the peak, the collectives per step and their
+     seconds; the flash launches at the wrappers per step (2 forward
+     with remat, 1 dq, 1 dk/dv per attention layer) of the yardsticks (rows
+     ``flash_*_gemma``, ``flash_*_danube``) and of each rank (rows
+     ``flash_*_gemma_model2``, ``flash_*_danube_model2``,
+     ``flash_*_mixtral_model2``).  ``--mesh-train-faults`` adds a
+     planted fault (``FAULTS16``: mixtral's router gradient summed over
+     "model" with the aux term inside the sum) that the rule must refuse,
+     its worst share printed beside the sound run's.
 
 Phase 2 also holds the GDN prefill at qwen3-next-gdn's served shape on
 one staged prompt's unmasked chunks of T = C = 1, 2, 4, 8, 16 and 32 (the
@@ -255,8 +283,13 @@ against their plain versions at the trained shape (B=2, T=2048, Hq=16,
 Hkv=2, hd=128, bf16), at phase 12 (d)'s (mixtral-8x7b: Hq=32, Hkv=8,
 window 4096, otherwise the same), at phase 15's local shapes (rows
 ``flash_*_data2``: B 1, Hq 16, Hkv 2; ``flash_*_model2``: B 2, Hq 8,
-Hkv 1; T 2048, hd 128) and on windowed and ragged (``valid_len``) cases
-(each call one kernel launch, by the profiler; dq, dk and dv checked
+Hkv 1; T 2048, hd 128), at head dims 80 and 256 in fp32 (a small
+windowed shape) and at phase 16's shapes (``FLASH16``: one device's and
+the (1,2) ranks' of recurrentgemma-2b at hd 256 and h2o-danube-1.8b at hd
+80, past their windows, and the ranks' of mixtral-8x7b; SDPA with a mask
+of the window) and on windowed and ragged (``valid_len``) cases
+(each flash call one kernel launch, the kernel nodes of a captured
+call; each flash-decode call one, by the profiler; dq, dk and dv checked
 bitwise equal over 5 calls; SDPA's distance from the plain version
 printed beside the kernels'), and the flash-decode kernel at three
 bf16 shapes (qwen3-next-gdn's attention layer at the serving batch, an
@@ -311,6 +344,17 @@ MOE_FLASH = dict(B=2, T=2048, Hq=32, Hkv=8, hd=128, window=4096)
 # the flash kernels' local shapes in phase 15's meshes: (2,1) halves the
 # batch, (1,2) the query and KV heads
 FLASH_MESH = {"data2": dict(FLASH, B=1), "model2": dict(FLASH, Hq=8, Hkv=1)}
+# phase 16's trained attention shapes at head dims 256 and 80 (one
+# device; its yardsticks) and their (1,2) local shapes, with mixtral's:
+# recurrentgemma-2b (10 query heads padded to 16, one KV head: the model
+# axis splits it on head_dim, each rank keeping the whole head), past its
+# 2048 window; h2o-danube-1.8b past its 4096 window
+FLASH16 = {
+    "gemma": dict(B=1, T=4096, Hq=16, Hkv=1, hd=256, window=2048),
+    "danube": dict(B=1, T=4608, Hq=32, Hkv=8, hd=80, window=4096),
+    "gemma_model2": dict(B=1, T=4096, Hq=8, Hkv=1, hd=256, window=2048),
+    "danube_model2": dict(B=1, T=4608, Hq=16, Hkv=4, hd=80, window=4096),
+    "mixtral_model2": dict(B=2, T=2048, Hq=16, Hkv=4, hd=128, window=4096)}
 
 
 def card_line() -> str:
@@ -444,15 +488,17 @@ def bound(name, nbytes, fp32_flops, tc_flops=0):
     return dict(bound_ms=ms, bound_by=by)
 
 
-def flash_work(B, T, Hq, Hkv, hd):
+def flash_work(B, T, Hq, Hkv, hd, window=None):
     """What each flash kernel must do at a causal bf16 shape: the bytes
     it must move (each input read once, each output written once) and the
-    FLOP of its products by the rate of the operands they take.  The
-    forward (Q K^T, P V with P rounded to bf16), dq (Q K^T, dO V^T, dS K
-    with dS rounded to bf16) and dk/dv (Q K^T, dO V^T, P^T dO, dS^T Q with
-    P and dS rounded to bf16) feed the tensor cores bf16 x bf16 in every
-    product."""
-    pairs = B * Hq * T * (T + 1) // 2       # visible (q, k) pairs, causal
+    FLOP of its products by the rate of the operands they take, over the
+    visible (query, key) pairs only (with ``window``, W (W + 1) / 2 + (T -
+    W) W of them per head).  The forward (Q K^T, P V with P rounded to
+    bf16), dq (Q K^T, dO V^T, dS K with dS rounded to bf16) and dk/dv (Q
+    K^T, dO V^T, P^T dO, dS^T Q with P and dS rounded to bf16) feed the
+    tensor cores bf16 x bf16 in every product."""
+    W = T if window is None else min(window, T)
+    pairs = B * Hq * (W * (W + 1) // 2 + (T - W) * W)   # visible pairs
     prod = 2 * pairs * hd                   # FLOP of one causal product
     qo = B * Hq * T * hd * 2
     kv = 2 * B * Hkv * T * hd * 2
@@ -692,11 +738,12 @@ def _flash_check(ref, kflash, label, q, k, v, do, vl=None, window=None):
     return errs[:3], errs[3:4], errs[4:]
 
 
-def flash_phase(ref, kflash, time_launches, kernels_per_call):
+def flash_phase(ref, kflash, time_launches):
     """The flash-attention kernels at the trained shape, plus a windowed
     case at either dtype and a ragged bf16 case, against their plain
     versions; then each timed beside its bound, the plain version and
-    SDPA."""
+    SDPA; then phase 15's local shapes, head dims 80 and 256 in fp32 and
+    phase 16's shapes (``FLASH16``), each held and timed."""
     B, T, Hq, Hkv, hd = (FLASH[k] for k in ("B", "T", "Hq", "Hkv", "hd"))
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
@@ -722,30 +769,57 @@ def flash_phase(ref, kflash, time_launches, kernels_per_call):
     err_fwd, err_dq, err_dkv = (max(max(e[i]) for e in errs)
                                 for i in range(3))
 
-    rows = _flash_timed(ref, kflash, time_launches, kernels_per_call,
-                        FLASH, (q, k, v, do), "", (err_fwd, err_dq, err_dkv))
+    rows = _flash_timed(ref, kflash, time_launches, FLASH, (q, k, v, do),
+                        "", (err_fwd, err_dq, err_dkv))
     # phase 15's local shapes: held against the plain versions, timed
     for suffix, sh in FLASH_MESH.items():
         x = _flash_inputs(sh["B"], sh["T"], sh["Hq"], sh["Hkv"], sh["hd"],
                           bf, gen)
         e = _flash_check(ref, kflash, f"flash {suffix} {sh}", *x)
-        rows += _flash_timed(ref, kflash, time_launches, kernels_per_call,
-                             sh, x, f"_{suffix}", [max(v) for v in e])
+        rows += _flash_timed(ref, kflash, time_launches, sh, x,
+                             f"_{suffix}", [max(v) for v in e])
+    # head dims 80 and 256: the fp32 CUDA-core kernels at a small windowed
+    # shape, then phase 16's bf16 shapes, each held and timed
+    for hd, Hq, Hkv in ((80, 8, 2), (256, 16, 1)):
+        _flash_check(ref, kflash, f"flash hd={hd} window=100 fp32",
+                     *_flash_inputs(1, 384, Hq, Hkv, hd, torch.float32,
+                                    gen), window=100)
+    for suffix, sh in FLASH16.items():
+        x = _flash_inputs(sh["B"], sh["T"], sh["Hq"], sh["Hkv"], sh["hd"],
+                          bf, gen)
+        e = _flash_check(ref, kflash, f"flash {suffix} {sh}", *x,
+                         window=sh["window"])
+        rows += _flash_timed(ref, kflash, time_launches, sh, x,
+                             f"_{suffix}", [max(v) for v in e])
     return rows
 
 
-def _flash_timed(ref, kflash, time_launches, kernels_per_call, shape,
+def graph_kernels(fn):
+    """{kernel name: launches} of one call of ``fn``, from the kernel nodes
+    of a CUDA graph capturing it (exact, where the profiler can lose a
+    record: it lost one ``flash_fwd`` record of 10 in each of 6 windows
+    at head dims 80 and 256)."""
+    from repro_torch.runtime.graphs import kernel_names
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    return kernel_names(graph)
+
+
+def _flash_timed(ref, kflash, time_launches, shape,
                  inputs, suffix, errs):
     """The three flash kernels at ``shape`` on ``inputs`` (q, k, v, do):
-    dq and dk/dv bitwise from run to run, each one kernel per call, timed
+    dq and dk/dv bitwise from run to run, each one kernel per call (the
+    kernel nodes of a captured call), timed
     beside its bound, the plain version and SDPA; the rows are named with
     ``suffix``."""
     B, T, Hq, Hkv, hd = (shape[k] for k in ("B", "T", "Hq", "Hkv", "hd"))
+    window = shape.get("window")
     q, k, v, do = inputs
     err_fwd, err_dq, err_dkv = errs
-    o, m, l = kflash.flash_fwd(q, k, v)
+    o, m, l = kflash.flash_fwd(q, k, v, window=window)
     delta = torch.sum(do.float() * o.float(), dim=-1)
-    bwd = (q, k, v, do, m, l, delta, None, hd ** -0.5, 0)
+    bwd = (q, k, v, do, m, l, delta, None, hd ** -0.5, window or 0)
     # dq and dk/dv bitwise from run to run? (each dq CTA owns its rows; the
     # dk/dv clusters sum the G heads' partials in rank order)
     dk0, dv0 = kflash._dkv_cuda(*bwd)
@@ -764,48 +838,60 @@ def _flash_timed(ref, kflash, time_launches, kernels_per_call, shape,
             raise AssertionError(f"{name} not bitwise reproducible")
     timed = {}
     for name, fn, kern in (
-            ("flash_fwd", lambda: kflash.flash_fwd(q, k, v), "flash_fwd_"),
+            ("flash_fwd", lambda: kflash.flash_fwd(q, k, v, window=window),
+             "flash_fwd_"),
             ("flash_bwd_dq", lambda: kflash._dq_cuda(*bwd),
              "flash_dq_"),
             ("flash_bwd_dkv", lambda: kflash._dkv_cuda(*bwd), "flash_dkv_")):
         ev, own = time_launches(fn, kern)
-        per_call, names = kernels_per_call(fn)
-        if per_call != 1:
-            raise AssertionError(f"{name}: {per_call} kernels per call "
-                                 f"({names})")
+        names = graph_kernels(fn)
+        if list(names.values()) != [1]:
+            raise AssertionError(f"{name}: kernels per call {names}")
         timed[name] = own
         print(f"  {name}{suffix}: one kernel per call; CUDA events around "
               f"the call "
               f"{ev:.4f} ms, the kernel's own duration {own:.4f} ms")
-    plain_fwd, _ = time_launches(lambda: ref.flash_fwd_ref(q, k, v), reps=5,
-                                 warmup=1)
+    plain_fwd, _ = time_launches(
+        lambda: ref.flash_fwd_ref(q, k, v, window=window), reps=5, warmup=1)
     plain_bwd, _ = time_launches(
-        lambda: ref.flash_bwd_ref(q, k, v, o, m, l, do), reps=5, warmup=1)
-    # the library yardstick: one SDPA call on the same inputs
+        lambda: ref.flash_bwd_ref(q, k, v, o, m, l, do, window=window),
+        reps=5, warmup=1)
+    # the library yardstick: one SDPA call on the same inputs (with a
+    # window that binds, causal through a boolean mask of the visible
+    # pairs; a window of T or more is plain causal, so ``is_causal``,
+    # which keeps SDPA on its flash backend)
     F = torch.nn.functional
     qs = q.reshape(B, Hq, T, hd).detach().requires_grad_(True)
     ks = k.reshape(B, Hkv, T, hd).detach().requires_grad_(True)
     vs = v.reshape(B, Hkv, T, hd).detach().requires_grad_(True)
     dos = do.reshape(B, Hq, T, hd)
+    mask = None
+    if window is not None and window < T:
+        pos = torch.arange(T, device="cuda")
+        gap = pos[:, None] - pos[None, :]
+        mask = (gap >= 0) & (gap < window)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
 
     with torch.no_grad():
         lib_fwd, _ = time_launches(sdpa)
     out = sdpa()
     lib_bwd, _ = time_launches(lambda: torch.autograd.grad(
         out, (qs, ks, vs), dos, retain_graph=True))
-    print(f"  SDPA{suffix} (is_causal, enable_gqa): forward {lib_fwd:.4f} "
+    print(f"  SDPA{suffix} ({'is_causal' if mask is None else 'window mask'}"
+          f", enable_gqa): forward {lib_fwd:.4f} "
           f"ms, "
           f"backward (dq, dk, dv together) {lib_bwd:.4f} ms; plain: "
           f"forward {plain_fwd:.4f} ms, backward (all three) "
           f"{plain_bwd:.4f} ms")
     # the cost of bf16 rounding: the kernels' and SDPA's distance from the
     # plain fp32 version (its backward from its own forward)
-    po, pm, pl = ref.flash_fwd_ref(q, k, v)
-    plain = (po,) + ref.flash_bwd_ref(q, k, v, po, pm, pl, do)
+    po, pm, pl = ref.flash_fwd_ref(q, k, v, window=window)
+    plain = (po,) + ref.flash_bwd_ref(q, k, v, po, pm, pl, do,
+                                      window=window)
     dq = kflash._dq_cuda(*bwd)
     kern = (o, dq, dk0, dv0)
     lib = [x.reshape(y.shape) for x, y in zip(
@@ -815,7 +901,7 @@ def _flash_timed(ref, kflash, time_launches, kernels_per_call, shape,
         f"{n} {max_err(a, p):.3e} / {max_err(b, p):.3e}"
         for n, a, b, p in zip(("o", "dq", "dk", "dv"), kern, lib, plain)))
 
-    work = flash_work(B, T, Hq, Hkv, hd)
+    work = flash_work(B, T, Hq, Hkv, hd, window)
     rows = []
     for name, err, plain_ms, lib_ms, src, line in (
             ("flash_fwd", err_fwd, plain_fwd, lib_fwd, "flash_fwd.cu", 105),
@@ -839,11 +925,11 @@ def _flash_timed(ref, kflash, time_launches, kernels_per_call, shape,
     return rows
 
 
-def attn_decode_phase(ref, kattn, time_launches, kernels_per_call,
-                      shapes):
+def attn_decode_phase(ref, kattn, time_launches, shapes):
     """The flash-decode kernel against its plain version at the three
     shapes, bf16 (o: one rounding step, rtol = atol = 2e-2), bitwise equal
-    over 5 calls of one kernel launch each (profiler), each timed
+    over 5 calls of one kernel launch each (the kernel nodes of a
+    captured call), each timed
     beside its bound (bytes of q, o and the occupied K/V rows; fp32 FLOP of
     the visible slots), the plain version and one SDPA call with the same
     boolean mask (``enable_gqa``)."""
@@ -873,12 +959,12 @@ def attn_decode_phase(ref, kattn, time_launches, kernels_per_call,
             return kattn.attn_decode(q, k, v, length, window=window)
 
         n_diff = max(int((call() != o).sum()) for _ in range(4))
-        per_call, names = kernels_per_call(call)
+        names = graph_kernels(call)
         print(f"  attn_decode {label}: 5 calls "
               + ("bitwise equal" if n_diff == 0 else
                  f"differ in up to {n_diff} of {o.numel()} elements")
-              + f"; {per_call:g} kernel launch per call ({names})")
-        if n_diff or per_call != 1:
+              + f"; kernels per call {names}")
+        if n_diff or list(names.values()) != [1]:
             raise AssertionError(f"attn_decode {label}: not one launch per "
                                  f"call, or not bitwise reproducible")
         ev_ms, ms = time_launches(call, "attn_decode_")
@@ -2236,6 +2322,7 @@ def one_step_collectives(eng, cfg):
     torch.cuda.synchronize()
     return dict(collectives=comm.stats["calls"],
                 collective_s=comm.stats["seconds"],
+                collective_bytes=comm.stats["bytes"],
                 step_s=time.perf_counter() - t0,
                 gdn_decode=gdn_counts()["gdn_decode"])
 
@@ -2335,7 +2422,8 @@ def _mesh_serve(label, cfg, params, mesh, engine_mod, step3):
                wall=time.perf_counter() - t0, us_token=m["decode_us_per_token"],
                ttft_ms=m["mean_ttft_s"] * 1e3, decode_steps=eng.decode_steps,
                ticks=m["ticks"], run_collectives=comm.stats["calls"],
-               run_collective_s=comm.stats["seconds"], launches=gdn_counts(),
+               run_collective_s=comm.stats["seconds"],
+               run_collective_bytes=comm.stats["bytes"], launches=gdn_counts(),
                swap_bytes_per_slot=eng.executor.swap_bytes_per_slot,
                step=one_step_collectives(eng, cfg))
     if "n" in out:
@@ -2452,9 +2540,11 @@ def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
                   f"[{card}]: decode {x['us_token']:.1f} us/token, mean "
                   f"TTFT {x['ttft_ms']:.1f} ms, {x['decode_steps']} decode "
                   f"steps in {x['ticks']} ticks; the run's "
-                  f"{x['run_collectives']} collectives took "
+                  f"{x['run_collectives']} collectives "
+                  f"({x['run_collective_bytes']} B) took "
                   f"{x['run_collective_s']:.3f} s; one decode step: "
-                  f"{st['collectives']} collectives, "
+                  f"{st['collectives']} collectives "
+                  f"({st['collective_bytes']} B), "
                   f"{st['collective_s'] * 1e3:.1f} ms of "
                   f"{st['step_s'] * 1e3:.1f} ms in them, "
                   f"{st['gdn_decode']} gdn_decode launches; the run's "
@@ -2529,7 +2619,7 @@ def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
 # the model axis of the other kinds at full width on (1,2): mamba2-1.3b
 # (ssm heads through both GDN kernels), recurrentgemma-2b (RG-LRU width,
 # MQA attention split on head_dim, prompts past its 2048 window) and
-# mixtral-8x7b (grouped heads, expert parallelism; 16 of 32 layers, as
+# mixtral-8x7b (grouped heads, expert parallelism; 8 of 32 layers, as
 # phase 12 (b)).  Per arch: the depth served, the engine settings, the
 # two requests' prompts and budgets (phase 4's first two, phase 8's first
 # and last), and the fixed decode state's (B, T, prefill chunk, max_len).
@@ -2538,7 +2628,7 @@ MESH14 = {
     "recurrentgemma-2b": dict(
         layers=None, step=(4, 2112, 1056, 4096),
         kw=dict(PHASE4_KW, max_len=4096, prefill_chunk=256)),
-    "mixtral-8x7b": dict(layers=16, kw=PHASE4_KW, step=(4, 64, 64, 128)),
+    "mixtral-8x7b": dict(layers=8, kw=PHASE4_KW, step=(4, 64, 64, 128)),
 }
 MESH14_LOCAL = dict(MAMBA2, Hv=MAMBA2["Hv"] // 2)   # mamba2's heads at (1,2)
 
@@ -2651,6 +2741,7 @@ def _mesh14_serve(arch, mesh, folder, configs, lm, engine_mod):
                ttft_ms=m["mean_ttft_s"] * 1e3, decode_steps=eng.decode_steps,
                ticks=m["ticks"], run_collectives=comm.stats["calls"],
                run_collective_s=comm.stats["seconds"],
+               run_collective_bytes=comm.stats["bytes"],
                launches=gdn_counts(),
                allocated=torch.cuda.memory_allocated(),
                peak=torch.cuda.max_memory_allocated(),
@@ -2791,8 +2882,10 @@ def mesh14_phase(card, steps, plain):
                   f"{x['us_token']:.1f} us/token, mean TTFT "
                   f"{x['ttft_ms']:.1f} ms, {x['decode_steps']} decode steps "
                   f"in {x['ticks']} ticks, the run's {x['run_collectives']} "
-                  f"collectives took {x['run_collective_s']:.3f} s; one "
-                  f"decode step: {st['collectives']} collectives, "
+                  f"collectives ({x['run_collective_bytes']} B) took "
+                  f"{x['run_collective_s']:.3f} s; one decode step: "
+                  f"{st['collectives']} collectives "
+                  f"({st['collective_bytes']} B), "
                   f"{st['collective_s'] * 1e3:.1f} ms of "
                   f"{st['step_s'] * 1e3:.1f} ms in them, "
                   f"{st['gdn_decode']} gdn_decode launches; allocated "
@@ -3264,7 +3357,7 @@ def gemma_phase(card, lm, engine_mod, configs, folder):
 
 # full width with the depth cut to fit the card: the whole of either
 # model is over its 80 GB in bf16 (46.7 B and 476.9 B parameters)
-MOE_SERVE_LAYERS = {"mixtral-8x7b": 16, "arctic-480b": 2}
+MOE_SERVE_LAYERS = {"mixtral-8x7b": 8, "arctic-480b": 2}
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 4
 
@@ -3982,6 +4075,354 @@ def mesh15_phase(card, kflash, kernel_mods, faults=False):
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+
+# the model axis in training for the other kinds: each arch at full width
+# with its depth cut, its seq_len and global batch (recurrentgemma-2b and
+# h2o-danube-1.8b past their windows), 2 steps of phase 15's schedule
+# (warmup 1: step 1 at lr 0); "flash": its FLASH16 row at one device;
+# "arch": the arch where the key is not one; "dtype": the activation dtype
+# where not the arch's (mamba2 at 12 layers in bf16: its one-device run
+# with a forward one bit off leaves itself past the rule, so no layout
+# can be held to it there); "witness": that one-bit-off run made beside
+# the yardstick, whose distance must read under the rule for the
+# arch's check to mean anything (mamba2 in bf16 at 2 layers)
+MESH16 = {
+    "mamba2-1.3b": dict(layers=12, seq=2048, batch=1, flash=None,
+                        dtype="float32"),
+    "mamba2-1.3b-bf16": dict(arch="mamba2-1.3b", layers=2, seq=2048,
+                             batch=1, flash=None, witness=True),
+    "recurrentgemma-2b": dict(layers=3, seq=4096, batch=1, flash="gemma"),
+    "h2o-danube-1.8b": dict(layers=2, seq=4608, batch=1, flash="danube"),
+    "mixtral-8x7b": dict(layers=1, seq=2048, batch=2, flash=None),
+}
+MESH16_STEPS = 2
+# the local rows of FLASH16 each arch's ranks launch at
+MESH16_LOCAL = {"recurrentgemma-2b": "gemma_model2",
+                "h2o-danube-1.8b": "danube_model2",
+                "mixtral-8x7b": "mixtral_model2"}
+# the planted fault of phase 16 (``--mesh-train-faults``): mixtral's run
+# with the router's gradient summed over "model" with the aux term inside
+# the sum (the router reading the FFN input after ``copy_to``, the combine
+# gates' gradient left partial, the router leaf's whole gradient
+# all-reduced): the aux term counts twice at model 2
+FAULTS16 = {"router_sum": "mixtral-8x7b"}
+
+
+def _mesh16_cfg(key):
+    from repro_torch import configs
+    m = MESH16[key]
+    cfg = configs.get_arch(m.get("arch", key)).replace(
+        n_layers=m["layers"], use_flash_kernel=True)
+    return cfg.replace(act_dtype=m["dtype"]) if "dtype" in m else cfg
+
+
+def _train16_tc(key):
+    from repro_torch.runtime.trainer import TrainerConfig
+    m = MESH16[key]
+    return TrainerConfig(steps=MESH16_STEPS, seq_len=m["seq"],
+                         global_batch=m["batch"], warmup_steps=1,
+                         log_every=1)
+
+
+def _plant16(fault):
+    """Break the MoE's expert-parallel backward in this process by
+    ``fault`` (``FAULTS16``); returns the undo."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import comm
+    real = moe.moe_fwd
+
+    def summed(p, x, route=None, **kw):
+        p = dict(p, router=comm.copy_to(comm.model_axis(), p["router"]))
+        copy_to = comm.copy_to
+        comm.copy_to = lambda axis, t: t      # the gates' sum left out
+        try:
+            return real(p, x, **kw)           # the router reads x
+        finally:
+            comm.copy_to = copy_to
+    moe.moe_fwd = summed
+    return lambda: setattr(moe, "moe_fwd", real)
+
+
+def _train16_rank(rank, port, folder, q, faults, go):
+    """A gloo rank of phase 16 on card 0: each arch of ``MESH16`` trained
+    on (1,2), its shards drawn alone from seed 0, 2 eager steps, its
+    parameter shards saved (``_save_shards16``); with ``faults`` then
+    ``FAULTS16``'s runs.  The first arch (mamba2, ~7 GB per rank) runs
+    beside the parent's one-device yardsticks; the second waits for the
+    parent's ``go`` (the yardsticks peak at 40 GB)."""
+    import traceback
+    import torch.distributed as dist
+    out = {}
+    try:
+        torch.cuda.set_device(0)
+        from repro_torch.kernels import flash_attn as kflash
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.runtime.trainer import Trainer
+        from repro_torch.tree import leaves
+        mesh_mod.init_ranks(rank, 2, port, "gloo")
+        mesh = mesh_mod.make_local_mesh(1, 2)
+        runs = [(arch, arch) for arch in MESH16]
+        if faults:
+            runs += list(FAULTS16.items())
+        for i, (label, arch) in enumerate(runs):
+            t0 = time.perf_counter()
+            tr = Trainer(_mesh16_cfg(arch), _train16_tc(arch), mesh=mesh,
+                         device="cuda").compile()
+            undo = _plant16(label) if label in FAULTS16 else None
+            torch.cuda.synchronize()
+            ready = time.perf_counter() - t0
+            if i == 1:
+                go.wait()
+            for key in kflash.launches:
+                kflash.launches[key] = 0
+            torch.cuda.reset_peak_memory_stats()
+            steps = _train15_steps(tr, 0, MESH16_STEPS)
+            o = dict(steps=steps, start=0, ready_s=ready, fsdp=tr.fsdp,
+                     launches=dict(kflash.launches),
+                     allocated=torch.cuda.memory_allocated(),
+                     peak=torch.cuda.max_memory_allocated(),
+                     state_bytes=sum(t.nbytes for t in leaves(tr.state)))
+            if undo is not None:
+                undo()
+            t0 = time.perf_counter()
+            _save_shards16(tr, f"{folder}/{label}_{rank}.pt")
+            o["save_s"] = time.perf_counter() - t0
+            out[label] = o
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    q.put((rank, out))
+
+
+def _save_shards16(tr, path):
+    """This rank's parameter shards on the host, each with the dim the
+    model axis splits (None: replicated), for ``_whole16``."""
+    from repro_torch.parallel import sharding as rules
+    from repro_torch.tree import leaves
+    out = []
+    for t, spec in zip(leaves(tr.state["params"]),
+                       leaves(tr.specs["params"])):
+        names = rules.dim_axes(spec, t.dim())
+        dim = next((d for d, ns in enumerate(names) if "model" in ns), None)
+        out.append((t.detach().cpu(), dim))
+    torch.save(out, path)
+
+
+def _whole16(folder, label):
+    """The whole parameters of a (1,2) run from its two ranks' saved
+    shards: the split leaves concatenated in rank order, the others
+    rank 0's."""
+    parts = [torch.load(f"{folder}/{label}_{r}.pt") for r in range(2)]
+    return [a if dim is None else torch.cat([a, b], dim)
+            for (a, dim), (b, _) in zip(*parts)]
+
+
+def _flip16(tr):
+    """The witness's forward one bit off: the lowest mantissa bit of 1 in
+    1024 entries of the trainer's embedding table flipped."""
+    table = tr.state["params"]["embed"]["table"].detach()
+    flip = torch.rand(table.shape, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda") < 1 / 1024
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[
+        table.dtype]
+    table.copy_((table.view(bits) ^ flip.to(bits)).view(table.dtype))
+
+
+def _run16(key, flip=False):
+    """A one-device eager trainer of ``key`` (``flip``: ``_flip16`` before
+    step 1) after its 2 steps, and the per-step metrics."""
+    from repro_torch.runtime.trainer import Trainer
+    one = Trainer(_mesh16_cfg(key), _train16_tc(key), device="cuda",
+                  cuda_graphs=False).compile()
+    if flip:
+        _flip16(one)
+    ref = []
+    for step in range(MESH16_STEPS):
+        one.batch(step)
+        t1 = time.perf_counter()
+        m = one.step()
+        ref.append(dict({k: float(v) for k, v in m.items()},
+                        seconds=time.perf_counter() - t1))
+    return one, ref
+
+
+def _yardsticks16(card, kflash):
+    """Each arch's one-device eager trainer of the same depth, seed and
+    batch, 2 steps: {key: (per-step metrics, (params, first moments) on
+    the host after the last step, state bytes, flash launches, peak, the
+    witness's parameters on the host or None)}."""
+    from repro_torch.tree import leaves
+    out = {}
+    for arch in MESH16:
+        t0 = time.perf_counter()
+        for key in kflash.launches:
+            kflash.launches[key] = 0
+        torch.cuda.reset_peak_memory_stats()
+        one, ref = _run16(arch)
+        nbytes = sum(t.nbytes for t in leaves(one.state))
+        peak = torch.cuda.max_memory_allocated()
+        snap = _snapshot(one)
+        launched = dict(kflash.launches)
+        witness = None
+        if MESH16[arch].get("witness"):
+            del one
+            one, _ = _run16(arch, flip=True)
+            witness = _snapshot(one)[0]
+        out[arch] = (ref, snap, nbytes, launched, peak, witness)
+        print(f"  [16] {arch} at {MESH16[arch]['layers']} layers, one "
+              f"device, eager [{card}]: {nbytes / 1e9:.3f} GB of state, "
+              f"peak {peak / 1e9:.2f} GB; steps "
+              f"{[round(r['seconds'], 4) for r in ref]} s; losses "
+              f"{[r['loss'] for r in ref]}; grad norms "
+              f"{[r['grad_norm'] for r in ref]}; aux "
+              f"{[r['aux'] for r in ref]}; flash launches "
+              f"{out[arch][3]} ({time.perf_counter() - t0:.1f} s)")
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _attn_layers(arch):
+    from repro_torch.models.mixers import get_mixer
+    return sum(get_mixer(k).is_attention
+               for k in _mesh16_cfg(arch).layer_kinds)
+
+
+def mesh16_phase(card, kflash, faults=False):
+    """Phase 16: every kind but gdn and attn, and the MoE's experts,
+    trained on a (1,2) mesh over two gloo ranks sharing card 0 (``MESH16``,
+    ``use_flash_kernel`` on), each held against the one-device eager run
+    of the same depth and seed by phase 15's rule: each step's loss
+    within 1e-2 and grad norm within 2e-2 relative (aux too), every
+    parameter within the steps' bound, at most ``SHARP_LIMIT`` of each
+    leaf's sharp elements past the tight bound.  ``faults``: the ranks
+    then run ``FAULTS16``, which the rule must refuse.  Returns the flash
+    launches of the yardsticks and of a rank, keyed by phase 2's
+    ``FLASH16`` rows."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime.trainer import make_schedule
+    folder = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    launches = {}
+    try:
+        ctx = mp.get_context("spawn")
+        q, go = ctx.Queue(), ctx.Event()
+        port = mesh_mod.free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_train16_rank,
+                             args=(r, port, folder.name, q, faults, go))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            ones = _yardsticks16(card, kflash)
+            go.set()
+            res = _rank_results(procs, q, 900)
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+        for r, out in res.items():
+            if "error" in out:
+                raise AssertionError(f"[16] rank {r}:\n{out['error']}")
+        print(f"  [16] two gloo ranks on card 0 (spawn, draws, "
+              f"{len(res[0])} runs) took {time.perf_counter() - t0:.1f} s, "
+              f"the one-device yardsticks beside the first")
+        shares = {}
+        runs = [(arch, arch) for arch in MESH16]
+        runs += list(FAULTS16.items()) if faults else []
+        for label, arch in runs:
+            ref, (want, mu), one_bytes, one_l, _, witness = ones[arch]
+            outs = [res[r][label] for r in range(2)]
+            for r, o in enumerate(outs):
+                _print_rank15(label, "(1,2)", r, o, one_bytes, card, "16")
+            tc = _train16_tc(arch)
+            lrs = [float(make_schedule(tc)(s)) for s in range(MESH16_STEPS)]
+            dist = param_distance(_whole16(folder.name, label), want, mu,
+                                  lrs, tc.adamw.weight_decay)
+            if label in FAULTS16:
+                share = sorted((x[1] for x in dist), reverse=True)
+                shares[label] = share[0]
+                print(f"  [16] fault {label} on (1,2) ({arch}): "
+                      f"{sum(x[0] for x in dist)} elements past the steps' "
+                      f"bound; worst shares past the tight bound "
+                      f"{[f'{x:.3e}' for x in share[:5]]}; leaves past "
+                      f"{SHARP_LIMIT}: "
+                      f"{sum(x[1] > SHARP_LIMIT for x in dist)} of "
+                      f"{len(dist)}; max|diff| "
+                      f"{max(x[2] for x in dist):.3e}; the sound run's "
+                      f"worst share {shares[arch]:.3e}")
+                if not any(x[0] for x in dist) and share[0] <= SHARP_LIMIT:
+                    raise AssertionError(f"[16] fault {label}: within the "
+                                         f"rule")
+                continue
+            first = outs[0]["steps"]
+            if any([dict(s, seconds=0, collective_s=0) for s in o["steps"]]
+                   != [dict(s, seconds=0, collective_s=0) for s in first]
+                   for o in outs[1:]):
+                raise AssertionError(f"[16] {arch}: the ranks' metrics "
+                                     f"differ")
+            for i, (s, r1) in enumerate(zip(first, ref)):
+                dl = abs(s["loss"] - r1["loss"]) / abs(r1["loss"])
+                dn = abs(s["grad_norm"] - r1["grad_norm"]) / r1["grad_norm"]
+                da = abs(s["aux"] - r1["aux"]) / max(abs(r1["aux"]), 1e-30)
+                print(f"  [16] {arch} step {i + 1}: loss {s['loss']:.6f} "
+                      f"against {r1['loss']:.6f} ({dl:.3e}, limit 1e-2), "
+                      f"grad norm {s['grad_norm']:.6f} against "
+                      f"{r1['grad_norm']:.6f} ({dn:.3e}, limit 2e-2), aux "
+                      f"{s['aux']} against {r1['aux']}")
+                if dl > 1e-2 or dn > 2e-2 or (r1["aux"] and da > 1e-2) or \
+                        (not r1["aux"] and s["aux"]):
+                    raise AssertionError(f"[16] {arch}: step {i + 1} leaves "
+                                         f"the one-device step")
+            if witness is not None:
+                wd = param_distance(witness, want, mu, lrs,
+                                    tc.adamw.weight_decay)
+                w = max(range(len(wd)), key=lambda i: wd[i][1])
+                print(f"  [16] {arch}: the one-device run with a forward "
+                      f"one bit off (the witness) against the one "
+                      f"device's: worst share {wd[w][1]:.3e} (leaf {w}), "
+                      f"{sum(x[0] for x in wd)} elements past the steps' "
+                      f"bound, max|diff| {max(x[2] for x in wd):.3e}")
+                if wd[w][1] > SHARP_LIMIT or any(x[0] for x in wd):
+                    raise AssertionError(f"[16] {arch}: the witness leaves "
+                                         f"the rule, so the rule cannot "
+                                         f"hold the mesh at this depth")
+            share, leaf, dmax = check_params(f"[16] {arch}", dist)
+            shares[arch] = share
+            print(f"  [16] {arch} parameters after step {MESH16_STEPS} "
+                  f"against the one device's: max|diff| {dmax:.3e}; worst "
+                  f"share past one ulp + 0.05 sum(lr) {share:.3e} (leaf "
+                  f"{leaf}; limit {SHARP_LIMIT}): within the rule")
+            n_attn = _attn_layers(arch)
+            # remat runs each forward twice
+            fwd = 2 if _mesh16_cfg(arch).remat else 1
+            want_l = {"flash_fwd": fwd * n_attn * MESH16_STEPS,
+                      "flash_bwd_dq": n_attn * MESH16_STEPS,
+                      "flash_bwd_dkv": n_attn * MESH16_STEPS}
+            for who, got_l in [("one device", one_l)] + [
+                    (f"rank {r}", o["launches"]) for r, o in
+                    enumerate(outs)]:
+                if got_l != want_l:
+                    raise AssertionError(f"[16] {arch} {who}: flash "
+                                         f"launches {got_l}, not {want_l}")
+            for k, n in want_l.items():
+                if MESH16[arch]["flash"]:
+                    launches[f"{k}_{MESH16[arch]['flash']}"] = n
+                if arch in MESH16_LOCAL:
+                    launches[f"{k}_{MESH16_LOCAL[arch]}"] = n
+    finally:
+        folder.cleanup()
+    return launches
+
+
 def _early15(folder, like, snaps, lrs, wd, one, ref):
     """What needs only the files the ranks wrote by the end of (c): the
     distances of (b)'s and (c)'s parameters after step 2 from the
@@ -4008,8 +4449,8 @@ def _early15(folder, like, snaps, lrs, wd, one, ref):
     return dists, (start, m, ref[start], dist)
 
 
-def _print_rank15(label, shape, r, o, one_bytes, card):
-    print(f"  [15] ({label}) {shape} gloo, eager, rank {r} [{card}]: fsdp "
+def _print_rank15(label, shape, r, o, one_bytes, card, tag="15"):
+    print(f"  [{tag}] ({label}) {shape} gloo, eager, rank {r} [{card}]: fsdp "
           f"{o['fsdp']}; steps from {o['start'] + 1}: "
           + "; ".join(f"{s['seconds']:.3f} s, {s['collectives']} "
                       f"collectives, {s['collective_s']:.3f} s and "
@@ -4061,7 +4502,6 @@ def main():
         from repro_torch.kernels import gdn_prefill as kprefill
         from repro_torch.launch.profile_decode import (ATTN_DECODE_SHAPES,
                                                        kernel_counts,
-                                                       kernels_per_call,
                                                        time_launches)
         from repro_torch.models import attention, lm
         from repro_torch.runtime import trainer  # noqa: F401
@@ -4086,6 +4526,10 @@ def main():
         print(f"[15] (b)-(d) and the planted faults [{card}]")
         mesh15_phase(card, kflash, (kflash, kdecode, kprefill, kattn), True)
         print(f"  [15] done in {time.perf_counter() - t_start:.1f} s")
+        print(f"[16] the model axis in training for the other kinds, and "
+              f"the planted fault [{card}]")
+        mesh16_phase(card, kflash, True)
+        print(f"  [16] done in {time.perf_counter() - t_start:.1f} s")
         return 0
     print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
     mamba2 = tuple(MAMBA2[k] for k in ("B", "Hk", "Hv", "d_k", "d_v"))
@@ -4114,9 +4558,9 @@ def main():
                            B=len(cases[0][2]))
              for name, cases in PREFILL_MESH_CASES.items()]
     prefill_pow2_checks(ops, ref)
-    rows += flash_phase(ref, kflash, time_launches, kernels_per_call)
+    rows += flash_phase(ref, kflash, time_launches)
     rows.append(attn_decode_phase(ref, kattn, time_launches,
-                                  kernels_per_call, ATTN_DECODE_SHAPES))
+                                  ATTN_DECODE_SHAPES))
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f", library {r['library_ms'] * 1e3:.2f} us"
@@ -4241,6 +4685,13 @@ def main():
     launches.update(mesh15_phase(card, kflash,
                                  (kflash, kdecode, kprefill, kattn)))
     print(f"  [15] phase 15 took {time.perf_counter() - t0:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[16] the model axis in training for the other kinds: "
+          f"{', '.join(MESH16)} at full width, depth cut [{card}]")
+    t0 = time.perf_counter()
+    launches.update(mesh16_phase(card, kflash))
+    print(f"  [16] phase 16 took {time.perf_counter() - t0:.1f} s [{card}]")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in paging:

@@ -104,10 +104,21 @@ def prefill_sequential(q, k, v, log_g, beta, S0, *, scale=None,
 #       A[t,s] = beta_t exp(L_{t-1} - L_s) (k_t . k_s),  s < t
 #   O  = scale (gamma * (Q @ S0) + M @ U),  M[t,s] = exp(L_t - L_s) (q_t . k_s)
 #   S_C = exp(L_C) S0 + (exp(L_C - L) * K)^T @ U
-# Every decay ratio exp(L_a - L_b) has a >= b, so it is <= 1.
+# Every decay ratio exp(L_a - L_b) kept has a >= b, so it is <= 1.
 
 def _tril_mask(C, device, diagonal):
     return torch.ones(C, C, dtype=torch.bool, device=device).tril(diagonal)
+
+
+def _decay(L_a, L_b, keep):
+    """exp(L_a[t] - L_b[s]) where ``keep`` (s before t), 0 elsewhere.  The
+    difference is masked before the exp: an entry above the diagonal
+    would be exp of a rise past fp32's range wherever a chunk's decay
+    passes -88 (mamba2 at full width), and its 0 gradient times that inf
+    is a NaN in the backward (the reference exponentiates every entry).
+    The kept entries are the same bits."""
+    d = L_a.unsqueeze(-1) - L_b.unsqueeze(-2)
+    return torch.exp(d.masked_fill(~keep, float("-inf")))
 
 
 def _chunk_delta(q, k, v, log_g, beta, S0, scale):
@@ -117,16 +128,17 @@ def _chunk_delta(q, k, v, log_g, beta, S0, scale):
     gamma = torch.exp(L)
     gamma_prev = torch.exp(L_prev)
     kT = k.transpose(-1, -2)
-    decayA = torch.exp(L_prev.unsqueeze(-1) - L.unsqueeze(-2))
+    below = _tril_mask(C, q.device, -1)
+    decayA = _decay(L_prev, L, below)
     A = beta.unsqueeze(-1) * decayA * torch.matmul(k, kT)
-    A = torch.where(_tril_mask(C, q.device, -1), A, torch.zeros_like(A))
+    A = torch.where(below, A, torch.zeros_like(A))
     rhs = beta.unsqueeze(-1) * (v - gamma_prev.unsqueeze(-1)
                                 * torch.matmul(k, S0))
     eye = torch.eye(C, dtype=q.dtype, device=q.device)
     U = torch.linalg.solve_triangular(eye + A, rhs, upper=False)
-    decayM = torch.exp(L.unsqueeze(-1) - L.unsqueeze(-2))
-    M = decayM * torch.matmul(q, kT)
-    M = torch.where(_tril_mask(C, q.device, 0), M, torch.zeros_like(M))
+    causal = _tril_mask(C, q.device, 0)
+    M = _decay(L, L, causal) * torch.matmul(q, kT)
+    M = torch.where(causal, M, torch.zeros_like(M))
     O = scale * (gamma.unsqueeze(-1) * torch.matmul(q, S0)
                  + torch.matmul(M, U))
     w = torch.exp(L[..., -1:] - L)
@@ -139,9 +151,9 @@ def _chunk_ssd(q, k, v, log_g, S0, scale):
     C = q.shape[-2]
     L = torch.cumsum(log_g, dim=-1)
     gamma = torch.exp(L)
-    decayM = torch.exp(L.unsqueeze(-1) - L.unsqueeze(-2))
-    M = decayM * torch.matmul(q, k.transpose(-1, -2))
-    M = torch.where(_tril_mask(C, q.device, 0), M, torch.zeros_like(M))
+    causal = _tril_mask(C, q.device, 0)
+    M = _decay(L, L, causal) * torch.matmul(q, k.transpose(-1, -2))
+    M = torch.where(causal, M, torch.zeros_like(M))
     O = scale * (gamma.unsqueeze(-1) * torch.matmul(q, S0)
                  + torch.matmul(M, v))
     w = torch.exp(L[..., -1:] - L)

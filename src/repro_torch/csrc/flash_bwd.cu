@@ -29,12 +29,16 @@
 // straight into the A operand of dq += dS K (K's B fragments from
 // ldmatrix.trans).  At most two m-tiles x 32 keys of S and dP (64 fp32
 // registers) are live beside the 128 dq accumulators; each K and V
-// fragment read feeds both m-tiles.  scale is applied at the store.  Each
+// fragment read feeds both m-tiles (at HD 256 one m-tile per warp, 64
+// rows per CTA, so that the accumulators stay at 128 per thread).  scale
+// is applied at the store.  Each
 // CTA owns its dq rows outright (no atomics), so dq is bitwise
 // reproducible from run to run.
 // dq, fp32 (kept on the card for its exactness): one CTA per (q tile of
 // 64 rows, bh, g), the longest rows first, every product on the CUDA cores
-// in fp32; Q and dO stay in shared memory and dq accumulates in registers.
+// in fp32; Q and dO stay in shared memory and dq accumulates in registers;
+// each key tile's V, then its K, pass through one shared tile (four fp32
+// tiles would not fit at HD 256).
 //
 // dk/dv, bf16 (tensor cores): one CTA per (key tile of 64 rows, bh,
 // query head), key tile 0 first (grid (BH * C, key tiles)), so no CTA
@@ -68,9 +72,16 @@
 // key tile wholly at or past valid_len (the same for every CTA of the
 // cluster, which shares bh and the tile) writes its zeros and returns
 // before either barrier.
+// HD 256: two dK and dV accumulators would be 256 fp32 registers per
+// thread, so the CTAs split by role (blockIdx.z: dK, or dV, which skips
+// dP): 1.25x the products of the fused kernel, the same sums in the same
+// order (the cluster spans one role).  One launch still.
 // dk/dv, fp32 (kept on the card for its exactness): one CTA per (key tile,
-// bh) looping over the G query heads and their q tiles, every product on
-// the CUDA cores; each CTA owns its rows of dk and dv outright.
+// bh, role: dK or dV) looping over the G query heads and their q tiles,
+// every product on the CUDA cores; each CTA owns its rows of dk or dv
+// outright.  Three fp32 tiles and one score tile of shared memory (HD
+// 256: 217,856 bytes): K stays, Q and dO stream; the dK CTA reads the key
+// tile's V into Q's tile first, for dP.
 
 #include <cooperative_groups.h>
 
@@ -93,9 +104,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int LD = HD + kPad;
   float* sQ = smem;
   float* sDO = sQ + kTile * LD;
-  float* sK = sDO + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sS = sV + kTile * LD;
+  float* sKV = sDO + kTile * LD;     // V, then K, of each key tile
+  float* sS = sKV + kTile * LD;
 
   const int nq = (T_len + kTile - 1) / kTile;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kTile;
@@ -108,7 +118,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, HD>(sQ, q + bhg * head, q0, T_len);
   load_tile<T, HD>(sDO, dout + bhg * head, q0, T_len);
-  float m_r[4], inv_l[4], d_r[4], acc[4][HD / 16];
+  float m_r[4], inv_l[4], d_r[4], acc[4][acc_cols(HD)];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -117,20 +127,22 @@ __global__ void __launch_bounds__(kThreads)
     inv_l[i] = ok ? 1.f / fmaxf(l[stat + row], 1e-30f) : 0.f;
     d_r[i] = ok ? delta[stat + row] : 0.f;
 #pragma unroll
-    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < acc_cols(HD); ++c) acc[i][c] = 0.f;
   }
 
   int lo, hi;
   kv_range(q0, valid, window, T_len, &lo, &hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, HD>(sK, k + bh * head, k0, T_len);
-    load_tile<T, HD>(sV, v + bh * head, k0, T_len);
-    __syncthreads();
     float s[4][4], dp[4][4];
-    tile_dot<HD>(s, sQ, sK, ty, tx);
-    tile_dot<HD>(dp, sDO, sV, ty, tx);
+    __syncthreads();                      // the last tile's readers are done
+    load_tile<T, HD>(sKV, v + bh * head, k0, T_len);
+    __syncthreads();
+    tile_dot<HD>(dp, sDO, sKV, ty, tx);
+    __syncthreads();
+    load_tile<T, HD>(sKV, k + bh * head, k0, T_len);
+    __syncthreads();
+    tile_dot<HD>(s, sQ, sKV, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty + 16 * i;
@@ -145,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    tile_acc<HD, kLdp, 1>(acc, sS, sK, ty, tx);   // acc += dS K
+    tile_acc<HD, kLdp, 1>(acc, sS, sKV, ty, tx);  // acc += dS K
   }
   const float mul[4] = {scale, scale, scale, scale};
   store_rows<T, HD>(dq + bhg * head, acc, mul, q0, T_len, ty, tx);
@@ -162,31 +174,29 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float smem[];
   constexpr int LD = HD + kPad;
   float* sK = smem;
-  float* sV = sK + kTile * LD;
-  float* sQ = sV + kTile * LD;
-  float* sDO = sQ + kTile * LD;
-  float* sP = sDO + kTile * LD;
-  float* sS = sP + kTile * kLdp;
-  float* sM = sS + kTile * kLdp;      // per q row of the tile: m, 1/l, delta
+  float* sA = sK + kTile * LD;        // Q; for dK first the key tile's V
+  float* sDO = sA + kTile * LD;
+  float* sX = sDO + kTile * LD;       // P (dV) or dS (dK)
+  float* sM = sX + kTile * kLdp;      // per q row of the tile: m, 1/l, delta
   float* sIL = sM + kTile;
   float* sD = sIL + kTile;
 
   const int k0 = blockIdx.x * kTile;
   const int bh = blockIdx.y;
+  const bool want_k = blockIdx.z == 0;   // this CTA's sum: dK, else dV
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int valid = valid_len ? min(valid_len[bh], T_len) : T_len;
   const size_t head = static_cast<size_t>(T_len) * HD;
   const int nq = (T_len + kTile - 1) / kTile;
 
-  float acc_k[4][HD / 16], acc_v[4][HD / 16];
+  float acc[4][acc_cols(HD)];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < HD / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int c = 0; c < acc_cols(HD); ++c) acc[i][c] = 0.f;
 
   if (k0 < valid) {
     load_tile<T, HD>(sK, k + bh * head, k0, T_len);
-    load_tile<T, HD>(sV, v + bh * head, k0, T_len);
     const int k_last = min(k0 + kTile, T_len) - 1;
     const int q_lo = k0 / kTile;                       // causal diagonal
     const int q_hi = window > 0 ? min(nq - 1, (k_last + window - 1) / kTile)
@@ -197,7 +207,6 @@ __global__ void __launch_bounds__(kThreads)
       for (int qt = q_lo; qt <= q_hi; ++qt) {
         const int q0 = qt * kTile;
         __syncthreads();
-        load_tile<T, HD>(sQ, q + bhg * head, q0, T_len);
         load_tile<T, HD>(sDO, dout + bhg * head, q0, T_len);
         if (threadIdx.x < kTile) {
           const int row = q0 + threadIdx.x;
@@ -206,11 +215,18 @@ __global__ void __launch_bounds__(kThreads)
           sIL[threadIdx.x] = ok ? 1.f / fmaxf(l[stat + row], 1e-30f) : 0.f;
           sD[threadIdx.x] = ok ? delta[stat + row] : 0.f;
         }
+        // score tiles: rows are queries (ty + 16 i), columns keys
+        // (tx + 16 j)
+        float s[4][4], dp[4][4] = {};
+        if (want_k) {
+          load_tile<T, HD>(sA, v + bh * head, k0, T_len);
+          __syncthreads();
+          tile_dot<HD>(dp, sDO, sA, ty, tx);
+          __syncthreads();
+        }
+        load_tile<T, HD>(sA, q + bhg * head, q0, T_len);
         __syncthreads();
-        // score tile: rows are queries (ty + 16 i), columns keys (tx + 16 j)
-        float s[4][4], dp[4][4];
-        tile_dot<HD>(s, sQ, sK, ty, tx);
-        tile_dot<HD>(dp, sDO, sV, ty, tx);
+        tile_dot<HD>(s, sA, sK, ty, tx);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int qr = ty + 16 * i;
@@ -221,28 +237,31 @@ __global__ void __launch_bounds__(kThreads)
                                  ? scale * s[i][j]
                                  : kNegInf;
             const float p = expf(sv - sM[qr]) * sIL[qr];
-            sP[qr * kLdp + kc] = p;
-            sS[qr * kLdp + kc] = p * (dp[i][j] - sD[qr]);
+            sX[qr * kLdp + kc] = want_k ? p * (dp[i][j] - sD[qr]) : p;
           }
         }
         __syncthreads();
-        // this thread's key rows ty + 16 i: dv += P^T dO, dk += dS^T Q
-        tile_acc<HD, 1, kLdp>(acc_v, sP, sDO, ty, tx);
-        tile_acc<HD, 1, kLdp>(acc_k, sS, sQ, ty, tx);
+        // this thread's key rows ty + 16 i: dk += dS^T Q, dv += P^T dO
+        tile_acc<HD, 1, kLdp>(acc, sX, want_k ? sA : sDO, ty, tx);
       }
     }
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  const float mul[4] = {scale, scale, scale, scale};
-  store_rows<T, HD>(dk + bh * head, acc_k, mul, k0, T_len, ty, tx);
-  store_rows<T, HD>(dv + bh * head, acc_v, one, k0, T_len, ty, tx);
+  const float f = want_k ? scale : 1.f;
+  const float mul[4] = {f, f, f, f};
+  store_rows<T, HD>((want_k ? dk : dv) + bh * head, acc, mul, k0, T_len, ty,
+                    tx);
 }
 
 // ------------------------------------------------------------- dk/dv bf16
 
 constexpr int kMaxCluster = 8;     // the portable cluster size
 
-template <int HD>
+// accumulator arrays a dk/dv CTA keeps: dK and dV, or (kSplit) its one sum
+__host__ __device__ constexpr int nw_max(bool split) {
+  return split ? 1 : 2;
+}
+
+template <int HD, bool kSplit>
 __global__ void __launch_bounds__(kTcThreads)
     flash_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -274,10 +293,15 @@ __global__ void __launch_bounds__(kTcThreads)
   // the rows of the cluster's sum that this CTA reduces and stores
   const int row_lo = kTile * rank / C, row_hi = kTile * (rank + 1) / C;
   const int valid = valid_len ? min(valid_len[bh], T_len) : T_len;
+  // kSplit: this CTA sums dK (blockIdx.z 0) or dV (1) alone; its cluster
+  // shares blockIdx.z.  Otherwise both: `which` runs over [w0, w0 + nw)
+  const int w0 = kSplit ? static_cast<int>(blockIdx.z) : 0;
+  const int nw = kSplit ? 1 : 2;
+  const bool want_k = w0 == 0, want_v = !kSplit || w0 == 1;
   if (k0 >= valid) {         // uniform over the cluster: no barrier follows
     const int n = (row_hi - row_lo) * kVec;
-    for (int i = threadIdx.x; i < 2 * n; i += kTcThreads) {
-      const int which = i / n, e = i - which * n;
+    for (int i = threadIdx.x; i < nw * n; i += kTcThreads) {
+      const int which = w0 + i / n, e = i - (which - w0) * n;
       const int row = k0 + row_lo + e / kVec;
       if (row < T_len)
         store4((which ? dv : dk) + bh * head + static_cast<size_t>(row) * HD +
@@ -317,17 +341,22 @@ __global__ void __launch_bounds__(kTcThreads)
   };
 
   issue_rows<HD>(sK, k + bh * head, k0, T_len);
-  issue_rows<HD>(sV, v + bh * head, k0, T_len);
+  if (want_k) issue_rows<HD>(sV, v + bh * head, k0, T_len);
   cp_async_commit();
   issue_q(0, 0);
 
   const int r0 = warp * 16;                      // this warp's key rows
   const int key_a = k0 + r0 + gid;               // elements 0, 1; + 8: 2, 3
-  float acc_k[HD / 8][4], acc_v[HD / 8][4];
+  // dK's and dV's accumulators (kSplit: one array, the CTA's sum)
+  float acc[nw_max(kSplit)][HD / 8][4];
+  float(&acc_k)[HD / 8][4] = acc[0];
+  float(&acc_v)[HD / 8][4] = acc[nw_max(kSplit) - 1];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int a = 0; a < nw_max(kSplit); ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
     if (it + 1 < n_it) {
@@ -368,35 +397,39 @@ __global__ void __launch_bounds__(kTcThreads)
       }
     }
     // dV += P^T dO, 16 queries per step
+    if (want_v) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      unsigned pa[4];
-      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      mma_ab16<1, HD / 8, LD>(&acc_v, &pa,
-                              sDO + 16 * kk * LD + b_off<LD>(lane));
+      for (int kk = 0; kk < 4; ++kk) {
+        unsigned pa[4];
+        acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+        mma_ab16<1, HD / 8, LD>(&acc_v, &pa,
+                                sDO + 16 * kk * LD + b_off<LD>(lane));
+      }
     }
-    // dP^T = V dO^T
-    float dp[8][4];
+    if (want_k) {
+      // dP^T = V dO^T
+      float dp[8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-    mma_abt<1, 8, HD, LD>(&dp, sV + r0 * LD + a_off<LD>(lane),
-                          sDO + bt_off<LD>(lane));
-    // dS^T = P^T o (dP^T - delta), in place of P^T
+        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+      mma_abt<1, 8, HD, LD>(&dp, sV + r0 * LD + a_off<LD>(lane),
+                            sDO + bt_off<LD>(lane));
+      // dS^T = P^T o (dP^T - delta), in place of P^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * tig;
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tig;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] *= dp[j][e] - sD[c + (e & 1)];
-    }
-    // dK += dS^T Q
+        for (int e = 0; e < 4; ++e) st[j][e] *= dp[j][e] - sD[c + (e & 1)];
+      }
+      // dK += dS^T Q
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      unsigned da[4];
-      acc_to_a(da, st[2 * kk], st[2 * kk + 1]);
-      mma_ab16<1, HD / 8, LD>(&acc_k, &da,
-                              sQ + 16 * kk * LD + b_off<LD>(lane));
+      for (int kk = 0; kk < 4; ++kk) {
+        unsigned da[4];
+        acc_to_a(da, st[2 * kk], st[2 * kk + 1]);
+        mma_ab16<1, HD / 8, LD>(&acc_k, &da,
+                                sQ + 16 * kk * LD + b_off<LD>(lane));
+      }
     }
     __syncthreads();                             // this stage is free again
   }
@@ -422,18 +455,20 @@ __global__ void __launch_bounds__(kTcThreads)
                  2 * tig;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<float2*>(dst + 8 * n) =
-          make_float2(scale * acc_k[n][2 * h], scale * acc_k[n][2 * h + 1]);
-      *reinterpret_cast<float2*>(dst + dv_at + 8 * n) =
-          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+      if (want_k)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
+            scale * acc_k[n][2 * h], scale * acc_k[n][2 * h + 1]);
+      if (want_v)
+        *reinterpret_cast<float2*>(dst + dv_at + 8 * n) =
+            make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
   }
   cluster.sync();              // every partial has landed where it is owned
   // rows [row_lo, row_hi) of dK and dV: the C partials summed in rank
   // order from local shared memory, then one bf16 rounding
   const int n = (row_hi - row_lo) * kVec;
-  for (int i = threadIdx.x; i < 2 * n; i += kTcThreads) {
-    const int which = i / n, e = i - which * n;
+  for (int i = threadIdx.x; i < nw * n; i += kTcThreads) {
+    const int which = w0 + i / n, e = i - (which - w0) * n;
     const int j = e / kVec, col = (e % kVec) * 4;
     const float* part = recv + which * dv_at + j * LDP + col;
     float4 sum = *reinterpret_cast<const float4*>(part);
@@ -470,8 +505,9 @@ __global__ void __launch_bounds__(kTcThreads, 2)
                          const int* __restrict__ valid_len, int G,
                          int T_len, float scale, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kMT = mtiles(HD);
   constexpr int kWarpRows = 16 * kMT;
-  constexpr int kRows = kWarpRows * kTcThreads / 32;   // 128 query rows
+  constexpr int kRows = kWarpRows * kTcThreads / 32;   // 128 (64) query rows
   constexpr int LD = HD + kTcPad;
   constexpr int kElems = kDqKeys * LD;           // one K or V stage tile
   constexpr int kNJ = kDqKeys / 8;               // n8 key tiles per stage
@@ -627,8 +663,9 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* delta, void* dq, const void* valid_len, int BH,
                    int G, int T_len, float scale, int window,
                    cudaStream_t stream) {
-  constexpr int rows = 16 * kMT * kTcThreads / 32;
-  // two K/V stages of kDqKeys rows, the Q and dO tiles
+  constexpr int rows = 16 * mtiles(HD) * kTcThreads / 32;
+  // two K/V stages of kDqKeys rows, the Q and dO tiles (HD 256: 135,168
+  // bytes)
   const size_t smem = (4 * kDqKeys + 2 * rows) *
                       static_cast<size_t>(HD + kTcPad) * sizeof(bf16);
   auto kernel = flash_dq_bf16_kernel<HD>;
@@ -649,8 +686,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* m, const void* l, const void* delta, void* dq,
               const void* valid_len, int BH, int G, int T_len, float scale,
               int window, cudaStream_t stream) {
+  // Q, dO, one K/V tile and dS (HD 256: 217,088 bytes)
   const size_t smem =
-      (4 * static_cast<size_t>(kTile) * (HD + kPad) + kTile * kLdp) *
+      (3 * static_cast<size_t>(kTile) * (HD + kPad) + kTile * kLdp) *
       sizeof(float);
   int err = prepare(flash_dq_kernel<T, HD>, smem);
   if (err) return err;
@@ -669,12 +707,14 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* m, const void* l, const void* delta, void* dk,
                void* dv, const void* valid_len, int BH, int G, int T_len,
                float scale, int window, cudaStream_t stream) {
-  const size_t smem = (4 * static_cast<size_t>(kTile) * (HD + kPad) +
-                       2 * kTile * kLdp + 3 * kTile) *
+  // K, Q (or V), dO, P (or dS) and the statistics (HD 256: 217,856
+  // bytes); a CTA per (key tile, bh) for each of dK and dV
+  const size_t smem = (3 * static_cast<size_t>(kTile) * (HD + kPad) +
+                       kTile * kLdp + 3 * kTile) *
                       sizeof(float);
   int err = prepare(flash_dkv_kernel<T, HD>, smem);
   if (err) return err;
-  const dim3 grid((T_len + kTile - 1) / kTile, BH);
+  const dim3 grid((T_len + kTile - 1) / kTile, BH, 2);
   flash_dkv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -685,7 +725,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool kSplit = (HD > 128)>
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* dout, const void* m, const void* l,
                     const void* delta, void* dk, void* dv,
@@ -703,7 +743,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   static_assert(2 * 70 * (HD + 8) * sizeof(float) <=
                     6 * kTile * (HD + kTcPad) * sizeof(bf16),
                 "the partials must fit where the tiles were");
-  auto kernel = flash_dkv_bf16_kernel<HD>;
+  auto kernel = flash_dkv_bf16_kernel<HD, kSplit>;
   int err = prepare(kernel, smem);
   if (err) return err;
   cudaLaunchAttribute attr[1];
@@ -712,7 +752,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(BH * C, (T_len + kTile - 1) / kTile);
+  cfg.gridDim = dim3(BH * C, (T_len + kTile - 1) / kTile, kSplit ? 2 : 1);
   cfg.blockDim = dim3(kTcThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -742,11 +782,11 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, dq, dk and dv); hd 64
-// or 128; window <= 0 means none; valid_len is null or (BH,) int32.  dk
-// and dv are (BH, T, hd) in k's dtype.  cluster (dk/dv, bf16 only): the
-// CTAs that sum a kv head's G query heads, a divisor of G up to 8.  Each
-// returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, dq, dk and dv); hd 64,
+// 80, 128 or 256; window <= 0 means none; valid_len is null or (BH,)
+// int32.  dk and dv are (BH, T, hd) in k's dtype.  cluster (dk/dv, bf16
+// only): the CTAs that sum a kv head's G query heads, a divisor of G up to
+// 8.  Each returns a cudaError_t.
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* m,
                                const void* l, const void* delta, void* dq,
@@ -754,13 +794,19 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                int T_len, int hd, float scale, int window,
                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_DQ(LAUNCH)                                                  \
-  return LAUNCH(q, k, v, dout, m, l, delta, dq, valid_len, BH, G, T_len, \
-                scale, window, st)
-  if (dtype == 0 && hd == 64) FLASH_DQ((launch_dq<float, 64>));
-  if (dtype == 0 && hd == 128) FLASH_DQ((launch_dq<float, 128>));
-  if (dtype == 1 && hd == 64) FLASH_DQ(launch_dq_bf16<64>);
-  if (dtype == 1 && hd == 128) FLASH_DQ(launch_dq_bf16<128>);
+#define FLASH_DQ(HD)                                                        \
+  if (hd == HD)                                                             \
+    return dtype == 0   ? launch_dq<float, HD>(q, k, v, dout, m, l, delta, \
+                                               dq, valid_len, BH, G, T_len, \
+                                               scale, window, st)           \
+           : dtype == 1 ? launch_dq_bf16<HD>(q, k, v, dout, m, l, delta,   \
+                                             dq, valid_len, BH, G, T_len,   \
+                                             scale, window, st)             \
+                        : static_cast<int>(cudaErrorInvalidValue);
+  FLASH_DQ(64)
+  FLASH_DQ(80)
+  FLASH_DQ(128)
+  FLASH_DQ(256)
 #undef FLASH_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -773,17 +819,20 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 int window, int dtype, void* stream,
                                 int cluster) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, m, l, delta, dk, dv,
-                                 valid_len, BH, G, T_len, scale, window, st);
-  if (dtype == 0 && hd == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, m, l, delta, dk, dv,
-                                  valid_len, BH, G, T_len, scale, window, st);
-#define FLASH_DKV_BF16(HD)                                                  \
-  return launch_dkv_bf16<HD>(q, k, v, dout, m, l, delta, dk, dv, valid_len, \
-                             BH, G, cluster, T_len, scale, window, st)
-  if (dtype == 1 && hd == 64) FLASH_DKV_BF16(64);
-  if (dtype == 1 && hd == 128) FLASH_DKV_BF16(128);
-#undef FLASH_DKV_BF16
+#define FLASH_DKV(HD)                                                        \
+  if (hd == HD)                                                              \
+    return dtype == 0 ? launch_dkv<float, HD>(q, k, v, dout, m, l, delta,   \
+                                              dk, dv, valid_len, BH, G,      \
+                                              T_len, scale, window, st)      \
+           : dtype == 1                                                      \
+               ? launch_dkv_bf16<HD>(q, k, v, dout, m, l, delta, dk, dv,     \
+                                     valid_len, BH, G, cluster, T_len,       \
+                                     scale, window, st)                      \
+               : static_cast<int>(cudaErrorInvalidValue);
+  FLASH_DKV(64)
+  FLASH_DKV(80)
+  FLASH_DKV(128)
+  FLASH_DKV(256)
+#undef FLASH_DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,13 +10,16 @@
 // disjoint bank groups (row stride HD + 4 floats), and the 16 threads that
 // share a row form one half warp (row max and row sum are 4 xor-shuffles).
 // In an output tile (64 x HD) the thread owns rows ty + 16 i and the float4
-// columns tx * 4 + 64 h, h < HD / 64.
+// columns tx * 4 + 64 h, h < ceil(HD / 64), those below HD (at HD 80 the
+// second group's columns 64-79 belong to tx < 4).
 //
 // bf16 tensor-core kernels (forward, dq, dk/dv): CTAs of 4 warps
 // (kTcThreads = 128 threads); tiles stay bf16 in shared memory, rows
 // padded by 16 bytes (kTcPad) so that every ldmatrix is conflict-free
 // (tensor_core.cuh), filled by 16-byte cp.async copies (issue_rows).  The
-// forward and dq give each warp kMT m-tiles of 16 query rows.
+// forward and dq give each warp mtiles(HD) m-tiles of 16 query rows.
+// Head dims: any multiple of 16 up to 256 (the dispatch instantiates 64,
+// 80, 128 and 256); a row of HD 80 is 10 16-byte chunks, 5 k-steps.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,7 +40,22 @@ constexpr float kNegInf = -1e30f;  // finite, as the reference's NEG_INF
 constexpr int kTcThreads = 128;  // bf16 kernels: 4 warps
 constexpr int kTcPad = 8;        // bf16 elements of padding per shared row
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMT = 2;           // forward, dq: 16-row m-tiles per warp
+
+// forward, dq (bf16): 16-row m-tiles per warp.  Two, so that each K and V
+// fragment read feeds two mma.sync; one at HD 256, where two would keep
+// 2 x HD / 8 x 4 = 256 fp32 accumulators per thread (spills)
+__host__ __device__ constexpr int mtiles(int hd) { return hd > 128 ? 1 : 2; }
+
+// fp32 kernels: the accumulator columns a thread owns in an output tile
+// (4 per float4 column group of 64)
+__host__ __device__ constexpr int acc_cols(int hd) {
+  return 4 * ((hd + 63) / 64);
+}
+// whether float4 column group h of thread tx lies inside the head dim
+template <int HD>
+__device__ __forceinline__ bool col_in(int tx, int h) {
+  return HD % 64 == 0 || tx * 4 + 64 * h < HD;
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -112,7 +130,7 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
 // 64 x 64 tile either as it is (SA = kLdp, SR = 1) or transposed
 // (SA = 1, SR = kLdp).
 template <int HD, int SA, int SR>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16],
+__device__ __forceinline__ void tile_acc(float (&acc)[4][acc_cols(HD)],
                                          const float* P, const float* X,
                                          int ty, int tx) {
   constexpr int LD = HD + kPad;
@@ -122,7 +140,8 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16],
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * SA + r * SR];
 #pragma unroll
-    for (int h = 0; h < HD / 64; ++h) {
+    for (int h = 0; h < acc_cols(HD) / 4; ++h) {
+      if (!col_in<HD>(tx, h)) continue;
       const float4 x = load4(X + r * LD + tx * 4 + 64 * h);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -137,7 +156,8 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16],
 
 // write rows ty + 16 i of a (T, HD) output tile starting at row0, times mul
 template <typename T, int HD>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][HD / 16],
+__device__ __forceinline__ void store_rows(T* dst,
+                                           const float (&acc)[4][acc_cols(HD)],
                                            const float (&mul)[4], int row0,
                                            int T_len, int ty, int tx) {
 #pragma unroll
@@ -145,11 +165,13 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][HD / 16
     const int row = row0 + ty + 16 * i;
     if (row >= T_len) continue;
 #pragma unroll
-    for (int h = 0; h < HD / 64; ++h)
-      store4(dst + static_cast<size_t>(row) * HD + tx * 4 + 64 * h,
-             make_float4(acc[i][4 * h + 0] * mul[i], acc[i][4 * h + 1] * mul[i],
-                         acc[i][4 * h + 2] * mul[i],
-                         acc[i][4 * h + 3] * mul[i]));
+    for (int h = 0; h < acc_cols(HD) / 4; ++h)
+      if (col_in<HD>(tx, h))
+        store4(dst + static_cast<size_t>(row) * HD + tx * 4 + 64 * h,
+               make_float4(acc[i][4 * h + 0] * mul[i],
+                           acc[i][4 * h + 1] * mul[i],
+                           acc[i][4 * h + 2] * mul[i],
+                           acc[i][4 * h + 3] * mul[i]));
   }
 }
 

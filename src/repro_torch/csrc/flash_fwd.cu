@@ -25,13 +25,15 @@
 // rows, each warp two m-tiles of 16 rows (32 rows: each K and V fragment
 // read from shared memory feeds two mma.sync, which measured faster on
 // the H100 than one m-tile of 16 rows per warp with Q's fragments held in
-// registers).  Q stays in shared memory; K and V tiles flow through a
-// two-stage cp.async ring (16-byte copies, rows padded by 16 bytes so
-// every ldmatrix is conflict-free), the next tile's copy overlapping this
-// tile's math.  S = Q K^T is mma.sync m16n8k16 bf16 -> fp32; the mask is
-// applied only on m-tiles whose tile crosses the diagonal, the window
-// edge, valid_len or T (masked probabilities are exactly 0), and a warp
-// none of whose pairs is visible skips the tile.  The online softmax runs
+// registers); at HD 256 one m-tile per warp, 64 rows per CTA (two would
+// keep 256 fp32 accumulators per thread).  Q stays in shared memory; K
+// and V tiles flow through a two-stage cp.async ring (16-byte copies,
+// rows padded by 16 bytes so every ldmatrix is conflict-free), the next
+// tile's copy overlapping this tile's math.  S = Q K^T is mma.sync
+// m16n8k16 bf16 -> fp32; the mask is applied only on m-tiles whose tile
+// crosses the diagonal, the window edge, valid_len or T (masked
+// probabilities are exactly 0), and a warp none of whose pairs is visible
+// skips the tile.  The online softmax runs
 // on the accumulator fragments (quad shuffles, exp2 with scale * log2 e
 // folded in, the row max kept in raw score units and written back as
 // scale * max).  P is rounded to bf16 straight from the S fragments into
@@ -75,13 +77,13 @@ __global__ void __launch_bounds__(kThreads)
   const size_t head = static_cast<size_t>(T_len) * HD;
 
   load_tile<T, HD>(sQ, q + bhg * head, q0, T_len);
-  float m_r[4], l_r[4], acc[4][HD / 16];
+  float m_r[4], l_r[4], acc[4][acc_cols(HD)];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_r[i] = kNegInf;
     l_r[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < acc_cols(HD); ++c) acc[i][c] = 0.f;
   }
 
   int lo, hi;
@@ -117,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
       l_r[i] = corr * l_r[i] + row_sum(rs);
       m_r[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < acc_cols(HD); ++c) acc[i][c] *= corr;
     }
     __syncthreads();
     tile_acc<HD, kLdp, 1>(acc, sP, sV, ty, tx);   // acc += P V
@@ -169,8 +171,9 @@ __global__ void __launch_bounds__(kTcThreads, 2)
                           const int* __restrict__ valid_len, int G,
                           int T_len, float scale, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kMT = mtiles(HD);
   constexpr int kWarpRows = 16 * kMT;
-  constexpr int kRows = kWarpRows * kTcThreads / 32;   // 128 query rows
+  constexpr int kRows = kWarpRows * kTcThreads / 32;   // 128 (64) query rows
   constexpr int LD = HD + kTcPad;
   constexpr int kElems = kTile * LD;             // one 64-row shared tile
   bf16* sKV = reinterpret_cast<bf16*>(smem_raw);   // [stage][K, V][row][LD]
@@ -334,8 +337,8 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* m, void* l, const void* valid_len, int BH, int G,
                 int T_len, float scale, int window, cudaStream_t stream) {
-  constexpr int rows = 16 * kMT * kTcThreads / 32;
-  // two K/V stages and the Q tile
+  constexpr int rows = 16 * mtiles(HD) * kTcThreads / 32;
+  // two K/V stages and the Q tile (HD 256: 168,960 bytes)
   const size_t smem = (4 * kTile + rows) * static_cast<size_t>(HD + kTcPad) *
                       sizeof(bf16);
   auto kernel = flash_fwd_bf16_kernel<HD>;
@@ -352,26 +355,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o); hd 64 or 128;
-// window <= 0 means none; valid_len is null or (BH,) int32.  Returns a
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o); hd 64, 80, 128 or
+// 256; window <= 0 means none; valid_len is null or (BH,) int32.  Returns
+// a cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* m, void* l,
                                 const void* valid_len, int BH, int G,
                                 int T_len, int hd, float scale, int window,
                                 int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, m, l, valid_len, BH, G, T_len, scale,
-                             window, st);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, m, l, valid_len, BH, G, T_len,
-                              scale, window, st);
-  if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, m, l, valid_len, BH, G, T_len, scale,
-                           window, st);
-  if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, o, m, l, valid_len, BH, G, T_len, scale,
-                            window, st);
+#define FLASH_FWD(HD)                                                        \
+  if (hd == HD)                                                              \
+    return dtype == 0 ? launch<float, HD>(q, k, v, o, m, l, valid_len, BH,  \
+                                          G, T_len, scale, window, st)       \
+           : dtype == 1 ? launch_bf16<HD>(q, k, v, o, m, l, valid_len, BH,  \
+                                          G, T_len, scale, window, st)       \
+                        : static_cast<int>(cudaErrorInvalidValue);
+  FLASH_FWD(64)
+  FLASH_FWD(80)
+  FLASH_FWD(128)
+  FLASH_FWD(256)
+#undef FLASH_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,9 +21,12 @@ query head or heads), and the CTAs of one key tile's G query heads form
 a thread block cluster (``cluster_size``) that sums their fp32 partials
 through distributed shared memory in a fixed order and stores bf16 (one
 launch, no atomics), so dq, dk and dv are all bitwise reproducible from
-run to run.  fp32 inputs run exact fp32 kernels on the CUDA cores (dk/dv one CTA
-per key tile looping over the G query heads).  The tile size is a
-constant of the kernels.
+run to run.  At head dim 256 the forward and dq give each CTA 64 query
+rows and dk/dv splits its CTAs between dK and dV (still one launch), so
+that no thread holds more than 128 fp32 accumulators.  fp32 inputs run
+exact fp32 kernels on the CUDA cores (dk/dv one CTA per key tile and
+gradient, looping over the G query heads).  The tile size is a constant
+of the kernels; a head dim outside ``HEAD_DIMS`` raises.
 
 Dispatch as in ``kernels.ops``: a CUDA tensor goes to the kernels (which
 launch or raise), a CPU tensor to the plain versions ``ref.flash_fwd_ref``
@@ -45,7 +48,9 @@ from repro_torch.kernels.ops import _on_cuda
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)     # the kernels' head-dim instantiations
+# the kernels' head-dim instantiations: every registered arch's attention
+# head dim (h2o-danube-1.8b's 80, recurrentgemma-2b's 256 among them)
+HEAD_DIMS = (64, 80, 128, 256)
 MAX_CLUSTER = 8           # the portable thread-block-cluster size
 # the cluster size the dk/dv kernel prefers: on the H100 clusters of 4
 # CTAs (two heads each) beat clusters of 8 at the trained shape, G = 8

@@ -102,7 +102,8 @@ def _apply_head_mask(o, head_mask):
 
 def _out(o, wo):
     H, hd, d = wo.shape
-    return layers.dot(o.reshape(*o.shape[:-2], H * hd), wo.reshape(H * hd, d))
+    return layers.dot_rows(o.reshape(*o.shape[:-2], H * hd),
+                           wo.reshape(H * hd, d))
 
 
 def _f32_matmul(a, b):

@@ -76,8 +76,8 @@ def _proj(p, x):
 def _out(O, wo):
     """O (..., Hv, hd) @ wo (Hv, hd, d) -> (..., d)."""
     Hv, hd, d = wo.shape
-    return layers.dot(O.reshape(*O.shape[:-2], Hv * hd),
-                      wo.reshape(Hv * hd, d))
+    return layers.dot_rows(O.reshape(*O.shape[:-2], Hv * hd),
+                           wo.reshape(Hv * hd, d))
 
 
 def gdn_train(p, x, *, chunk=64):

@@ -25,6 +25,20 @@ def dot(x, w):
     return torch.matmul(x, w.to(x.dtype))
 
 
+def dot_rows(x, w):
+    """``dot`` through a row-parallel weight (a mixer's output projection,
+    the MLP's ``wo``): on a mesh's "model" axis ``w`` holds this rank's
+    rows and the result is a partial sum, kept in fp32 (``bmm_f32``) so
+    that the LM's sum over the axis rounds to x's dtype once, as the
+    one-device product rounds its whole sum; off a mesh, on an axis of one
+    rank, or in fp32, ``dot``."""
+    tp = comm.model_axis()
+    if tp is None or tp.size == 1 or x.dtype == torch.float32:
+        return dot(x, w)
+    out = bmm_f32(x.reshape(1, -1, x.shape[-1]), w.to(x.dtype)[None])
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def randn(generator, shape, std, dtype, device):
     """N(0, std^2) in fp32 from ``generator`` on ``device``, cast to dtype
     (the reference's ``(normal(key, shape) * s).astype(dtype)``)."""
@@ -81,7 +95,7 @@ def init_mlp(generator, d_model, d_ff, dtype, device, reps):
 def mlp_fwd(p, x):
     g = dot(x, p["wi_gate"])
     u = dot(x, p["wi_up"])
-    return dot(F.silu(g) * u, p["wo"])
+    return dot_rows(F.silu(g) * u, p["wo"])
 
 
 # ------------------------------------------------------------------ Embedding
@@ -170,9 +184,11 @@ def init_conv1d(generator, channels, width, dtype, device, reps):
 
 def conv_block(p, n):
     """A conv's filter and bias for ``n`` channels: on a mesh, each leaf
-    holding more (a replicated one) cut to this rank's slice."""
+    holding more (a replicated one) cut to this rank's slice, its
+    gradient gathered over "model" in training (``comm.split_to``)."""
     tp = comm.model_axis()
-    return p if tp is None else {k: tp.block(v, n) for k, v in p.items()}
+    return p if tp is None else {k: comm.split_to(tp, v, n)
+                                 for k, v in p.items()}
 
 
 def conv1d_fwd(p, x):
@@ -219,6 +235,29 @@ def cross_entropy(logits, labels, z_loss=0.0):
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return _ce_mean(lse, ll, z_loss)
+
+
+def cross_entropy_split(tp, logits, labels, z_loss=0.0):
+    """``cross_entropy`` of logits whose vocabulary the model axis ``tp``
+    splits: ``logits`` (..., V / M) fp32 holds this rank's block of the
+    vocabulary.  The log-sum-exp's max (gathered, no gradient), its sum
+    and the labels' logits cross the axis as one value per position
+    (``comm.reduce_from``: every rank's loss is the same), where gathering
+    the logits would move V / M of them per position."""
+    n = logits.shape[-1]
+    m = tp.all_gather(logits.detach().amax(-1)[None], 0).amax(0)
+    lse = torch.log(comm.reduce_from(
+        tp, torch.exp(logits - m[..., None]).sum(-1))) + m
+    idx = labels.long() - tp.index * n
+    inside = (idx >= 0) & (idx < n)
+    picked = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    ll = comm.reduce_from(tp, torch.where(inside, picked,
+                                          torch.zeros_like(picked)))
+    return _ce_mean(lse, ll, z_loss)
+
+
+def _ce_mean(lse, ll, z_loss):
     loss = lse - ll
     if z_loss > 0.0:
         loss = loss + z_loss * lse ** 2

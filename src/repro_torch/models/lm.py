@@ -17,19 +17,27 @@ On a mesh (``parallel.comm.use``) the serving functions run on this rank's
 shards, Megatron-style: the vocab-parallel embedding all-reduces, each
 mixer's and FFN's output is a row-parallel partial sum all-reduced over
 "model" (the mixers and the MLP are column-parallel before their per-head
-or per-unit blocks), and the logits are gathered over "model" before any
-sampler sees them, so every rank samples from the full vocabulary.
+or per-unit blocks; in a bf16 model the partial sums stay fp32,
+``layers.dot_rows``, and the sum rounds once), and the logits are
+gathered over "model" before any sampler sees them, so every rank
+samples from the full vocabulary.
 
 Training on a mesh (``runtime.trainer``, the mesh active) runs the same
 split through the differentiable collectives of ``parallel.comm``: each
 mixer and FFN input goes through ``copy_to`` (its gradient all-reduced
 over "model"), each row-parallel output through ``reduce_from``, the
-vocab-parallel embedding's sum through ``reduce_from`` and the logits
-through ``gather_from``, so every "model" rank computes the same loss
-and the gradients of the replicated leaves agree bit for bit.  The data
-axis holds each rank's rows; only the MoE's batch statistics cross it
-(``moe.moe_fwd``).  On a model axis larger than 1 only the ``gdn`` and
-``attn`` kinds and the dense FFN train (``check_train_model_axis``).
+vocab-parallel embedding's sum through ``reduce_from``, and the cross
+entropy of each rank's vocab block of the logits crosses the axis as one
+value per position (``layers.cross_entropy_split``), so every "model"
+rank computes the same loss
+and the gradients of the replicated leaves agree bit for bit: every
+mixer kind splits its heads or width as in serving (a replicated leaf
+that a rank uses only a slice of takes its whole gradient through
+``comm.split_to``), and the MoE its experts (the router reads the FFN
+input before ``copy_to``; ``moe.moe_fwd``).  The data axis holds each
+rank's rows; only the MoE's batch statistics cross it.  A model axis
+that does not divide a split dim is refused before the first step
+(``parallel.sharding.check_model_axis``).
 
 Training runs each group's repeats in a loop; with ``cfg.remat`` each
 repeat is recomputed in the backward pass (``torch.utils.checkpoint``, the
@@ -187,26 +195,15 @@ def param_count(params) -> int:
 
 # ---------------------------------------------------------------- train
 
-def check_train_model_axis(cfg: ArchConfig, model: int):
-    """Refuse training on a model axis of ``model`` > 1 where a layer has
-    no split for it: each mixer kind but ``gdn`` and ``attn``, and the
-    MoE FFN (``NotImplementedError`` naming the ROADMAP item)."""
-    for kind in dict.fromkeys(cfg.layer_kinds):
-        get_mixer(kind).check_train_model_axis(model)
-    if cfg.ffn in ("moe", "moe+dense"):
-        moe.check_train_model_axis(model)
-
-
 def _layer_train(kind, cfg: ArchConfig, lp, x):
     mixer = get_mixer(kind)
     h = layers.rmsnorm_fwd(lp["norm1"], x, cfg.norm_eps)
     tp = comm.model_axis()
     if tp is not None:
-        mixer.check_train_model_axis(tp.size)
         h = comm.copy_to(tp, h)
     mix = mixer.train(lp["mixer"], cfg, h)
     if tp is not None:
-        mix = comm.reduce_from(tp, mix)
+        mix = comm.reduce_from(tp, mix).to(x.dtype)
     return _ffn_fwd(cfg, lp, x + mix, decode=False, train=True)
 
 
@@ -266,8 +263,11 @@ def loss_fn(params, cfg: ArchConfig, batch, *, t_chunk=1024, z_loss=1e-4,
 
     def chunk_loss(hc, lc):
         with comm.use(axes):        # recomputed on autograd's thread
-            return layers.cross_entropy(_logits(params, cfg, hc), lc,
-                                        z_loss=z_loss)
+            tp = comm.model_axis()
+            logits = _local_logits(params, cfg, hc)
+            if tp is None or tp.size == 1:
+                return layers.cross_entropy(logits, lc, z_loss=z_loss)
+            return layers.cross_entropy_split(tp, logits, lc, z_loss=z_loss)
 
     if n <= 1:
         ce = chunk_loss(h, labels)
@@ -320,22 +320,23 @@ def _ffn_fwd(cfg: ArchConfig, lp, x, decode: bool, train: bool = False):
         return x, None
     h = layers.rmsnorm_fwd(lp["norm2"], x, cfg.norm_eps)
     tp = comm.model_axis()
-    if tp is not None:
-        h = comm.copy_to(tp, h)
+    hin = h if tp is None else comm.copy_to(tp, h)
     y, aux = None, None
     if "moe" in lp:
         if decode:
-            y = moe.moe_decode(lp["moe"], h, top_k=cfg.moe_top_k)
+            y = moe.moe_decode(lp["moe"], hin, top_k=cfg.moe_top_k)
         else:
-            y, aux = moe.moe_fwd(lp["moe"], h, top_k=cfg.moe_top_k,
+            # the router reads h before copy_to (moe.moe_fwd)
+            y, aux = moe.moe_fwd(lp["moe"], hin, top_k=cfg.moe_top_k,
                                  group_size=cfg.moe_group_size,
                                  capacity_factor=cfg.moe_capacity_factor,
-                                 data=comm.data_axis() if train else None)
+                                 data=comm.data_axis() if train else None,
+                                 route=h)
     if "mlp" in lp:
-        m = layers.mlp_fwd(lp["mlp"], h)
+        m = layers.mlp_fwd(lp["mlp"], hin)
         y = m if y is None else y + m
     if tp is not None:
-        y = comm.reduce_from(tp, y)
+        y = comm.reduce_from(tp, y).to(x.dtype)
     return x + y, aux
 
 
@@ -358,7 +359,7 @@ def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
                     mix, nc = mixer.decode(lp["mixer"], cfg, h, c)
                 tp = comm.model_axis()
                 if tp is not None:
-                    mix = tp.all_reduce(mix)
+                    mix = tp.all_reduce(mix).to(x.dtype)
                 # the layer's new cache into its slice of the stacked
                 # buffers (a no-op where the mixer updated it in place)
                 copy_leaves(c, nc)
@@ -373,17 +374,22 @@ def _embed(params, cfg, tokens, embeds):
     return x.to(_device.dtype(cfg.act_dtype))
 
 
-def _logits(params, cfg: ArchConfig, h):
-    """fp32 logits over the whole vocabulary: on a model axis each rank
-    projects onto its vocab block (column-parallel) and the blocks are
-    gathered."""
+def _local_logits(params, cfg: ArchConfig, h):
+    """fp32 logits of this rank's vocab block on a model axis (a
+    column-parallel projection), of the whole vocabulary off one."""
     tp = comm.model_axis()
     if tp is not None:
         h = comm.copy_to(tp, h)
     if cfg.tie_embeddings:
-        out = layers.logits_fwd(params["embed"], h)
-    else:
-        out = layers.logits_matmul(h, params["lm_head"]["w"])
+        return layers.logits_fwd(params["embed"], h)
+    return layers.logits_matmul(h, params["lm_head"]["w"])
+
+
+def _logits(params, cfg: ArchConfig, h):
+    """fp32 logits over the whole vocabulary: on a model axis each rank's
+    vocab block, gathered (every rank samples from the whole)."""
+    out = _local_logits(params, cfg, h)
+    tp = comm.model_axis()
     return out if tp is None else comm.gather_from(tp, out, out.dim() - 1)
 
 

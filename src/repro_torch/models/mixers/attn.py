@@ -30,7 +30,6 @@ class Attention(SequenceMixer):
     supports_batched_ragged_prefill = True   # per-row (B,) valid_len
     quadratic = True           # O(T) KV — no fixed-size persistent state
     state_passes = 0
-    trains_on_model_axis = True  # a rank's query (and KV) heads
 
     @classmethod
     def _window(cls, cfg):
@@ -97,7 +96,6 @@ class Attention(SequenceMixer):
 class SlidingWindowAttention(Attention):
     kind = "swa"
     quadratic = False          # rolling window: O(window) state
-    trains_on_model_axis = False
 
     @classmethod
     def _window(cls, cfg):

@@ -15,7 +15,6 @@ class GatedDeltaNet(SequenceMixer):
     supports_batched_ragged_prefill = True   # per-row (B,) valid_len
     state_passes = 2           # fused Alg. 2: one read + one write pass
     fused = True               # decode algorithm (Alg. 2 vs Alg. 1)
-    trains_on_model_axis = True  # a rank's k/v heads
 
     @classmethod
     def init_params(cls, generator, cfg, dtype, device, reps):

@@ -34,8 +34,15 @@ are averaged over the axis (``comm.mean_over``), and a group of
 ``S = min(group_size, global tokens)`` tokens that spans several ranks
 takes its queue positions from the routing indices of every rank it
 spans, gathered over the axis (small int tensors), each rank keeping its
-own rows.  The model axis (expert parallelism) does not train yet
-(``check_train_model_axis``).
+own rows.  On the model axis in training (expert parallelism) the LM
+hands in the FFN input twice: after ``comm.copy_to`` for the experts
+(their input gradient, partial per rank, is summed there) and before it
+for the router, whose gradient into that input is the same on every rank
+and must not be summed again.  The combine gates' gradient is partial
+per rank (only the slots routed to its experts carry one): ``copy_to``
+on the gates sums it over "model" before it reaches the router, so the
+router's gradient (that sum plus the load-balancing term, the same on
+every rank and counted once) is the whole one on every rank.
 
 Parameters are stacked (reps, ...) like every leaf of the port:
 ``router`` fp32 (d, E); ``wi_gate``, ``wi_up`` (E, d, f) and ``wo``
@@ -47,17 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
-from repro_torch.models.mixers.base import TRAIN_MODEL_AXIS_ITEM
 from repro_torch.parallel import comm
-
-
-def check_train_model_axis(model: int):
-    """Raise on a model axis larger than 1 in training (expert
-    parallelism's backward is not ported)."""
-    if model > 1:
-        raise NotImplementedError(
-            f"training the MoE FFN on a model axis of {model} (expert "
-            f"parallelism) is not ported: {TRAIN_MODEL_AXIS_ITEM}")
 
 
 def _draw_experts(generator, shape, std, dtype, device, keep=None):
@@ -138,10 +135,12 @@ def _queue_positions(idx, E):
 
 
 def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
-            data=None):
+            data=None, route=None):
     """x: (B, T, d) -> (y (B, T, d), aux_loss 0-d fp32).  ``data``: the
     training mesh's "data" axis, whose ranks hold the global batch's rows
-    in order (module docstring)."""
+    in order; ``route``: the router's input where it is not ``x`` (on a
+    model axis, the FFN input before ``comm.copy_to``; module
+    docstring)."""
     B, T, d = x.shape
     E = p["router"].shape[-1]
     N = B * T
@@ -157,7 +156,8 @@ def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
     C = max(1, int(S * top_k * capacity_factor / E))
 
     xf = x.reshape(G, min(S, N), d)
-    probs, gate, idx = _route(xf, p["router"], top_k)          # (G, S, k)
+    xr = xf if route is None else route.reshape(xf.shape)
+    probs, gate, idx = _route(xr, p["router"], top_k)          # (G, S, k)
 
     # ----- load-balancing aux loss (Switch-style), over the global batch
     me = torch.mean(probs, dim=(0, 1))                         # (E,)
@@ -177,6 +177,10 @@ def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
                                        (data.index - first + 1) * N]
     oh = one_hot(idx, E, torch.int64)                          # (G, S, k, E)
     keep = pos < C
+    El = p["wi_gate"].shape[0]
+    tp = comm.model_axis() if El != E else None   # this rank's experts
+    if tp is not None:
+        gate = comm.copy_to(tp, gate)    # its gradient summed over "model"
     gate_kept = gate * keep
 
     # dispatch and combine masks folded over k: (G, S, E, C); a dropped
@@ -187,11 +191,12 @@ def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
     comb = torch.einsum("gske,gskc->gsec",
                         ohx * gate_kept.to(x.dtype)[..., None], pos_oh)
 
-    El = p["wi_gate"].shape[0]
-    if El != E:                      # this rank's experts (on a mesh)
-        disp, comb = (comm.model_axis().local(t, 2) for t in (disp, comb))
+    if tp is not None:
+        disp, comb = (tp.local(t, 2) for t in (disp, comb))
     xe = torch.einsum("gsec,gsd->egcd", disp, xf).reshape(El, G * C, d)
     ye = _experts(p, xe, x.dtype).reshape(El, G, C, d)
+    if tp is not None:                 # a partial sum, kept in fp32
+        comb, ye = comb.float(), ye.float()
     y = torch.einsum("gsec,egcd->gsd", comb, ye)
     return y.reshape(B, T, d), aux
 
@@ -205,7 +210,8 @@ def moe_decode(p, x_t, *, top_k=2):
     w = torch.einsum("bke,bk->be", one_hot(idx, E, x_t.dtype),
                      gate.to(x_t.dtype))
     El = p["wi_gate"].shape[0]
-    if El != E:                      # this rank's experts (on a mesh)
-        w = comm.model_axis().local(w, 1)
     ye = _experts(p, x_t.expand(El, B, d), x_t.dtype)          # (El, B, d)
+    if El != E:           # this rank's experts: a partial sum, in fp32
+        w = comm.model_axis().local(w, 1)
+        ye, w = ye.float(), w.float()
     return torch.einsum("ebd,be->bd", ye, w)

@@ -13,14 +13,18 @@ none either).  Train/prefill scan over T with a log-depth doubling scan
 Block layout follows RecurrentGemma: linear in -> causal conv(4) -> RG-LRU
 -> gated (GeGLU-style) linear out.
 
-On a mesh's "model" axis (``parallel.comm.model_axis()``) the serving
-paths run on this rank's width slice under the reference's rules:
-``in_x``, ``in_y``, the conv filter, ``Lambda`` and the state h are
-column-parallel (the replicated conv bias is cut to the slice), and
+On a mesh's "model" axis (``parallel.comm.model_axis()``) every path,
+training included, runs on this rank's width slice under the reference's
+rules: ``in_x``, ``in_y``, the conv filter, ``Lambda`` and the state h
+are column-parallel (the replicated conv bias is cut to the slice), and
 ``out`` is row-parallel (a partial sum the LM all-reduces).  The gate
 matrices ``w_a`` and ``w_x`` hold this rank's output columns over the
 *whole* input, so the post-conv x is all-gathered over "model" before the
-two gate products.
+two gate products.  In training that gather is
+``comm.gather_from(partial=True)`` (the gathered x feeds only this
+rank's gate columns: its gradient is summed over the axis before each
+rank keeps its slice) and the bias cut is ``comm.split_to`` (the
+replicated bias takes its whole gradient on every rank).
 """
 from __future__ import annotations
 
@@ -70,7 +74,8 @@ def _gelu(x):
 def _gates(p, x, tp=None):
     """x: (..., width) -> (log_a, gated_input) in fp32.  On a mesh ``x``
     is this rank's slice: the gate products take the whole of it."""
-    xa = x if tp is None else tp.all_gather(x, x.dim() - 1)
+    xa = x if tp is None else comm.gather_from(tp, x, x.dim() - 1,
+                                               partial=True)
     r = torch.sigmoid(layers.dot(xa, p["w_a"]).float())
     i = torch.sigmoid(layers.dot(xa, p["w_x"]).float())
     log_a = -_C * F.softplus(p["Lambda"]) * r          # <= 0
@@ -97,15 +102,18 @@ def _scan_rglru(log_a, gated, h0):
 
 
 def rglru_train(p, x):
+    """Full-sequence RG-LRU block: x (B, T, d) -> (B, T, d); on a mesh's
+    "model" axis this rank's width slice (a partial sum of the output)."""
     B = x.shape[0]
+    tp = comm.model_axis()
     xb = layers.dot(x, p["in_x"])
     yb = _gelu(layers.dot(x, p["in_y"]))
-    xb = layers.conv1d_fwd(p["conv"], xb)
-    log_a, gated = _gates(p, xb)
+    xb = layers.conv1d_fwd(layers.conv_block(p["conv"], xb.shape[-1]), xb)
+    log_a, gated = _gates(p, xb, tp)
     h = _scan_rglru(log_a, gated, torch.zeros(
         (B, xb.shape[-1]), dtype=torch.float32, device=x.device))
     out = (h * yb).to(x.dtype)
-    return layers.dot(out, p["out"])
+    return layers.dot_rows(out, p["out"])
 
 
 def rglru_prefill(p, x, state: RGLRUState, valid_len=None):
@@ -132,7 +140,7 @@ def rglru_prefill(p, x, state: RGLRUState, valid_len=None):
         gated = torch.where(vm, gated, zero)     # b = 0
     h = _scan_rglru(log_a, gated, state.h)
     out = (h * yb).to(x.dtype)
-    return layers.dot(out, p["out"]), RGLRUState(
+    return layers.dot_rows(out, p["out"]), RGLRUState(
         h=h[:, -1, :], conv=new_conv.to(state.conv.dtype))
 
 
@@ -148,4 +156,4 @@ def rglru_decode(p, x_t, state: RGLRUState):
     h = a * state.h + torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
         * gated
     out = (h * yb).to(x_t.dtype)
-    return layers.dot(out, p["out"]), RGLRUState(h=h, conv=new_conv)
+    return layers.dot_rows(out, p["out"]), RGLRUState(h=h, conv=new_conv)

@@ -11,16 +11,24 @@ Projections are kept separate (w_z / w_x / w_B / w_C / w_dt); the causal
 conv(4) applies depthwise to x, B and C with separate filters.  The kernel
 paths update ``state.S`` in place.
 
-On a mesh's "model" axis (``parallel.comm.model_axis()``) the serving
-paths run on this rank's shards under the reference's rules: its heads of
-z, x, dt, the state S, A_log, dt_bias and D, its rows of ``out_proj`` (a
-partial sum the LM all-reduces), and its ``d_state`` slice of the B and C
-conv carries.  ``w_B``, ``w_C`` and their conv filters are replicated, so
-each rank convolves its slice of B and C and one all-gather assembles
-them before the kernel, which takes them as its one shared k and q head.
-The RMSNorm over d_inner all-reduces the mean square of each rank's slice
-(divided by the axis size: at one rank the unsharded arithmetic, bit for
-bit) and scales by its slice of the replicated scale.
+On a mesh's "model" axis (``parallel.comm.model_axis()``) every path,
+training included, runs on this rank's shards under the reference's
+rules: its heads of z, x, dt, the state S, A_log, dt_bias and D, its rows
+of ``out_proj`` (a partial sum the LM all-reduces), and its ``d_state``
+slice of the B and C conv carries.  ``w_B``, ``w_C`` and their conv
+filters are replicated, so each rank convolves its slice of B and C and
+one all-gather assembles them before the kernel, which takes them as its
+one shared k and q head.  The RMSNorm over d_inner takes the mean over
+"model" of each rank's mean square (at one rank the unsharded
+arithmetic, bit for bit) and scales by its slice of the replicated
+scale.  In training these are the differentiable collectives of
+``parallel.comm``: B and C gathered with ``gather_from(partial=True)``
+(they feed only this rank's heads, so their gradient is summed over the
+axis before each rank keeps its slice), the mean square through
+``mean_over``, and every replicated leaf cut to the rank's slice
+(``w_B``, ``w_C``, the conv filters of B and C, the conv biases, the norm
+scale) through ``split_to``, whose backward gathers the slices'
+gradients: each such leaf takes its whole gradient on every rank.
 """
 from __future__ import annotations
 
@@ -94,18 +102,20 @@ def _ssd_terms(p, x_in, B_in, C_in, dt, headdim):
 
 
 def _block(tp, t, n):
-    """A replicated leaf's slice of this rank's ``n`` last-dim entries."""
-    return t if tp is None else tp.block(t, n)
+    """A replicated leaf's slice of this rank's ``n`` last-dim entries
+    (its gradient gathered over "model": ``comm.split_to``)."""
+    return t if tp is None else comm.split_to(tp, t, n)
 
 
 def _rmsnorm(tp, p, x, eps=1e-6):
-    """RMSNorm over the whole d_inner, which a mesh splits: the mean
-    square of each rank's slice, all-reduced over "model" and divided by
-    the axis size, then this rank's slice of the scale."""
+    """RMSNorm over the whole d_inner, which a mesh splits: the mean over
+    "model" of each rank's mean square (``comm.mean_over``: its gradient
+    the mean of the ranks' gradients, each partial), then this rank's
+    slice of the scale."""
     if tp is None:
         return layers.rmsnorm_fwd(p, x, eps)
     xf = x.float()
-    var = tp.all_reduce(torch.mean(xf * xf, dim=-1, keepdim=True)) / tp.size
+    var = comm.mean_over(tp, torch.mean(xf * xf, dim=-1, keepdim=True))
     scale = _block(tp, p["scale"], x.shape[-1])
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
@@ -116,34 +126,46 @@ def _out(p, y, z, xh, x_dtype, tp=None):
     y = y.reshape(*y.shape[:-2], -1)
     y = _rmsnorm(tp, p["norm"], y.to(x_dtype))
     y = y * _silu(z)
-    return layers.dot(y, p["out_proj"])
+    return layers.dot_rows(y, p["out_proj"])
 
 
 def _gather_bc(tp, Bi, Ci):
     """The whole of B and C from every rank's ``d_state`` slice (one
-    all-gather; nothing off a mesh)."""
+    all-gather of the two side by side; nothing off a mesh).  In training
+    the gathered B and C feed only this rank's heads: their gradient is
+    summed over "model" before each rank keeps its slice."""
     if tp is None:
         return Bi, Ci
-    return tuple(tp.all_gather_cat([Bi, Ci], [-1, -1], Bi.dim() - 1))
+    ns = Bi.shape[-1]
+    bc = comm.gather_from(tp, torch.cat([Bi, Ci], -1), -1, partial=True)
+    bc = bc.unflatten(-1, (tp.size, 2, ns))
+    return bc[..., 0, :].flatten(-2), bc[..., 1, :].flatten(-2)
 
 
 def ssm_train(p, x, *, d_inner, headdim, d_state, chunk=64):
     """Full-sequence SSD through the differentiable chunkwise path (fp32,
-    S0 = 0, delta_rule=False).  x: (B, T, d) -> (B, T, d)."""
+    S0 = 0, delta_rule=False).  x: (B, T, d) -> (B, T, d); on a mesh's
+    "model" axis this rank's heads (a partial sum of the output)."""
     B = x.shape[0]
-    nheads = d_inner // headdim
+    tp = comm.model_axis()
+    ns = d_state if tp is None else d_state // tp.size
+    nx = p["w_x"].shape[-1]
     z = layers.dot(x, p["w_z"])
-    xi = _silu(layers.conv1d_fwd(p["conv_x"], layers.dot(x, p["w_x"])))
-    Bi = _silu(layers.conv1d_fwd(p["conv_B"], layers.dot(x, p["w_B"])))
-    Ci = _silu(layers.conv1d_fwd(p["conv_C"], layers.dot(x, p["w_C"])))
+    xi = _silu(layers.conv1d_fwd(layers.conv_block(p["conv_x"], nx),
+                                 layers.dot(x, p["w_x"])))
+    Bi = _silu(layers.conv1d_fwd(layers.conv_block(p["conv_B"], ns),
+                                 layers.dot(x, _block(tp, p["w_B"], ns))))
+    Ci = _silu(layers.conv1d_fwd(layers.conv_block(p["conv_C"], ns),
+                                 layers.dot(x, _block(tp, p["w_C"], ns))))
+    Bi, Ci = _gather_bc(tp, Bi, Ci)
     dt = layers.dot(x, p["w_dt"])
     xh, v, log_g = _ssd_terms(p, xi, Bi, Ci, dt, headdim)
-    S0 = torch.zeros((B, nheads, d_state, headdim), dtype=torch.float32,
-                     device=x.device)
+    S0 = torch.zeros((B, xh.shape[-2], d_state, headdim),
+                     dtype=torch.float32, device=x.device)
     O, _ = gdn_core.gdn_prefill(
         Ci[:, :, None, :].float(), Bi[:, :, None, :].float(), v.float(),
         log_g, torch.ones_like(log_g), S0, chunk=chunk, delta_rule=False)
-    return _out(p, O.to(x.dtype), z, xh, x.dtype)
+    return _out(p, O.to(x.dtype), z, xh, x.dtype, tp)
 
 
 def _conv_prefill(conv_p, u, cache, valid_len=None):

@@ -22,7 +22,9 @@ On NCCL the collectives run on the device and can be captured in a CUDA
 graph (they are issued at every axis size, 1 included).  Gloo has no
 collectives on CUDA tensors beyond ``all_reduce`` and ``broadcast``, so a
 gloo axis stages a CUDA tensor through host memory (a device sync: such
-runs are eager); on CPU tensors it runs gloo directly, with no sync.
+runs are eager); on CPU tensors it runs gloo directly, with no sync.  A
+gloo axis of one rank issues nothing: its collectives return (a copy of)
+the rank's own tensor.
 
 Training differentiates through the collectives: the Megatron pairs are
 ``torch.autograd.Function``s over an ``Axis`` (``copy_to``: identity
@@ -30,11 +32,15 @@ forward, all-reduce backward, before a column-parallel product;
 ``reduce_from``: the all-reduce forward, identity backward, after a
 row-parallel one; ``gather_from``: the all-gather forward, this rank's
 block of the gradient backward, summed over the axis first where each
-rank's gradient is partial), and ``mean_over`` averages over the
-data axis both ways.  Outside autograd (``torch.no_grad``, or an input
-that needs no gradient) each is its plain collective, so the serving
-paths run the same calls bit for bit.  The trainer averages a step's
-gradients over "data" with ``Axis.mean_flat``.
+rank's gradient is partial; ``split_to``: this rank's block of a
+replicated leaf forward, the ranks' blocks of its gradient gathered
+backward, so that the replicated leaf takes its whole gradient on every
+rank), and ``mean_over`` averages over an axis both ways (a batch
+statistic over "data", a mean square over a dim split on "model").
+Outside autograd (``torch.no_grad``, or an input that needs no gradient)
+each is its plain collective, so the serving paths run the same calls
+bit for bit.  The trainer averages a step's gradients over "data" with
+``Axis.mean_flat``.
 
 ``use(mesh_axes)`` makes a mesh the active one for the model code
 (``model_axis()``, ``data_axis()``): the executor enters it around every
@@ -91,7 +97,15 @@ class Axis:
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
 
+    def _alone(self) -> bool:
+        """A gloo axis of one rank: its collectives move nothing, so none
+        is issued (an NCCL one still issues them, which a CUDA graph
+        captures)."""
+        return self.size == 1 and self.backend == "gloo"
+
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self._alone():
+            return t.clone()
         t0 = time.perf_counter()
         src = t.contiguous()
         if src.dtype == torch.bool:
@@ -187,6 +201,8 @@ class Axis:
         ranks' chunks in axis order, equal in size): every rank sends
         chunk r to rank r, which sums what it receives as ``all_reduce``
         does."""
+        if self._alone():
+            return t.clone()
         t0 = time.perf_counter()
         src = t.contiguous()
         host = src.cpu() if self._staged(src) else src
@@ -201,6 +217,8 @@ class Axis:
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """``t`` (every rank's buffer of one shape) from coordinate
         ``src``, in place; returns ``t``."""
+        if self._alone():
+            return t
         t0 = time.perf_counter()
         buf = t.view(torch.uint8) if t.dtype == torch.bool else t
         host = buf.cpu() if self._staged(buf) else buf
@@ -273,6 +291,17 @@ class _GatherFrom(torch.autograd.Function):
         return None, ctx.axis.local(g, ctx.dim).contiguous(), None, None
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.local(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.axis.all_gather(g.contiguous(), ctx.dim), None
+
+
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, axis, x):
@@ -311,10 +340,27 @@ def gather_from(axis: Axis, x: torch.Tensor, dim: int,
             else axis.all_gather(x, dim))
 
 
+def split_to(axis: Axis, x: torch.Tensor, n: int,
+             dim: int = -1) -> torch.Tensor:
+    """``axis.block(x, n, dim)``: a replicated ``x`` cut to this rank's
+    ``n`` entries along ``dim`` (``x`` itself where it holds just those, a
+    leaf the rules shard).  The gradient of a cut ``x`` is the ranks'
+    blocks of it gathered in axis order: each rank's block gets only this
+    rank's part, and every rank's replicated leaf takes the whole, the
+    same bits on each."""
+    dim = dim % x.dim()
+    if x.shape[dim] == n:
+        return x
+    return _SplitTo.apply(axis, x, dim) if _tracked(x) \
+        else axis.local(x, dim)
+
+
 def mean_over(axis: Axis, x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the ranks of ``axis`` (a batch statistic
-    over the data axis), and of its gradient: each rank's loss counts once
-    in the data-parallel mean of the gradients."""
+    """The mean of ``x`` over the ranks of ``axis``, and of its gradient:
+    a batch statistic over the data axis (each rank's loss counts once in
+    the data-parallel mean of the gradients), or a mean over a dim that
+    the model axis splits (each rank's gradient of the mean is the part of
+    its own slice's outputs).  Bitwise ``all_reduce(x) / size`` in fp32."""
     return _MeanOver.apply(axis, x) if _tracked(x) \
         else axis.all_reduce(x, mean=True)
 

@@ -202,6 +202,51 @@ def param_spec(path: str, shape, fsdp: bool) -> P:
     return P()                                   # replicate by default
 
 
+def check_model_axis(cfg: ArchConfig, model: int, max_len=None):
+    """Raise ``ValueError`` where a model axis of ``model`` does not divide
+    a dim that the port's model code splits where these rules place
+    "model": the vocab, query heads, GDN k/v heads, SSD heads and
+    d_state, the RG-LRU width, the MLP's d_ff, the MoE experts and, with
+    ``max_len`` (serving), the KV context (``max_len``, a ``swa``
+    window's slots).  Where one of these does not divide, the
+    reference's ``fit_spec`` moves the axis onto another dim, which the
+    model code does not follow (ROADMAP queue 1 item 4e).  The one move
+    it follows: KV heads the axis does not divide (MQA) go to head_dim,
+    which the axis must then divide."""
+    if model == 1:
+        return
+    kinds = set(cfg.layer_kinds)
+    dims = {"vocab": cfg.vocab}
+    if kinds & {"attn", "swa"}:
+        dims["n_heads"] = cfg.hq_eff
+        if cfg.hkv_eff % model:         # fit_spec: onto head_dim
+            dims["n_kv_heads or head_dim"] = cfg.head_dim
+        if max_len is not None and "attn" in kinds:
+            dims["max_len (the KV context)"] = max_len
+        if max_len is not None and "swa" in kinds:
+            dims["the swa window's KV slots"] = min(cfg.window, max_len)
+    if kinds & {"gdn", "gdn_naive"}:
+        dims.update(gdn_k_heads=cfg.gdn_k_heads,
+                    gdn_v_heads=cfg.gdn_v_heads)
+    if "ssm" in kinds:
+        dims.update(ssm_heads=cfg.ssm_d_inner // cfg.ssm_headdim,
+                    ssm_d_state=cfg.ssm_d_state)
+    if "rglru" in kinds:
+        dims["rglru_width"] = cfg.rglru_width
+    if cfg.ffn == "dense":
+        dims["d_ff"] = cfg.d_ff
+    if cfg.ffn in ("moe", "moe+dense"):
+        dims["moe_experts"] = cfg.moe_experts
+    if cfg.ffn == "moe+dense":
+        dims["d_ff_dense"] = cfg.d_ff_dense or cfg.d_ff
+    bad = {k: v for k, v in dims.items() if v % model}
+    if bad:
+        raise ValueError(
+            f"the model axis ({model}) must divide {bad}: the reference's "
+            f"fit_spec would move it onto another dim, which the port's "
+            f"model code does not follow (ROADMAP queue 1 item 4e)")
+
+
 def _prepend_stack_dim(spec: P) -> P:
     """Layer-stacked params get a leading (repeats,) dim: unsharded."""
     return P(None, *spec)
@@ -455,21 +500,28 @@ def map_specs(fn, tree, specs, is_leaf=None):
 def shard_tree(tree, specs, coords, sizes, full=None):
     """``local_shard`` of every leaf of a full tree (contiguous copies).
     With ``full`` (the tree of the full leaves, e.g. on the meta device) a
-    leaf may also come as this rank's block already (drawn so:
-    ``lm.init_lm(..., mesh=)``) and is kept as it is; a leaf of neither
-    shape raises."""
+    leaf may also come cut already along some of its dims, or all (drawn
+    so: ``lm.init_lm(..., mesh=)`` keeps only this rank's experts, whose
+    rows FSDP then cuts over "data"): each dim that is whole is cut, each
+    that holds this rank's block is kept; a dim of any other size
+    raises."""
     if full is None:
         return map_specs(lambda t, s: local_shard(t, s, coords, sizes)
                          .contiguous(), tree, specs)
 
     def cut(t, spec_shape):
         spec, shape = spec_shape
-        if tuple(t.shape) == shape:
-            return local_shard(t, spec, coords, sizes).contiguous()
-        if tuple(t.shape) == local_shape(shape, spec, sizes):
-            return t
-        raise ValueError(f"a leaf of {tuple(t.shape)} is neither the full "
-                         f"{shape} nor its block under {spec}")
+        want = local_shape(shape, spec, sizes)
+        if t.dim() != len(shape) or any(
+                n not in (f, w) for n, f, w in zip(t.shape, shape, want)):
+            raise ValueError(f"a leaf of {tuple(t.shape)} is neither the "
+                             f"full {shape} nor cut to its block under "
+                             f"{spec}")
+        for dim, (n, w) in enumerate(zip(t.shape, want)):
+            if n != w:                    # whole along dim: this block
+                idx, _ = shard_block(spec, dim, coords, sizes)
+                t = t.narrow(dim, idx * w, w)
+        return t.contiguous()
     return map_specs(cut, tree, map_specs(
         lambda f, spec: (spec, tuple(f.shape)), full, specs))
 

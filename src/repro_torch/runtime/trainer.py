@@ -26,8 +26,10 @@ Behaviours carried over from the reference:
     (its global norm and factored moments reduce over the split axes).
     Each rank reads the global batch and keeps its rows
     (``batch_specs``; with microbatches the reference's resplit: rank r
-    of D holds block r of every microbatch).  The model axis trains the
-    ``gdn`` and ``attn`` kinds and the dense FFN (``models.lm``);
+    of D holds block r of every microbatch).  The model axis trains every
+    mixer kind, the dense FFN and the MoE's experts (``models.lm``),
+    where it divides each dim it splits
+    (``parallel.sharding.check_model_axis``);
   * checkpoint/restart: atomic async checkpoints every ``ckpt_every``;
     ``run()`` auto-resumes from the latest complete checkpoint, and an
     exception inside the step loop triggers restore-and-continue with
@@ -292,7 +294,7 @@ class Trainer:
             raise ValueError(f"a training mesh has axes ('data', 'model'), "
                              f"got {tuple(sizes)} "
                              f"(launch.mesh.make_local_mesh)")
-        lm.check_train_model_axis(self.cfg, sizes["model"])
+        rules.check_model_axis(self.cfg, sizes["model"])
         axes = self.axes = comm.MeshAxes(mesh)
         backends = {a.backend for a in axes.axes.values()}
         if "gloo" in backends and cuda_graphs:

@@ -125,17 +125,11 @@ MODEL_AXIS_KINDS = ("attn", "gdn", "gdn_naive", "rglru", "ssm", "swa")
 
 
 def check_model_axis(cfg: ArchConfig, model: int, max_len: int):
-    """Refuse a model axis of ``model`` > 1 that this port cannot run: a
+    """Refuse a model axis of ``model`` > 1 that this port cannot serve: a
     mixer kind outside ``MODEL_AXIS_KINDS`` (``NotImplementedError``), or
-    a dim the axis must divide (``ValueError``).
-
-    The port splits each dim where the reference's rules place "model":
-    the vocab, query heads, the KV context (``max_len``, a ``swa``
-    window), GDN k/v heads, SSD heads and d_state, the RG-LRU width, the
-    MLP's d_ff and the MoE experts.  Where one of these does not divide,
-    ``fit_spec`` would re-place the axis on another dim, which the model
-    code does not follow, so it is refused.  The one re-placement it
-    follows: KV heads the axis does not divide (MQA) move to head_dim."""
+    a dim the axis must divide (``ValueError``,
+    ``parallel.sharding.check_model_axis``: the dims the trainer splits,
+    and the KV context, ``max_len`` or a ``swa`` window's slots)."""
     if model == 1:
         return
     kinds = sorted(set(cfg.layer_kinds) - set(MODEL_AXIS_KINDS))
@@ -144,33 +138,7 @@ def check_model_axis(cfg: ArchConfig, model: int, max_len: int):
             f"the mesh's model axis has no split for mixer kind(s) {kinds} "
             f"(split kinds: {list(MODEL_AXIS_KINDS)}); the data axis "
             f"serves every kind")
-    kinds = set(cfg.layer_kinds)
-    dims = {"vocab": cfg.vocab}
-    if kinds & {"attn", "swa"}:
-        dims["n_heads"] = cfg.hq_eff
-        if cfg.hkv_eff % model:         # fit_spec: onto head_dim
-            dims["n_kv_heads or head_dim"] = cfg.head_dim
-        if "attn" in kinds:
-            dims["max_len (the KV context)"] = max_len
-        if "swa" in kinds:
-            dims["the swa window's KV slots"] = min(cfg.window, max_len)
-    if kinds & {"gdn", "gdn_naive"}:
-        dims.update(gdn_k_heads=cfg.gdn_k_heads,
-                    gdn_v_heads=cfg.gdn_v_heads)
-    if "ssm" in kinds:
-        dims.update(ssm_heads=cfg.ssm_d_inner // cfg.ssm_headdim,
-                    ssm_d_state=cfg.ssm_d_state)
-    if "rglru" in kinds:
-        dims["rglru_width"] = cfg.rglru_width
-    if cfg.ffn == "dense":
-        dims["d_ff"] = cfg.d_ff
-    if cfg.ffn in ("moe", "moe+dense"):
-        dims["moe_experts"] = cfg.moe_experts
-    if cfg.ffn == "moe+dense":
-        dims["d_ff_dense"] = cfg.d_ff_dense or cfg.d_ff
-    bad = {k: v for k, v in dims.items() if v % model}
-    if bad:
-        raise ValueError(f"the model axis ({model}) must divide {bad}")
+    rules.check_model_axis(cfg, model, max_len)
 
 
 def _drop_data(specs):

@@ -216,7 +216,10 @@ def test_wrappers_check_their_inputs(cuda):
 # the trained shape; a T that is no multiple of the 64-row tile; a window
 # narrower than a tile, so every tile on the diagonal crosses its edge; a
 # peaky softmax (q and k times ``peak``: scores spanning about +-30, where
-# rounding P to bf16 is hardest)
+# rounding P to bf16 is hardest); head dims 80 (h2o-danube-1.8b: 5
+# k-steps, 10 copy chunks per row) and 256 (recurrentgemma-2b: 64-row
+# forward and dq CTAs, dk/dv CTAs split between dK and dV), each with a
+# window, with valid_len and with a T off the tile
 FLASH_CASES = [(2, 128, 4, 4, 64, None, None, 1.0),
                (1, 256, 16, 2, 128, None, None, 1.0),
                (2, 100, 4, 2, 64, None, None, 1.0),
@@ -225,7 +228,11 @@ FLASH_CASES = [(2, 128, 4, 4, 64, None, None, 1.0),
                (1, 2048, 16, 2, 128, None, None, 1.0),
                (2, 300, 8, 2, 128, None, None, 1.0),
                (1, 256, 4, 2, 128, 24, None, 1.0),
-               (1, 512, 8, 2, 128, None, None, 2.75)]
+               (1, 512, 8, 2, 128, None, None, 2.75),
+               (2, 200, 8, 2, 80, None, (200, 77), 1.0),
+               (1, 256, 4, 1, 80, 48, None, 1.0),
+               (1, 320, 16, 1, 256, 100, None, 1.0),
+               (2, 130, 4, 2, 256, None, (130, 64), 1.0)]
 
 
 @pytest.mark.cuda
@@ -277,12 +284,13 @@ def test_flash_kernels_vs_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
-def test_flash_dq_bitwise_reproducible(cuda):
+@pytest.mark.parametrize("hd", [80, 128, 256])
+def test_flash_dq_bitwise_reproducible(cuda, hd):
     """The bf16 dq kernel owns its rows (no atomics): five calls on the
     same inputs give the same bits."""
     from repro_torch.kernels import flash_attn as tflash
     rng = np.random.default_rng(16)
-    BH, G, T, hd = 2, 4, 300, 128
+    BH, G, T = 2, 4, 300
     q, do = (_normal(rng, BH, G, T, hd).to(cuda, torch.bfloat16)
              for _ in range(2))
     k, v = (_normal(rng, BH, T, hd).to(cuda, torch.bfloat16)
@@ -304,13 +312,16 @@ def _dkv_inputs(cuda, rng, BH, G, T, hd):
 
 
 @pytest.mark.cuda
-def test_flash_dkv_bitwise_reproducible(cuda):
+@pytest.mark.parametrize("BH,G,T,hd", [(4, 8, 2048, 128), (2, 4, 640, 80),
+                                       (1, 16, 512, 256)])
+def test_flash_dkv_bitwise_reproducible(cuda, BH, G, T, hd):
     """The bf16 dk/dv kernel sums the G query heads in a fixed order (a
     thread block cluster, no atomics): five calls at the trained shape
-    (B=2, T=2048, GQA 16:2) give the same bits, from one launch each."""
+    (B=2, T=2048, GQA 16:2), at head dim 80 and at 256 (dK and dV from
+    separate CTAs of the one launch) give the same bits, from one launch
+    each."""
     from repro_torch.kernels import flash_attn as tflash
     rng = np.random.default_rng(18)
-    BH, G, T, hd = 4, 8, 2048, 128
     q, k, v, do = _dkv_inputs(cuda, rng, BH, G, T, hd)
     o, m, l = tflash.flash_fwd(q, k, v)
     delta = torch.sum(do.float() * o.float(), dim=-1)
@@ -329,10 +340,15 @@ def test_flash_dkv_bitwise_reproducible(cuda):
 # (llava-next-34b; 7 CTAs of one head) and 8 (h2o-danube, qwen3-next-gdn;
 # 4 CTAs of two heads), and 16 (4 CTAs of four heads); each with a window
 # or with valid_len whose second row leaves key tiles wholly past it (they
-# must come out as zeros)
+# must come out as zeros); head dim 80 at G 4 (h2o-danube-1.8b on a model
+# axis of 2) and 256 at G 16 and 8 (recurrentgemma-2b's padded MQA heads,
+# on one device and on a model axis of 2: CTAs split between dK and dV)
 DKV_GROUP_CASES = [(1, 128, 200, 50, (200, 60)), (4, 64, 256, None, (256, 9)),
                    (7, 128, 200, 70, (131, 64)), (8, 128, 320, 100, (320, 1)),
-                   (16, 64, 192, None, (192, 100))]
+                   (16, 64, 192, None, (192, 100)),
+                   (4, 80, 256, None, (256, 9)),
+                   (16, 256, 256, 100, (256, 70)),
+                   (8, 256, 200, None, (131, 1))]
 
 
 @pytest.mark.cuda

@@ -35,6 +35,11 @@ CASES = {
     "window": (2, 2, 64, 16, 24, None, 16),
     "valid_len": (3, 2, 64, 16, None, (64, 37, 5), 16),
     "bf16": (2, 2, 64, 32, None, None, 32),
+    # h2o-danube-1.8b's head dim and recurrentgemma-2b's
+    "hd80": (2, 2, 32, 80, None, None, 16),
+    "hd80_window": (1, 4, 48, 80, 20, None, 16),
+    "hd256": (1, 2, 32, 256, None, None, 16),
+    "hd256_window": (2, 2, 32, 256, 12, (32, 19), 16),
 }
 
 
@@ -333,6 +338,25 @@ def test_dkv_cluster_reduction_matches_reference(G, window, valid):
     if vl is not None:       # key rows at or past valid_len: exactly zero
         for b, n in enumerate(valid):
             assert not _np(dk)[b, n:].any() and not _np(dv)[b, n:].any()
+
+
+def test_every_attention_head_dim_has_its_kernels():
+    """Every registered arch with an attention layer has its head dim
+    among the kernels' instantiations (h2o-danube-1.8b's 80 and
+    recurrentgemma-2b's 256 among them), and a head dim outside them is
+    refused, never run on the plain version instead: the check comes
+    before any look at the device."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.models.mixers import get_mixer
+    dims = {arch: cfg.head_dim for arch, cfg in tconfigs.ARCHS.items()
+            if any(get_mixer(k).is_attention for k in cfg.layer_kinds)}
+    assert dims["h2o-danube-1.8b"] == 80
+    assert dims["recurrentgemma-2b"] == 256
+    assert set(dims.values()) <= set(tflash.HEAD_DIMS), dims
+    q = torch.zeros(1, 2, 8, 96)
+    k = torch.zeros(1, 8, 96)
+    with pytest.raises(ValueError, match="head dim 96"):
+        tflash._check(q, k, k, None)
 
 
 def test_flash_bounds_at_trained_shape():

@@ -125,6 +125,37 @@ def test_core_prefill_sequential_and_chunkwise(delta_rule):
     np.testing.assert_allclose(_np(tS), _np(jS), **F32)
 
 
+@pytest.mark.parametrize("delta_rule", [True, False])
+def test_core_chunkwise_gradients_where_the_decay_passes_exp_range(
+        delta_rule):
+    """A chunk of 64 steps of log decay -3 each (a cumulative -192, past
+    fp32's exp range, as mamba2's full-width SSD layers reach): the
+    chunkwise forward is the reference's, and its gradients are finite
+    and those of the sequential recurrence (the masked entries above the
+    diagonal leave no 0 x inf behind; in fp64 to hold the two forms to
+    summation order: the chunkwise form in fp32, where the overflow
+    happens, against the sequential one in fp64)."""
+    q, k, v, _, beta, S0 = prefill_inputs(5, 1, 64, 1, 1, 16, 16)
+    lg = np.full((64,), -3.0, np.float32)
+    a = (q[0, :, 0], k[0, :, 0], v[0, :, 0], lg, beta[0, :, 0], S0[0, 0])
+    jO, _ = jgdn.prefill_chunkwise(*map(_j, a), chunk=64,
+                                   delta_rule=delta_rule)
+    tO, _ = tgdn.prefill_chunkwise(*map(_t, a), chunk=64,
+                                   delta_rule=delta_rule)
+    np.testing.assert_allclose(_np(tO), _np(jO), **F32)
+    grads = []
+    for fn, dtype in ((tgdn.prefill_chunkwise, torch.float32),
+                      (tgdn.prefill_sequential, torch.float64)):
+        xs = [torch.tensor(x, dtype=dtype, requires_grad=True) for x in a]
+        O, S = fn(*xs, delta_rule=delta_rule)
+        (O.sum() + S.sum()).backward()
+        grads.append([x.grad for x in xs[:4]])
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
 @pytest.mark.parametrize("fused", [True, False])
 def test_core_batched_gva_wrappers(fused):
     q, k, v, S, g, beta = decode_inputs(3, 2, 2, 4, 16, 16)

@@ -404,24 +404,23 @@ def test_trainer_microbatch_accumulation():
 
 
 def test_trainer_rejects_a_mesh():
-    """The refusal that remains: a model axis larger than 1 in training
-    for a kind other than gdn and attn, or the MoE (checked from the
-    mesh's shape before any process group is touched)."""
-    mesh = SimpleNamespace(axis_names=("data", "model"),
-                           shape={"data": 1, "model": 2})
-    for arch, what in (("mamba2-1.3b", "'ssm'"),
-                       ("recurrentgemma-2b", "'rglru'"),
-                       ("mixtral-8x7b", "'swa'")):
+    """The refusal that remains: a model axis that does not divide a dim
+    the model code splits there, where the reference's ``fit_spec`` would
+    move it (ROADMAP item 4e), for every kind and the MoE (checked from
+    the mesh's shape before any process group is touched)."""
+    def mesh(model):
+        return SimpleNamespace(axis_names=("data", "model"),
+                               shape={"data": 1, "model": model})
+    for arch, model, what in (("mamba2-1.3b", 3, "ssm_heads"),
+                              ("recurrentgemma-2b", 3, "rglru_width"),
+                              ("h2o-danube-1.8b", 8, "n_heads"),
+                              ("mixtral-8x7b", 8, "moe_experts"),
+                              ("arctic-480b", 8, "moe_experts")):
         cfg = tconfigs.get_arch(arch).reduced()
-        with pytest.raises(NotImplementedError,
-                           match=rf"{what}.*ROADMAP queue 1 item 4f"):
-            ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=mesh,
-                             device="cpu")
-    cfg = tconfigs.get_arch("mixtral-8x7b").reduced().replace(
-        pattern=("attn",))
-    with pytest.raises(NotImplementedError, match=r"MoE.*item 4f"):
-        ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=mesh,
-                         device="cpu")
+        with pytest.raises(ValueError,
+                           match=rf"{what}.*ROADMAP queue 1 item 4e"):
+            ttrainer.Trainer(cfg, ttrainer.TrainerConfig(),
+                             mesh=mesh(model), device="cpu")
 
 
 @pytest.mark.parametrize("arch,schedule", [("minicpm-2b", "wsd"),

@@ -112,18 +112,31 @@ NAIVE = "gdn_naive"
 # qwen3-next-gdn's reduced config with one KV head: a model axis of 2
 # splits its KV projections on head_dim (``fit_spec``)
 MQA = "qwen3-next-gdn-kv1"
+# qwen3-next-gdn's reduced config with every gdn layer a gdn_naive one
+NAIVE_ALL = "qwen3-next-gdn-naive"
+# mamba2-1.3b's reduced config with a d_state (33) that no model axis of
+# 2 divides
+SSM_ODD = "mamba2-1.3b-dstate33"
+
+# qwen3-next-gdn's reduced config in bf16 activations (and parameters)
+BF16 = "qwen3-next-gdn-bf16"
+
+# the reduced configs that are no arch of the registry: name -> (arch,
+# ``replace`` settings), the same on the reference's side
+VARIANTS = {
+    NAIVE: ("qwen3-next-gdn", dict(pattern=("gdn_naive", "attn"))),
+    MQA: ("qwen3-next-gdn", dict(n_kv_heads=1)),
+    NAIVE_ALL: ("qwen3-next-gdn", dict(
+        pattern=("gdn_naive", "gdn_naive", "gdn_naive", "attn"))),
+    SSM_ODD: ("mamba2-1.3b", dict(ssm_d_state=33)),
+    BF16: ("qwen3-next-gdn", dict(act_dtype="bfloat16")),
+}
 
 
 def config(arch):
-    """The reduced config of ``arch`` (``NAIVE``: qwen3-next-gdn's with the
-    pattern ("gdn_naive", "attn"); ``MQA``: with one KV head)."""
-    if arch == NAIVE:
-        return configs.get_arch("qwen3-next-gdn").reduced().replace(
-            pattern=("gdn_naive", "attn"))
-    if arch == MQA:
-        return configs.get_arch("qwen3-next-gdn").reduced().replace(
-            n_kv_heads=1)
-    return configs.get_arch(arch).reduced()
+    """The reduced config of ``arch`` or of a name of ``VARIANTS``."""
+    base, kw = VARIANTS.get(arch, (arch, {}))
+    return configs.get_arch(base).reduced().replace(**kw)
 
 
 def model(shared, arch):
@@ -413,10 +426,13 @@ def train_job(job, shared, mesh):
     settings), ``job["fsdp"]`` forcing FSDP (``sharding.needs_fsdp``
     patched for the job), ``job["save"]`` a checkpoint directory written
     after step ``job["save_at"]`` (default: the last) and
-    ``job["restore"]`` one to resume from instead of the shared state.
+    ``job["restore"]`` one to resume from instead of the shared state
+    (``job["init"]`` None: the trainer's own draw from its seed).
     Returns the per-step metrics, the whole final state
     (rank 0, gathered leaf by leaf), the local leaf shapes beside the
-    shapes the specs give, and ``fsdp``."""
+    shapes the specs give, ``fsdp``, the rank's mesh coordinates and,
+    after each step, a digest of every state leaf the specs replicate
+    over "model" (``replicas``)."""
     from repro_torch.optim.optimizers import AdamWConfig
     from repro_torch.runtime import trainer as tmod
     cfg = config(job["arch"])
@@ -436,29 +452,53 @@ def train_job(job, shared, mesh):
             start = tr._maybe_restore()
         else:
             start = job.get("start", 0)
-            src = to_torch(shared["train"][job["init"]])
-            tmod.ckpt.copy_into(tr.state, rules.shard_tree(
-                src, tr.specs, tr.axes.coords, tr.axes.sizes))
-        metrics = []
+            if job["init"] is not None:
+                src = to_torch(shared["train"][job["init"]])
+                tmod.ckpt.copy_into(tr.state, rules.shard_tree(
+                    src, tr.specs, tr.axes.coords, tr.axes.sizes))
+        metrics, replicas = [], []
         end = start + job["steps"]
         for step in range(start, end):
             tr.batch(step)
             m = tr.step()
             metrics.append({k: float(v) for k, v in m.items()})
+            replicas.append(_replica_digests(tr))
             if job.get("save") and step + 1 == job.get("save_at", end):
                 tr.ckpt = tmod.ckpt.CheckpointManager(job["save"])
                 tr.save(step + 1)
         axes = tr.axes
         whole = rules.map_specs(
-            lambda t, s: rules.gather_shard(t.detach(), s, axes.axes)
-            .numpy(), tr.state, tr.specs)
+            lambda t, s: _host(rules.gather_shard(t.detach(), s, axes.axes)),
+            tr.state, tr.specs)
         shapes = _local_shapes(tr)
     finally:
         if patch is not None:
             patch.undo()
     first = all(i == 0 for i in axes.coords.values())
     return {"metrics": metrics, "fsdp": tr.fsdp, "shapes": shapes,
-            "state": whole if first else None, "start": start}
+            "state": whole if first else None, "start": start,
+            "coords": dict(axes.coords), "replicas": replicas}
+
+
+def _host(t):
+    """A tensor as numpy (bf16 widened to fp32, exactly)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _replica_digests(tr):
+    """{key path: sha256 of the local bytes} of every state leaf whose
+    spec places no dim on "model" (the ranks of a model axis must hold
+    the same bits of each)."""
+    specs = dict(_flat(tr.specs))
+    out = {}
+    for path, t in _flat(tr.state):
+        if any("model" in names for names in rules.dim_axes(specs[path],
+                                                             t.dim())):
+            continue
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        out[rules.path_str(path)] = hashlib.sha256(
+            raw.numpy().tobytes()).hexdigest()
+    return out
 
 
 def _local_shapes(tr):
@@ -496,6 +536,26 @@ def mean_flat_job(job, shared, mesh):
     return {"equal": equal}
 
 
+def mean_over_job(job, shared, mesh):
+    """``comm.mean_over`` over "model" against the serving form
+    ``all_reduce(x) / size`` (fp32, each rank its own values): whether the
+    two are equal bit for bit, outside autograd and with a gradient
+    tracked; and the gradient of the tracked form (the mean of the
+    ranks' gradients), returned for the test to check."""
+    axis = comm.MeshAxes(mesh).model
+    g = torch.Generator().manual_seed(7 + axis.index)
+    x = torch.randn((3, 5), generator=g)
+    want = axis.all_reduce(x) / axis.size
+    plain = comm.mean_over(axis, x)
+    xt = x.clone().requires_grad_(True)
+    tracked = comm.mean_over(axis, xt)
+    w = torch.randn((3, 5), generator=g)
+    (tracked * w).sum().backward()
+    return {"plain": bool(torch.equal(plain, want)),
+            "tracked": bool(torch.equal(tracked.detach(), want)),
+            "w": w.numpy(), "grad": xt.grad.numpy(), "index": axis.index}
+
+
 def refuse_job(job, shared, mesh):
     """The trainer's refusal of ``job["arch"]`` on this mesh: the
     exception's type and message."""
@@ -510,4 +570,5 @@ def refuse_job(job, shared, mesh):
 
 JOBS = {"serve": serve_job, "logits": logits_job, "swap": swap_job,
         "restore": restore_job, "draw": draw_job, "step": step_job,
-        "train": train_job, "refuse": refuse_job, "mean_flat": mean_flat_job}
+        "train": train_job, "refuse": refuse_job, "mean_flat": mean_flat_job,
+        "mean_over": mean_over_job}

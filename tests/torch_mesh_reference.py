@@ -66,12 +66,10 @@ TOL = 2e-4          # the reference's own check of its model axis
 
 
 def jconfig(arch):
-    """The reference's reduced config of ``arch`` (``ranks.NAIVE``: as
-    ``ranks.config``)."""
-    if arch == ranks.NAIVE:
-        return jconfigs.get_arch("qwen3-next-gdn").reduced().replace(
-            pattern=("gdn_naive", "attn"))
-    return jconfigs.get_arch(arch).reduced()
+    """The reference's reduced config of ``arch`` or of a name of
+    ``ranks.VARIANTS`` (as ``ranks.config``)."""
+    base, kw = ranks.VARIANTS.get(arch, (arch, {}))
+    return jconfigs.get_arch(base).reduced().replace(**kw)
 
 
 def bridged(arch):
