@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh-train-faults  # build, phase 15 (b)-(d)
                                        # and phase 16 with their planted
                                        # faults, then stop
+    python3 chip_smoke.py --mesh-workers  # build, phase 17, then stop
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -106,9 +107,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      1, ``round_robin``, killed before its first tick: dead [0], its 3
      queued requests re-homed and finished; the phase's wall time
      printed;
-  5. training full-width qwen3-next-gdn through the port's ``Trainer``
-     with ``use_flash_kernel`` (bf16, global batch 2, seq_len 2048, 5
-     steps): first ``loss_fn`` and its gradients at the initial parameters
+  5. training full-width qwen3-next-gdn, its depth cut to 24 of 48
+     layers (``TRAIN_LAYERS``, since PR 28, for the time limit), through
+     the port's ``Trainer`` with ``use_flash_kernel`` (bf16, global batch
+     2, seq_len 2048, 5 steps): first ``loss_fn`` and its gradients at the initial parameters
      through the flash kernels against the plain ``blockwise_attention``
      path; then an eager trainer (``cuda_graphs=False``, no checkpoint)
      and the default one, which replays the step from one CUDA graph
@@ -213,7 +215,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
   15. (run after phase 14) the trainer's mesh on full-width
      qwen3-next-gdn with the flash kernels, phase 5's batch (2 x 2048)
      and seed (phase 5's trainer freed first): (a) a (1,1) NCCL mesh in
-     this process, all 48 layers, FSDP on by the reference's rule
+     this process, phase 5's 24 layers, FSDP on by the reference's rule
      (``needs_fsdp`` and its per-device estimate printed), 5 steps
      through the step's CUDA graph: per-step loss, aux and grad norm and
      the final state digest bitwise phase 5's graph run, the replayed
@@ -263,6 +265,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
      planted fault (``FAULTS16``: mixtral's router gradient summed over
      "model" with the aux term inside the sum) that the rule must refuse,
      its worst share printed beside the sound run's.
+  17. (run right after phase 13, on phase 4's weights, mix and engine
+     settings; its workers, (b)'s yardstick images and (c)'s ranks start
+     while phase 13's gloo ranks serve, for the time limit) mesh engines
+     in worker processes behind the router (``EngineProxy(mesh_shape=)``;
+     every worker draws seed 0 itself and each worker's spawn to first
+     reply is printed): (a) two (1,1) NCCL
+     mesh workers sharing card 0, through CUDA graphs, behind
+     ``Router`` on ``least_loaded``, cold then warm: streams bitwise phase
+     4's, each worker's ``gdn_decode`` 36 x its decode steps and
+     ``gdn_prefill`` 36 x its batched chunks (its own launch counters);
+     (b) a prefill-role worker on a (1,2) gloo mesh (two ranks on card
+     0, eager) handing off to a one-device decode worker through graphs:
+     6 handoffs, each one's ``withdraw_handoff`` + ``readmit_swapped``
+     seconds, the prefill worker's host-group seconds per tick (the
+     relay and the ranks' agreement after each op), ``gdn_prefill`` on
+     each of its ranks 36 x its chunks, the first token index leaving
+     phase 4's streams; every handed-off image held leaf by leaf by phase
+     3's rule (no further from an fp32-activation one-device engine's
+     image than twice the one-device bf16 engine's is; the sampler rows
+     equal) and its worst relative distance from the one-device image
+     printed; (c) beside (a), (b) and (d), a (2,1) gloo mesh of two
+     spawned ranks on card 0 under ``swap_policy="idle"`` (``IDLE17``):
+     the slots filled, two requests touched, each rank's scheduler clock
+     planted at its own offset and rank 1's jumping past the lease: both
+     ranks evict the two untouched requests at the same tick (rank 1's
+     own clock would take all four), compare their slots after every
+     tick, and the streams are bitwise phase 13 (b)'s; a rank that makes
+     no progress for ``IDLE17_TIMEOUT_S`` reports it and exits, so ranks
+     that disagree fail rather than wait; (d) rank 1 of (b)'s (1,2) worker killed in its
+     first tick of a ``round_robin`` run beside (a)'s first worker:
+     ``WorkerDied`` within ``DEATH17_BOUND_S`` (the time printed), its
+     requests re-homed or failed, every finished stream bitwise phase
+     4's.  ``--mesh-workers`` builds, serves phase 4's mix once for its
+     streams and runs this phase alone ((c)'s ranks first serving phase
+     13 (b)'s run for its streams).
 
 Phase 2 also holds the GDN prefill at qwen3-next-gdn's served shape on
 one staged prompt's unmasked chunks of T = C = 1, 2, 4, 8, 16 and 32 (the
@@ -304,8 +341,9 @@ numbers are those of the h2o-danube-1.8b shape that phase 6 drives; the
 two GDN entries carry phase 10's launches per part, ``launches_paging``,
 and phase 11's, ``launches_disagg``, (c)'s as its workers report them,
 beside phase
-4's in ``launches``; the three flash entries carry phase 12 (d)'s eager
-run in ``launches_moe``); the
+4's in ``launches``, and phase 17's by part, ``launches_mesh_workers``
+(its workers' and ranks' own counts); the three flash entries carry
+phase 12 (d)'s eager run in ``launches_moe``); the
 line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -2490,10 +2528,13 @@ def _mesh_rank(rank, port, step3, q):
     q.put((rank, out))
 
 
-def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
+def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us,
+               meanwhile=None):
     """Phase 13: mesh serving of full-width qwen3-next-gdn on phase 4's
-    mix (module docstring).  Returns the GDN kernels' launches per rank
-    at the local shapes, keyed by phase 2's rows."""
+    mix (module docstring).  ``meanwhile()`` runs here while (b) and (c)'s
+    ranks serve (phase 17's start).  Returns the GDN kernels' launches per
+    rank at the local shapes, keyed by phase 2's rows, (b)'s streams and
+    what ``meanwhile`` returned."""
     import torch.multiprocessing as mp
     from repro_torch.launch import mesh as mesh_mod
     us_a = mesh_nccl_phase(cfg, params, engine_mod, card, plain)
@@ -2509,6 +2550,7 @@ def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
     for p in procs:
         p.start()
     try:
+        extra = meanwhile() if meanwhile is not None else None
         res = _rank_results(procs, q, 900)
     finally:
         for p in procs:
@@ -2611,7 +2653,7 @@ def mesh_phase(cfg, params, engine_mod, card, plain, step3, plain_us):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, res[0]["b"]["streams"], extra
 
 
 # ---------------------------------------------------------------- phase 14
@@ -2927,9 +2969,595 @@ def mesh14_phase(card, steps, plain):
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+# phase 17 (c): the idle lease (no eager gloo tick of the full-width model
+# comes near it) and the planted scheduler clocks, per rank: rank 1 at its
+# own offset, and jumping past the lease after two requests are touched
+IDLE17 = dict(lease_s=120.0, offsets=(0.0, 500.0), jump=(0.0, 1200.0))
+# (c)'s ranks: a rank that makes no progress for this many seconds (a
+# collective its peer never joins) reports it and exits, so ranks that
+# disagree fail instead of waiting on each other for ever
+IDLE17_TIMEOUT_S = 120
+# (d): the longest a killed rank may take to surface as WorkerDied
+DEATH17_BOUND_S = 30.0
+
+
+def gdn_layers(cfg) -> int:
+    """The GDN layers of ``cfg``: each launches one GDN kernel per decode
+    step and per prefill chunk."""
+    return sum(k == "gdn" for k in cfg.layer_kinds)
+
+
+class PlantedClock:
+    """A rank's planted scheduler clock: the real ``perf_counter`` plus
+    ``offset`` seconds (phase 17 (c) patches the port's scheduler module
+    with it)."""
+
+    def __init__(self, offset: float):
+        self.offset = offset
+
+    def perf_counter(self) -> float:
+        return time.perf_counter() + self.offset
+
+
+class Watchdog:
+    """A rank's bound on a stall: ``tick()`` marks progress; after
+    ``limit`` seconds without one a thread puts an error result for
+    ``rank`` on ``q`` and ends the process."""
+
+    def __init__(self, rank, q, limit):
+        import threading
+        self.rank, self.q, self.limit = rank, q, limit
+        self.what = "start"
+        self.last = time.monotonic()
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    def tick(self, what):
+        self.what, self.last = what, time.monotonic()
+
+    def _watch(self):
+        while time.monotonic() - self.last < self.limit:
+            time.sleep(1.0)
+        self.q.put((self.rank, {"error": f"no progress for {self.limit} s "
+                                         f"after {self.what} (a collective "
+                                         f"the other rank never joined)"}))
+        self.q.close()
+        self.q.join_thread()
+        os._exit(1)
+
+
+def _idle_serve(eng, reqs, clock, host, dog):
+    """Phase 17 (c)'s script on this rank: fill the slots, let
+    ``2 x lease`` pass on every clock, touch two of the four active
+    requests, jump this rank's clock by its ``jump``, then reconnect every
+    dormant session each tick until all finish.  After every tick the
+    ranks compare a digest of their slots and swapped sessions on the
+    host group (a rank that disagrees fails the run at once).  Returns
+    the evicting sweeps' (tick, rids), this rank's own view of them and
+    the untouched rids."""
+    import zlib
+    lease = eng.idle_swap_ms / 1e3
+    log, own = [], []
+    shared = eng._idle_slots
+
+    def sweep():
+        now = clock.perf_counter()
+        mine = sorted(r.rid for r in eng.active.values()
+                      if now - r.t_last_activity > lease)
+        slots = shared()
+        if slots:
+            log.append((eng.ticks, sorted(eng.active[s].rid
+                                          for s in slots)))
+            own.append(mine)
+        return slots
+    eng._idle_slots = sweep
+
+    def agree():
+        mine = zlib.crc32(repr((sorted((s, r.rid) for s, r in
+                                       eng.active.items()),
+                                sorted(eng.swapped))).encode())
+        got = host.gather_ints([mine])
+        if len(set(got)) != 1:
+            raise AssertionError(f"[17] (c) tick {eng.ticks}: the ranks' "
+                                 f"slots and swapped sessions differ "
+                                 f"(digests {got})")
+
+    for r in reqs:
+        eng.submit(r)
+    while len(eng.active) < eng.max_slots:
+        eng.step()
+        agree()
+        dog.tick(f"tick {eng.ticks}")
+    live = [r.rid for _, r in sorted(eng.active.items())]
+    clock.offset += 2 * lease
+    for rid in live[:2]:
+        eng.touch(rid)
+    clock.offset += IDLE17["jump"][host.index]
+    for _ in range(1000):
+        if all(r.done for r in reqs):
+            break
+        for rid in list(eng.swapped):
+            if rid not in eng.resume_q:
+                eng.resume(rid)
+        eng.step()
+        agree()
+        dog.tick(f"tick {eng.ticks}")
+    else:
+        raise AssertionError("[17] (c): the run did not finish")
+    return {"evicted": log, "own": own, "untouched": sorted(live[2:])}
+
+
+def _idle_rank(rank, port, baseline, q):
+    """A gloo rank of phase 17 (c) on card 0: phase 4's weights drawn from
+    seed 0, the (2,1) mesh; with ``baseline`` first phase 13 (b)'s run
+    (no policy), then the idle run under this rank's planted clock."""
+    import traceback
+    out = {}
+    dog = Watchdog(rank, q, IDLE17_TIMEOUT_S)
+    try:
+        torch.cuda.set_device(0)
+        from repro_torch import configs
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.models import lm
+        from repro_torch.parallel import comm
+        from repro_torch.serving import engine as engine_mod
+        from repro_torch.serving import scheduler as sched
+        mesh_mod.init_ranks(rank, 2, port, "gloo")
+        dog.tick("the group")
+        cfg = configs.get_arch("qwen3-next-gdn").replace(
+            use_pallas_serving=True)
+        dev = PHASE4_KW["device"]
+        params = lm.init_lm(torch.Generator(device=dev).manual_seed(0),
+                            cfg, device=dev)
+        mesh = mesh_mod.make_serving_mesh(2, 1)
+        Engine, Request = engine_mod.DecodeEngine, engine_mod.Request
+        if baseline:
+            eng = Engine(cfg, params, mesh=mesh, cuda_graphs=False,
+                         **PHASE4_KW)
+            reqs = phase4_requests(Request, cfg.vocab)
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            out["baseline"] = [list(r.output) for r in reqs]
+            del eng
+            dog.tick("the baseline run")
+        clock = PlantedClock(IDLE17["offsets"][rank])
+        sched.time = clock
+        eng = Engine(cfg, params, mesh=mesh, cuda_graphs=False,
+                     swap_policy="idle",
+                     idle_swap_ms=IDLE17["lease_s"] * 1e3, **PHASE4_KW)
+        reqs = phase4_requests(Request, cfg.vocab)
+        zero_launches()
+        t0 = time.perf_counter()
+        out.update(_idle_serve(eng, reqs, clock, comm.host_group(mesh),
+                               dog))
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        out.update(streams=[list(r.output) for r in reqs],
+                   wall=time.perf_counter() - t0,
+                   swaps=(m["swap_outs"], m["swap_ins"]),
+                   swap_s=m["swap_s"], decode_steps=eng.decode_steps,
+                   launches=gdn_counts(), n_gdn=gdn_layers(cfg))
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    dog.tick("the end")
+    q.put((rank, out))
+    if "error" in out:
+        q.close()
+        q.join_thread()     # the result leaves before the process does
+        os._exit(1)         # no teardown against a rank that may be gone
+
+
+def idle_phase_start(baseline):
+    """Spawn phase 17 (c)'s two ranks; they run beside (a), (b), (d)."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as mesh_mod
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = mesh_mod.free_port()
+    procs = [ctx.Process(target=_idle_rank, args=(r, port, baseline, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs, q, time.perf_counter()
+
+
+def idle_phase_check(started, want, card):
+    """Phase 17 (c)'s results: both ranks evicted the same rids at the
+    same ticks (the untouched two; rank 1's own clock would take all
+    four), and the streams are bitwise ``want``, phase 13 (b)'s (the
+    baseline run of the ranks themselves when phase 13 did not run)."""
+    procs, q, t0 = started
+    try:
+        res = _rank_results(procs, q, 600)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r, out in res.items():
+        if "error" in out:
+            raise AssertionError(f"[17] (c) rank {r}:\n{out['error']}")
+    a, b = res[0], res[1]
+    if want is None:
+        want = a["baseline"]
+    for r, x in enumerate((a, b)):
+        print(f"  [17] (c) (2,1) gloo mesh, idle lease "
+              f"{IDLE17['lease_s']} s, rank {r} clock offset "
+              f"{IDLE17['offsets'][r]} s then +{IDLE17['jump'][r]} s "
+              f"[{card}]: evicted (tick, rids) {x['evicted']}, its own "
+              f"clock's view {x['own']}; {x['swaps'][0]} swap-outs / "
+              f"{x['swaps'][1]} swap-ins in {x['swap_s']:.3f} s; "
+              f"{x['decode_steps']} decode steps, GDN launches "
+              f"{x['launches']}; the run {x['wall']:.1f} s")
+    if not a["evicted"] or a["evicted"] != b["evicted"] \
+            or a["evicted"][0][1] != a["untouched"] \
+            or a["own"][0] != a["untouched"] or len(b["own"][0]) != 4:
+        raise AssertionError("[17] (c): the ranks did not evict the "
+                             "untouched requests alike by rank 0's clock")
+    if a["streams"] != b["streams"] or a["streams"] != want:
+        raise AssertionError(f"[17] (c): streams leave phase 13 (b)'s at "
+                             f"{first_difference(a['streams'], want)}")
+    for r, x in enumerate((a, b)):
+        n_gdn = x["n_gdn"]
+        if x["launches"]["gdn_decode"] != n_gdn * x["decode_steps"]:
+            raise AssertionError(f"[17] (c) rank {r}: gdn_decode "
+                                 f"{x['launches']['gdn_decode']}, not "
+                                 f"{n_gdn} x {x['decode_steps']}")
+    print(f"  [17] (c): both ranks evicted {a['evicted']}; streams bitwise "
+          f"phase 13 (b)'s; spawn to results "
+          f"{time.perf_counter() - t0:.1f} s")
+    return a["launches"]
+
+
+def _spawn_workers(engine_mod, cfg, specs, meanwhile):
+    """Start one ``EngineProxy`` per (name, kwargs) of ``specs`` together
+    and run ``meanwhile()`` here while they start; returns ({name: (proxy,
+    spawn-to-first-reply seconds)}, what ``meanwhile`` returned)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def spawn(name, kw):
+        t0 = time.perf_counter()
+        p = engine_mod.EngineProxy(cfg, params_seed=0, **kw)
+        return name, (p, time.perf_counter() - t0)
+    with ThreadPoolExecutor(len(specs)) as pool:
+        futs = [pool.submit(spawn, n, kw) for n, kw in specs]
+        try:
+            done = meanwhile()
+        except BaseException:
+            for f in futs:      # the workers still go down
+                if f.exception() is None:
+                    f.result()[1][0].shutdown()
+            raise
+    out, errors = {}, []
+    for f in futs:
+        try:
+            name, got = f.result()
+            out[name] = got
+        except Exception as e:          # noqa: BLE001 — raised below
+            errors.append(e)
+    if errors:
+        for p, _ in out.values():
+            p.shutdown()
+        raise errors[0]
+    return out, done
+
+
+def _prefill_images(Engine, cfg, params, kw, requests):
+    """Each request's handoff image (host numpy) from a one-device
+    prefill-role engine of ``cfg`` serving ``requests()``, by rid."""
+    eng = Engine(cfg, params, role="prefill", **kw)
+    reqs = requests()
+    for r in reqs:
+        eng.submit(r)
+    got = {}
+    for _ in range(200):
+        eng.step()
+        while (rec := eng.withdraw_handoff()) is not None:
+            got[rec.req.rid] = rec.state
+        if len(got) == len(reqs):
+            break
+    else:
+        raise AssertionError("[17] (b): the one-device prefill engine "
+                             "handed off too few")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def image_rule(label, mesh, one, truth):
+    """Phase 3's rule on a handed-off image, leaf by leaf: every float
+    cache leaf of the mesh's image no further from the fp32 engine's than
+    twice the one-device bf16 image is; the sampler rows equal.  Returns
+    the worst relative distance from the one-device image (max |mesh -
+    one| / max |one| over the leaves)."""
+    from repro_torch.tree import leaves
+    worst, where = 0.0, None
+    for i, (m, o, t) in enumerate(zip(leaves(mesh.caches),
+                                      leaves(one.caches),
+                                      leaves(truth.caches))):
+        m, o, t = (torch.from_numpy(_f32(x)) for x in (m, o, t))
+        d, err, err_one = max_err(m, o), max_err(m, t), max_err(o, t)
+        if err > 2 * err_one:
+            raise AssertionError(f"{label}: cache leaf {i} {tuple(m.shape)}"
+                                 f" {err:.3e} from fp32, the 1-device image"
+                                 f" {err_one:.3e} (limit 2x)")
+        rel = d / max(float(o.abs().max()), 1e-30)
+        if rel > worst:
+            worst, where = rel, f"{i} {tuple(m.shape)}"
+    for a, b in zip(leaves(mesh.sampler), leaves(one.sampler)):
+        if np.asarray(a).tobytes() != np.asarray(b).tobytes():
+            raise AssertionError(f"{label}: the sampler rows differ")
+    return worst, where
+
+
+def _f32(a):
+    """A host image leaf as fp32 numpy (bf16 from its raw 2-byte
+    words)."""
+    a = np.asarray(a)
+    if a.dtype == np.dtype("V2"):
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return a.astype(np.float32)
+
+
+def workers_start(cfg, params, engine_mod, card, baseline):
+    """Phase 17's start: (c)'s two ranks spawned (``baseline``: they serve
+    phase 13 (b)'s run first), then (a), (b) and (d)'s four workers
+    started together while (b)'s one-device and fp32 images are made
+    here.  Returns what ``workers_phase`` takes."""
+    idle = idle_phase_start(baseline)
+    kw = dict(PHASE4_KW)
+    dev = kw.pop("device")
+
+    def requests():
+        return phase4_requests(engine_mod.Request, cfg.vocab)
+
+    def images():
+        """(b)'s yardsticks, made while the workers start: each request's
+        handoff image from a one-device bf16 prefill engine through
+        graphs and from an fp32-activation one (the plain path)."""
+        return (_prefill_images(engine_mod.DecodeEngine, cfg, params,
+                                PHASE4_KW, requests),
+                _prefill_images(
+                    engine_mod.DecodeEngine,
+                    cfg.replace(act_dtype="float32",
+                                use_pallas_serving=False),
+                    params, dict(PHASE4_KW, cuda_graphs=False), requests))
+
+    t0 = time.perf_counter()
+    workers, (ones, truth) = _spawn_workers(engine_mod, cfg, [
+        ("w0", dict(mesh_shape=(1, 1), device=dev, **kw)),
+        ("w1", dict(mesh_shape=(1, 1), device=dev, **kw)),
+        ("p12", dict(mesh_shape=(1, 2), backend="gloo", device=dev,
+                     role="prefill", **kw)),
+        ("d1", dict(device=dev, role="decode", **kw))], images)
+    print(f"  [17] workers started together [{card}], spawn to first "
+          f"reply: " + ", ".join(
+              f"{n} {p.mesh_shape or 'one device'} {p.role} "
+              f"pids {p.rank_pids} {s:.2f} s"
+              for n, (p, s) in workers.items())
+          + f"; all in {time.perf_counter() - t0:.2f} s, (b)'s one-device "
+          f"and fp32 images made meanwhile")
+    return dict(workers=workers, ones=ones, truth=truth, idle=idle)
+
+
+def workers_phase(cfg, engine_mod, card, plain, want13, started):
+    """Phase 17: mesh engines behind the router and in worker processes,
+    full-width qwen3-next-gdn, phase 4's mix and engine settings (module
+    docstring).  ``started``: ``workers_start``'s workers, images and (c)'s
+    ranks; ``want13``: phase 13 (b)'s streams (None: (c)'s ranks made
+    them).  Returns the GDN kernels' launches by part."""
+    import signal
+    import warnings
+    Router, Request = engine_mod.Router, engine_mod.Request
+    from repro_torch.kernels import gdn_decode as kdecode
+    from repro_torch.kernels import gdn_prefill as kprefill
+    dkey, pkey = (kdecode.__name__, ""), (kprefill.__name__, "")
+    n_gdn = gdn_layers(cfg)
+    out = {"gdn_decode": {}, "gdn_prefill": {}}
+    workers, ones, truth = (started[k] for k in ("workers", "ones", "truth"))
+
+    def requests():
+        return phase4_requests(Request, cfg.vocab)
+
+    w0, w1, p12, d1 = (workers[n][0] for n in ("w0", "w1", "p12", "d1"))
+    try:
+        # (a) two (1,1) NCCL mesh workers on card 0, through graphs
+        router = Router([w0, w1])
+        for run in ("cold", "warm"):
+            router.reset_metrics()
+            snaps = [w.launch_counts(reset=True) for w in (w0, w1)]
+            t1 = time.perf_counter()
+            reqs = requests()
+            for r in reqs:
+                router.submit(r)
+            router.run_until_done()
+            wall = time.perf_counter() - t1
+            streams = [list(r.output) for r in reqs]
+            if streams != plain:
+                raise AssertionError(
+                    f"[17] (a) {run}: streams leave phase 4's at "
+                    f"{first_difference(streams, plain)}")
+            works = [worker_work(s, w.launch_counts())
+                     for s, w in zip(snaps, (w0, w1))]
+            m = router.metrics()
+            for i, ((got, chunks, steps), pm) in enumerate(
+                    zip(works, m["per_engine"])):
+                print(f"  [17] (a) {run}: worker {i} ((1,1) NCCL mesh, "
+                      f"graphs) placed {router.placed[i]}, {steps} decode "
+                      f"steps, gdn_decode {got[dkey]}, {chunks} batched "
+                      f"chunks, gdn_prefill {got[pkey]}, "
+                      f"{pm['decode_us_per_token']:.1f} us/token")
+                if got[dkey] != n_gdn * steps or steps <= 0 \
+                        or got[pkey] != n_gdn * chunks:
+                    raise AssertionError(f"[17] (a) {run} worker {i}: "
+                                         f"launches {got}, not {n_gdn} x "
+                                         f"{steps} / {chunks}")
+            out["gdn_decode"][f"a_{run}"] = sum(w[0][dkey] for w in works)
+            out["gdn_prefill"][f"a_{run}"] = sum(w[0][pkey] for w in works)
+            print(f"  [17] (a) {run} [{card}]: streams bitwise phase 4's; "
+                  f"{m['tokens']} tokens in {wall:.3f} s, mean TTFT "
+                  f"{m['mean_ttft_s'] * 1e3:.1f} ms")
+        w1.shutdown()
+
+        # (b) a (1,2) gloo prefill worker hands off to a one-device decode
+        # worker (graphs); every image held against one device
+        handed, pipe = {}, {}
+
+        def timed(eng, name, keep):
+            fn = getattr(eng, name)
+
+            def call(*args):
+                t1 = time.perf_counter()
+                res = fn(*args)
+                rec = res if res is not None else args[0]
+                if rec is not None:
+                    pipe.setdefault(rec.req.rid, {})[name] = (
+                        time.perf_counter() - t1)
+                    if keep:
+                        handed[rec.req.rid] = rec.state
+                return res
+            setattr(eng, name, call)
+        timed(p12, "withdraw_handoff", True)
+        timed(d1, "readmit_swapped", False)
+        ticks = {"n": 0}
+        begin = p12.step_begin
+
+        def counted():
+            if not p12._inflight_step:
+                ticks["n"] += 1         # a tick relayed to both ranks
+            return begin()
+        p12.step_begin = counted
+        router = Router([p12, d1])
+        snaps = [w.launch_counts(reset=True) for w in (p12, d1)]
+        t1 = time.perf_counter()
+        reqs = requests()
+        for r in reqs:
+            router.submit(r)
+        router.run_until_done()
+        wall = time.perf_counter() - t1
+        streams = [list(r.output) for r in reqs]
+        after = [w.launch_counts() for w in (p12, d1)]
+        m = router.metrics()
+        pm, dm = m["per_engine"]
+        relay = after[0]["host_collectives"]
+        print(f"  [17] (b) (1,2) gloo prefill worker -> one-device decode "
+              f"worker [{card}]: {router.handoffs} handoffs, {wall:.3f} s, "
+              f"mean TTFT {m['mean_ttft_s'] * 1e3:.1f} ms; per handoff "
+              f"(withdraw_handoff + readmit_swapped, s): "
+              + "; ".join(f"rid {rid}: {t['withdraw_handoff']:.4f} + "
+                          f"{t['readmit_swapped']:.4f}"
+                          for rid, t in sorted(pipe.items())))
+        print(f"  [17] (b) the prefill worker's host group (the relay and "
+              f"the ranks' agreement, every op): {relay['calls']} calls, "
+              f"{relay['seconds']:.4f} s, {relay['bytes']} B over "
+              f"{ticks['n']} ticks and the other ops "
+              f"({relay['seconds'] / max(ticks['n'], 1) * 1e3:.3f} ms per "
+              f"tick)")
+        print(f"  [17] (b) first token index leaving phase 4's streams, per "
+              f"request (request 2 draws): "
+              f"{first_difference(streams, plain)}")
+        if router.handoffs != 6 or pm["decoded_tokens"] \
+                or dm["stage_dispatches"]:
+            raise AssertionError(f"[17] (b): {router.handoffs} handoffs, "
+                                 f"or a worker outside its role")
+        (pl, pchunks, psteps), (dl, dchunks, dsteps) = (
+            worker_work(s, a) for s, a in zip(snaps, after))
+        for r, counts in enumerate(after[0]["rank_launches"]):
+            print(f"  [17] (b) prefill worker rank {r}: gdn_prefill "
+                  f"{counts[pkey]} ({pchunks} batched chunks), gdn_decode "
+                  f"{counts[dkey]}")
+            if counts[pkey] != n_gdn * pchunks or pchunks <= 0 \
+                    or counts[dkey]:
+                raise AssertionError(f"[17] (b) rank {r}: {counts}")
+        if dl[dkey] != n_gdn * dsteps or dsteps <= 0 or dl[pkey]:
+            raise AssertionError(f"[17] (b) decode worker: {dl}")
+        out["gdn_decode"]["b"] = dl[dkey]
+        out["gdn_prefill"]["b"] = pl[pkey]
+        worst = []
+        for rid in sorted(handed):
+            rel, leaf = image_rule(f"[17] (b) rid {rid}", handed[rid],
+                                   ones[rid], truth[rid])
+            worst.append((rel, rid, leaf))
+            tok = (int(np.asarray(handed[rid].token).reshape(-1)[0]),
+                   int(np.asarray(ones[rid].token).reshape(-1)[0]))
+            print(f"  [17] (b) rid {rid}'s image: within phase 3's rule "
+                  f"leaf by leaf; worst relative distance from the "
+                  f"one-device image {rel:.3e} (leaf {leaf}); first token "
+                  f"{tok[0]} (one device {tok[1]})")
+        print(f"  [17] (b) the worst over the images: {max(worst)[0]:.3e} "
+              f"(rid {max(worst)[1]}, leaf {max(worst)[2]})")
+        d1.shutdown()
+
+        # (d) rank 1 of the (1,2) worker killed mid-run beside (a)'s w0
+        died = {}
+        die = p12._die
+
+        def stamped(cause):
+            died.setdefault("t", time.perf_counter())
+            return die(cause)
+        p12._die = stamped
+        router = Router([p12, w0], policy="round_robin")
+        snap = w0.launch_counts(reset=True)
+        reqs = requests()
+        for r in reqs:
+            router.submit(r)
+        placed = router.placed[0]
+        for w in (p12, w0):             # each worker mid-tick at the kill
+            w.step_begin()
+        t_kill = time.perf_counter()
+        os.kill(p12.rank_pids[1], signal.SIGKILL)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            router.run_until_done()
+        took = died.get("t", float("inf")) - t_kill
+        m = router.metrics()
+        done = [r for r in reqs if r.done]
+        failed = [r.rid for r in reqs if r.state == "failed"]
+        streams = {r.rid: list(r.output) for r in done}
+        print(f"  [17] (d) rank 1 (pid {p12.rank_pids[1]}) of the (1,2) "
+              f"worker killed in its first tick, {placed} requests placed "
+              f"on it [{card}]: WorkerDied "
+              f"{took:.3f} s later (bound {DEATH17_BOUND_S} s); dead "
+              f"{m['dead']}, rehomed {m['rehomed']}, failed {failed}, "
+              f"warned {[str(w.message)[:60] for w in caught]}; worker "
+              f"exit code {p12.proc.wait(timeout=60)}")
+        if m["dead"] != [0] or m["rehomed"] < 1 \
+                or m["rehomed"] + len(failed) != placed \
+                or took > DEATH17_BOUND_S:
+            raise AssertionError(f"[17] (d): dead {m['dead']}, rehomed "
+                                 f"{m['rehomed']} and failed {failed} of "
+                                 f"{placed}, WorkerDied after {took:.3f} s")
+        if len(done) + len(failed) != len(reqs) or any(
+                streams[rid] != plain[rid] for rid in streams):
+            raise AssertionError("[17] (d): a stream leaves phase 4's, or "
+                                 "a request neither finished nor failed")
+        got, _, steps = worker_work(snap, w0.launch_counts())
+        if got[dkey] != n_gdn * steps:
+            raise AssertionError(f"[17] (d): gdn_decode {got[dkey]}")
+        out["gdn_decode"]["d"] = got[dkey]
+        out["gdn_prefill"]["d"] = got[pkey]
+        print(f"  [17] (d): {len(done)} finished on the (1,1) worker, "
+              f"streams bitwise phase 4's")
+    finally:
+        for p, _ in workers.values():
+            p.shutdown()
+    launches = idle_phase_check(started["idle"], want13, card)
+    out["gdn_decode"]["c"] = launches["gdn_decode"]
+    out["gdn_prefill"]["c"] = launches["gdn_prefill"]
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 
 TRAIN_STEPS = 5
+# phases 5 and 15 (a) train full-width qwen3-next-gdn at this depth (of
+# 48 layers; 48 until PR 28, cut for the script's time limit)
+TRAIN_LAYERS = 24
 
 
 def _loss_and_grad_norm(params, cfg, batch):
@@ -4476,6 +5104,30 @@ def tree_like(tree):
                                           device="meta"), tree)
 
 
+def mesh_workers_only(card, configs, lm, engine_mod, t_start):
+    """``--mesh-workers``: phase 4's streams from one graph engine's cold
+    run, then phase 17 (its (c) ranks serving phase 13 (b)'s run first)."""
+    cfg = configs.get_arch("qwen3-next-gdn").replace(use_pallas_serving=True)
+    dev = PHASE4_KW["device"]
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    eng = engine_mod.DecodeEngine(cfg, params, **PHASE4_KW)
+    reqs = phase4_requests(engine_mod.Request, cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    plain = [list(r.output) for r in reqs]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[17] mesh engines behind the router and in worker processes "
+          f"[{card}]")
+    started = workers_start(cfg, params, engine_mod, card, True)
+    workers_phase(cfg, engine_mod, card, plain, None, started)
+    print(f"  [17] done in {time.perf_counter() - t_start:.1f} s [{card}]")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -4484,6 +5136,10 @@ def main():
     ap.add_argument("--mesh-train-faults", action="store_true",
                     help="build the kernels, run phase 15 (b)-(d) and its "
                          "planted faults (FAULTS15) and stop")
+    ap.add_argument("--mesh-workers", action="store_true",
+                    help="build the kernels, serve phase 4's mix once for "
+                         "its streams, run phase 17 (its (c) ranks also "
+                         "make phase 13 (b)'s streams) and stop")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4531,6 +5187,8 @@ def main():
         mesh16_phase(card, kflash, True)
         print(f"  [16] done in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.mesh_workers:
+        return mesh_workers_only(card, configs, lm, engine_mod, t_start)
     print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
     mamba2 = tuple(MAMBA2[k] for k in ("B", "Hk", "Hv", "d_k", "d_v"))
     rows = [decode_phase(ref, kdecode, time_launches),
@@ -4610,15 +5268,31 @@ def main():
     print(f"[13] mesh serving of full-width {cfg.name} on phase 4's mix "
           f"[{card}]")
     t0 = time.perf_counter()
-    launches.update(mesh_phase(cfg, params, engine_mod, card, plain, step3,
-                               warm_us))
-    print(f"  [13] phase 13 took {time.perf_counter() - t0:.1f} s [{card}]")
+    got, streams13, started17 = mesh_phase(
+        cfg, params, engine_mod, card, plain, step3, warm_us,
+        meanwhile=lambda: workers_start(cfg, params, engine_mod, card,
+                                        False))
+    launches.update(got)
+    print(f"  [13] phase 13 took {time.perf_counter() - t0:.1f} s, phase "
+          f"17's start inside it [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[17] mesh engines behind the router and in worker processes, "
+          f"full-width {cfg.name}, phase 4's mix (started during phase 13) "
+          f"[{card}]")
+    t0 = time.perf_counter()
+    workers17 = workers_phase(cfg, engine_mod, card, plain, streams13,
+                              started17)
+    print(f"  [17] phase 17 took {time.perf_counter() - t0:.1f} s after its "
+          f"start [{card}]")
     del params
+    gc.collect()
     torch.cuda.empty_cache()
 
     print(f"[5] training full-width {cfg.name} through Trainer with the "
           f"flash kernels [{card}]")
-    p5_launches, phase5 = train_phase(cfg, card, kflash,
+    cfg5 = cfg.replace(n_layers=TRAIN_LAYERS)
+    p5_launches, phase5 = train_phase(cfg5, card, kflash,
                                       (kflash, kdecode, kprefill, kattn))
     launches.update(p5_launches)
     torch.cuda.empty_cache()
@@ -4678,7 +5352,7 @@ def main():
     torch.cuda.empty_cache()
     print(f"[15] the trainer's mesh: full-width {cfg.name} [{card}]")
     t0 = time.perf_counter()
-    step_a = train15_nccl(cfg, card, phase5, kflash,
+    step_a = train15_nccl(cfg5, card, phase5, kflash,
                           (kflash, kdecode, kprefill, kattn))
     print(f"  [15] (a) took {time.perf_counter() - t0:.1f} s; replayed "
           f"step {step_a:.4f} s")
@@ -4697,6 +5371,7 @@ def main():
         if r["name"] in paging:
             r["launches_paging"] = paging[r["name"]]
             r["launches_disagg"] = disagg[r["name"]]
+            r["launches_mesh_workers"] = workers17[r["name"]]
         if r["name"] in moe_launches:
             r["launches_moe"] = moe_launches[r["name"]]
     print(f"chip_smoke: every phase passed in "

@@ -12,7 +12,9 @@ one-line ``ValueError``.
 "Devices" are ranks: the world size of a gloo group (CPU ranks, or ranks
 that share one card), or the cards ``torch.cuda.device_count()`` shows an
 NCCL group, whose ranks each own a card.  ``init_ranks`` starts this
-process's rank (``tcp://localhost:<port>``, no cluster discovery).
+process's rank (``tcp://localhost:<port>``, no cluster discovery); an
+NCCL rank ``r`` takes card ``first_card + r``, so several meshes (the
+engines behind one router) each take their own slice of the cards.
 """
 from __future__ import annotations
 
@@ -106,11 +108,25 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def init_ranks(rank: int, world_size: int, port: int, backend: str):
+def host_store(world_size: int, port: Optional[int] = None):
+    """A rendezvous store for ``init_ranks(store=)``: rank 0's (``port``
+    None) on a port the system picks while binding it, so no other
+    process can take the port between its choice and its use; the other
+    ranks' connect to its ``port``."""
+    if port is None:
+        return dist.TCPStore("localhost", 0, world_size, is_master=True,
+                             wait_for_workers=False)
+    return dist.TCPStore("localhost", port, world_size, is_master=False)
+
+
+def init_ranks(rank: int, world_size: int, port: int, backend: str, *,
+               first_card: int = 0, store=None):
     """Join this process to the default group as ``rank`` of
-    ``world_size`` at ``tcp://localhost:<port>``.  NCCL ranks each own
-    the card of their index, set before the group starts."""
+    ``world_size`` at ``tcp://localhost:<port>``, or through ``store``
+    (``host_store``: every rank passes one).  NCCL ranks each own a card,
+    card ``first_card + rank``, set before the group starts."""
     if backend == "nccl":
-        torch.cuda.set_device(rank)
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            world_size=world_size, rank=rank)
+        torch.cuda.set_device(first_card + rank)
+    kw = ({"init_method": f"tcp://localhost:{port}"} if store is None
+          else {"store": store})
+    dist.init_process_group(backend, world_size=world_size, rank=rank, **kw)

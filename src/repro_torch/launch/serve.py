@@ -55,6 +55,21 @@ the cards there are (ranks may share a card; its collectives pass
 through host memory and the programs run eagerly).  A mesh needing more
 cards than NCCL sees raises.
 
+``--mesh`` with ``--engines N`` (or ``--rpc``, ``--workers N``,
+``--roles``) serves N mesh engines behind one ``Router`` in this
+process, each in a worker process (``EngineProxy(mesh_shape=)``) that
+starts its own ranks: on NCCL engine ``i`` takes the cards from ``i *
+D * M`` on, and when the cards run out the engines share the first slice
+(a note says so); on gloo every engine's ranks stay on ``--device``.
+By design this differs from the reference, whose ``--engines N`` without
+``--rpc`` builds N in-process engines over slices of one process's
+devices: a mesh engine of the port is already a group of processes, so
+here it always sits in a worker, and the ``topology:`` line says so.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
+        --requests 4 --max-new 6 --slots 2 --max-len 64 --kernels \
+        --device cpu --workers 2 --roles prefill,decode --mesh 1,2
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-next-gdn \
         --requests 4 --max-new 6 --slots 4 --max-len 64 --kernels \
         --device cpu --mesh 2,2
@@ -68,6 +83,7 @@ import argparse
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -91,18 +107,61 @@ def _roles(args):
     return [roles[i % len(roles)] for i in range(args.engines)]
 
 
-def build_engines(cfg, params, args, common):
+def _mesh_devices(args, topo, backend):
+    """Each mesh engine's ``device``: on NCCL ``cuda:<first card>`` of its
+    slice ``[i * D * M, (i + 1) * D * M)`` of the cards, as the
+    reference's ``build_engines`` slices its devices (the first slice,
+    shared, once the cards run out), on gloo ``--device``."""
+    if backend != "nccl":
+        return [args.device] * args.engines
+    cards = mesh_mod.visible_devices("nccl")
+    out, shared = [], []
+    for i in range(args.engines):
+        lo = i * topo.devices
+        if lo + topo.devices > cards:
+            lo = 0
+            shared.append(i)
+        out.append(f"cuda:{lo}")
+    if shared:
+        print(f"note: engines {shared[0]}..{args.engines - 1} share cards "
+              f"0..{topo.devices - 1} with engine 0 (only {cards} visible) "
+              f"— correct, but they time-slice the same hardware")
+    return out
+
+
+def build_engines(cfg, params, args, common, topo=None):
     """One engine per ``--engines``, each with its role, all on
     ``--device``; with ``--rpc`` each is an ``EngineProxy`` worker process
-    that draws the weights from ``--seed`` itself."""
-    engines = []
-    for i, role in enumerate(_roles(args)):
-        if args.rpc:
-            print(f"spawning worker {i} (role={role})...")
-            engines.append(EngineProxy(cfg, params_seed=args.seed,
-                                       role=role, **common))
-        else:
-            engines.append(DecodeEngine(cfg, params, role=role, **common))
+    that draws the weights from ``--seed`` itself, the workers started
+    together.  With ``topo`` (``--mesh``) each worker serves that mesh on
+    its slice of the cards (``_mesh_devices``)."""
+    roles = _roles(args)
+    if not args.rpc:
+        return [DecodeEngine(cfg, params, role=role, **common)
+                for role in roles]
+    kw = [dict(common) for _ in roles]
+    if topo is not None:
+        backend = _backend(args)
+        for k, dev in zip(kw, _mesh_devices(args, topo, backend)):
+            k.update(device=dev, mesh_shape=topo.shape, mesh_axes=topo.axes,
+                     backend=backend)
+    for i, (role, k) in enumerate(zip(roles, kw)):
+        print(f"spawning worker {i} (role={role}"
+              + (f", {topo.data}x{topo.model} {k['backend']} mesh from "
+                 f"{k['device']}" if topo is not None else "") + ")...")
+    with ThreadPoolExecutor(len(roles)) as pool:
+        futs = [pool.submit(EngineProxy, cfg, params_seed=args.seed,
+                            role=role, **k) for role, k in zip(roles, kw)]
+    engines, errors = [], []
+    for f in futs:
+        try:
+            engines.append(f.result())
+        except Exception as e:          # noqa: BLE001 — raised below
+            errors.append(e)
+    if errors:
+        for e in engines:
+            e.shutdown()
+        raise errors[0]
     return engines
 
 
@@ -247,16 +306,16 @@ def main(argv=None):
     _serve_main(args)
 
 
+def _backend(args) -> str:
+    return "gloo" if args.gloo or args.device == "cpu" else "nccl"
+
+
 def _spawn_mesh(args):
     """``--mesh``: validate, pad the slots, pick the backend and start one
-    rank per mesh device."""
+    rank per mesh device; with ``--engines N`` / ``--rpc`` serve mesh
+    workers behind a router in this process instead."""
     topo = ServingTopology.parse(args.mesh, staging_depth=args.staging_depth)
-    if args.engines > 1 or args.rpc:
-        raise NotImplementedError(
-            "--mesh with --engines > 1 or --rpc is not ported to "
-            "repro_torch yet: ROADMAP queue 1 item 4d (the reference's "
-            "per-mesh engines behind the router, EngineProxy(mesh_shape=))")
-    backend = ("gloo" if args.gloo or args.device == "cpu" else "nccl")
+    backend = _backend(args)
     cards = mesh_mod.visible_devices("nccl") if backend == "nccl" else None
     if cards is not None and topo.devices > cards:
         raise ValueError(
@@ -271,6 +330,9 @@ def _spawn_mesh(args):
         args.slots = padded
     if backend == "gloo" and args.device != "cpu":
         args.cuda_graphs = False     # gloo collectives are host calls
+    if args.engines > 1 or args.rpc:
+        args.rpc = True              # a mesh engine is a group of processes
+        return _serve_main(args, topo=topo)
     port = mesh_mod.free_port()
     torch.multiprocessing.spawn(_rank_main, args=(args, topo, backend, port),
                                 nprocs=topo.devices)
@@ -292,7 +354,7 @@ def _rank_main(rank, args, topo, backend, port):
         torch.distributed.destroy_process_group()
 
 
-def _serve_main(args, mesh=None):
+def _serve_main(args, mesh=None, topo=None):
     cfg = configs.get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -334,12 +396,16 @@ def _serve_main(args, mesh=None):
                   device=args.device, cuda_graphs=args.cuda_graphs)
     if mesh is not None:
         common["mesh"] = mesh
-    engines = build_engines(cfg, params, args, common)
+    engines = build_engines(cfg, params, args, common, topo)
     try:
         router = Router(engines, policy=args.router_policy)
         print(f"topology: {args.engines} "
               f"{'worker process(es)' if args.rpc else 'engine(s)'} on "
-              f"{args.device} (staging ring depth {args.staging_depth}, "
+              f"{args.device}"
+              + (f", each a {topo.data}x{topo.model} {_backend(args)} mesh "
+                 f"of {topo.devices} rank processes (--mesh engines always "
+                 f"run in workers)" if topo is not None else "")
+              + f" (staging ring depth {args.staging_depth}, "
               f"router={args.router_policy}, "
               f"roles={','.join(_roles(args))})")
         if not args.rpc:

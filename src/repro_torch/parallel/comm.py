@@ -50,24 +50,38 @@ the host seconds spent in them and their bytes), and, kept by
 ``runtime.graphs``, those recorded into a CUDA graph by a capture
 (``captured``, not in ``calls``) and those its replays ran
 (``replayed``).
+
+``HostGroup`` (``host_group(mesh)``) is a gloo group over a mesh's ranks
+for the host's own decisions, whatever the mesh's backend: rank 0 of
+the mesh broadcasts bytes or ints (``broadcast_bytes``,
+``broadcast_ints``) and every rank shows its ints to all
+(``gather_ints``), always in the order of the mesh's ranks.  A worker
+process relays its frames to its ranks through it (``serving.rpc``), and
+the scheduler's idle sweep shares rank 0's evictions (``serving.
+scheduler``).  Its calls count apart, in ``host_calls``,
+``host_seconds`` and ``host_bytes``.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import datetime
 import math
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 stats = {"calls": 0, "seconds": 0.0, "bytes": 0, "captured": 0,
-         "replayed": 0}
+         "replayed": 0, "host_calls": 0, "host_seconds": 0.0,
+         "host_bytes": 0}
 
 
 def reset_stats():
-    stats.update(calls=0, seconds=0.0, bytes=0, captured=0, replayed=0)
+    stats.update(calls=0, seconds=0.0, bytes=0, captured=0, replayed=0,
+                 host_calls=0, host_seconds=0.0, host_bytes=0)
 
 
 class Axis:
@@ -421,3 +435,94 @@ def data_axis() -> Optional[Axis]:
     """The active mesh's "data" axis, or None outside a mesh."""
     axes = _ACTIVE.get()
     return None if axes is None else axes.data
+
+
+# ======================================================================
+# host decisions
+# ======================================================================
+# a host group's ranks may wait for their next frame as long as a server
+# idles: its collectives take no torch default timeout
+_HOST_TIMEOUT = datetime.timedelta(days=30)
+
+
+class HostGroup:
+    """A gloo group over the ranks ``ranks`` (global ranks, mesh order)
+    for host-side decisions: rank ``ranks[0]`` speaks, every rank
+    listens, in one fixed order.  A group of one rank issues nothing."""
+
+    # a broadcast moves this many bytes at once: an 8-byte length and the
+    # payload's start; a longer payload takes a second broadcast
+    CHUNK = 4096
+
+    def __init__(self, ranks: Sequence[int]):
+        self.ranks = [int(r) for r in ranks]
+        self.size = len(self.ranks)
+        self.index = self.ranks.index(dist.get_rank())
+        self.group = None if self.size == 1 else dist.new_group(
+            self.ranks, backend="gloo", timeout=_HOST_TIMEOUT,
+            use_local_synchronization=True)
+
+    def _count(self, t0: float, nbytes: int):
+        stats["host_calls"] += 1
+        stats["host_seconds"] += time.perf_counter() - t0
+        stats["host_bytes"] += nbytes
+
+    def broadcast_bytes(self, data: Optional[bytes], src: int = 0
+                        ) -> Optional[bytes]:
+        """``data`` from the group's rank ``src`` (None travels as
+        itself); the others pass anything."""
+        if self.size == 1:
+            return data
+        t0 = time.perf_counter()
+        head = self.CHUNK - 8
+        buf = torch.zeros(self.CHUNK, dtype=torch.uint8)
+        mine = self.index == src
+        if mine:
+            n = -1 if data is None else len(data)
+            first = np.frombuffer(np.int64(n).tobytes()
+                                  + (data or b"")[:head], np.uint8)
+            buf[:first.size] = torch.from_numpy(first.copy())
+        dist.broadcast(buf, src=self.ranks[src], group=self.group)
+        n = int(buf[:8].numpy().view(np.int64)[0])
+        if n > head:
+            rest = (torch.from_numpy(np.frombuffer(data, np.uint8)[head:]
+                                     .copy()) if mine
+                    else torch.empty(n - head, dtype=torch.uint8))
+            dist.broadcast(rest, src=self.ranks[src], group=self.group)
+        self._count(t0, self.CHUNK + max(n - head, 0))
+        if mine:
+            return data
+        if n < 0:
+            return None
+        if n <= head:
+            return buf[8:8 + n].numpy().tobytes()
+        return buf[8:].numpy().tobytes() + rest.numpy().tobytes()
+
+    def broadcast_ints(self, values: Optional[Sequence[int]]) -> List[int]:
+        """Rank 0's list of ints on every rank."""
+        raw = None if values is None else np.asarray(
+            values, np.int64).tobytes()
+        return np.frombuffer(self.broadcast_bytes(raw) or b"",
+                             np.int64).tolist()
+
+    def gather_ints(self, values: Sequence[int]) -> List[Tuple[int, ...]]:
+        """Every rank's ``values`` (the same count on each), in rank
+        order, on every rank."""
+        mine = torch.tensor(list(values), dtype=torch.int64)
+        if self.size == 1:
+            return [tuple(mine.tolist())]
+        t0 = time.perf_counter()
+        parts = [torch.empty_like(mine) for _ in range(self.size)]
+        dist.all_gather(parts, mine, group=self.group)
+        self._count(t0, mine.nbytes * self.size)
+        return [tuple(p.tolist()) for p in parts]
+
+
+def host_group(mesh) -> HostGroup:
+    """The mesh's ``HostGroup`` over its ranks, made on the first call
+    (collective over the mesh's ranks alone) and kept on the mesh."""
+    group = getattr(mesh, "_repro_host_group", None)
+    if group is None:
+        group = HostGroup(mesh.mesh.flatten().tolist())
+        mesh._repro_host_group = group
+    return group

@@ -56,6 +56,40 @@ What differs from the reference:
     for them and points fd 1 (and ``sys.stdout``) at stderr, so nothing
     printed from Python or native code reaches the pipe.
 
+**A worker that serves a mesh** (``EngineProxy(mesh_shape=(D, M),
+mesh_axes=("data", "model"))``): the port's mesh is multi-controller,
+one process per mesh device, every one running the ``Scheduler`` on the
+same requests.  So the worker process is rank 0 of a ``D*M``-rank world
+it starts itself (``launch/mesh.py``'s ``init_ranks`` on a store whose
+port it binds, so workers started together never race for one port):
+
+  * the other ranks are spawned processes, started after ``main`` points
+    fd 1 at stderr, so none of them can write to the frame pipe;
+  * the backend is NCCL on the card, rank ``r`` on card ``first_card +
+    r`` (the card of the proxy's ``device``), or gloo on the CPU or where
+    the caller asks (``backend="gloo"``: every rank on ``device``, the
+    programs eager);
+  * rank 0 relays every frame (the init frame, then each ``[op,
+    payload]``: submits, ticks, pauses, migrations, ``touch``) to the
+    other ranks over the mesh's host gloo group
+    (``parallel.comm.host_group``), also on an NCCL mesh, before it
+    dispatches it itself; every rank dispatches every op, and only rank
+    0 replies;
+  * after each op the ranks show each other whether it raised (and
+    what) and a digest of the scheduler's decisions (``_decisions``):
+    ranks that disagree end the worker, so the proxy sees ``WorkerDied``
+    rather than a hang in a later collective;
+  * weights: ``params_seed`` has each rank draw only its shards
+    (``lm.init_lm(seed, cfg, mesh=)``); ``params`` (host numpy) go to
+    every rank, which cuts its shards;
+  * the swap records that leave the worker are the mesh's host images,
+    topology-free: a one-device engine or another mesh takes them, and
+    ``readmit_swapped`` cuts an incoming one into the worker's shards;
+  * rank 0 watches its ranks and every rank watches rank 0: when one
+    exits unasked, the worker exits, its pipe closes and the proxy
+    raises ``WorkerDied`` (``recover_queued`` then behaves as for a
+    one-device worker); no rank waits on a dead one.
+
 No timeout is set on replies: a first step may sit behind a worker's
 graph captures; death is detected by EOF, not silence.
 
@@ -63,16 +97,22 @@ graph captures; death is detected by EOF, not silence.
 """
 from __future__ import annotations
 
+import multiprocessing
+import multiprocessing.connection
 import os
 import pathlib
 import selectors
 import subprocess
 import sys
+import threading
+import traceback
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.parallel import comm
 from repro_torch.runtime import graphs
 from repro_torch.serving import wire
 from repro_torch.serving.executor import _BF16_HOST, _host_array
@@ -128,16 +168,57 @@ def _status(eng) -> Dict[str, Any]:
     }
 
 
+def _decisions(eng) -> int:
+    """A digest of the scheduler's decisions so far (slots, queues,
+    paging, emitted counts): the ranks of a mesh must agree on it after
+    every op."""
+    return zlib.crc32(repr((
+        sorted((s, r.rid, len(r.output)) for s, r in eng.active.items()),
+        list(eng.free), [r.rid for r in eng.queue],
+        [(st.req.rid, st.buf, st.ready) for st in eng._stagings],
+        sorted(eng.swapped), list(eng.resume_q), list(eng._handoff_q),
+        eng.ticks, eng.decode_steps)).encode())
+
+
+def _mesh_setup(init: Dict[str, Any]) -> Dict[str, Any]:
+    """The mesh a worker's init frame asks for: its shape, backend, world
+    size and first card (checked before any rank starts)."""
+    from repro_torch.launch import mesh as mesh_mod
+    shape = tuple(int(n) for n in init["mesh_shape"])
+    axes = tuple(init.get("mesh_axes") or ("data", "model"))
+    if axes != ("data", "model"):
+        raise ValueError(f"a serving mesh has axes ('data', 'model'), got "
+                         f"{axes}")
+    device = init.get("device")
+    backend = init.get("backend") or (
+        "gloo" if str(device).startswith("cpu") else "nccl")
+    world = shape[0] * shape[1]
+    first = int(init.get("first_card") or 0)
+    if backend == "nccl":
+        mesh_mod.validate_mesh_shape(
+            shape, axes, device_count=max(torch.cuda.device_count() - first,
+                                          0))
+    else:
+        mesh_mod.validate_mesh_shape(shape, axes, device_count=world)
+    return {"shape": shape, "backend": backend, "world": world,
+            "first_card": first}
+
+
 class EngineWorker:
     """Hosts one ``Scheduler`` and serves the frame protocol on a pair of
     binary streams (``python -m repro_torch.serving.rpc``: stdin and
-    stdout pipes, stdout reserved for frames)."""
+    stdout pipes, stdout reserved for frames).  On a mesh it is rank 0,
+    and ``_rank_main`` runs the same dispatch on each other rank."""
 
     def __init__(self, inp, out):
         self.inp = inp
         self.out = out
         self.eng = None
         self.reqs: Dict[int, Any] = {}      # rid -> live worker-side Request
+        self.mesh = None        # this rank's DeviceMesh, when serving one
+        self.host = None        # its host group (the relay)
+        self.procs: List[Any] = []          # rank 0: the other ranks
+        self.closing = threading.Event()    # rank 0: the ranks may exit
 
     # ------------------------------------------------------------ setup
     def _build(self, init: Dict[str, Any]):
@@ -145,19 +226,102 @@ class EngineWorker:
         from repro_torch.models import lm
         from repro_torch.serving.scheduler import Scheduler
 
-        cfg, device = init["cfg"], _device.resolve(init.get("device"))
+        cfg = init["cfg"]
+        kwargs = dict(init.get("kwargs") or {})
+        device = init.get("device")
+        if self.mesh is not None:
+            kwargs["mesh"] = self.mesh
+            if self.backend == "nccl":
+                device = f"cuda:{torch.cuda.current_device()}"
+            elif kwargs.get("cuda_graphs") is None:
+                kwargs["cuda_graphs"] = False   # gloo's collectives are
+                                                # host calls
+        device = _device.resolve(device)
         if init.get("params_seed") is not None:
-            params = lm.init_lm(init["params_seed"], cfg, device=device)
+            params = lm.init_lm(init["params_seed"], cfg, device=device,
+                                mesh=self.mesh)
         else:
             params = _torchify(init["params"], device)
-        kwargs = dict(init.get("kwargs") or {})
         if kwargs.get("draft_params") is not None:
             kwargs["draft_params"] = _torchify(kwargs["draft_params"],
                                                device)
         self.eng = Scheduler(cfg, params, device=device, **kwargs)
         return {"max_len": self.eng.max_len, "role": self.eng.role,
                 "max_slots": self.eng.max_slots,
-                "device": str(self.eng.executor.device)}
+                "device": str(self.eng.executor.device),
+                "rank_pids": [os.getpid()] + [p.pid for p in self.procs]}
+
+    # ------------------------------------------------------------- mesh
+    def _start_ranks(self, setup: Dict[str, Any]):
+        """Rank 0: spawn ranks 1.. (each joins through this process's
+        store), join the group, build the mesh and its host group, and
+        watch the ranks from a thread."""
+        from repro_torch.launch import mesh as mesh_mod
+        store = mesh_mod.host_store(setup["world"])
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = [ctx.Process(target=_rank_main, daemon=True,
+                                  args=(r, setup, store.port))
+                      for r in range(1, setup["world"])]
+        for p in self.procs:
+            p.start()
+        threading.Thread(target=self._watch_ranks, daemon=True).start()
+        self._join_mesh(0, setup, store)
+
+    def _join_mesh(self, rank: int, setup: Dict[str, Any], store):
+        from repro_torch.launch import mesh as mesh_mod
+        self.backend = setup["backend"]
+        mesh_mod.init_ranks(rank, setup["world"], store.port, self.backend,
+                            first_card=setup["first_card"], store=store)
+        self.mesh = mesh_mod.make_serving_mesh(*setup["shape"])
+        self.host = comm.host_group(self.mesh)
+
+    def _watch_ranks(self):
+        """Rank 0's watch: the first rank to exit unasked ends the worker
+        (and the others with it), so nothing waits on a dead rank."""
+        ended = multiprocessing.connection.wait(
+            [p.sentinel for p in self.procs])
+        if self.closing.is_set():
+            return
+        dead = []
+        for r, p in enumerate(self.procs, 1):
+            if p.sentinel in ended:
+                p.join(timeout=5)
+                dead.append((r, p.exitcode))
+        _fatal(f"rank(s) {dead} (rank, exit code) exited", self.procs)
+
+    def _agree(self, op: str, err: Optional[Tuple]):
+        """After an op: every rank's (raised, what, decisions) must be rank
+        0's; else the worker ends (rank 0) or waits to be ended."""
+        if self.host is None or self.host.size == 1:
+            return
+        mine = (0 if err is None else 1,
+                0 if err is None else zlib.crc32(err[0].encode()),
+                0 if self.eng is None else _decisions(self.eng))
+        got = self.host.gather_ints(mine)
+        if any(g != got[0] for g in got):
+            if self.host.index == 0:
+                _fatal(f"the ranks disagree after op {op!r}: (raised, "
+                       f"error, decisions digest) per rank {got}",
+                       self.procs)
+            threading.Event().wait()        # rank 0 is ending the worker
+
+    def _stop_ranks(self):
+        """Rank 0: release the ranks (a stop relayed), then reap them."""
+        self.closing.set()
+        if self.host is not None:
+            self.host.broadcast_bytes(None)
+        self._reap_ranks()
+
+    def _reap_ranks(self):
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+            self.mesh = None
 
     # --------------------------------------------------------- dispatch
     def _dispatch(self, op: str, payload) -> Any:
@@ -209,11 +373,22 @@ class EngineWorker:
             return eng.metrics()
         if op == "launch_counts":
             counts = graphs.launch_counts()
+            out = {"launches": counts,
+                   "program_calls": {key: p.calls for key, p in
+                                     eng.executor._programs.items()}}
+            if self.host is not None:       # every rank's, in rank order
+                out["rank_launches"] = [wire.decode(self.host.broadcast_bytes(
+                    wire.encode(counts) if r == self.host.index else None,
+                    src=r)) for r in range(self.host.size)]
+            # this rank's host-group traffic: the relay, the ranks'
+            # agreement after each op and the idle sweep's broadcasts
+            out["host_collectives"] = {
+                k: comm.stats[f"host_{k}"]
+                for k in ("calls", "seconds", "bytes")}
             if payload:
                 graphs.add_launches(counts, -1)
-            return {"launches": counts,
-                    "program_calls": {key: p.calls for key, p in
-                                      eng.executor._programs.items()}}
+                comm.reset_stats()
+            return out
         if op == "reset_metrics":
             eng.reset_metrics()
             return None
@@ -238,32 +413,113 @@ class EngineWorker:
             msg["err"], msg["msg"] = err
         wire.write_frame(self.out, wire.encode(msg))
 
+    def _run(self, op: str, payload):
+        """Dispatch one op: (result, None) or (None, (error type,
+        message))."""
+        try:
+            return self._dispatch(op, payload), None
+        except Exception as e:      # reported to the caller, who raises
+            return None, (type(e).__name__, str(e))
+
     # ------------------------------------------------------------- loop
     def serve(self) -> int:
         try:
-            init = wire.decode(wire.read_frame(self.inp))
+            raw = wire.read_frame(self.inp)
         except EOFError:
             return 0
+        init = wire.decode(raw)
+        err = None
+        if init.get("mesh_shape") is not None:
+            try:
+                self._start_ranks(_mesh_setup(init))
+            except Exception as e:      # no mesh: fatal, nothing to relay
+                self.closing.set()
+                self._reply(False, err=(type(e).__name__, str(e)))
+                return 1
+            self.host.broadcast_bytes(raw)
         try:
             info = self._build(init)
         except Exception as e:          # init failure is fatal
-            self._reply(False, err=(type(e).__name__, str(e)))
+            err = (type(e).__name__, str(e))
+        self._agree("init", err)
+        if err is not None:
+            self._reply(False, err=err)
+            self._stop_ranks()
             return 1
         self._reply(True, result=info)
         while True:
             try:
-                frame = wire.read_frame(self.inp)
+                raw = wire.read_frame(self.inp)
             except EOFError:            # proxy closed the pipe: done
+                self._stop_ranks()
                 return 0
-            op, payload = wire.decode(frame)
-            try:
-                result = self._dispatch(op, payload)
-            except Exception as e:      # reported to the caller, who raises
-                self._reply(False, err=(type(e).__name__, str(e)))
-            else:
+            op, payload = wire.decode(raw)
+            if self.host is not None:
+                if op == "shutdown":
+                    self.closing.set()
+                self.host.broadcast_bytes(raw)
+            result, err = self._run(op, payload)
+            self._agree(op, err)
+            if err is None:
                 self._reply(True, result=result)
+            else:
+                self._reply(False, err=err)
             if op == "shutdown":
+                self._reap_ranks()
                 return 0
+
+
+def _fatal(why: str, procs):
+    """End a mesh worker: say why on stderr, kill the other ranks, exit
+    (the proxy sees the pipe close)."""
+    print(f"rpc mesh worker {os.getpid()}: {why}; ending the worker",
+          file=sys.stderr, flush=True)
+    for p in procs:
+        try:
+            p.kill()
+        except Exception:
+            pass
+    os._exit(1)
+
+
+def _watch_parent():
+    """A rank's watch on rank 0: its exit ends this rank."""
+    multiprocessing.connection.wait(
+        [multiprocessing.parent_process().sentinel])
+    os._exit(1)
+
+
+def _rank_main(rank: int, setup: Dict[str, Any], port: int):
+    """Rank ``rank`` (> 0) of a mesh worker: join rank 0's group, then
+    dispatch every frame rank 0 relays until a stop or ``shutdown``.
+    Nothing here writes a frame; its prints go to the worker's stderr."""
+    from repro_torch.launch import mesh as mesh_mod
+    threading.Thread(target=_watch_parent, daemon=True).start()
+    w = EngineWorker(None, None)
+    w._join_mesh(rank, setup, mesh_mod.host_store(setup["world"], port))
+    raw = w.host.broadcast_bytes(None)
+    err = None
+    try:
+        w._build(wire.decode(raw))
+    except Exception as e:
+        traceback.print_exc()
+        err = (type(e).__name__, str(e))
+    w._agree("init", err)
+    while err is None:
+        raw = w.host.broadcast_bytes(None)
+        if raw is None:             # rank 0 stops: its proxy is gone
+            break
+        op, payload = wire.decode(raw)
+        _, e = w._run(op, payload)
+        w._agree(op, e)
+        w.reqs = {rid: r for rid, r in w.reqs.items() if not r.done}
+        if op == "shutdown":
+            break
+    else:
+        w.host.broadcast_bytes(None)    # rank 0's stop after a failed init
+    w._reap_ranks()
+    sys.stderr.flush()
+    os._exit(0)             # nothing left to flush; skip the slow teardown
 
 
 # ======================================================================
@@ -277,20 +533,26 @@ class EngineProxy:
     router uses to tick workers concurrently.  Arguments are
     ``Scheduler``'s; pass ``params_seed`` instead of ``params`` to have
     the worker draw the weights itself.  ``device`` is the worker's
-    (``cuda`` unless ``"cpu"`` is asked for)."""
+    (``cuda`` unless ``"cpu"`` is asked for).
+
+    ``mesh_shape=(D, M)`` (axes ``mesh_axes``, ``("data", "model")``) has
+    the worker serve a mesh of ``D*M`` ranks it starts itself: NCCL ranks
+    on the cards from ``device``'s on (``cuda:k``: ``k``, ``k+1``, ...),
+    or, with ``backend="gloo"`` (the default with ``device="cpu"``), gloo
+    ranks all on ``device``, eager unless ``cuda_graphs`` says otherwise.
+    ``rank_pids`` lists its ranks' process ids, rank 0 (``proc``) first."""
 
     def __init__(self, cfg, params=None, *, params_seed: Optional[int] = None,
                  device=None, mesh_shape=None, mesh_axes=None,
-                 **engine_kwargs):
+                 backend: Optional[str] = None, **engine_kwargs):
         if (params is None) == (params_seed is None):
             raise ValueError("EngineProxy: pass exactly one of params / "
                              "params_seed")
-        if mesh_shape is not None or mesh_axes is not None:
-            raise NotImplementedError(
-                "EngineProxy(mesh_shape=) is not ported to repro_torch yet: "
-                "ROADMAP queue 1 item 4d (a worker serving a mesh; "
-                "in-process engines take mesh=)")
+        if backend not in (None, "nccl", "gloo"):
+            raise ValueError(f"EngineProxy: backend must be 'nccl' or "
+                             f"'gloo', got {backend!r}")
         self.cfg = cfg
+        self.mesh_shape = None if mesh_shape is None else tuple(mesh_shape)
         self.role = engine_kwargs.get("role", "both")
         self.dead = False
         self._reqs: Dict[int, Any] = {}     # mirror: rid -> caller's Request
@@ -313,7 +575,14 @@ class EngineProxy:
                 "params": None if params is None else _hostify(params),
                 "params_seed": params_seed,
                 "device": None if device is None else str(device),
-                "kwargs": engine_kwargs}
+                "kwargs": engine_kwargs,
+                "mesh_shape": self.mesh_shape,
+                "mesh_axes": (None if mesh_axes is None
+                              else tuple(mesh_axes)),
+                "backend": backend,
+                "first_card": (torch.device(device).index or 0
+                               if device is not None
+                               and str(device).startswith("cuda") else 0)}
         try:
             self._write(wire.encode(init))
             info = self._read_reply()       # waits through the engine build
@@ -324,6 +593,7 @@ class EngineProxy:
         self.max_slots = info["max_slots"]
         self.role = info["role"]
         self.device = info["device"]
+        self.rank_pids = info["rank_pids"]
 
     # ---------------------------------------------------------- channel
     def _write(self, payload: bytes):
@@ -463,7 +733,8 @@ class EngineProxy:
         ``graphs.launch_counts``; zeroed after the read when ``reset``)
         and its engine's calls per program key (``"program_calls"``,
         never reset), so a caller can tie the launches to the work that
-        made them."""
+        made them.  A mesh worker adds ``"rank_launches"``: every rank's
+        launches, in rank order (rank 0's are ``"launches"``)."""
         return self._call("launch_counts", reset)
 
     # ------------------------------------------------- router narrow surface

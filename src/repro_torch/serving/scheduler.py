@@ -67,9 +67,15 @@ restores through the taker's own ``_fill_slot`` wherever the taker runs.
 of the mesh runs this scheduler on the same requests, so its decisions —
 admits, plans, ticks, paging — are the same on every rank, and the
 executor's programs gather each tick's tokens over "data" at the tick's
-one host sync.  A decision must never read a rank's own clock, so the
-idle swap policy (``idle``, ``auto``) is refused on a mesh, and each rank
-spills into its own ``rank<N>`` folder of ``swap_spool_dir``.
+one host sync.  No decision may read a rank's own clock or event state:
+the idle sweep (``idle``, ``auto``) evicts the slots rank 0's clock finds
+past their lease, broadcast once per sweep on the mesh's host group
+(``parallel.comm.host_group``), while ``touch`` and the lease stamps stay
+per rank; the pressure victim ties break by activation order, not a time
+stamp; a swap-out drains at once on a mesh, so async paging's
+``ready()`` harvests and prefetches read no event.  Each rank spills into
+its own ``rank<N>`` folder of ``swap_spool_dir`` (which image spills is
+rank-local: it moves no collective and no stream).
 """
 from __future__ import annotations
 
@@ -83,6 +89,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel import comm
 from repro_torch.serving import wire
 from repro_torch.serving.executor import (_MAX_SCAN_CHUNKS, DeviceExecutor,
                                          PendingSwap, PlanStep,
@@ -258,11 +265,6 @@ class Scheduler:
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"role must be one of prefill/decode/both, "
                              f"got {role!r}")
-        if mesh is not None and swap_policy in ("idle", "auto"):
-            raise ValueError(
-                f"swap_policy={swap_policy!r} reads each rank's wall clock, "
-                f"so the ranks of a mesh would disagree on its evictions — "
-                f"use 'manual' or 'pressure' on a mesh")
         if mesh is not None and swap_spool_dir is not None:
             import torch.distributed as dist
             swap_spool_dir = os.path.join(swap_spool_dir,
@@ -317,6 +319,11 @@ class Scheduler:
         self.swap_policy = swap_policy
         self.idle_swap_ms = idle_swap_ms
         self.max_live_requests = max_live_requests
+        # on a mesh, rank 0's clock decides the idle sweep for every rank
+        self._host = (comm.host_group(mesh) if mesh is not None
+                      and swap_policy in ("idle", "auto") else None)
+        self._activations = 0       # the pressure victim's tie order
+        self._active_seq: Dict[int, int] = {}     # slot -> activation
         self.swapped: Dict[int, _Swapped] = {}
         self.resume_q: Deque[int] = deque()
         self._grant_resume_next = True
@@ -719,9 +726,11 @@ class Scheduler:
         return req
 
     def _victim_slot(self) -> int:
+        """The lowest priority, the latest activation among equals (the
+        activation count, the same on every rank of a mesh)."""
         return min(self.active,
                    key=lambda s: (self.active[s].priority,
-                                  -(self.active[s]._t_active or 0.0)))
+                                  -self._active_seq[s]))
 
     def _book(self, dt: float, part: str, stall: bool):
         """Add ``dt`` seconds of swap work to ``swap_s``, to its direction
@@ -920,11 +929,8 @@ class Scheduler:
         queue, staged-ready or queued) without a free slot, the policy
         victim is evicted to the resume queue; equal priorities never
         displace each other."""
-        now = time.perf_counter()
-        if self.swap_policy in ("idle", "auto"):
-            cutoff = self.idle_swap_ms / 1e3
-            for slot in [s for s, r in self.active.items()
-                         if now - r.t_last_activity > cutoff]:
+        if self.swap_policy in ("idle", "auto") and self.active:
+            for slot in self._idle_slots():
                 self._swap_out_active(slot)
         if self.swap_policy in ("pressure", "auto"):
             while self.active:
@@ -939,6 +945,19 @@ class Scheduler:
                 if need <= self.active[slot].priority:
                     break
                 self._swap_out_active(slot, resume=True)
+
+    def _idle_slots(self) -> List[int]:
+        """The active slots whose lease is older than ``idle_swap_ms`` by
+        this rank's clock; on a mesh rank 0's list, broadcast to every
+        rank (each rank's own clock and stamps would disagree)."""
+        now = time.perf_counter()
+        cutoff = self.idle_swap_ms / 1e3
+        slots = [s for s, r in self.active.items()
+                 if now - r.t_last_activity > cutoff]
+        if self._host is None:
+            return slots
+        return self._host.broadcast_ints(
+            slots if self._host.index == 0 else None)
 
     def _tick_start(self):
         """The paging work at the start of every tick: harvest landed
@@ -1018,6 +1037,8 @@ class Scheduler:
         self.active[slot] = req
         req.state = ACTIVE
         req._t_active = req.t_last_activity = time.perf_counter()
+        self._activations += 1
+        self._active_seq[slot] = self._activations
         self._draft_activate(slot, req)
 
     def _stage_scatter(self):

@@ -12,8 +12,9 @@ placements by the reference's rules, greedy streams equal, a ragged
 prefill's hidden states and a decode step's logits within the
 reference's 2e-4.  ``lm.init_lm(..., mesh=)`` draws a rank's shards
 alone, bitwise the cut of the one-device draw, and an engine takes them.
-Then the serve CLI's ``--mesh`` starts its own ranks and prints the
-one-engine run's streams.
+Then the serve CLI's ``--mesh`` starts its own ranks, or mesh workers
+behind a router (``--rpc``; ``--workers 2 --roles prefill,decode``), and
+prints the one-engine run's streams.
 """
 import re
 
@@ -67,18 +68,47 @@ def _streams(text):
     return re.findall(r"req (\d+): .* toks: (\[.*\])", text)
 
 
+CLI = ["--arch", "qwen3-next-gdn", "--requests", "4", "--max-new", "5",
+       "--max-len", "64", "--kernels", "--device", "cpu"]
+_PLAIN = {}
+
+
+def _plain(capfd):
+    """The one-engine run's output (``--slots 4``), run once."""
+    if not _PLAIN:
+        serve.main(CLI + ["--slots", "4"])
+        _PLAIN["out"] = capfd.readouterr().out
+    return _PLAIN["out"]
+
+
 def test_serve_cli_mesh(capfd):
     """``--mesh 2,1`` on the CPU starts two gloo ranks and prints the
     one-engine run's streams (an odd ``--slots`` padded to the data
-    axis); ``--mesh`` with ``--rpc`` raises naming ROADMAP's item."""
-    argv = ["--arch", "qwen3-next-gdn", "--requests", "4", "--max-new", "5",
-            "--max-len", "64", "--kernels", "--device", "cpu"]
-    serve.main(argv + ["--slots", "4"])
-    plain = capfd.readouterr().out
-    serve.main(argv + ["--slots", "3", "--mesh", "data=2,model=1"])
+    axis); ``--mesh`` with ``--rpc`` serves the mesh from a worker behind
+    the router and prints them too."""
+    plain = _plain(capfd)
+    serve.main(CLI + ["--slots", "3", "--mesh", "data=2,model=1"])
     mesh = capfd.readouterr().out
     assert "--slots 3 padded to 4" in mesh
     assert "mesh: data=2 x model=1, 2 gloo ranks on cpu" in mesh
     assert len(_streams(plain)) == 4 and _streams(mesh) == _streams(plain)
-    with pytest.raises(NotImplementedError, match="item 4d"):
-        serve.main(argv + ["--mesh", "2,1", "--rpc"])
+    serve.main(CLI + ["--slots", "4", "--mesh", "2,1", "--rpc"])
+    rpc = capfd.readouterr().out
+    assert "topology: 1 worker process(es) on cpu, each a 2x1 gloo mesh" \
+        in rpc
+    assert _streams(rpc) == _streams(plain)
+
+
+def test_serve_cli_mesh_workers_prefill_decode(capfd):
+    """``--workers 2 --roles prefill,decode --mesh 1,2``: two (1,2) mesh
+    workers, one prefilling and one decoding, print the one-engine run's
+    streams and one handoff per request."""
+    plain = _plain(capfd)
+    serve.main(CLI + ["--slots", "4", "--workers", "2", "--roles",
+                      "prefill,decode", "--mesh", "1,2"])
+    out = capfd.readouterr().out
+    assert "topology: 2 worker process(es) on cpu, each a 1x2 gloo mesh" \
+        in out
+    assert "roles=prefill,decode" in out
+    assert "4 prefill→decode handoffs" in out
+    assert len(_streams(plain)) == 4 and _streams(out) == _streams(plain)

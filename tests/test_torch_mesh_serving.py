@@ -14,7 +14,9 @@ hit (the scenarios of the reference's ``tests/test_serving_mesh.py:317-420,
 533-630, 651-715`` and ``tests/test_batched_prefill.py:400``); the ranks
 agree on every tick's plan; a non-dividing slot count warns with
 ``pad_slots`` and completes; a bridged reference image restores into the
-mesh; the speculative programs pass the host guard.  The model axis is
+mesh; the speculative programs pass the host guard; the idle swap policy
+evicts by rank 0's clock on both ranks, whatever each rank's own clock
+says, and its streams are the reference's unpaged ones.  The model axis is
 ``tests/test_torch_mesh_model.py``.
 """
 import numpy as np
@@ -45,6 +47,10 @@ SERVE = [
     ("odd_slots", dict(max_slots=3), "greedy", None),
 ]
 DATA_AXIS = [s[0] for s in SERVE if s[0].startswith("dp_")]
+# the idle policy on the (2,1) mesh: a lease no real tick reaches, each
+# rank's scheduler clock at its own offset, rank 1's jumping past the
+# lease after two requests are touched (``torch_mesh_ranks.idle_job``)
+IDLE = dict(lease_s=60.0, offsets=[0.0, 500.0], jump=[0.0, 600.0])
 
 
 @pytest.fixture(scope="module")
@@ -79,6 +85,8 @@ def run():
             for name, kw, kind, script in SERVE]
     jobs.append(dict(name="ref_image", kind="restore", mesh=(2, 1),
                      arch=ARCH, engine=ENGINE, image="reference", slot=3))
+    jobs.append(dict(name="dp_idle", kind="idle", mesh=(2, 1), arch=ARCH,
+                     engine=ENGINE, reqs="mixed", **IDLE))
     group = ranks.start(2, jobs, dict(params={ARCH: params}, reqs=REQS,
                                       images={"reference": image}))
     for name, kw, kind, script in SERVE:
@@ -158,3 +166,17 @@ def test_a_reference_image_restores_into_the_mesh(run):
     for r in range(2):
         assert run["out"][r]["ref_image"]["got"] == \
             run["ref"]["image_after"]
+
+
+def test_idle_policy_on_the_mesh_follows_rank_0s_clock(run):
+    """Rank 0's clock decides each idle sweep for both ranks: they evict
+    the same rids at the same ticks (the two untouched requests), though
+    rank 1's own clock, past the lease, would evict all four; the paged
+    streams are the reference's one-device streams without paging."""
+    a, b = run["out"][0]["dp_idle"], run["out"][1]["dp_idle"]
+    assert a["done"] and a["evicted"] and a["evicted"] == b["evicted"]
+    tick, rids = a["evicted"][0]
+    assert rids == a["untouched"] == b["untouched"]
+    assert a["own"][0] == rids and len(b["own"][0]) == 4
+    assert a["streams"] == b["streams"] == run["ref"]["dp_mixed"][0]
+    assert a["swaps"] == b["swaps"] and a["swaps"][0] >= 2

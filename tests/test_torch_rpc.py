@@ -228,14 +228,28 @@ def test_rpc_worker_surfaces_engine_errors():
         _shutdown(prox)
     with pytest.raises(ValueError, match="exactly one"):
         EngineProxy(cfg, **ENGINE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineProxy(cfg, params_seed=0, mesh_shape=(1, 1), **ENGINE)
+    # a worker serving a (1,1) mesh: the in-process engine's streams, and
+    # its engine errors cross the pipe as theirs do
+    want = _serve(DecodeEngine(cfg, tlm.init_lm(0, cfg, device="cpu"),
+                               **ENGINE), _reqs(3))
+    mesh = EngineProxy(cfg, params_seed=0, mesh_shape=(1, 1), **ENGINE)
+    try:
+        assert _serve(Router([mesh]), _reqs(3)) == want
+        assert mesh.metrics()["mesh_data"] == 1
+        with pytest.raises(KeyError, match="no live request"):
+            mesh.pause(7)
+        assert not mesh.dead
+    finally:
+        _shutdown(mesh)
 
 
-def test_worker_stdout_carries_only_frames():
+def test_worker_stdout_carries_only_frames(tmp_path):
     """``rpc.main`` points fd 1 and ``sys.stdout`` at stderr before the
     worker serves: a print from Python and a write to fd 1 land on
-    stderr, and stdout holds the frames alone."""
+    stderr, and stdout holds the frames alone.  So do those of a mesh
+    worker's ranks, which it starts after that: each rank prints from
+    Python and writes to fd 1 as it builds its engine, and stdout holds
+    the init and shutdown replies alone."""
     code = textwrap.dedent("""
         import os, sys
         from repro_torch.serving import rpc, wire
@@ -259,6 +273,49 @@ def test_worker_stdout_carries_only_frames():
         == {"ok": True}
     assert len(out.stdout) == 8 + len(rpc.wire.encode({"ok": True}))
     assert b"from python" in out.stderr and b"through fd 1" in out.stderr
+
+    # a (1,2) mesh worker: the spawned rank imports this script as its
+    # main module, so the patched build prints there too
+    script = tmp_path / "loud_mesh.py"
+    script.write_text(textwrap.dedent("""
+        import os, sys
+        from repro_torch.serving import rpc
+
+        build = rpc.EngineWorker._build
+
+        def loud(self, init):
+            print(f"from python, pid {os.getpid()}")
+            sys.stdout.flush()
+            os.write(1, f"through fd 1, pid {os.getpid()}\\n".encode())
+            return build(self, init)
+
+        rpc.EngineWorker._build = loud
+        if __name__ == "__main__":
+            sys.exit(rpc.main())
+        """))
+    cfg = _model()["tcfg"]
+    frames = io.BytesIO()
+    for msg in ({"cfg": cfg, "params": None, "params_seed": 0,
+                 "device": "cpu",
+                 "kwargs": {k: v for k, v in ENGINE.items()
+                            if k != "device"},
+                 "mesh_shape": (1, 2), "mesh_axes": ("data", "model"),
+                 "backend": "gloo", "first_card": 0},
+                ["shutdown", None]):
+        rpc.wire.write_frame(frames, rpc.wire.encode(msg))
+    out = subprocess.run([sys.executable, str(script)],
+                         input=frames.getvalue(), capture_output=True,
+                         env={**os.environ, "PYTHONPATH": rpc._SRC},
+                         timeout=180)
+    assert out.returncode == 0, out.stderr
+    stdout = io.BytesIO(out.stdout)
+    init = rpc.wire.decode(rpc.wire.read_frame(stdout))
+    assert init["ok"] and len(init["result"]["rank_pids"]) == 2
+    assert rpc.wire.decode(rpc.wire.read_frame(stdout))["ok"]
+    assert stdout.read() == b""
+    for pid in init["result"]["rank_pids"]:
+        assert f"from python, pid {pid}".encode() in out.stderr
+        assert f"through fd 1, pid {pid}".encode() in out.stderr
 
 
 def test_serve_cli_rpc_prefill_decode(capsys):

@@ -298,6 +298,77 @@ def _flat(tree):
     return out
 
 
+class _Clock:
+    """A rank's planted clock for the scheduler: the real
+    ``perf_counter`` plus ``offset`` seconds."""
+
+    def __init__(self, offset: float):
+        self.offset = offset
+
+    def perf_counter(self) -> float:
+        return time.perf_counter() + self.offset
+
+
+def idle_job(job, shared, mesh):
+    """``swap_policy="idle"`` with a lease of ``job["lease_s"]`` on this
+    mesh, this rank's scheduler clock planted at ``job["offsets"][rank]``
+    (the port's module alone is patched): the requests fill the slots,
+    ``2 x lease`` passes on every clock, two of the four active requests
+    are touched, then this rank's clock jumps ``job["jump"][rank]`` more;
+    the reconnect loop resumes every dormant session until all finish.
+    Returns the streams, each evicting sweep's (tick, evicted rids) and
+    the rids this rank's own clock would have evicted at it, and the
+    untouched rids."""
+    import pytest
+    from repro_torch.serving import scheduler as sched
+    cfg, params = model(shared, job["arch"])
+    rank = dist.get_rank()
+    clock = _Clock(job["offsets"][rank])
+    patch = pytest.MonkeyPatch()
+    patch.setattr(sched, "time", clock)
+    try:
+        lease = job["lease_s"]
+        eng, _ = engine(cfg, params, mesh, dict(
+            job["engine"], swap_policy="idle", idle_swap_ms=lease * 1e3))
+        log, own = [], []
+        shared_sweep = eng._idle_slots
+
+        def sweep():
+            now = clock.perf_counter()
+            mine = sorted(r.rid for r in eng.active.values()
+                          if now - r.t_last_activity > lease)
+            slots = shared_sweep()
+            if slots:
+                log.append((eng.ticks, sorted(eng.active[s].rid
+                                              for s in slots)))
+                own.append(mine)
+            return slots
+        eng._idle_slots = sweep
+        reqs = requests(shared["reqs"][job["reqs"]])
+        for r in reqs:
+            eng.submit(r)
+        _step_until(eng, lambda: len(eng.active) == eng.max_slots)
+        live = [r.rid for _, r in sorted(eng.active.items())]
+        clock.offset += 2 * lease           # idle time, on every clock
+        for rid in live[:2]:
+            eng.touch(rid)
+        clock.offset += job["jump"][rank]   # this rank's clock jumps
+        for _ in range(500):
+            if all(r.done for r in reqs):
+                break
+            for rid in list(eng.swapped):   # the clients reconnect
+                if rid not in eng.resume_q:
+                    eng.resume(rid)
+            eng.step()
+        m = eng.metrics()
+    finally:
+        patch.undo()
+    return {"streams": [list(r.output) for r in reqs],
+            "done": all(r.done for r in reqs), "evicted": log, "own": own,
+            "untouched": sorted(live[2:]),
+            "swaps": (m["swap_outs"], m["swap_ins"])}
+
+
 def logits_job(job, shared, mesh):
     """The reference's own check of the model axis on the port: a
     ragged two-chunk prefill and one decode step on this rank's shards of
@@ -568,7 +639,8 @@ def refuse_job(job, shared, mesh):
     return {"type": None, "message": ""}
 
 
-JOBS = {"serve": serve_job, "logits": logits_job, "swap": swap_job,
+JOBS = {"serve": serve_job, "idle": idle_job, "logits": logits_job,
+        "swap": swap_job,
         "restore": restore_job, "draw": draw_job, "step": step_job,
         "train": train_job, "refuse": refuse_job, "mean_flat": mean_flat_job,
         "mean_over": mean_over_job}
