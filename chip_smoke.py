@@ -1425,6 +1425,7 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
         variants=(("per-prompt", dict(prefill_batching=False), True),
                   ("pow2", dict(plan_mode="pow2"), False)))
     warm_us = eng.metrics()["decode_us_per_token"]     # its warm run
+    step_ms = eng.decode_s / eng.decode_steps * 1e3
     n_gdn = sum(k == "gdn" for k in cfg.layer_kinds)
     got = gdn_launches(runs, kdecode, kprefill, n_gdn, "serve")
     launches = {"gdn_decode": got["decode"], "gdn_prefill": got["prefill"]}
@@ -1464,7 +1465,140 @@ def serve_phase(cfg, params, engine_mod, kdecode, kprefill, card,
     if got != n_gdn * k:
         raise AssertionError(f"a replayed tick ran {got} gdn_decode_kernel "
                              f"launches, not {n_gdn} x {k}")
-    return launches, streams[("graphs", "warm")], warm_us
+    return launches, streams[("graphs", "warm")], warm_us, step_ms
+
+
+# ---------------------------------------------------------------- phase 18
+
+def dryrun_phase(cfg, params, param_alloc, lm, ref, kdecode, time_launches,
+                 step_ms, card):
+    """(a) The dry run (``launch.steps.count_cell``, the step on meta
+    stand-ins) of phase 4's decode step, held against the card: its
+    argument bytes within 1% of what the allocator holds for the params
+    (``param_alloc``, measured as they were drawn) and the caches; its
+    peak beside ``max_memory_allocated`` of one eager ``lm.decode_step``;
+    its unfused ``memory_s`` and ``memory_floor_s`` beside phase 4's
+    replayed step (``step_ms``, None where phase 4 did not run).  (b) The
+    paper's Table II on the card at batch 1, one full-width GDN layer:
+    (i) the gdn_decode kernel alone (phase 2's check and timing at B 1),
+    (ii) the gdn_naive mixer's decode (Alg. 1: three state reads and one
+    write), (iii) the gdn mixer's decode through the kernel; each the
+    mean CUDA-event time after phase 2's L2 flush, eagerly (the host's
+    enqueue of an eager mixer may outlast the spin that hides it) and
+    replayed from a CUDA graph of one call, beside the intensity
+    model's bytes for its form (``mixer_decode_profile``; plus the
+    layer's projection weights for the mixers, which read them) over the
+    HBM rate, and the model's intensity.  Returns the gdn_decode_b1 row
+    and its launches ((iii)'s one call, counted at the wrapper)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import intensity
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.gdn_layer import GDNState
+    from repro_torch.models.mixers import get_mixer
+    from repro_torch.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    shape = ShapeConfig("phase4_decode", PHASE4_KW["max_len"],
+                        PHASE4_KW["max_slots"], "decode")
+    cost = steps.count_cell(cfg, shape)
+    args = cost["argument_bytes"]
+    print(f"  [18] (a) count_cell of phase 4's decode step ({cfg.name}, "
+          f"B {shape.global_batch}, max_len {shape.seq_len}, one device) "
+          f"on meta in {cost['seconds']:.1f} s: {cost['ops']} ops, "
+          f"{cost['flops'] / 1e9:.3f} GFLOP, {cost['bytes'] / 1e9:.3f} GB "
+          f"unfused (an upper bound), arguments {args}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    caches = lm.init_caches(cfg, shape.global_batch, shape.seq_len,
+                            device="cuda")
+    tokens = torch.zeros(shape.global_batch, dtype=torch.int32,
+                         device="cuda")
+    torch.cuda.synchronize()
+    card_args = param_alloc + torch.cuda.memory_allocated() - base
+    gap = card_args / args["total"] - 1
+    print(f"  [18] (a) argument bytes: counted {args['total']} B, the "
+          f"allocator's for the params and caches {card_args} B "
+          f"({gap * 100:+.4f}%)")
+    if abs(gap) > 0.01:
+        raise AssertionError(f"the dry run's argument bytes are "
+                             f"{gap * 100:+.3f}% off the allocator's")
+    other = torch.cuda.memory_allocated() - card_args
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        lm.decode_step(params, cfg, tokens, caches)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - other
+    print(f"  [18] (a) peak: counted {cost['peak_bytes']} B (plain "
+          f"versions on meta), one eager lm.decode_step's "
+          f"max_memory_allocated {card_peak} B (less what else the card "
+          f"held), ratio {cost['peak_bytes'] / card_peak:.4f}")
+    memory_s = cost["bytes"] / dryrun.HBM_BW
+    floor_s = dryrun.memory_floor_s(cfg, shape, None, args["params"])
+    replayed = ("phase 4 not run" if step_ms is None else
+                f"phase 4's replayed step {step_ms:.4f} ms "
+                f"({step_ms / (floor_s * 1e3):.2f}x the floor)")
+    print(f"  [18] (a) memory_s {memory_s * 1e3:.4f} ms (unfused), "
+          f"memory_floor_s {floor_s * 1e3:.4f} ms, {replayed} [{card}]")
+    del caches, tokens
+
+    B1 = (1, CFG["Hk"], CFG["Hv"], CFG["d"], CFG["d"])
+    row = decode_phase(ref, kdecode, time_launches, "gdn_decode_b1", B1,
+                       delta_rules=(True,))
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    lp = tree_map(lambda a: a[0], params["groups"][0][0]["mixer"])
+    weights = sum(t.numel() * t.element_size() for t in leaves(lp))
+    x = torch.randn((1, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    S = torch.zeros(B1[0], B1[2], B1[3], B1[4], device="cuda")
+    state = GDNState(S=S)
+    g, beta = torch.sigmoid(torch.randn((2, 1, B1[2]), generator=gen,
+                                        device="cuda")).unbind(0)
+    q = torch.randn((1, B1[1], B1[3]), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.nn.functional.normalize(torch.randn(
+        (1, B1[1], B1[3]), generator=gen, device="cuda"), dim=-1).to(
+        torch.bfloat16)
+    v = torch.randn((1, B1[2], B1[4]), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    naive, fused = get_mixer("gdn_naive"), get_mixer("gdn")
+    with torch.no_grad():
+        zero_launches()
+        fused.decode(lp, cfg, x, state)
+        launches = gdn_counts()["gdn_decode"]
+        if launches != 1:
+            raise AssertionError(f"the gdn mixer's decode launched "
+                                 f"gdn_decode {launches} times, not once")
+        forms = [
+            ("(i) the gdn_decode kernel alone", "gdn", 0,
+             lambda: kdecode.gdn_decode(q, k, v, S, g.contiguous(),
+                                        beta.contiguous())),
+            ("(ii) the gdn_naive mixer's decode", "gdn_naive", weights,
+             lambda: naive.decode(lp, cfg, x, state)),
+            ("(iii) the gdn mixer's decode (kernel)", "gdn", weights,
+             lambda: fused.decode(lp, cfg, x, state))]
+        for label, kind, w, fn in forms:
+            ms, _ = time_launches(fn, mean=True)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fn()
+            graph_ms, _ = time_launches(graph.replay, mean=True)
+            prof = intensity.mixer_decode_profile(cfg, kind, seq=1)
+            nbytes = prof.total_bytes + w
+            bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+            print(f"  [18] (b) {label}, batch 1: {ms * 1e3:.2f} us eager, "
+                  f"{graph_ms * 1e3:.2f} us replayed from a CUDA graph "
+                  f"(mean CUDA events) vs {bound_us:.2f} us for "
+                  f"{nbytes:.0f} B (the model's {prof.total_bytes:.0f} B"
+                  + (f" + {w} B of projection weights" if w else "")
+                  + f"; {graph_ms * 1e3 / bound_us:.2f}x replayed); the "
+                  f"model's intensity {prof.intensity:.4f} FLOP/B"
+                  + (f", {prof.flops / nbytes:.4f} with the weights"
+                     if w else "") + f" [{card}]")
+            del graph
+    print(f"  [18] took {time.perf_counter() - t0:.1f} s [{card}]")
+    return row, launches
 
 
 # ---------------------------------------------------------------- phase 9
@@ -5104,6 +5238,24 @@ def tree_like(tree):
                                           device="meta"), tree)
 
 
+def phase4_weights(configs, lm):
+    """Phases 3 and 4's full-width qwen3-next-gdn (the GDN kernels on) and
+    its weights drawn from seed 0, with the bytes the allocator took for
+    them."""
+    cfg = configs.get_arch("qwen3-next-gdn").replace(use_pallas_serving=True)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    torch.cuda.synchronize()
+    param_alloc = torch.cuda.memory_allocated() - alloc0
+    print(f"[3] full-width {cfg.name}: {lm.param_count(params) / 1e9:.3f} B "
+          f"params ({cfg.act_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params, param_alloc
+
+
 def mesh_workers_only(card, configs, lm, engine_mod, t_start):
     """``--mesh-workers``: phase 4's streams from one graph engine's cold
     run, then phase 17 (its (c) ranks serving phase 13 (b)'s run first)."""
@@ -5136,6 +5288,9 @@ def main():
     ap.add_argument("--mesh-train-faults", action="store_true",
                     help="build the kernels, run phase 15 (b)-(d) and its "
                          "planted faults (FAULTS15) and stop")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="build the kernels, draw phase 4's weights, run "
+                         "phase 18 and stop")
     ap.add_argument("--mesh-workers", action="store_true",
                     help="build the kernels, serve phase 4's mix once for "
                          "its streams, run phase 17 (its (c) ranks also "
@@ -5189,6 +5344,14 @@ def main():
         return 0
     if args.mesh_workers:
         return mesh_workers_only(card, configs, lm, engine_mod, t_start)
+    if args.dryrun:
+        cfg, params, param_alloc = phase4_weights(configs, lm)
+        print(f"[18] the dry run against the card, and the paper's Table "
+              f"II at batch 1 [{card}]")
+        dryrun_phase(cfg, params, param_alloc, lm, ref, kdecode,
+                     time_launches, None, card)
+        mark(18)
+        return 0
     print(f"[2] kernels vs plain versions, full-width shapes [{card}]")
     mamba2 = tuple(MAMBA2[k] for k in ("B", "Hk", "Hv", "d_k", "d_v"))
     rows = [decode_phase(ref, kdecode, time_launches),
@@ -5230,21 +5393,22 @@ def main():
         print(json.dumps({"kernels": rows}))
         return 0
 
-    cfg = configs.get_arch("qwen3-next-gdn").replace(use_pallas_serving=True)
-    t0 = time.perf_counter()
-    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
-                        device="cuda")
-    torch.cuda.synchronize()
-    print(f"[3] full-width {cfg.name}: {lm.param_count(params) / 1e9:.3f} B "
-          f"params ({cfg.act_dtype}) drawn in "
-          f"{time.perf_counter() - t0:.1f} s")
+    cfg, params, param_alloc = phase4_weights(configs, lm)
     step3 = model_phase(cfg, params, lm)
     mark(3)
 
     print(f"[4] serving through DecodeEngine [{card}]")
-    launches, plain, warm_us = serve_phase(cfg, params, engine_mod, kdecode,
-                                           kprefill, card, kernel_counts)
+    launches, plain, warm_us, step_ms = serve_phase(
+        cfg, params, engine_mod, kdecode, kprefill, card, kernel_counts)
     mark(4)
+    print(f"[18] the dry run against the card, on phase 4's weights, and "
+          f"the paper's Table II at batch 1 [{card}]")
+    row18, launches["gdn_decode_b1"] = dryrun_phase(
+        cfg, params, param_alloc, lm, ref, kdecode, time_launches, step_ms,
+        card)
+    rows.append(row18)
+    torch.cuda.empty_cache()
+    mark(18)
     print(f"[9] speculative decode of full-width {cfg.name} on phase 4's "
           f"mix, through CUDA graphs [{card}]")
     spec_phase(cfg, params, lm, engine_mod, kdecode, card, plain,

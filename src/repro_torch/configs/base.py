@@ -197,3 +197,29 @@ class ServingTopology:
             raise ValueError(f"mesh axis sizes must be >= 1, got "
                              f"data={data}, model={model}")
         return cls(data=data, model=model, staging_depth=staging_depth)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell's shape (the reference's ``ShapeConfig``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; reason when skipped."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: O(n) KV at 500k ctx is "
+                       "quadratic-cost/unbounded-memory; skipped per "
+                       "assignment (see DESIGN.md)")
+    return True, ""

@@ -2,7 +2,8 @@
 ``repro.kernels.ops``).
 
 Dispatch only: a CUDA tensor goes to the hand-written kernel (which
-launches or raises), a CPU tensor to the plain PyTorch version in ``ref``,
+launches or raises), a CPU tensor to the plain PyTorch version in ``ref``
+(as does a meta tensor: ``launch.op_cost`` counts on the meta device),
 any other device raises.  Both GDN paths update the recurrent state in
 place and return it, so callers see one semantics.  The GVA row mapping
 and the (B, T, H, d) <-> (B*H, T, d) layout of ``gdn_prefill`` live here,
@@ -20,9 +21,12 @@ from repro_torch.kernels import ref
 
 
 def _on_cuda(S) -> bool:
+    """True on a CUDA tensor (the kernel), False on a CPU one or a meta
+    one (the plain version: the dry run counts a step's operations on the
+    meta device, where no kernel runs); any other device raises."""
     if S.is_cuda:
         return True
-    if S.device.type != "cpu":
+    if S.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel or plain version for device "
                          f"{S.device}")
     return False

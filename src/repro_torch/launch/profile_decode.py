@@ -93,7 +93,8 @@ def _kernel_split_us(prof, names, calls):
     return out
 
 
-def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
+def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3,
+                  mean=False):
     """Time ``reps`` calls of ``fn``.  Before each call, ``flush`` is
     "read" (a 256 MiB read: evicts the 50 MB L2 and leaves it clean, as
     the served path's weight GEMVs leave it before each GDN layer),
@@ -102,7 +103,8 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
     busy until the host has queued the call, so no host time falls
     between the events.
 
-    Returns (median ms between CUDA events around each call, mean ms per
+    Returns (median ms between CUDA events around each call — with
+    ``mean``, their mean — mean ms per
     call of the CUDA kernels whose names hold ``kernel`` as the profiler
     (CUPTI) records them — the kernels' own durations, summed over the
     launches of one call — or None).  With a tuple of names for
@@ -127,7 +129,8 @@ def time_launches(fn, kernel=None, flush="read", reps=30, warmup=3):
         fn()
     events = []
     run(events)
-    event_ms = sorted(a.elapsed_time(b) for a, b in events)[reps // 2]
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    event_ms = sum(times) / reps if mean else times[reps // 2]
     if kernel is None:
         return event_ms, None
     with torch.profiler.profile(

@@ -133,9 +133,11 @@ def bmm_f32(x, w):
     ``preferred_element_type=float32`` products of activation-dtype
     operands.  On the card bf16 operands go through ``_MatmulF32``, which
     keeps the fp32 accumulator and never materializes an fp32 copy of a
-    weight; elsewhere (fp32 configs, the CPU, which has no kernel for the
-    ``out_dtype`` overload) both operands are fp32."""
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+    weight (on the meta device too, where ``launch.op_cost`` counts the
+    card's step); elsewhere (fp32 configs, the CPU, which has no kernel
+    for the ``out_dtype`` overload) both operands are fp32."""
+    if x.device.type in ("cuda", "meta") and \
+            x.dtype == w.dtype == torch.bfloat16:
         return _MatmulF32.apply(x, w)
     return torch.bmm(x.float(), w.float())
 

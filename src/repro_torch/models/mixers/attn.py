@@ -9,7 +9,8 @@ import torch
 from repro_torch import device as _device
 from repro_torch.models import attention
 from repro_torch.models.mixers import register
-from repro_torch.models.mixers.base import ArraySpec, CacheSpec, SequenceMixer
+from repro_torch.models.mixers.base import (ArraySpec, CacheSpec,
+                                            SequenceMixer, act_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,6 +74,17 @@ class Attention(SequenceMixer):
                                          window=cls._window(cfg),
                                          head_mask=_head_mask(cfg,
                                                               x_t.device))
+
+    @classmethod
+    def decode_flops(cls, cfg, seq):
+        w = cls._window(cfg)
+        eff = seq if w is None else min(w, seq)
+        return 2.0 * cfg.hq_eff * cfg.head_dim * eff * 2   # qk^T and pv
+
+    @classmethod
+    def decode_token_bytes(cls, cfg):
+        return (2 * cfg.hq_eff * cfg.head_dim
+                + 2 * cfg.hkv_eff * cfg.head_dim) * act_bytes(cfg)
 
     @classmethod
     def param_count(cls, cfg):

@@ -10,11 +10,15 @@ class implementing
   decode(params, cfg, x_t, cache)                  -> ((B, d), cache)
   cache_spec(cfg, batch, max_len)                  -> CacheSpec
   checkpoint_spec(cfg, batch, max_len)             -> CacheSpec
+  decode_flops(cfg, seq)                           -> FLOPs per decoded token
+  decode_token_bytes(cfg)                          -> activation bytes/token
   param_count(cfg)                                 -> parameters per layer
 
 plus the declarative class attributes the serving executor consumes
 (``kind``, ``is_attention``, ``quadratic``, ``state_passes``,
-``supports_ragged_prefill``, ``supports_batched_ragged_prefill``).  On a
+``supports_ragged_prefill``, ``supports_batched_ragged_prefill``); the
+analytical decode model (``decode_flops``, ``decode_token_bytes``,
+``state_passes``) feeds ``core.intensity``.  On a
 mesh's "model" axis every kind's ``train``, like its serving paths, runs
 on this rank's shards (heads, ``d_state`` slice or width slice) and
 returns a partial sum of its output.  Caches returned by
@@ -140,6 +144,18 @@ class SequenceMixer:
         by leaf."""
         return cls.cache_spec(cfg, batch, max_len)
 
+    # ---- analytical decode model (consumed by core.intensity) ----------
+
+    @classmethod
+    def decode_flops(cls, cfg, seq: int) -> float:
+        """Per-token mixer FLOPs at decode (batch 1)."""
+        raise NotImplementedError(cls.kind)
+
+    @classmethod
+    def decode_token_bytes(cls, cfg) -> float:
+        """Per-token activation I/O (q/k/v/o projections etc.)."""
+        raise NotImplementedError(cls.kind)
+
     @classmethod
     def param_count(cls, cfg) -> int:
         """Mixer parameter count per layer (sharding/footprint planning)."""
@@ -148,3 +164,8 @@ class SequenceMixer:
 
 def state_dtype(cfg) -> torch.dtype:
     return _device.dtype(cfg.state_dtype)
+
+
+def act_bytes(cfg) -> int:
+    """Bytes per element of the config's activations."""
+    return _device.dtype(cfg.act_dtype).itemsize

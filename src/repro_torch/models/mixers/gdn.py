@@ -5,7 +5,8 @@ from __future__ import annotations
 from repro_torch.models import gdn_layer
 from repro_torch.models.mixers import register
 from repro_torch.models.mixers.base import (ArraySpec, CacheSpec,
-                                            SequenceMixer, state_dtype)
+                                            SequenceMixer, act_bytes,
+                                            state_dtype)
 
 
 @register
@@ -42,6 +43,17 @@ class GatedDeltaNet(SequenceMixer):
         return gdn_layer.gdn_decode(params, x_t, cache,
                                     use_pallas=cfg.use_pallas_serving,
                                     fused=cls.fused)
+
+    @classmethod
+    def decode_flops(cls, cfg, seq):
+        d = cfg.gdn_head_dim
+        return cfg.gdn_v_heads * (7.0 * d * d + 8.0 * d)
+
+    @classmethod
+    def decode_token_bytes(cls, cfg):
+        d = cfg.gdn_head_dim
+        return (2 * cfg.gdn_k_heads * d + 2 * cfg.gdn_v_heads * d
+                + 2 * cfg.gdn_v_heads) * act_bytes(cfg)
 
     @classmethod
     def param_count(cls, cfg):

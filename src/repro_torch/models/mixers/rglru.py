@@ -8,7 +8,7 @@ from repro_torch import device as _device
 from repro_torch.models import rglru as rglru_layer
 from repro_torch.models.mixers import register
 from repro_torch.models.mixers.base import (ArraySpec, CacheSpec,
-                                            SequenceMixer)
+                                            SequenceMixer, act_bytes)
 
 _CONV_W = rglru_layer.CONV_WIDTH
 
@@ -43,6 +43,14 @@ class RGLRU(SequenceMixer):
     @classmethod
     def decode(cls, params, cfg, x_t, cache):
         return rglru_layer.rglru_decode(params, x_t, cache)
+
+    @classmethod
+    def decode_flops(cls, cfg, seq):
+        return 8.0 * cfg.rglru_width
+
+    @classmethod
+    def decode_token_bytes(cls, cfg):
+        return 3 * cfg.rglru_width * act_bytes(cfg)
 
     @classmethod
     def param_count(cls, cfg):

@@ -5,7 +5,8 @@ from repro_torch import device as _device
 from repro_torch.models import ssm as ssm_layer
 from repro_torch.models.mixers import register
 from repro_torch.models.mixers.base import (ArraySpec, CacheSpec,
-                                            SequenceMixer, state_dtype)
+                                            SequenceMixer, act_bytes,
+                                            state_dtype)
 
 _CONV_W = ssm_layer.CONV_WIDTH
 
@@ -49,6 +50,17 @@ class SSD(SequenceMixer):
     def decode(cls, params, cfg, x_t, cache):
         return ssm_layer.ssm_decode(params, x_t, cache, **cls._dims(cfg),
                                     use_pallas=cfg.use_pallas_serving)
+
+    @classmethod
+    def decode_flops(cls, cfg, seq):
+        nheads = cfg.ssm_d_inner // cfg.ssm_headdim
+        return nheads * 5.0 * cfg.ssm_d_state * cfg.ssm_headdim
+
+    @classmethod
+    def decode_token_bytes(cls, cfg):
+        nheads = cfg.ssm_d_inner // cfg.ssm_headdim
+        return nheads * (2 * cfg.ssm_d_state
+                         + 2 * cfg.ssm_headdim) * act_bytes(cfg)
 
     @classmethod
     def param_count(cls, cfg):

@@ -51,6 +51,10 @@ the host seconds spent in them and their bytes), and, kept by
 (``captured``, not in ``calls``) and those its replays ran
 (``replayed``).
 
+``DryAxis`` / ``DryMeshAxes`` stand in for a mesh with no process group:
+each collective reports its kind and bytes and moves nothing (the dry
+run's counting, ``launch.op_cost``).
+
 ``HostGroup`` (``host_group(mesh)``) is a gloo group over a mesh's ranks
 for the host's own decisions, whatever the mesh's backend: rank 0 of
 the mesh broadcasts bytes or ints (``broadcast_bytes``,
@@ -401,6 +405,75 @@ class MeshAxes:
     @property
     def model(self) -> Axis:
         return self.axes["model"]
+
+
+class DryAxis(Axis):
+    """A mesh axis of ``size`` ranks as the rank at ``index`` sees it, with
+    no process group: the counting path's stand-in (``launch.op_cost``,
+    ``launch.steps.count_cell``), so that one rank's program on a mesh of
+    hundreds of devices runs in one process.  Each collective calls
+    ``record(kind, operand bytes, axis name)`` (kind "all-gather",
+    "all-reduce", "reduce-scatter" or "broadcast") and sends nothing; it
+    returns a tensor of the shape the real one returns, made by the same
+    local ops
+    (an all-gather is this rank's block concatenated ``size`` times, an
+    all-reduce the sum of those copies, a reduce-scatter's received
+    chunks are uninitialised): its values mean nothing, and the meta
+    device, where the counting runs, has none.  Like a gloo axis, a dry
+    axis of one rank issues nothing.  ``stats`` never sees a dry axis."""
+
+    def __init__(self, name: str, size: int, index: int, record):
+        super().__init__(name, None, size, index, "dry")
+        self.record = lambda kind, nbytes: record(kind, nbytes, name)
+        self._kind = None
+
+    def _alone(self) -> bool:
+        return self.size == 1
+
+    @contextlib.contextmanager
+    def _as(self, kind: str):
+        outer, self._kind = self._kind, self._kind or kind
+        try:
+            yield
+        finally:
+            self._kind = outer
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self._alone():
+            return t.clone()
+        self.record(self._kind or "all-gather", t.nbytes)
+        return torch.cat([t.contiguous()] * self.size, dim=dim)
+
+    def all_reduce(self, t: torch.Tensor, mean: bool = False
+                   ) -> torch.Tensor:
+        with self._as("all-reduce"):
+            return super().all_reduce(t, mean)
+
+    def _reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        if self._alone():
+            return t.clone()
+        self.record("reduce-scatter", t.nbytes)
+        parts = torch.empty_like(t).view(self.size, -1).unbind(0)
+        return _sum(parts, True)
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        if not self._alone():
+            self.record("broadcast", t.nbytes)
+        return t
+
+
+class DryMeshAxes(MeshAxes):
+    """A ``MeshAxes`` of ``DryAxis``es: the mesh of axis sizes ``sizes``
+    (name -> size, in mesh order) as its first rank (every coordinate 0)
+    sees it, its collectives reported to ``record(kind, nbytes, axis)``."""
+
+    def __init__(self, sizes: Dict[str, int], record):
+        self.mesh = None
+        self.names = tuple(sizes)
+        self.sizes = {n: int(sizes[n]) for n in self.names}
+        self.coords = {n: 0 for n in self.names}
+        self.axes = {n: DryAxis(n, self.sizes[n], 0, record)
+                     for n in self.names}
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(

@@ -171,7 +171,9 @@ def build_train_step(cfg: ArchConfig, tc: TrainerConfig, plan=None):
     ``plan`` (a ``MeshPlan``): ``state`` holds this rank's shards and
     ``batch`` its rows; the step runs with the mesh active, gathers the
     F-sharded leaves over "data", averages the gradients and the metrics
-    over "data" and steps AdamW on the shards."""
+    over "data" (and over "pod", where the plan's mesh has one: the
+    production mesh the dry run counts, ``launch.steps``) and steps AdamW
+    on the shards."""
     schedule = make_schedule(tc)
 
     def loss_and_grads(plist, params, batch):
@@ -225,7 +227,13 @@ def build_train_step(cfg: ArchConfig, tc: TrainerConfig, plan=None):
             names = sorted(metrics)
             avg = data.all_reduce(torch.stack(
                 [loss.float()] + [metrics[k].float() for k in names]),
-                mean=True).unbind(0)
+                mean=True)
+            pod = plan.axes.axes.get("pod")
+            if pod is not None:
+                # the production mesh's pods: data parallel over them too
+                grads = pod.mean_flat(grads)
+                avg = pod.all_reduce(avg, mean=True)
+            avg = avg.unbind(0)
             loss, metrics = avg[0], dict(zip(names, avg[1:]))
             params, split = state["params"], plan.split
         lr = schedule(state["step"])

@@ -12,6 +12,8 @@ through a whole reduced LM, as ``test_torch_model.py``); bf16 inputs are
 the same bf16 values on both sides and the output allows one bf16
 rounding step (2e-2).  Greedy token streams must be equal.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,7 +111,8 @@ def test_visible_slots_of_a_wrapped_cache():
 
 def test_kernel_wrapper_checks_and_never_falls_back():
     """The CUDA wrapper takes no CPU tensor, and rejects shapes the kernel
-    does not take before any launch; ``ops`` raises on other devices."""
+    does not take before any launch; ``ops`` sends a meta tensor (the dry
+    run's counting) to the plain version and raises on other devices."""
     q, k, v, length = (torch.from_numpy(a) for a in _decode_inputs(
         9, 1, 1, 2, 8, 16, (3,)))
     n = tkattn.launches
@@ -121,9 +124,12 @@ def test_kernel_wrapper_checks_and_never_falls_back():
         tkattn.check_inputs(torch.zeros(1, 17, 16), k, v, length)
     with pytest.raises(ValueError, match="int32"):
         tkattn.check_inputs(q, k, v, length.long())
-    with pytest.raises(ValueError, match="device"):
-        tops.attn_decode(q.to("meta"), k.to("meta"), v.to("meta"),
+    o = tops.attn_decode(q.to("meta"), k.to("meta"), v.to("meta"),
                          length.to("meta"))
+    assert o.device.type == "meta" and o.shape == q.shape
+    other = types.SimpleNamespace(is_cuda=False, device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="device"):
+        tops._on_cuda(other)
     assert tkattn.launches == n
 
 

@@ -14,6 +14,8 @@ port's sequential plain version is two factorizations of one recurrence:
 upcast identically on both sides, so bf16 cases keep the fp32 tolerance
 on the fp32 state and allow one bf16 rounding step (2e-2) on the output.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -481,6 +483,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             _t(lg.transpose(0, 2, 1).reshape(-1, 8)),
             _t(beta.transpose(0, 2, 1).reshape(-1, 8)),
             _t(S0.reshape(-1, 16, 16)), chunk=8, n_rep=2)
+    # ops dispatches a meta tensor (the dry run's counting) to the plain
+    # version, as a CPU one, and raises on a device with neither
+    before = (tdecode.launches, tprefill.launches)
+    o, S = tops.gdn_decode(*(_t(x).to("meta") for x in
+                             decode_inputs(9, 1, 1, 2, 16, 16)))
+    assert o.device.type == S.device.type == "meta"
+    assert (tuple(o.shape), tuple(S.shape)) == ((1, 2, 16), (1, 2, 16, 16))
+    assert (tdecode.launches, tprefill.launches) == before
+    other = types.SimpleNamespace(is_cuda=False, device=torch.device("xpu"))
     with pytest.raises(ValueError, match="device"):
-        tops.gdn_decode(*(_t(x).to("meta") for x in
-                          decode_inputs(9, 1, 1, 2, 16, 16)))
+        tops._on_cuda(other)
