@@ -7,6 +7,8 @@
                                        # and phase 16 with their planted
                                        # faults, then stop
     python3 chip_smoke.py --mesh-workers  # build, phase 17, then stop
+    python3 chip_smoke.py --model-moves   # build, phase 19's kernel rows
+                                       # and phase 19, then stop
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -107,8 +109,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      1, ``round_robin``, killed before its first tick: dead [0], its 3
      queued requests re-homed and finished; the phase's wall time
      printed;
-  5. training full-width qwen3-next-gdn, its depth cut to 24 of 48
-     layers (``TRAIN_LAYERS``, since PR 28, for the time limit), through
+  5. training full-width qwen3-next-gdn, its depth cut to 12 of 48
+     layers (``TRAIN_LAYERS``, for the time limit), through
      the port's ``Trainer`` with ``use_flash_kernel`` (bf16, global batch
      2, seq_len 2048, 5 steps): first ``loss_fn`` and its gradients at the initial parameters
      through the flash kernels against the plain ``blockwise_attention``
@@ -215,7 +217,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
   15. (run after phase 14) the trainer's mesh on full-width
      qwen3-next-gdn with the flash kernels, phase 5's batch (2 x 2048)
      and seed (phase 5's trainer freed first): (a) a (1,1) NCCL mesh in
-     this process, phase 5's 24 layers, FSDP on by the reference's rule
+     this process, phase 5's 12 layers, FSDP on by the reference's rule
      (``needs_fsdp`` and its per-device estimate printed), 5 steps
      through the step's CUDA graph: per-step loss, aux and grad norm and
      the final state digest bitwise phase 5's graph run, the replayed
@@ -300,6 +302,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      4's.  ``--mesh-workers`` builds, serves phase 4's mix once for its
      streams and runs this phase alone ((c)'s ranks first serving phase
      13 (b)'s run for its streams).
+  19. (run right after phase 2, on an empty card) ``fit_spec``'s moves
+     of the model axis at
+     full width, the model code following the placements the specs give
+     (``parallel.sharding.model_dims``), on one world of 16 gloo ranks
+     sharing card 0, started while this process makes the one-device
+     yardsticks: (a) minicpm-2b (40 layers) on (1,2), its vocabulary of
+     122,753 on d_model: phase 14's two requests served eagerly (the
+     ranks' streams equal, the first token index leaving the one-device
+     streams printed), one decode step's collectives equal to
+     ``launch.steps.count_cell``'s dry count at (1,2), one decode step
+     on a fixed state by phase 3's rule; (b) minicpm-2b trained through
+     the flash kernels, 2 eager steps each by phase 15's rule against the
+     one-device trainer of the same depth and seed: on (1,2) at the least
+     depth at which ``needs_fsdp`` turns FSDP on (the table replicated
+     over "model"), and on (1,4) at 2 layers and 512 tokens in fp32
+     activations (the table on d_model, the tied logits' fp32 partial
+     sums all-reduced; the flash kernels' fp32 path); the
+     flash launches per rank (rows ``flash_*_minicpm_model2`` /
+     ``_model4``); (c) on (1,16): mamba2-1.3b at 2 of 48 layers (the
+     table and ``lm_head`` on d_model; its SSD layers through both GDN
+     kernels at (B 4, Hk 1, Hv 4, d_k 128, d_v 64), rows
+     ``gdn_*_mamba2_model16``), mixtral-8x7b at 1 of 32 layers (the
+     experts on d_ff, ``wo`` on d_model) and arctic-480b at 1 of 35
+     (query and KV heads on head_dim, ``wo`` on d_model): each rank's
+     shards drawn alone, a 64-token prefill and a decode step, every
+     rank's logits bitwise rank 0's and within phase 3's rule of the
+     one-device step (made first and freed, arctic's layer ~28 GB), each
+     rank's allocated bytes within 1% of the dry run's argument bytes for
+     its params and caches.  ``--model-moves`` builds, holds phase 2's
+     rows at phase 19's shapes and runs this phase alone.
 
 Phase 2 also holds the GDN prefill at qwen3-next-gdn's served shape on
 one staged prompt's unmasked chunks of T = C = 1, 2, 4, 8, 16 and 32 (the
@@ -2807,14 +2839,18 @@ MESH14 = {
     "mixtral-8x7b": dict(layers=8, kw=PHASE4_KW, step=(4, 64, 64, 128)),
 }
 MESH14_LOCAL = dict(MAMBA2, Hv=MAMBA2["Hv"] // 2)   # mamba2's heads at (1,2)
+# the archs served on a (1,2) gloo mesh: phase 14's and phase 19 (a)'s
+# minicpm-2b (its vocabulary on d_model; phase 4's engine settings)
+MESH_SERVED = dict(MESH14, **{"minicpm-2b": dict(
+    layers=None, kw=PHASE4_KW, step=(4, 64, 64, 1024))})
 
 
 def mesh14_config(configs, arch):
     cfg = configs.get_arch(arch)
     if arch == "mamba2-1.3b":
         cfg = cfg.replace(use_pallas_serving=True)
-    if MESH14[arch]["layers"]:
-        cfg = cfg.replace(n_layers=MESH14[arch]["layers"])
+    if MESH_SERVED[arch]["layers"]:
+        cfg = cfg.replace(n_layers=MESH_SERVED[arch]["layers"])
     return cfg
 
 
@@ -2841,7 +2877,7 @@ def fixed_step(cfg, params, lm, folder):
     an fp32 prefill of the same tokens.  Returns {"path", "one",
     "truth"}, the logits on the host."""
     from repro_torch.tree import tree_map
-    B, T, chunk, max_len = MESH14[cfg.name]["step"]
+    B, T, chunk, max_len = MESH_SERVED[cfg.name]["step"]
     gen = torch.Generator(device="cuda").manual_seed(14)
     toks = torch.randint(1, cfg.vocab, (B, T), generator=gen, device="cuda")
     tok = torch.randint(1, cfg.vocab, (B,), generator=gen, device="cuda")
@@ -2901,7 +2937,7 @@ def _mesh14_serve(arch, mesh, folder, configs, lm, engine_mod):
            "params_bytes": sum(t.numel() * t.element_size()
                                for t in leaves(params))}
     eng = engine_mod.DecodeEngine(cfg, params, mesh=mesh, cuda_graphs=False,
-                                  **MESH14[arch]["kw"])
+                                  **MESH_SERVED[arch]["kw"])
     reqs = mesh14_requests(engine_mod.Request, arch, cfg.vocab)
     zero_launches()
     comm.reset_stats()
@@ -2923,7 +2959,7 @@ def _mesh14_serve(arch, mesh, folder, configs, lm, engine_mod):
                peak=torch.cuda.max_memory_allocated(),
                step=one_step_collectives(eng, cfg))
     blob = torch.load(os.path.join(folder, f"{arch}.pt"), weights_only=False)
-    B, _, _, max_len = MESH14[arch]["step"]
+    B, _, _, max_len = MESH_SERVED[arch]["step"]
     ex = eng.executor
     parts = rules.slot_specs(cfg, mesh, lm.cache_specs(cfg, B, max_len).tree,
                              B)
@@ -2972,15 +3008,19 @@ def _mesh14_rank(rank, port, folder, archs, q):
     q.put((rank, out))
 
 
-def _rank_results(procs, q, timeout):
+def _rank_results(procs, q, timeout, tag=None):
     """{rank: result} from each of ``procs`` through ``q``; raises when a
-    rank exits without one or ``timeout`` seconds pass."""
+    rank exits without one or ``timeout`` seconds pass, and (with
+    ``tag``) as soon as a rank reports an error (the others would wait
+    for it in a collective)."""
     import queue
     res, end = {}, time.monotonic() + timeout
     while len(res) < len(procs):
         try:
             r, out = q.get(timeout=5)
             res[r] = out
+            if tag is not None and "error" in out:
+                raise AssertionError(f"{tag} rank {r}:\n{out['error']}")
         except queue.Empty:
             dead = [r for r, p in enumerate(procs)
                     if r not in res and not p.is_alive()]
@@ -3690,8 +3730,10 @@ def workers_phase(cfg, engine_mod, card, plain, want13, started):
 
 TRAIN_STEPS = 5
 # phases 5 and 15 (a) train full-width qwen3-next-gdn at this depth (of
-# 48 layers; 48 until PR 28, cut for the script's time limit)
-TRAIN_LAYERS = 24
+# 48 layers), cut for the script's time limit: at 24 layers, with phase
+# 19 in, the whole script took 1197.6 s of its 1200 on an H100 host; at
+# 12 FSDP's rule still holds at model 1 (0.79 B params x 14 B > 10 GB)
+TRAIN_LAYERS = 12
 
 
 def _loss_and_grad_norm(params, cfg, batch):
@@ -4961,6 +5003,44 @@ def _train16_rank(rank, port, folder, q, faults, go):
     q.put((rank, out))
 
 
+def _hold_steps(tag, outs, ref):
+    """Phase 15's rule for the metrics of a mesh run's ranks ``outs``
+    against the one-device steps ``ref``: the ranks' metrics equal, each
+    step's loss within 1e-2 and grad norm within 2e-2 relative, aux within
+    1e-2 (and 0 where the one device's is)."""
+    first = outs[0]["steps"]
+    if any([dict(s, seconds=0, collective_s=0) for s in o["steps"]]
+           != [dict(s, seconds=0, collective_s=0) for s in first]
+           for o in outs[1:]):
+        raise AssertionError(f"{tag}: the ranks' metrics differ")
+    for i, (s, r1) in enumerate(zip(first, ref)):
+        dl = abs(s["loss"] - r1["loss"]) / abs(r1["loss"])
+        dn = abs(s["grad_norm"] - r1["grad_norm"]) / r1["grad_norm"]
+        da = abs(s["aux"] - r1["aux"]) / max(abs(r1["aux"]), 1e-30)
+        print(f"  {tag} step {i + 1}: loss {s['loss']:.6f} against "
+              f"{r1['loss']:.6f} ({dl:.3e}, limit 1e-2), grad norm "
+              f"{s['grad_norm']:.6f} against {r1['grad_norm']:.6f} "
+              f"({dn:.3e}, limit 2e-2), aux {s['aux']} against {r1['aux']}")
+        if dl > 1e-2 or dn > 2e-2 or (r1["aux"] and da > 1e-2) or \
+                (not r1["aux"] and s["aux"]):
+            raise AssertionError(f"{tag}: step {i + 1} leaves the "
+                                 f"one-device step")
+
+
+def _hold_witness(tag, wd):
+    """The witness's distance ``wd`` (``param_distance`` of the one-device
+    run with a forward one bit off against the one device's) within the
+    rule, or the rule cannot hold a mesh at this depth."""
+    w = max(range(len(wd)), key=lambda i: wd[i][1])
+    print(f"  {tag}: the one-device run with a forward one bit off (the "
+          f"witness) against the one device's: worst share {wd[w][1]:.3e} "
+          f"(leaf {w}), {sum(x[0] for x in wd)} elements past the steps' "
+          f"bound, max|diff| {max(x[2] for x in wd):.3e}")
+    if wd[w][1] > SHARP_LIMIT or any(x[0] for x in wd):
+        raise AssertionError(f"{tag}: the witness leaves the rule, so the "
+                             f"rule cannot hold the mesh at this depth")
+
+
 def _save_shards16(tr, path):
     """This rank's parameter shards on the host, each with the dim the
     model axis splits (None: replicated), for ``_whole16``."""
@@ -4975,13 +5055,13 @@ def _save_shards16(tr, path):
     torch.save(out, path)
 
 
-def _whole16(folder, label):
-    """The whole parameters of a (1,2) run from its two ranks' saved
+def _whole16(folder, label, ranks=2):
+    """The whole parameters of a (1, ``ranks``) run from its ranks' saved
     shards: the split leaves concatenated in rank order, the others
     rank 0's."""
-    parts = [torch.load(f"{folder}/{label}_{r}.pt") for r in range(2)]
-    return [a if dim is None else torch.cat([a, b], dim)
-            for (a, dim), (b, _) in zip(*parts)]
+    parts = [torch.load(f"{folder}/{label}_{r}.pt") for r in range(ranks)]
+    return [xs[0][0] if xs[0][1] is None else
+            torch.cat([x for x, _ in xs], xs[0][1]) for xs in zip(*parts)]
 
 
 def _flip16(tr):
@@ -5125,38 +5205,10 @@ def mesh16_phase(card, kflash, faults=False):
                     raise AssertionError(f"[16] fault {label}: within the "
                                          f"rule")
                 continue
-            first = outs[0]["steps"]
-            if any([dict(s, seconds=0, collective_s=0) for s in o["steps"]]
-                   != [dict(s, seconds=0, collective_s=0) for s in first]
-                   for o in outs[1:]):
-                raise AssertionError(f"[16] {arch}: the ranks' metrics "
-                                     f"differ")
-            for i, (s, r1) in enumerate(zip(first, ref)):
-                dl = abs(s["loss"] - r1["loss"]) / abs(r1["loss"])
-                dn = abs(s["grad_norm"] - r1["grad_norm"]) / r1["grad_norm"]
-                da = abs(s["aux"] - r1["aux"]) / max(abs(r1["aux"]), 1e-30)
-                print(f"  [16] {arch} step {i + 1}: loss {s['loss']:.6f} "
-                      f"against {r1['loss']:.6f} ({dl:.3e}, limit 1e-2), "
-                      f"grad norm {s['grad_norm']:.6f} against "
-                      f"{r1['grad_norm']:.6f} ({dn:.3e}, limit 2e-2), aux "
-                      f"{s['aux']} against {r1['aux']}")
-                if dl > 1e-2 or dn > 2e-2 or (r1["aux"] and da > 1e-2) or \
-                        (not r1["aux"] and s["aux"]):
-                    raise AssertionError(f"[16] {arch}: step {i + 1} leaves "
-                                         f"the one-device step")
+            _hold_steps(f"[16] {arch}", outs, ref)
             if witness is not None:
-                wd = param_distance(witness, want, mu, lrs,
-                                    tc.adamw.weight_decay)
-                w = max(range(len(wd)), key=lambda i: wd[i][1])
-                print(f"  [16] {arch}: the one-device run with a forward "
-                      f"one bit off (the witness) against the one "
-                      f"device's: worst share {wd[w][1]:.3e} (leaf {w}), "
-                      f"{sum(x[0] for x in wd)} elements past the steps' "
-                      f"bound, max|diff| {max(x[2] for x in wd):.3e}")
-                if wd[w][1] > SHARP_LIMIT or any(x[0] for x in wd):
-                    raise AssertionError(f"[16] {arch}: the witness leaves "
-                                         f"the rule, so the rule cannot "
-                                         f"hold the mesh at this depth")
+                _hold_witness(f"[16] {arch}", param_distance(
+                    witness, want, mu, lrs, tc.adamw.weight_decay))
             share, leaf, dmax = check_params(f"[16] {arch}", dist)
             shares[arch] = share
             print(f"  [16] {arch} parameters after step {MESH16_STEPS} "
@@ -5180,6 +5232,503 @@ def mesh16_phase(card, kflash, faults=False):
                     launches[f"{k}_{MESH16[arch]['flash']}"] = n
                 if arch in MESH16_LOCAL:
                     launches[f"{k}_{MESH16_LOCAL[arch]}"] = n
+    finally:
+        folder.cleanup()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 19
+
+# fit_spec's moves of the model axis at full width, on gloo ranks sharing
+# card 0 (one world of MOVES19_WORLD ranks, started once):
+# (a) minicpm-2b on (1,2), its vocabulary of 122,753 (which no axis
+#     divides) on d_model: the table looked up and gathered along it, the
+#     tied logits row-parallel (``MESH_SERVED``: phase 4's settings);
+# (b) minicpm-2b trained through the flash kernels, 2 steps: at (1,2) at
+#     the least depth at which ``needs_fsdp`` turns FSDP on (the table then
+#     replicated over "model"), and at (1,4) at 2 layers (the table on
+#     d_model, no FSDP; 512 tokens, since the tied logits' fp32 partial
+#     sums over the whole vocabulary cross the axis), each beside a
+#     one-device witness whose forward is one bit off (``_flip16``),
+#     which must itself read within the rule;
+# (c) on (1,16): mamba2-1.3b at 2 of 48 layers (the table and ``lm_head``
+#     on d_model; its depth cut for the time: at 12 layers a prefill and
+#     a decode step took 30.9 s, 75 collectives of 0.4 s each through the
+#     host with 16 ranks on 8 cores), mixtral-8x7b at 1 of 32 layers (the experts
+#     on d_ff, ``wo`` on d_model) and arctic-480b at 1 of 35 layers (q, k
+#     and v on head_dim, ``wo`` on d_model; ~28 GB at one device).
+MOVES19_WORLD = 16
+MOVES19_B = {
+    "minicpm_fsdp_1x2": dict(mesh=(1, 2), layers=None, seq=2048,
+                             flash="minicpm_model2", fsdp=True),
+    "minicpm_1x4": dict(mesh=(1, 4), layers=2, seq=512,
+                        flash="minicpm_model4", fsdp=False, witness=True)}
+MOVES19_C = {"mamba2-1.3b": 2, "mixtral-8x7b": 1, "arctic-480b": 1}
+MOVES19_C_STEP = (4, 64, 128)        # rows, prompt tokens (one chunk), max_len
+# the GDN kernels' local shape of mamba2-1.3b on (1,16): 4 of 64 heads
+MAMBA2_MODEL16 = dict(MAMBA2, Hv=MAMBA2["Hv"] // 16)
+PREFILL_MAMBA2_MODEL16 = (MAMBA2["Hk"], MAMBA2_MODEL16["Hv"], MAMBA2["d_k"],
+                          MAMBA2["d_v"], torch.bfloat16)
+PREFILL_MAMBA2_MODEL16_CASES = tuple(
+    c[:4] + (PREFILL_MAMBA2_MODEL16,) for c in PREFILL_MAMBA2_CASES)
+# (b)'s flash shapes at hd 64: the (1,2) and (1,4) ranks' local heads of
+# minicpm-2b's 48 (36 padded to 48, MHA)
+FLASH19 = {"minicpm_model2": dict(B=1, T=2048, Hq=24, Hkv=24, hd=64),
+           "minicpm_model4": dict(B=1, T=512, Hq=12, Hkv=12, hd=64)}
+
+
+def moves19_rows(ops, ref, kdecode, kprefill, kflash, time_launches):
+    """Phase 2's rows at phase 19's local shapes: both GDN kernels at
+    mamba2-1.3b's (1,16) shard (no delta rule), the flash kernels at
+    ``FLASH19``."""
+    shape = tuple(MAMBA2_MODEL16[k] for k in ("B", "Hk", "Hv", "d_k", "d_v"))
+    rows = [decode_phase(ref, kdecode, time_launches,
+                         "gdn_decode_mamba2_model16", shape,
+                         delta_rules=(False,)),
+            prefill_phase(ops, ref, kprefill, time_launches,
+                          "gdn_prefill_mamba2_model16",
+                          PREFILL_MAMBA2_MODEL16_CASES,
+                          PREFILL_MAMBA2_MODEL16 + (False,))]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for suffix, sh in FLASH19.items():
+        x = _flash_inputs(sh["B"], sh["T"], sh["Hq"], sh["Hkv"], sh["hd"],
+                          torch.bfloat16, gen)
+        e = _flash_check(ref, kflash, f"flash {suffix} {sh}", *x)
+        rows += _flash_timed(ref, kflash, time_launches, sh, x,
+                             f"_{suffix}", [max(v) for v in e])
+    return rows
+
+
+def _moves19_cfg(label):
+    """(b)'s minicpm-2b config: its depth, the flash kernels on."""
+    from repro_torch import configs
+    spec = MOVES19_B[label]
+    cfg = configs.get_arch("minicpm-2b").replace(use_flash_kernel=True)
+    cfg = cfg.replace(n_layers=spec["layers"] or _least_fsdp_depth(cfg))
+    return cfg.replace(act_dtype=spec["dtype"]) if "dtype" in spec else cfg
+
+
+def _least_fsdp_depth(cfg):
+    """The least depth at which ``needs_fsdp`` holds on (1,2)."""
+    from types import SimpleNamespace
+    from repro_torch.parallel import sharding as rules
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": 1, "model": 2})
+    return next(n for n in range(1, cfg.n_layers + 1)
+                if rules.needs_fsdp(cfg.replace(n_layers=n), mesh))
+
+
+def _moves19_tc(label):
+    from repro_torch.runtime.trainer import TrainerConfig
+    return TrainerConfig(steps=2, seq_len=MOVES19_B[label]["seq"],
+                         global_batch=1, warmup_steps=1, log_every=1)
+
+
+def _moves19_wide_cfg(arch):
+    from repro_torch import configs
+    cfg = configs.get_arch(arch).replace(n_layers=MOVES19_C[arch])
+    return cfg.replace(use_pallas_serving=True) if arch == "mamba2-1.3b" \
+        else cfg
+
+
+def _moves19_caches(lm, cfg, mesh=None):
+    """Zeroed caches of (c)'s rows and ``max_len``: on ``mesh`` this
+    rank's shards (the slot specs)."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as rules
+    B, _, max_len = MOVES19_C_STEP
+    spec = lm.cache_specs(cfg, B, max_len)
+    if mesh is None:
+        return spec.zeros("cuda")
+    sizes = comm.MeshAxes(mesh).sizes
+    return rules.map_specs(
+        lambda s, p: torch.zeros(rules.local_shape(s.shape, p, sizes),
+                                 dtype=s.dtype, device="cuda"),
+        spec.tree, rules.slot_specs(cfg, mesh, spec.tree, B))
+
+
+def _moves19_step(lm, params, cfg, caches, toks, tok, axes=None):
+    """One prefill of ``toks`` (one chunk) into ``caches``, then one
+    decode step of ``tok`` (``axes``: the mesh active): the logits on the
+    host."""
+    from repro_torch.parallel import comm
+    with comm.use(axes):
+        lm.prefill_chunk(params, cfg, caches, tokens=toks)
+        logits, _ = lm.decode_step(params, cfg, tok, caches)
+    return logits.float().cpu()
+
+
+def _moves19_wide(arch, mesh, folder, lm):
+    """(c) on this rank: its shards of ``arch`` drawn alone from seed 0,
+    the bytes they and the caches take, one prefill and one decode step
+    on the parent's tokens, the collectives and GDN launches of both."""
+    from repro_torch.parallel import comm
+    cfg = _moves19_wide_cfg(arch)
+    toks, tok = (t.cuda() for t in torch.load(f"{folder}/tokens19_{arch}.pt"))
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"draw_s": time.perf_counter() - t0,
+           "params_bytes": torch.cuda.memory_allocated() - a0}
+    caches = _moves19_caches(lm, cfg, mesh)
+    torch.cuda.synchronize()
+    out["allocated"] = torch.cuda.memory_allocated() - a0
+    zero_launches()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    out["logits"] = _moves19_step(lm, params, cfg, caches, toks, tok,
+                                  comm.MeshAxes(mesh)).numpy()
+    out.update(step_s=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated(),
+               collectives=comm.stats["calls"],
+               collective_s=comm.stats["seconds"], launches=gdn_counts())
+    return out
+
+
+def _moves19_train(label, mesh, folder, kflash, rank):
+    """(b) on this rank: the trainer on ``mesh``, its shards drawn alone,
+    2 eager steps, its parameter shards saved for the parent."""
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    tr = Trainer(_moves19_cfg(label), _moves19_tc(label), mesh=mesh,
+                 device="cuda").compile()
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - t0
+    for key in kflash.launches:
+        kflash.launches[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = _train15_steps(tr, 0, 2)
+    o = dict(steps=steps, start=0, ready_s=ready, fsdp=tr.fsdp,
+             launches=dict(kflash.launches),
+             allocated=torch.cuda.memory_allocated(),
+             peak=torch.cuda.max_memory_allocated(),
+             state_bytes=sum(t.nbytes for t in leaves(tr.state)),
+             embed=tuple(tr.state["params"]["embed"]["table"].shape))
+    t0 = time.perf_counter()
+    _save_shards16(tr, f"{folder}/{label}_{rank}.pt")
+    o["save_s"] = time.perf_counter() - t0
+    return o
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moves19_rank(rank, port, folder, q, go):
+    """A gloo rank of phase 19 on card 0: (a) on ranks 0-1, (b) on 0-1
+    then 0-3, (c) on all, a barrier between the parts."""
+    import traceback
+    import torch.distributed as dist
+    out = {}
+    try:
+        torch.cuda.set_device(0)
+        from repro_torch import configs
+        from repro_torch.kernels import flash_attn as kflash
+        from repro_torch.kernels import gdn_decode as kdecode
+        from repro_torch.kernels import gdn_prefill as kprefill
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.models import lm
+        from repro_torch.serving import engine as engine_mod
+        seen = set()
+        _kernel_shapes(kdecode, kprefill, seen)
+        mesh_mod.init_ranks(rank, MOVES19_WORLD, port, "gloo")
+        # every rank builds every mesh (its groups are collective)
+        meshes = {m: mesh_mod.make_serving_mesh(*m)
+                  for m in ((1, 2), (1, 4), (1, MOVES19_WORLD))}
+        go.wait()
+        if meshes[1, 2].get_coordinate() is not None:
+            out["a"] = _mesh14_serve("minicpm-2b", meshes[1, 2], folder,
+                                     configs, lm, engine_mod)
+        _free()
+        dist.barrier()
+        for label, spec in MOVES19_B.items():
+            if meshes[spec["mesh"]].get_coordinate() is not None:
+                out[label] = _moves19_train(label, meshes[spec["mesh"]],
+                                            folder, kflash, rank)
+            _free()
+            dist.barrier()
+        for arch in MOVES19_C:
+            seen.clear()
+            out[arch] = _moves19_wide(arch, meshes[1, MOVES19_WORLD], folder,
+                                      lm)
+            out[arch]["kernel_shapes"] = sorted(seen)
+            _free()
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    q.put((rank, out))
+
+
+def _moves19_yardsticks(card, lm, engine_mod, configs, folder, kflash):
+    """The one-device runs, made while the ranks start: (c)'s steps (bf16
+    through the arch's path, and fp32 activations on the same weights),
+    (a)'s streams and fixed state, (b)'s two trainers.  Returns ({arch:
+    {"one", "truth"}}, (a)'s streams and fixed step, {label: (per-step
+    metrics, (params, first moments), state bytes, flash launches, the
+    witness's parameters on the host or None)})."""
+    from repro_torch.tree import leaves
+    B, T, _ = MOVES19_C_STEP
+    gen = torch.Generator().manual_seed(19)
+    wide = {}
+    for arch in MOVES19_C:
+        cfg = _moves19_wide_cfg(arch)
+        toks = torch.randint(1, cfg.vocab, (B, T), generator=gen)
+        tok = torch.randint(1, cfg.vocab, (B,), generator=gen)
+        torch.save((toks, tok), f"{folder}/tokens19_{arch}.pt")
+        toks, tok = toks.cuda(), tok.cuda()
+        t0 = time.perf_counter()
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+        one = _moves19_step(lm, params, cfg, _moves19_caches(lm, cfg), toks,
+                            tok)
+        f32 = cfg.replace(use_pallas_serving=False, act_dtype="float32")
+        truth = _moves19_step(lm, params, f32, _moves19_caches(lm, f32),
+                              toks, tok)
+        wide[arch] = dict(one=one, truth=truth)
+        print(f"  [19] (c) {arch} at {cfg.n_layers} layers, one device: "
+              f"{lm.param_count(params) / 1e9:.3f} B params, a "
+              f"{T}-token prefill and a decode step in bf16 and with fp32 "
+              f"activations, peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+              f" GB ({time.perf_counter() - t0:.1f} s)")
+        del params
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = mesh14_config(configs, "minicpm-2b")
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    eng = engine_mod.DecodeEngine(cfg, params, cuda_graphs=False,
+                                  **MESH_SERVED["minicpm-2b"]["kw"])
+    reqs = mesh14_requests(engine_mod.Request, "minicpm-2b", cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    plain = [list(r.output) for r in reqs]
+    del eng
+    step_a = fixed_step(cfg, params, lm, folder)
+    del params
+    _free()
+    train = {}
+    for label in MOVES19_B:
+        for key in kflash.launches:
+            kflash.launches[key] = 0
+        t0 = time.perf_counter()
+        one, ref = _run19(label)
+        nbytes = sum(t.nbytes for t in leaves(one.state))
+        snap, launched = _snapshot(one), dict(kflash.launches)
+        witness = None
+        if MOVES19_B[label].get("witness"):
+            del one
+            one, _ = _run19(label, flip=True)
+            witness = _snapshot(one)[0]
+        train[label] = (ref, snap, nbytes, launched, witness)
+        print(f"  [19] (b) {label}: minicpm-2b at "
+              f"{_moves19_cfg(label).n_layers} layers, one device, eager "
+              f"[{card}]: {nbytes / 1e9:.3f} GB of state, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; losses "
+              f"{[r['loss'] for r in ref]}; grad norms "
+              f"{[r['grad_norm'] for r in ref]}; flash launches "
+              f"{train[label][3]} ({time.perf_counter() - t0:.1f} s)")
+        del one
+        _free()
+    return wide, (plain, step_a), train
+
+
+def _run19(label, flip=False):
+    """A one-device eager trainer of (b)'s ``label`` (``flip``: ``_flip16``
+    before step 1) after its 2 steps, and the per-step metrics."""
+    from repro_torch.runtime.trainer import Trainer
+    one = Trainer(_moves19_cfg(label), _moves19_tc(label), device="cuda",
+                  cuda_graphs=False).compile()
+    if flip:
+        _flip16(one)
+    ref = []
+    for step in range(2):
+        one.batch(step)
+        ref.append({k: float(v) for k, v in one.step().items()})
+    return one, ref
+
+
+def moves19_phase(card, lm, engine_mod, configs, kflash):
+    """Phase 19: ``fit_spec``'s moves of the model axis at full width
+    (the section's comment): the one-device yardsticks while the
+    sixteen gloo ranks start, then (a), (b) and (c) on the ranks, each
+    held against one device.  Returns the launches of a rank keyed by
+    phase 2's rows (``gdn_*_mamba2_model16``, ``flash_*_minicpm_model2``
+    / ``_model4``)."""
+    import torch.multiprocessing as mp
+    from types import SimpleNamespace
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.runtime.trainer import make_schedule
+    folder = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    launches = {}
+    try:
+        ctx = mp.get_context("spawn")
+        q, go = ctx.Queue(), ctx.Event()
+        port = mesh_mod.free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_moves19_rank,
+                             args=(r, port, folder.name, q, go))
+                 for r in range(MOVES19_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            wide, (plain_a, step_a), train = _moves19_yardsticks(
+                card, lm, engine_mod, configs, folder.name, kflash)
+            print(f"  [19] the one-device yardsticks took "
+                  f"{time.perf_counter() - t0:.1f} s, the ranks starting "
+                  f"beside them")
+            go.set()
+            res = _rank_results(procs, q, 900, "[19]")
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+        print(f"  [19] {MOVES19_WORLD} gloo ranks on card 0 (spawn, then "
+              f"(a), (b), (c)) took {time.perf_counter() - t0:.1f} s")
+        def model_mesh(m):
+            return SimpleNamespace(axis_names=("data", "model"),
+                                   shape={"data": 1, "model": m})
+
+        # (a) minicpm-2b on (1,2)
+        outs = [res[r]["a"] for r in range(2)]
+        if outs[1]["streams"] != outs[0]["streams"]:
+            raise AssertionError("[19] (a) minicpm-2b: the ranks' streams "
+                                 "differ")
+        cfg = mesh14_config(configs, "minicpm-2b")
+        _, _, _, max_len = MESH_SERVED["minicpm-2b"]["step"]
+        dry = steps_mod.count_cell(cfg, ShapeConfig("d", max_len, 4,
+                                                     "decode"), model_mesh(2))
+        for r, x in enumerate(outs):
+            st = x["step"]
+            print(f"  [19] (a) minicpm-2b (1,2) gloo mesh, eager, rank {r} "
+                  f"[{card}]: shards of {x['params_bytes'] / 1e9:.2f} GB "
+                  f"drawn in {x['draw_s']:.1f} s; decode "
+                  f"{x['us_token']:.1f} us/token, mean TTFT "
+                  f"{x['ttft_ms']:.1f} ms, {x['decode_steps']} decode steps "
+                  f"in {x['ticks']} ticks; one decode step: "
+                  f"{st['collectives']} collectives "
+                  f"({st['collective_bytes']} B), "
+                  f"{st['collective_s'] * 1e3:.1f} ms of "
+                  f"{st['step_s'] * 1e3:.1f} ms in them, against "
+                  f"launch.steps.count_cell's dry count "
+                  f"{dry['collective_calls']} "
+                  f"({dict(dry['collectives_by_axis'])} B by axis); "
+                  f"allocated {x['allocated']} B (peak {x['peak']} B)")
+            if st["collectives"] != dry["collective_calls"]:
+                raise AssertionError(f"[19] (a) rank {r}: "
+                                     f"{st['collectives']} collectives per "
+                                     f"decode step, the dry count "
+                                     f"{dry['collective_calls']}")
+        print(f"  [19] (a) first token index leaving the 1-device streams, "
+              f"per request (greedy): "
+              f"{first_difference(outs[0]['streams'], plain_a[:2])}")
+        for r in range(2):
+            logit_rule(f"[19] (a) minicpm-2b rank {r}",
+                       torch.from_numpy(res[r]["a"]["logits"]["mesh"]),
+                       step_a["one"], step_a["truth"])
+
+        # (b) minicpm-2b trained
+        for label, spec in MOVES19_B.items():
+            n = spec["mesh"][1]
+            ref, (want, mu), one_bytes, one_l, witness = train[label]
+            outs = [res[r][label] for r in range(n)]
+            for r, o in enumerate(outs):
+                _print_rank15(label, str(spec["mesh"]), r, o, one_bytes,
+                              card, "19")
+                if o["fsdp"] is not spec["fsdp"]:
+                    raise AssertionError(f"[19] ({label}) rank {r}: fsdp "
+                                         f"{o['fsdp']}")
+            print(f"  [19] ({label}) the table's shard on a rank: "
+                  f"{outs[0]['embed']} (fsdp {outs[0]['fsdp']}: "
+                  f"{'replicated over model' if spec['fsdp'] else 'on d_model'})")
+            tc = _moves19_tc(label)
+            lrs = [float(make_schedule(tc)(s)) for s in range(2)]
+            dist = param_distance(_whole16(folder.name, label, n), want, mu,
+                                  lrs, tc.adamw.weight_decay)
+            _hold_steps(f"[19] ({label})", outs, ref)
+            if witness is not None:
+                _hold_witness(f"[19] ({label})", param_distance(
+                    witness, want, mu, lrs, tc.adamw.weight_decay))
+            share, leaf, dmax = check_params(f"[19] ({label})", dist)
+            print(f"  [19] ({label}) parameters after step 2 against the "
+                  f"one device's: max|diff| {dmax:.3e}; worst share past "
+                  f"one ulp + 0.05 sum(lr) {share:.3e} (leaf {leaf}; limit "
+                  f"{SHARP_LIMIT}): within the rule")
+            layers = _moves19_cfg(label).n_layers
+            fwd = 2 if _moves19_cfg(label).remat else 1
+            want_l = {"flash_fwd": fwd * layers * 2,
+                      "flash_bwd_dq": layers * 2,
+                      "flash_bwd_dkv": layers * 2}
+            for who, got_l in [("one device", one_l)] + [
+                    (f"rank {r}", o["launches"]) for r, o in
+                    enumerate(outs)]:
+                if got_l != want_l:
+                    raise AssertionError(f"[19] ({label}) {who}: flash "
+                                         f"launches {got_l}, not {want_l}")
+            for k, v in want_l.items():
+                launches[f"{k}_{spec['flash']}"] = v
+
+        # (c) on (1,16)
+        B, _, max_len = MOVES19_C_STEP
+        for arch in MOVES19_C:
+            cfg = _moves19_wide_cfg(arch)
+            dry = steps_mod.count_cell(cfg, ShapeConfig(
+                "d", max_len, B, "decode"), model_mesh(MOVES19_WORLD))
+            args = dry["argument_bytes"]
+            want_b = args["params"] + args["caches"]
+            n_ssm = sum(k == "ssm" for k in cfg.layer_kinds)
+            for r in range(MOVES19_WORLD):
+                x = res[r][arch]
+                ratio = x["allocated"] / want_b
+                if r in (0, MOVES19_WORLD - 1):
+                    print(f"  [19] (c) {arch} (1,{MOVES19_WORLD}) rank {r} "
+                          f"[{card}]: params {x['params_bytes']} B drawn in "
+                          f"{x['draw_s']:.1f} s, with the caches "
+                          f"{x['allocated']} B allocated against the dry "
+                          f"run's argument bytes {want_b} ({ratio:.4f}x; "
+                          f"peak {x['peak']} B); prefill + decode step "
+                          f"{x['step_s']:.2f} s, {x['collectives']} "
+                          f"collectives ({x['collective_s']:.2f} s in "
+                          f"them); GDN launches {x['launches']} at "
+                          f"{x['kernel_shapes']}")
+                if not np.array_equal(x["logits"], res[0][arch]["logits"]):
+                    raise AssertionError(f"[19] (c) {arch}: rank {r}'s "
+                                         f"logits differ from rank 0's")
+                if abs(ratio - 1) > 0.01:
+                    raise AssertionError(f"[19] (c) {arch} rank {r}: "
+                                         f"allocated {ratio:.4f}x the dry "
+                                         f"run's argument bytes")
+                want_k = [("gdn_decode", 1, MAMBA2_MODEL16["Hv"], 128, 64),
+                          ("gdn_prefill", MAMBA2_MODEL16["Hv"], 128, 64)] \
+                    if n_ssm else []
+                want_n = {"gdn_decode": n_ssm, "gdn_prefill": n_ssm}
+                if x["kernel_shapes"] != sorted(want_k) or \
+                        x["launches"] != want_n:
+                    raise AssertionError(f"[19] (c) {arch} rank {r}: GDN "
+                                         f"kernels {x['launches']} at "
+                                         f"{x['kernel_shapes']}, not "
+                                         f"{want_n} at {want_k}")
+            allocs = [res[r][arch]["allocated"] for r in range(MOVES19_WORLD)]
+            print(f"  [19] (c) {arch}: every rank's logits bitwise rank 0's; "
+                  f"allocated {min(allocs)}-{max(allocs)} B per rank, "
+                  f"{sum(allocs) / 1e9:.3f} GB over the {MOVES19_WORLD} "
+                  f"ranks")
+            logit_rule(f"[19] (c) {arch}",
+                       torch.from_numpy(res[0][arch]["logits"]),
+                       wide[arch]["one"], wide[arch]["truth"])
+            if n_ssm:
+                launches["gdn_decode_mamba2_model16"] = n_ssm
+                launches["gdn_prefill_mamba2_model16"] = n_ssm
     finally:
         folder.cleanup()
     return launches
@@ -5295,6 +5844,9 @@ def main():
                     help="build the kernels, serve phase 4's mix once for "
                          "its streams, run phase 17 (its (c) ranks also "
                          "make phase 13 (b)'s streams) and stop")
+    ap.add_argument("--model-moves", action="store_true",
+                    help="build the kernels, hold phase 2's rows at phase "
+                         "19's shapes, run phase 19 and stop")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -5344,6 +5896,18 @@ def main():
         return 0
     if args.mesh_workers:
         return mesh_workers_only(card, configs, lm, engine_mod, t_start)
+    if args.model_moves:
+        print(f"[2] kernels vs plain versions at phase 19's shapes [{card}]")
+        for r in moves19_rows(ops, ref, kdecode, kprefill, kflash,
+                              time_launches):
+            print(f"  {r['name']}: {r['ms'] * 1e3:.2f} us (bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, plain "
+                  f"{r['plain_ms'] * 1e3:.2f} us)")
+        print(f"[19] fit_spec's moves of the model axis at full width "
+              f"[{card}]")
+        moves19_phase(card, lm, engine_mod, configs, kflash)
+        mark(19)
+        return 0
     if args.dryrun:
         cfg, params, param_alloc = phase4_weights(configs, lm)
         print(f"[18] the dry run against the card, and the paper's Table "
@@ -5380,6 +5944,7 @@ def main():
              for name, cases in PREFILL_MESH_CASES.items()]
     prefill_pow2_checks(ops, ref)
     rows += flash_phase(ref, kflash, time_launches)
+    rows += moves19_rows(ops, ref, kdecode, kprefill, kflash, time_launches)
     rows.append(attn_decode_phase(ref, kattn, time_launches,
                                   ATTN_DECODE_SHAPES))
     for r in rows:
@@ -5392,14 +5957,22 @@ def main():
     if args.kernels_only:
         print(json.dumps({"kernels": rows}))
         return 0
+    print(f"[19] fit_spec's moves of the model axis at full width: "
+          f"minicpm-2b on (1,2) served and on (1,2) / (1,4) trained; "
+          f"{', '.join(MOVES19_C)} on (1,{MOVES19_WORLD}) [{card}]")
+    launches = moves19_phase(card, lm, engine_mod, configs, kflash)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(19)
 
     cfg, params, param_alloc = phase4_weights(configs, lm)
     step3 = model_phase(cfg, params, lm)
     mark(3)
 
     print(f"[4] serving through DecodeEngine [{card}]")
-    launches, plain, warm_us, step_ms = serve_phase(
+    got, plain, warm_us, step_ms = serve_phase(
         cfg, params, engine_mod, kdecode, kprefill, card, kernel_counts)
+    launches.update(got)
     mark(4)
     print(f"[18] the dry run against the card, on phase 4's weights, and "
           f"the paper's Table II at batch 1 [{card}]")

@@ -14,9 +14,11 @@ optimizer moments and caches: exact), the live-bytes peak of the run,
 ``fits_hbm_80g``, ``model_flops`` and ``model_vs_counted_flops``, and the
 roofline on H100 SXM constants; a decode cell also its
 ``memory_floor_s``.  A cell whose model the port cannot split over the
-mesh's model axis (``parallel.sharding.check_model_axis``, ROADMAP queue
-1 item 4e) is recorded as ``"refused"`` with the check's message; a run
-whose cells are all ok, skipped or refused exits 0, one with an error 1.
+mesh's model axis (``parallel.sharding.check_model_axis``: a move of
+``fit_spec`` the model code does not follow, ROADMAP queue 1 item 4g;
+no registered arch's cell at (16,16) or (2,16,16)) is recorded as
+``"refused"`` with the check's message; a run whose cells are all ok,
+skipped or refused exits 0, one with an error 1.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-next-gdn \\
       --shape decode_32k --mesh single

@@ -124,12 +124,15 @@ def _drop_data(specs):
 
 def check_cell(cfg: ArchConfig, shape: ShapeConfig, mesh):
     """Raise ``ValueError`` (``parallel.sharding.check_model_axis``) where
-    the port cannot split the cell's model over the mesh's model axis."""
+    the port cannot split the cell's model over the mesh's model axis
+    (the trainer's FSDP rule for a train cell)."""
     if mesh is None:
         return
-    model = sharding.mesh_sizes(mesh).get("model", 1)
+    sizes = sharding.mesh_sizes(mesh)
+    train = shape.kind == "train"
     sharding.check_model_axis(
-        cfg, model, None if shape.kind == "train" else shape.seq_len)
+        cfg, sizes.get("model", 1), None if train else shape.seq_len,
+        sizes.get("data", 1), train and sharding.needs_fsdp(cfg, mesh))
 
 
 # ------------------------------------------------------------------ cells
@@ -164,8 +167,10 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh=None,
     collectives reported to ``record(kind, nbytes, axis)``."""
     check_cell(cfg, shape, mesh)
     sizes = None if mesh is None else sharding.mesh_sizes(mesh)
+    fsdp = mesh is not None and shape.kind == "train" and \
+        sharding.needs_fsdp(cfg, mesh)
     axes = None if mesh is None else comm.DryMeshAxes(
-        sizes, record or (lambda kind, nbytes, axis: None))
+        sizes, record or (lambda kind, nbytes, axis: None), fsdp)
     spec = input_specs(cfg, shape)
     dp = 1 if mesh is None else sharding.axis_size(
         mesh, sharding.dp_axes(mesh))
@@ -182,8 +187,7 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh=None,
         batch = spec["batch"]
         plan = None
         if mesh is not None:
-            specs = sharding.train_state_specs(
-                cfg, state, sharding.needs_fsdp(cfg, mesh), mesh)
+            specs = sharding.train_state_specs(cfg, state, fsdp, mesh)
             state = _local(state, specs, sizes)
             batch = _local(batch, sharding.batch_specs(mesh, batch), sizes)
             plan = trainer_mod.MeshPlan(axes, specs["params"],

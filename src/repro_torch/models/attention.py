@@ -36,6 +36,21 @@ cache of ``size`` slots is split the same way: rank r holds slots
 [r size / M, (r + 1) size / M).  At a model axis of 1 this is the
 unsharded arithmetic bit for bit.
 
+Where the axis does not divide the query heads either (arctic-480b's 56
+at 16), ``fit_spec`` puts it on ``wq``'s head_dim too: each rank
+projects its head_dim slice of every head and q is gathered along
+head_dim before RoPE, so every rank holds every head's q, k and v, and
+the split-K decode and chunked prefill run as above.  ``wo`` then sits on
+d_model (serving's specs: the whole ``o`` through this rank's d_model
+columns, gathered along d_model, a whole output the LM does not sum) or
+on head_dim (the trainer's FSDP specs: ``o``'s head_dim slice through
+this rank's rows, a partial sum).  Where the placement stands is read
+from the specs (``dims``: ``parallel.sharding.model_dims``).  In
+training the kernels then run on every head on every rank (the same
+work M times over); ``q``, ``k`` and ``v`` are gathered with
+``comm.gather_from(partial=True)``, whose backward sums each rank's part
+of their gradient before keeping its block.
+
 KV cache layout: (B, Hkv, Tmax, hd) + lengths (B,) int32.  A rolling (SWA)
 cache of ``size`` slots holds token p at slot p mod size.  The functions
 write the new keys/values and lengths into the cache tensors in place and
@@ -106,6 +121,38 @@ def _out(o, wo):
                            wo.reshape(H * hd, d))
 
 
+def _placement(dims):
+    """(q, kv, out): the dims of ``wq``, ``wk`` / ``wv`` and ``wo`` that
+    the model axis splits (``parallel.sharding.model_dims``; the nominal
+    heads without a record)."""
+    if not dims:
+        return "heads", "heads", "heads"
+    return dims["attn_q"], dims["attn_kv"], dims["attn_out"]
+
+
+def _split_out(tp, p, o, head_mask, out_on):
+    """The output projection of ``o`` (..., heads, hd) on a model axis, by
+    the dim ``out_on`` of ``wo`` that it splits: "heads", this rank's
+    heads of ``o`` (every head, or this rank's already) through its rows,
+    a partial sum; "head_dim", ``o``'s head_dim slice of every head
+    through its rows, a partial sum; "d_model", the whole ``o`` through
+    this rank's d_model columns, gathered along d_model: the whole
+    output, which the caller does not sum."""
+    H, hd, d = p["wo"].shape
+    if out_on == "heads":
+        if o.shape[-2] != H:
+            o = o.narrow(-2, tp.index * H, H)
+        if head_mask is not None:
+            head_mask = head_mask.narrow(0, tp.index * H, H)
+        return _out(_apply_head_mask(o, head_mask), p["wo"])
+    o = _apply_head_mask(o, head_mask)
+    if out_on == "head_dim":
+        return _out(o.narrow(-1, tp.index * hd, hd), p["wo"])
+    y = layers.dot(o.reshape(*o.shape[:-2], H * hd), p["wo"].reshape(H * hd,
+                                                                     d))
+    return comm.gather_from(tp, y, -1)
+
+
 def _f32_matmul(a, b):
     """fp32 product of activation-dtype operands (bf16 x bf16 products are
     exact in fp32, so this is the reference's fp32-accumulated dot)."""
@@ -161,42 +208,50 @@ def blockwise_attention(q, k, v, *, window=None, block_kv=512):
 
 
 def attn_train(p, x, *, rope_theta=10000.0, window=None, block_kv=512,
-               use_flash_kernel=False, head_mask=None):
+               use_flash_kernel=False, head_mask=None, dims=None):
     """Full-sequence causal attention for training.  x: (B, T, d).
     ``use_flash_kernel`` runs ``kernels.flash_attn.flash_attention`` (the
     hand-written kernels on the card, their plain versions on the CPU);
     otherwise ``blockwise_attention``.  On a mesh's "model" axis it runs
     on this rank's heads (the caller's ``copy_to`` / ``reduce_from``
-    carry the column / row split): the kernels at the local shape."""
+    carry the column / row split): the kernels at the local shape; on
+    every head where the query heads sit on head_dim (``dims``, module
+    docstring)."""
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     tp = comm.model_axis()
-    if tp is not None and p["wk"].shape[-1] != p["wq"].shape[-1]:
-        q, k, v = _qkv_train_split(tp, p, x, positions, rope_theta)
+    q_on, kv_on, out_on = _placement(dims)
+    if tp is not None and (q_on, kv_on) != ("heads", "heads"):
+        q, k, v = _qkv_train_split(tp, p, x, positions, rope_theta, q_on)
     else:
         q, k, v = _qkv(p, x, positions, rope_theta)
     if use_flash_kernel:
         o = flash_attn.flash_attention(q, k, v, window=window)
     else:
         o = blockwise_attention(q, k, v, window=window, block_kv=block_kv)
-    if tp is not None and head_mask is not None:
-        n = q.shape[-2]
-        head_mask = head_mask.narrow(0, tp.index * n, n)
-    return _out(_apply_head_mask(o, head_mask), p["wo"])
+    if tp is None:
+        return _out(_apply_head_mask(o, head_mask), p["wo"])
+    return _split_out(tp, p, o, head_mask, out_on)
 
 
-def _qkv_train_split(tp, p, x, positions, rope_theta):
-    """q, k, v of this rank's query heads in training where ``fit_spec``
-    split the KV heads on head_dim (the axis does not divide them): k and
-    v are gathered along head_dim over "model" before RoPE (which mixes
-    the two halves of head_dim), then each rank keeps the KV head its
-    query heads read (its query heads all sit in one GQA group: the axis
-    is a multiple of the KV heads); their gradients, partial on each
-    rank, are summed over the axis before each rank keeps its block."""
-    q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, rope_theta)
+def _qkv_train_split(tp, p, x, positions, rope_theta, q_on):
+    """q, k, v in training where ``fit_spec`` split the KV heads on
+    head_dim (the axis does not divide them): k and v are gathered along
+    head_dim over "model" before RoPE (which mixes the two halves of
+    head_dim), then each rank keeps the KV head its query heads read (its
+    query heads all sit in one GQA group: the axis is a multiple of the
+    KV heads); their gradients, partial on each rank, are summed over the
+    axis before each rank keeps its block.  ``q_on`` "head_dim" (the
+    query heads split there too): q is gathered the same way and every
+    rank keeps every head of q, k and v."""
     # each rank's query heads take their part of k's and v's gradient
     k = comm.gather_from(tp, _proj_heads(x, p["wk"]), -1, partial=True)
     v = comm.gather_from(tp, _proj_heads(x, p["wv"]), -1, partial=True)
+    if q_on == "head_dim":
+        q = comm.gather_from(tp, _proj_heads(x, p["wq"]), -1, partial=True)
+        return (layers.apply_rope(q, positions, rope_theta),
+                layers.apply_rope(k, positions, rope_theta), v)
+    q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, rope_theta)
     n_q, n_kv = q.shape[-2], k.shape[-2]
     if tp.size % n_kv:
         raise ValueError(f"a model axis of {tp.size} splits neither the "
@@ -246,19 +301,21 @@ def attn_prefill(p, x, cache: KVCache, *, rope_theta=10000.0, window=None,
 
 
 def attn_prefill_chunk(p, x, cache: KVCache, *, rope_theta=10000.0,
-                       window=None, head_mask=None, valid_len=None):
+                       window=None, head_mask=None, valid_len=None,
+                       dims=None):
     """One prompt chunk continuing from the cache — exactly equivalent to
     decoding it token by token.  A pre-chunk slot is visible to the query
     at position ``pos`` iff occupied and among the ``size`` most recent
     positions at ``pos``; in-chunk visibility is causal.  With
     ``valid_len`` (int or (B,) tensor) only the first valid_len tokens of
     each row are real: padded positions are not inserted into the rolling
-    buffer and ``length`` advances by valid_len only.
+    buffer and ``length`` advances by valid_len only.  ``dims``: where a
+    mesh's model axis sits (module docstring).
     x: (B, C, d) with C <= cache size.  Returns (out (B, C, d), cache)."""
     tp = comm.model_axis()
     if tp is not None:
         return _attn_prefill_chunk_split(tp, p, x, cache, rope_theta,
-                                         head_mask, valid_len)
+                                         head_mask, valid_len, dims)
     B, C, _ = x.shape
     size = cache.k.shape[2]
     if C > size:
@@ -343,12 +400,14 @@ def _cache_insert(cache: KVCache, k_t, v_t):
 
 
 def attn_decode_xla(p, x_t, cache: KVCache, *, rope_theta=10000.0,
-                    window=None, head_mask=None):
-    """One-token decode against the cache.  x_t: (B, d_model).
+                    window=None, head_mask=None, dims=None):
+    """One-token decode against the cache.  x_t: (B, d_model).  ``dims``:
+    where a mesh's model axis sits (module docstring).
     Returns (out (B, d_model), cache)."""
     tp = comm.model_axis()
     if tp is not None:
-        return _attn_decode_split(tp, p, x_t, cache, rope_theta, head_mask)
+        return _attn_decode_split(tp, p, x_t, cache, rope_theta, head_mask,
+                                  dims)
     B = x_t.shape[0]
     pos = cache.length.long()
     x = x_t[:, None, :]
@@ -373,21 +432,25 @@ def attn_decode_xla(p, x_t, cache: KVCache, *, rope_theta=10000.0,
 
 # ------------------------------------------- context-split (model axis)
 
-def _qkv_split(tp, p, x, positions, rope_theta):
+def _qkv_split(tp, p, x, positions, rope_theta, dims):
     """The whole q, k and v (every head) of the new tokens from this
-    rank's projections, in one all-gather over "model", and the number of
-    query heads this rank holds.  KV heads the axis does not divide come
-    split on head_dim (``fit_spec``): gathered along it, then rotated."""
-    q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, rope_theta)
-    k, v = _proj_heads(x, p["wk"]), _proj_heads(x, p["wv"])
-    n_local, lead = q.shape[-2], q.dim() - 2
-    if k.shape[-1] == q.shape[-1]:
+    rank's projections, in one all-gather over "model".  KV heads the
+    axis does not divide come split on head_dim (``fit_spec``), and query
+    heads too where it does not divide those: gathered along it, then
+    rotated."""
+    q_on, kv_on, _ = _placement(dims)
+    q, k, v = (_proj_heads(x, p[w]) for w in ("wq", "wk", "wv"))
+    lead = q.dim() - 2
+    if q_on == "head_dim":
+        q, k, v = tp.all_gather_cat([q, k, v], [-1, -1, -1], lead)
+        return (layers.apply_rope(q, positions, rope_theta),
+                layers.apply_rope(k, positions, rope_theta), v)
+    q = layers.apply_rope(q, positions, rope_theta)
+    if kv_on == "heads":
         k = layers.apply_rope(k, positions, rope_theta)
-        q, k, v = tp.all_gather_cat([q, k, v], [-2, -2, -2], lead)
-    else:
-        q, k, v = tp.all_gather_cat([q, k, v], [-2, -1, -1], lead)
-        k = layers.apply_rope(k, positions, rope_theta)
-    return q, k, v, n_local
+        return tuple(tp.all_gather_cat([q, k, v], [-2, -2, -2], lead))
+    q, k, v = tp.all_gather_cat([q, k, v], [-2, -1, -1], lead)
+    return q, layers.apply_rope(k, positions, rope_theta), v
 
 
 def _merge_stats(tp, m_r, l_r):
@@ -405,23 +468,14 @@ def _merge_stats(tp, m_r, l_r):
     return m, l
 
 
-def _local_out(tp, p, o, n_local, head_mask):
-    """Keep this rank's ``n_local`` query heads of the full ``o`` (..., Hq,
-    hd) and project them through its ``wo`` rows: a partial sum the
-    caller all-reduces."""
-    o = o.narrow(-2, tp.index * n_local, n_local)
-    if head_mask is not None:
-        head_mask = head_mask.narrow(0, tp.index * n_local, n_local)
-    return _out(_apply_head_mask(o, head_mask), p["wo"])
-
-
-def _attn_decode_split(tp, p, x_t, cache: KVCache, rope_theta, head_mask):
+def _attn_decode_split(tp, p, x_t, cache: KVCache, rope_theta, head_mask,
+                       dims):
     """``attn_decode_xla`` on a context-sharded cache (module docstring)."""
     B = x_t.shape[0]
     dev = x_t.device
     pos = cache.length.long()
-    q, k, v, n_local = _qkv_split(tp, p, x_t[:, None, :], pos[:, None],
-                                  rope_theta)
+    q, k, v = _qkv_split(tp, p, x_t[:, None, :], pos[:, None], rope_theta,
+                         dims)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
     S = cache.k.shape[2]
     off = tp.index * S
@@ -449,11 +503,11 @@ def _attn_decode_split(tp, p, x_t, cache: KVCache, rope_theta, head_mask):
     pr = torch.exp(s - m[..., None]) / torch.clamp(l, min=1e-30)[..., None]
     o = tp.all_reduce(_f32_matmul(pr.to(cache.v.dtype), cache.v))
     o = o.reshape(B, Hq, hd).to(x_t.dtype)
-    return _local_out(tp, p, o, n_local, head_mask), cache
+    return _split_out(tp, p, o, head_mask, _placement(dims)[2]), cache
 
 
 def _attn_prefill_chunk_split(tp, p, x, cache: KVCache, rope_theta,
-                              head_mask, valid_len):
+                              head_mask, valid_len, dims):
     """``attn_prefill_chunk`` on a context-sharded cache: the scores
     against the pre-chunk cache are split over the ranks' slices (merged
     as in ``_attn_decode_split``), the in-chunk causal part is computed
@@ -469,7 +523,7 @@ def _attn_prefill_chunk_split(tp, p, x, cache: KVCache, rope_theta,
     length = cache.length.long()
     ar = torch.arange(C, device=dev)
     pos = length[:, None] + ar[None, :]                         # (B, C)
-    q, k, v, n_local = _qkv_split(tp, p, x, pos, rope_theta)
+    q, k, v = _qkv_split(tp, p, x, pos, rope_theta, dims)
     Hq, hd = q.shape[2], q.shape[3]
     Hkv = cache.k.shape[1]
     G = Hq // Hkv
@@ -509,7 +563,7 @@ def _attn_prefill_chunk_split(tp, p, x, cache: KVCache, rope_theta,
     o = ((w_cache[..., None] * o_cache + w_chunk[..., None] * o_chunk)
          / torch.clamp(l_tot, min=1e-30)[..., None])
     o = o.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, hd).to(x.dtype)
-    out = _local_out(tp, p, o, n_local, head_mask)
+    out = _split_out(tp, p, o, head_mask, _placement(dims)[2])
 
     # each slot of this slice takes the chunk position that lands on it
     # (c = (t - length) mod size, when c < valid_len): a gather, so

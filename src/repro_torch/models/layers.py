@@ -9,7 +9,12 @@ then ``astype``); norms in fp32.
 On a mesh's "model" axis (``parallel.comm.model_axis()``) the embedding
 table holds this rank's vocab rows: ``embed_fwd`` looks up the tokens it
 owns and all-reduces; in training the gradient reaches only the rows a
-rank owns (``comm.reduce_from``).
+rank owns (``comm.reduce_from``).  Where ``fit_spec`` moved the axis
+onto d_model (a vocabulary it does not divide) the table holds this
+rank's d_model columns: the lookup is gathered along d_model
+(``comm.gather_from``, whose backward keeps the rank's columns of the
+gradient); where it dropped the axis (FSDP took d_model) the table is
+whole on every rank and the lookup is the plain one.
 """
 from __future__ import annotations
 
@@ -105,10 +110,15 @@ def init_embedding(generator, vocab, d_model, dtype, device):
                            dtype, device)}
 
 
-def embed_fwd(p, tokens):
+def embed_fwd(p, tokens, on="vocab"):
+    """The tokens' rows of the table; ``on``: the dim of the table that
+    the active model axis splits ("vocab", "d_model" or None: whole,
+    ``parallel.sharding.model_dims``)."""
     tp = comm.model_axis()
-    if tp is None:
+    if tp is None or on is None:
         return p["table"][tokens]
+    if on == "d_model":
+        return comm.gather_from(tp, p["table"][tokens], -1)
     # vocab-parallel: each rank holds rows [index * n, (index + 1) * n)
     n = p["table"].shape[0]
     local = tokens - tp.index * n
@@ -150,7 +160,14 @@ class _MatmulF32(torch.autograd.Function):
     accumulation, rounded to bf16 — as a TPU's default matmul precision
     takes the reference's fp32 cotangent.  Keeping it fp32 would need fp32
     copies of the weights (1.9 GB per expert leaf at mixtral-8x7b's
-    width, 0.5 GB for its head) and fp32 products on the CUDA cores."""
+    width, 0.5 GB for its head) and fp32 products on the CUDA cores.
+    x's gradient sums over the weight's n (the LM head's vocabulary:
+    122,753 terms at minicpm-2b), which cuBLAS may split, adding the
+    split partial sums in bf16 where torch allows it (``torch.backends.
+    cuda.matmul.allow_bf16_reduced_precision_reduction``, on by default):
+    so it comes from an fp32-output product, rounded to bf16 once.  w's
+    gradient sums over the rows and keeps the bf16-output product (an
+    fp32 one would be an fp32 copy of the weight)."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -163,7 +180,8 @@ class _MatmulF32(torch.autograd.Function):
         g = g.to(w.dtype)
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = torch.bmm(g, w.transpose(1, 2))
+            gx = torch.bmm(g, w.transpose(1, 2),
+                           out_dtype=torch.float32).to(x.dtype)
         if ctx.needs_input_grad[1]:
             gw = torch.bmm(x.transpose(1, 2), g)
         return gx, gw

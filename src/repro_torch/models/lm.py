@@ -22,13 +22,28 @@ or per-unit blocks; in a bf16 model the partial sums stay fp32,
 gathered over "model" before any sampler sees them, so every rank
 samples from the full vocabulary.
 
+Where the reference's ``fit_spec`` moved "model" off a dim it does not
+divide, the layers follow the placement the specs give
+(``parallel.sharding.model_dims``, read once per config and mesh): the
+embedding table on d_model is looked up and gathered along it, or,
+replicated over "model", looked up whole; the logits' weight on d_model
+(the tied table or ``lm_head``) is row-parallel: each rank's slice of the
+final hidden state gives fp32 partial logits over the whole vocabulary,
+all-reduced; replicated, the whole logits on every rank.  The MoE's
+experts on d_ff and attention's query heads on head_dim are in
+``models.moe`` and ``models.attention``; where the MoE's or attention's
+``wo`` sits on d_model their output is a d_model block gathered along it,
+whole on every rank, which the LM does not sum.
+
 Training on a mesh (``runtime.trainer``, the mesh active) runs the same
 split through the differentiable collectives of ``parallel.comm``: each
 mixer and FFN input goes through ``copy_to`` (its gradient all-reduced
 over "model"), each row-parallel output through ``reduce_from``, the
 vocab-parallel embedding's sum through ``reduce_from``, and the cross
 entropy of each rank's vocab block of the logits crosses the axis as one
-value per position (``layers.cross_entropy_split``), so every "model"
+value per position (``layers.cross_entropy_split``; the row-parallel
+logits of a weight on d_model are summed by ``reduce_from`` first, and
+replicated logits need no collective), so every "model"
 rank computes the same loss
 and the gradients of the replicated leaves agree bit for bit: every
 mixer kind splits its heads or width as in serving (a replicated leaf
@@ -36,8 +51,8 @@ that a rank uses only a slice of takes its whole gradient through
 ``comm.split_to``), and the MoE its experts (the router reads the FFN
 input before ``copy_to``; ``moe.moe_fwd``).  The data axis holds each
 rank's rows; only the MoE's batch statistics cross it.  A model axis
-that does not divide a split dim is refused before the first step
-(``parallel.sharding.check_model_axis``).
+that ``fit_spec`` moves onto a dim the model code does not follow is
+refused before the first step (``parallel.sharding.check_model_axis``).
 
 Training runs each group's repeats in a loop; with ``cfg.remat`` each
 repeat is recomputed in the backward pass (``torch.utils.checkpoint``, the
@@ -101,7 +116,8 @@ def build_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
 def _init_position(generator, kind, cfg, dtype, device, reps,
                    experts=None):
     """Stacked (reps, ...) params of one pattern position (``experts``:
-    the range of MoE experts to keep, all by default)."""
+    the block of each MoE expert leaf to keep, ``moe.init_moe``; all by
+    default)."""
     p = {"norm1": layers.init_rmsnorm(cfg.d_model, device, reps),
          "mixer": get_mixer(kind).init_params(generator, cfg, dtype, device,
                                               reps)}
@@ -132,9 +148,11 @@ def init_lm(generator, cfg: ArchConfig, device=None, mesh=None,
     holds only this rank's shards under ``parallel.sharding``'s rules:
     every leaf is drawn whole in the one-device order and cut at once, so
     the generator advances as there and the shards are the one-device
-    draw's, while the expert matrices, drawn one at a time, are kept for
-    this rank's experts only: no rank ever holds more than its shards and
-    one whole non-expert leaf.  ``fsdp`` takes the rules' FSDP specs (the
+    draw's, while the expert matrices, drawn one at a time, keep only
+    this rank's block of each (its experts, or its d_ff or d_model slice
+    of every expert where ``fit_spec`` moved the axis, and its FSDP
+    rows): no rank ever holds more than its shards and one whole
+    non-expert leaf.  ``fsdp`` takes the rules' FSDP specs (the
     trainer's, ``parallel.sharding.needs_fsdp``): "data" also splits the
     large matrices."""
     dev = _device.resolve(device)
@@ -161,8 +179,9 @@ def init_lm(generator, cfg: ArchConfig, device=None, mesh=None,
 
 def _mesh_cut(cfg: ArchConfig, mesh, fsdp: bool = False):
     """(cut(key path, subtree) -> this rank's shards of it, experts(group,
-    position) -> the range of experts this rank keeps) for ``init_lm``;
-    without a mesh, the identity and every expert."""
+    position) -> {expert leaf: this rank's block of it, a slice per dim
+    past the stack dim}) for ``init_lm``; without a mesh, the identity
+    and every expert whole."""
     if mesh is None:
         return (lambda path, tree: tree), (lambda g, i: None)
     full = init_lm(None, cfg, device="meta")
@@ -179,12 +198,20 @@ def _mesh_cut(cfg: ArchConfig, mesh, fsdp: bool = False):
                                 axes.sizes, full=sub(full, path))
 
     def experts(g, i):
-        spec = sub(specs, ("groups", g, i)).get("moe", {}).get("wi_gate")
+        spec = sub(specs, ("groups", g, i)).get("moe")
         if spec is None:
             return None
-        idx, n = rules.shard_block(spec, 1, axes.coords, axes.sizes)
-        step = cfg.moe_experts // n
-        return range(idx * step, (idx + 1) * step)
+        shapes = sub(full, ("groups", g, i))["moe"]
+        out = {}
+        for k in ("wi_gate", "wi_up", "wo"):
+            blocks = []
+            for d in (1, 2, 3):
+                idx, n = rules.shard_block(spec[k], d, axes.coords,
+                                           axes.sizes)
+                step = shapes[k].shape[d] // n
+                blocks.append(slice(idx * step, (idx + 1) * step))
+            out[k] = tuple(blocks)
+        return out
 
     return cut, experts
 
@@ -201,10 +228,31 @@ def _layer_train(kind, cfg: ArchConfig, lp, x):
     tp = comm.model_axis()
     if tp is not None:
         h = comm.copy_to(tp, h)
-    mix = mixer.train(lp["mixer"], cfg, h)
-    if tp is not None:
-        mix = comm.reduce_from(tp, mix).to(x.dtype)
-    return _ffn_fwd(cfg, lp, x + mix, decode=False, train=True)
+    mix = mixer.train(lp["mixer"], cfg, h, **_mixer_kw(kind, cfg))
+    return _ffn_fwd(cfg, lp, x + _mix_sum(kind, cfg, mix, x.dtype),
+                    decode=False, train=True)
+
+
+def _mixer_kw(kind, cfg: ArchConfig) -> dict:
+    """An attention mixer's ``dims``: where the active mesh's "model"
+    axis sits on its leaves (``parallel.sharding.active_model_dims``);
+    no other mixer kind reads it."""
+    if not get_mixer(kind).is_attention:
+        return {}
+    return {"dims": rules.active_model_dims(cfg)}
+
+
+def _mix_sum(kind, cfg: ArchConfig, mix, dtype):
+    """A mixer's output on a mesh: its row-parallel partial sums added over
+    "model" (``comm.reduce_from``: the all-reduce, in training with the
+    identity backward), or as it is where attention's ``wo`` sits on
+    d_model (the mixer gathered its d_model block: the whole output)."""
+    tp = comm.model_axis()
+    if tp is None or (get_mixer(kind).is_attention and
+                      rules.active_model_dims(cfg).get("attn_out")
+                      == "d_model"):
+        return mix
+    return comm.reduce_from(tp, mix).to(dtype)
 
 
 def _unstack(tree, reps: int):
@@ -264,10 +312,13 @@ def loss_fn(params, cfg: ArchConfig, batch, *, t_chunk=1024, z_loss=1e-4,
     def chunk_loss(hc, lc):
         with comm.use(axes):        # recomputed on autograd's thread
             tp = comm.model_axis()
-            logits = _local_logits(params, cfg, hc)
-            if tp is None or tp.size == 1:
-                return layers.cross_entropy(logits, lc, z_loss=z_loss)
-            return layers.cross_entropy_split(tp, logits, lc, z_loss=z_loss)
+            logits, on = _local_logits(params, cfg, hc)
+            if on == "vocab" and tp.size > 1:
+                return layers.cross_entropy_split(tp, logits, lc,
+                                                  z_loss=z_loss)
+            if on == "d_model":
+                logits = comm.reduce_from(tp, logits)
+            return layers.cross_entropy(logits, lc, z_loss=z_loss)
 
     if n <= 1:
         ce = chunk_loss(h, labels)
@@ -321,22 +372,28 @@ def _ffn_fwd(cfg: ArchConfig, lp, x, decode: bool, train: bool = False):
     h = layers.rmsnorm_fwd(lp["norm2"], x, cfg.norm_eps)
     tp = comm.model_axis()
     hin = h if tp is None else comm.copy_to(tp, h)
-    y, aux = None, None
+    y, whole, aux = None, None, None
     if "moe" in lp:
+        wo_on = rules.active_model_dims(cfg).get("moe_out")
         if decode:
-            y = moe.moe_decode(lp["moe"], hin, top_k=cfg.moe_top_k)
+            y = moe.moe_decode(lp["moe"], hin, top_k=cfg.moe_top_k,
+                               wo_on=wo_on)
         else:
             # the router reads h before copy_to (moe.moe_fwd)
             y, aux = moe.moe_fwd(lp["moe"], hin, top_k=cfg.moe_top_k,
                                  group_size=cfg.moe_group_size,
                                  capacity_factor=cfg.moe_capacity_factor,
                                  data=comm.data_axis() if train else None,
-                                 route=h)
+                                 route=h, wo_on=wo_on)
+        if wo_on == "d_model":        # gathered along d_model: whole
+            y, whole = None, y
     if "mlp" in lp:
         m = layers.mlp_fwd(lp["mlp"], hin)
         y = m if y is None else y + m
-    if tp is not None:
+    if tp is not None and y is not None:
         y = comm.reduce_from(tp, y).to(x.dtype)
+    if whole is not None:
+        y = whole if y is None else y + whole
     return x + y, aux
 
 
@@ -354,12 +411,12 @@ def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
                     mix, nc = mixer.prefill(lp["mixer"], cfg, h, c)
                 elif mode == "chunk":
                     mix, nc = mixer.prefill_chunk(lp["mixer"], cfg, h, c,
-                                                  valid_len=valid_len)
+                                                  valid_len=valid_len,
+                                                  **_mixer_kw(kind, cfg))
                 else:
-                    mix, nc = mixer.decode(lp["mixer"], cfg, h, c)
-                tp = comm.model_axis()
-                if tp is not None:
-                    mix = tp.all_reduce(mix).to(x.dtype)
+                    mix, nc = mixer.decode(lp["mixer"], cfg, h, c,
+                                           **_mixer_kw(kind, cfg))
+                mix = _mix_sum(kind, cfg, mix, x.dtype)
                 # the layer's new cache into its slice of the stacked
                 # buffers (a no-op where the mixer updated it in place)
                 copy_leaves(c, nc)
@@ -369,28 +426,39 @@ def _run_cached(params, cfg: ArchConfig, x, caches, mode: str,
 
 
 def _embed(params, cfg, tokens, embeds):
-    x = embeds if embeds is not None else layers.embed_fwd(params["embed"],
-                                                           tokens)
+    x = embeds if embeds is not None else layers.embed_fwd(
+        params["embed"], tokens, rules.active_model_dims(cfg).get("embed"))
     return x.to(_device.dtype(cfg.act_dtype))
 
 
 def _local_logits(params, cfg: ArchConfig, h):
-    """fp32 logits of this rank's vocab block on a model axis (a
-    column-parallel projection), of the whole vocabulary off one."""
+    """(fp32 logits, the dim of their weight that "model" splits): on
+    "vocab", this rank's vocab block (a column-parallel projection); on
+    "d_model", partial sums over the whole vocabulary from this rank's
+    d_model slice of ``h`` (row-parallel; in training the slice's gradient
+    is gathered, ``comm.split_to``); None (off a mesh, or the weight
+    replicated over "model"), the whole logits."""
     tp = comm.model_axis()
-    if tp is not None:
+    on = rules.active_model_dims(cfg).get("logits")
+    if on == "vocab":
         h = comm.copy_to(tp, h)
+    elif on == "d_model":
+        h = comm.split_to(tp, h, h.shape[-1] // tp.size)
     if cfg.tie_embeddings:
-        return layers.logits_fwd(params["embed"], h)
-    return layers.logits_matmul(h, params["lm_head"]["w"])
+        return layers.logits_fwd(params["embed"], h), on
+    return layers.logits_matmul(h, params["lm_head"]["w"]), on
 
 
 def _logits(params, cfg: ArchConfig, h):
-    """fp32 logits over the whole vocabulary: on a model axis each rank's
-    vocab block, gathered (every rank samples from the whole)."""
-    out = _local_logits(params, cfg, h)
-    tp = comm.model_axis()
-    return out if tp is None else comm.gather_from(tp, out, out.dim() - 1)
+    """fp32 logits over the whole vocabulary on every rank (each samples
+    from the whole): on a model axis each rank's vocab block gathered, or
+    its partial sums added up."""
+    out, on = _local_logits(params, cfg, h)
+    if on == "vocab":
+        return comm.gather_from(comm.model_axis(), out, out.dim() - 1)
+    if on == "d_model":
+        return comm.reduce_from(comm.model_axis(), out)
+    return out
 
 
 def prefill(params, cfg: ArchConfig, caches, tokens=None, embeds=None):

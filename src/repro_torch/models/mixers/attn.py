@@ -43,11 +43,12 @@ class Attention(SequenceMixer):
                                         device, reps)
 
     @classmethod
-    def train(cls, params, cfg, x):
+    def train(cls, params, cfg, x, dims=None):
         return attention.attn_train(params, x, rope_theta=cfg.rope_theta,
                                     window=cls._window(cfg),
                                     use_flash_kernel=cfg.use_flash_kernel,
-                                    head_mask=_head_mask(cfg, x.device))
+                                    head_mask=_head_mask(cfg, x.device),
+                                    dims=dims)
 
     @classmethod
     def prefill(cls, params, cfg, x, cache):
@@ -57,7 +58,8 @@ class Attention(SequenceMixer):
                                       head_mask=_head_mask(cfg, x.device))
 
     @classmethod
-    def prefill_chunk(cls, params, cfg, x, cache, valid_len=None):
+    def prefill_chunk(cls, params, cfg, x, cache, valid_len=None,
+                      dims=None):
         # positions and visibility continue from cache.length; ragged
         # chunks skip the rolling insert of padded positions
         return attention.attn_prefill_chunk(params, x, cache,
@@ -65,15 +67,17 @@ class Attention(SequenceMixer):
                                             window=cls._window(cfg),
                                             head_mask=_head_mask(cfg,
                                                                  x.device),
-                                            valid_len=valid_len)
+                                            valid_len=valid_len,
+                                            dims=dims)
 
     @classmethod
-    def decode(cls, params, cfg, x_t, cache):
+    def decode(cls, params, cfg, x_t, cache, dims=None):
         return attention.attn_decode_xla(params, x_t, cache,
                                          rope_theta=cfg.rope_theta,
                                          window=cls._window(cfg),
                                          head_mask=_head_mask(cfg,
-                                                              x_t.device))
+                                                              x_t.device),
+                                         dims=dims)
 
     @classmethod
     def decode_flops(cls, cfg, seq):

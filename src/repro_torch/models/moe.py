@@ -27,6 +27,20 @@ experts.  Its output is a partial sum that the LM's FFN all-reduce adds
 up (with arctic's row-parallel dense MLP in the same reduction).  A
 decode step reads only this rank's expert weights.
 
+Where the axis does not divide the experts, ``fit_spec`` moves it onto
+d_ff of ``wi_gate`` / ``wi_up`` (every rank holds every expert's d_ff / M
+columns) and onto d_ff or d_model of ``wo`` (``wo_on``, read from
+``parallel.sharding.model_dims``).  Routing, capacity positions, dispatch
+and combine then run over all E experts on every rank, and each expert's
+hidden activation is its d_ff / M block.  ``wo`` on d_ff (the trainer's
+FSDP specs: "data" holds d_model) is row-parallel: each rank's output is
+an fp32 partial sum, which the FFN's all-reduce adds as it adds the
+experts' above.  ``wo`` on d_model (serving's specs) takes the whole
+hidden activation: it is gathered along d_ff over "model" (a
+(E, rows, d_ff) activation; no weight moves), each rank computes its
+d_model columns of the output, and those are gathered along d_model:
+the output is whole on every rank and is not summed.
+
 In training on a mesh (``data``, the active "data" axis) the capacity
 groups and the load-balancing statistics are the reference's over the
 global batch, whose rows the data ranks hold in order: ``me`` and ``ce``
@@ -42,7 +56,13 @@ and must not be summed again.  The combine gates' gradient is partial
 per rank (only the slots routed to its experts carry one): ``copy_to``
 on the gates sums it over "model" before it reaches the router, so the
 router's gradient (that sum plus the load-balancing term, the same on
-every rank and counted once) is the whole one on every rank.
+every rank and counted once) is the whole one on every rank.  Experts on
+d_ff take the same two inputs and the same ``copy_to`` on the gates: a
+rank's output holds only its d_ff rows' part (``wo`` on d_ff) or its
+d_model columns (on d_model), so the gates' gradient is partial there
+too, and the hidden activation gathered for a ``wo`` on d_model sums its
+gradient over the axis before each rank keeps its block
+(``comm.gather_from(partial=True)``).
 
 Parameters are stacked (reps, ...) like every leaf of the port:
 ``router`` fp32 (d, E); ``wi_gate``, ``wi_up`` (E, d, f) and ``wo``
@@ -62,36 +82,40 @@ def _draw_experts(generator, shape, std, dtype, device, keep=None):
     ``dtype``, drawn one (d_in, d_out) matrix at a time into the
     preallocated leaf: the fp32 transient stays at one matrix, where a
     whole stacked leaf drawn in fp32 would be 30-36 GB at full width.
-    ``keep`` (a range of experts) keeps only those, every matrix drawn all
-    the same (a mesh rank's experts, the one-device draw's values).  A
-    leaf on the ``meta`` device holds no values: nothing is drawn."""
-    keep = range(shape[1]) if keep is None else keep
-    out = torch.empty((shape[0], len(keep)) + tuple(shape[2:]), dtype=dtype,
-                      device=device)
+    ``keep`` (a slice per dim past the stack dim: experts, d_in, d_out)
+    keeps only that block, every matrix drawn all the same (a mesh rank's
+    shard, the one-device draw's values).  A leaf on the ``meta`` device
+    holds no values: nothing is drawn."""
+    keep = keep or tuple(slice(0, n) for n in shape[1:])
+    es, rows, cols = keep
+    out = torch.empty((shape[0],) + tuple(k.stop - k.start for k in keep),
+                      dtype=dtype, device=device)
     if out.is_meta:
         return out
     for r in range(shape[0]):
         for e in range(shape[1]):
             m = layers.randn(generator, shape[2:], std, torch.float32, device)
-            if e in keep:
-                out[r, e - keep.start].copy_(m)
+            if es.start <= e < es.stop:
+                out[r, e - es.start].copy_(m[rows, cols])
     return out
 
 
 def init_moe(generator, d_model, d_ff, n_experts, dtype, device, reps,
              experts=None):
-    """The router and the experts' SwiGLU weights (``experts``: the range
-    of experts to keep, all by default)."""
+    """The router and the experts' SwiGLU weights (``experts``: {leaf:
+    the block of it to keep, ``_draw_experts``' ``keep``}, all of every
+    leaf by default)."""
     s, sf = d_model ** -0.5, d_ff ** -0.5
+    keep = experts or {}
     return {
         "router": layers.randn(generator, (reps, d_model, n_experts), s,
                                torch.float32, device),
         "wi_gate": _draw_experts(generator, (reps, n_experts, d_model, d_ff),
-                                 s, dtype, device, experts),
+                                 s, dtype, device, keep.get("wi_gate")),
         "wi_up": _draw_experts(generator, (reps, n_experts, d_model, d_ff),
-                               s, dtype, device, experts),
+                               s, dtype, device, keep.get("wi_up")),
         "wo": _draw_experts(generator, (reps, n_experts, d_ff, d_model), sf,
-                            dtype, device, experts),
+                            dtype, device, keep.get("wo")),
     }
 
 
@@ -116,13 +140,19 @@ def _route(x, router, k):
     return probs, gate, idx
 
 
-def _experts(p, xe, dtype):
+def _experts(p, xe, dtype, wo_on=None):
     """The SwiGLU of every expert on its rows: xe (E, M, d) -> (E, M, d)
-    in ``dtype``, each product with an fp32 result."""
+    in ``dtype``, each product with an fp32 result.  ``wo_on`` "d_ff":
+    this rank's d_ff rows of ``wo``, an fp32 partial sum; "d_model": the
+    hidden activation gathered along d_ff over "model", then this rank's
+    d_model columns, (E, M, d / M) in ``dtype`` (module docstring)."""
     h = layers.bmm_f32(xe, p["wi_gate"])
     u = layers.bmm_f32(xe, p["wi_up"])
     hh = (F.silu(h) * u).to(dtype)
-    return layers.bmm_f32(hh, p["wo"]).to(dtype)
+    if wo_on == "d_model":
+        hh = comm.gather_from(comm.model_axis(), hh, -1, partial=True)
+    out = layers.bmm_f32(hh, p["wo"])
+    return out if wo_on == "d_ff" else out.to(dtype)
 
 
 def _queue_positions(idx, E):
@@ -135,12 +165,15 @@ def _queue_positions(idx, E):
 
 
 def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
-            data=None, route=None):
+            data=None, route=None, wo_on=None):
     """x: (B, T, d) -> (y (B, T, d), aux_loss 0-d fp32).  ``data``: the
     training mesh's "data" axis, whose ranks hold the global batch's rows
     in order; ``route``: the router's input where it is not ``x`` (on a
     model axis, the FFN input before ``comm.copy_to``; module
-    docstring)."""
+    docstring); ``wo_on``: the dim of ``wo`` that the active model axis
+    splits ("experts", "d_ff", "d_model"; None off a mesh).  ``y`` is an
+    fp32 partial sum where the experts or ``wo``'s d_ff rows are split,
+    whole where ``wo``'s d_model columns are."""
     B, T, d = x.shape
     E = p["router"].shape[-1]
     N = B * T
@@ -178,7 +211,8 @@ def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
     oh = one_hot(idx, E, torch.int64)                          # (G, S, k, E)
     keep = pos < C
     El = p["wi_gate"].shape[0]
-    tp = comm.model_axis() if El != E else None   # this rank's experts
+    tp = comm.model_axis() if El != E or wo_on in ("d_ff", "d_model") \
+        else None
     if tp is not None:
         gate = comm.copy_to(tp, gate)    # its gradient summed over "model"
     gate_kept = gate * keep
@@ -191,27 +225,36 @@ def moe_fwd(p, x, *, top_k=2, capacity_factor=1.25, group_size=1024,
     comb = torch.einsum("gske,gskc->gsec",
                         ohx * gate_kept.to(x.dtype)[..., None], pos_oh)
 
-    if tp is not None:
+    if El != E:                                   # this rank's experts
         disp, comb = (tp.local(t, 2) for t in (disp, comb))
     xe = torch.einsum("gsec,gsd->egcd", disp, xf).reshape(El, G * C, d)
-    ye = _experts(p, xe, x.dtype).reshape(El, G, C, d)
-    if tp is not None:                 # a partial sum, kept in fp32
+    ye = _experts(p, xe, x.dtype, wo_on)
+    ye = ye.reshape(El, G, C, ye.shape[-1])
+    if El != E or wo_on == "d_ff":     # a partial sum, kept in fp32
         comb, ye = comb.float(), ye.float()
     y = torch.einsum("gsec,egcd->gsd", comb, ye)
+    if wo_on == "d_model":
+        y = comm.gather_from(tp, y, -1)
     return y.reshape(B, T, d), aux
 
 
-def moe_decode(p, x_t, *, top_k=2):
+def moe_decode(p, x_t, *, top_k=2, wo_on=None):
     """Single-token-per-sequence MoE: every expert on every row, weighted
-    by the row's renormalised top-k gates. x_t: (B, d)."""
+    by the row's renormalised top-k gates. x_t: (B, d).  ``wo_on`` as in
+    ``moe_fwd``."""
     B, d = x_t.shape
     E = p["router"].shape[-1]
     _, gate, idx = _route(x_t, p["router"], top_k)             # (B, k)
     w = torch.einsum("bke,bk->be", one_hot(idx, E, x_t.dtype),
                      gate.to(x_t.dtype))
     El = p["wi_gate"].shape[0]
-    ye = _experts(p, x_t.expand(El, B, d), x_t.dtype)          # (El, B, d)
+    ye = _experts(p, x_t.expand(El, B, d), x_t.dtype, wo_on)
     if El != E:           # this rank's experts: a partial sum, in fp32
         w = comm.model_axis().local(w, 1)
         ye, w = ye.float(), w.float()
-    return torch.einsum("ebd,be->bd", ye, w)
+    elif wo_on == "d_ff":                   # d_ff rows: ye fp32 partial
+        w = w.float()
+    y = torch.einsum("ebd,be->bd", ye, w)
+    if wo_on == "d_model":
+        y = comm.gather_from(comm.model_axis(), y, -1)
+    return y

@@ -385,13 +385,17 @@ def mean_over(axis: Axis, x: torch.Tensor) -> torch.Tensor:
 
 class MeshAxes:
     """This rank's view of a ``DeviceMesh``: an ``Axis`` per dim name, its
-    coordinates and the axis sizes."""
+    coordinates and the axis sizes.  ``fsdp``: the parameters lie under
+    the rules' FSDP specs (the trainer's, where ``needs_fsdp`` holds;
+    serving never), which move "model" off some dims (``parallel.
+    sharding.model_dims``: the model code reads where it sits from
+    them)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, fsdp: bool = False):
         if mesh.get_coordinate() is None:
             raise ValueError(f"rank {dist.get_rank()} is not in the mesh "
                              f"{mesh}")
-        self.mesh = mesh
+        self.mesh, self.fsdp = mesh, fsdp
         self.names = tuple(mesh.mesh_dim_names)
         self.axes: Dict[str, Axis] = {n: Axis.of(mesh, n)
                                       for n in self.names}
@@ -465,10 +469,11 @@ class DryAxis(Axis):
 class DryMeshAxes(MeshAxes):
     """A ``MeshAxes`` of ``DryAxis``es: the mesh of axis sizes ``sizes``
     (name -> size, in mesh order) as its first rank (every coordinate 0)
-    sees it, its collectives reported to ``record(kind, nbytes, axis)``."""
+    sees it, its collectives reported to ``record(kind, nbytes, axis)``
+    (``fsdp`` as ``MeshAxes``'s)."""
 
-    def __init__(self, sizes: Dict[str, int], record):
-        self.mesh = None
+    def __init__(self, sizes: Dict[str, int], record, fsdp: bool = False):
+        self.mesh, self.fsdp = None, fsdp
         self.names = tuple(sizes)
         self.sizes = {n: int(sizes[n]) for n in self.names}
         self.coords = {n: 0 for n in self.names}

@@ -25,6 +25,7 @@ paths give the reference's path strings (``path_str``).
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
 from typing import Dict
@@ -32,6 +33,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel import comm
 from repro_torch.tree import tree_map_with_path
 
 
@@ -202,25 +204,131 @@ def param_spec(path: str, shape, fsdp: bool) -> P:
     return P()                                   # replicate by default
 
 
-def check_model_axis(cfg: ArchConfig, model: int, max_len=None):
-    """Raise ``ValueError`` where a model axis of ``model`` does not divide
-    a dim that the port's model code splits where these rules place
-    "model": the vocab, query heads, GDN k/v heads, SSD heads and
-    d_state, the RG-LRU width, the MLP's d_ff, the MoE experts and, with
-    ``max_len`` (serving), the KV context (``max_len``, a ``swa``
-    window's slots).  Where one of these does not divide, the
-    reference's ``fit_spec`` moves the axis onto another dim, which the
-    model code does not follow (ROADMAP queue 1 item 4e).  The one move
-    it follows: KV heads the axis does not divide (MQA) go to head_dim,
-    which the axis must then divide."""
+# record entry -> (the leaves it reads, the dims the model code follows
+# there); attention's leaves are those of the attn / swa layers
+_RECORD = {
+    "embed": (("embed/table",), ("vocab", "d_model", None)),
+    "logits": (("lm_head/w",), ("vocab", "d_model", None)),
+    "moe_in": (("moe/wi_gate", "moe/wi_up"), ("experts", "d_ff")),
+    "moe_out": (("moe/wo",), ("experts", "d_ff", "d_model")),
+    "attn_q": (("mixer/wq",), ("heads", "head_dim")),
+    "attn_kv": (("mixer/wk", "mixer/wv"), ("heads", "head_dim")),
+    "attn_out": (("mixer/wo",), ("heads", "head_dim", "d_model")),
+}
+_ATTN_KINDS = ("attn", "swa")
+
+
+def _record_leaves(cfg: ArchConfig):
+    """{leaf: [(its dims by name, shape)]} of the leaves ``_RECORD`` reads,
+    their shapes from ``cfg`` (``models.lm.init_lm``'s, one per layer
+    group holding such a leaf: the groups differ in their stack dim)."""
+    D, V = cfg.d_model, cfg.vocab
+    L, n = cfg.n_layers, len(cfg.pattern)
+    groups = [(cfg.pattern, L // n)] if L // n else []
+    if L % n:
+        groups.append((cfg.pattern[:L % n], 1))
+    out = {"embed/table": [(("vocab", "d_model"), (V, D))]}
+    if not cfg.tie_embeddings:
+        out["lm_head/w"] = [(("d_model", "vocab"), (D, V))]
+    for kinds, reps in groups:
+        if cfg.ffn in ("moe", "moe+dense"):
+            E, F = cfg.moe_experts, cfg.d_ff
+            wi = (("layers", "experts", "d_model", "d_ff"), (reps, E, D, F))
+            out.setdefault("moe/wi_gate", []).append(wi)
+            out.setdefault("moe/wi_up", []).append(wi)
+            out.setdefault("moe/wo", []).append(
+                (("layers", "experts", "d_ff", "d_model"), (reps, E, F, D)))
+        if set(kinds) & set(_ATTN_KINDS):
+            names = ("layers", "d_model", "heads", "head_dim")
+            hd = cfg.head_dim
+            out.setdefault("mixer/wq", []).append(
+                (names, (reps, D, cfg.hq_eff, hd)))
+            for w in ("mixer/wk", "mixer/wv"):
+                out.setdefault(w, []).append(
+                    (names, (reps, D, cfg.hkv_eff, hd)))
+            out.setdefault("mixer/wo", []).append(
+                (("layers", "heads", "head_dim", "d_model"),
+                 (reps, cfg.hq_eff, hd, D)))
+    return out
+
+
+def model_dims(cfg: ArchConfig, mesh, fsdp: bool = False) -> Dict[str, str]:
+    """Where ``params_specs`` puts "model" on the leaves whose split the
+    model code follows, by the name of the dim: ``embed`` ("vocab",
+    "d_model" or None: replicated over "model"), ``logits`` (the weight
+    the logits read: the tied table's or ``lm_head``'s, the same names),
+    ``moe_in`` (``wi_gate`` / ``wi_up``: "experts" or "d_ff"),
+    ``moe_out`` (``wo``: "experts", "d_ff" or "d_model"), ``attn_q``
+    (``wq``: "heads" or "head_dim"), ``attn_kv`` (``wk`` / ``wv``, the
+    same) and ``attn_out`` (``wo``: "heads", "head_dim" or "d_model"); an
+    entry is absent where the config has no such leaf.  ``fit_spec``
+    moves the axis off a dim it does not divide, so the record depends on
+    the axis sizes and on ``fsdp`` ("data" takes a dim the axis could
+    move to).  ``mesh``: anything ``mesh_sizes`` reads, or a dict of
+    axis sizes.  Read once per (config, sizes, fsdp) from ``param_spec``
+    and ``fit_spec`` on the leaves' shapes; the layers branch on it.  An
+    entry that differs between layer groups, or names a dim outside the
+    ones listed, is "unsupported:..." (``check_model_axis`` refuses
+    it)."""
+    sizes = mesh if isinstance(mesh, dict) else mesh_sizes(mesh)
+    return dict(_model_dims(cfg, int(sizes.get("data", 1)),
+                            int(sizes.get("model", 1)), bool(fsdp)))
+
+
+@functools.lru_cache(maxsize=None)
+def _model_dims(cfg: ArchConfig, data: int, model: int, fsdp: bool):
+    from types import SimpleNamespace
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": data, "model": model})
+    seen: Dict[str, set] = {}
+    for leaf, placed in _record_leaves(cfg).items():
+        keys = [k for k, (ls, _) in _RECORD.items() if leaf in ls]
+        if leaf == "embed/table" and cfg.tie_embeddings:
+            keys.append("logits")
+        for names, shape in placed:
+            stacked = names[0] == "layers"
+            spec = param_spec(f"groups/0/0/{leaf}" if stacked else leaf,
+                              shape, fsdp)
+            if stacked:
+                spec = _prepend_stack_dim(spec)
+            spec = fit_spec(spec, shape, mesh)
+            dim = next((name for entry, name in zip(spec, names)
+                        if "model" in _names(entry)), None)
+            for key in keys:
+                seen.setdefault(key, set()).add(dim)
+    out = {}
+    for key, dims in seen.items():
+        dim = next(iter(dims))
+        ok = len(dims) == 1 and dim in _RECORD[key][1]
+        out[key] = dim if ok else f"unsupported:{sorted(map(str, dims))}"
+    return tuple(sorted(out.items()))
+
+
+def active_model_dims(cfg: ArchConfig) -> Dict[str, str]:
+    """``model_dims`` of ``cfg`` on the active mesh (``parallel.comm.use``;
+    its ``fsdp``), {} off one."""
+    axes = comm.active()
+    return {} if axes is None else model_dims(cfg, axes.sizes, axes.fsdp)
+
+
+def check_model_axis(cfg: ArchConfig, model: int, max_len=None,
+                     data: int = 1, fsdp: bool = False):
+    """Raise ``ValueError`` where a model axis of ``model`` (beside a data
+    axis of ``data``, the specs FSDP's where ``fsdp``) splits a dim where
+    the model code does not follow the split.  The model code follows
+    every placement of ``model_dims``: the vocab moved onto d_model (or
+    the table replicated), the experts onto d_ff (their ``wo`` onto d_ff
+    or d_model), query and KV heads onto head_dim (attention's ``wo`` onto
+    head_dim or d_model).  It does not follow a move of the GDN heads
+    (k and v), the SSD heads and ``d_state``, the RG-LRU width, the dense
+    MLP's d_ff, nor, with ``max_len`` (serving), of the KV context
+    (``max_len``, a ``swa`` window's slots) onto the cache's head_dim:
+    those the axis must divide (ROADMAP queue 1 item 4g)."""
     if model == 1:
         return
     kinds = set(cfg.layer_kinds)
-    dims = {"vocab": cfg.vocab}
-    if kinds & {"attn", "swa"}:
-        dims["n_heads"] = cfg.hq_eff
-        if cfg.hkv_eff % model:         # fit_spec: onto head_dim
-            dims["n_kv_heads or head_dim"] = cfg.head_dim
+    dims = {}
+    if kinds & set(_ATTN_KINDS):
         if max_len is not None and "attn" in kinds:
             dims["max_len (the KV context)"] = max_len
         if max_len is not None and "swa" in kinds:
@@ -235,16 +343,18 @@ def check_model_axis(cfg: ArchConfig, model: int, max_len=None):
         dims["rglru_width"] = cfg.rglru_width
     if cfg.ffn == "dense":
         dims["d_ff"] = cfg.d_ff
-    if cfg.ffn in ("moe", "moe+dense"):
-        dims["moe_experts"] = cfg.moe_experts
     if cfg.ffn == "moe+dense":
         dims["d_ff_dense"] = cfg.d_ff_dense or cfg.d_ff
     bad = {k: v for k, v in dims.items() if v % model}
+    placed = model_dims(cfg, {"data": data, "model": model}, fsdp)
+    bad.update({f"{k} (placed {v})": "no followed dim"
+                for k, v in placed.items()
+                if str(v).startswith("unsupported")})
     if bad:
         raise ValueError(
             f"the model axis ({model}) must divide {bad}: the reference's "
             f"fit_spec would move it onto another dim, which the port's "
-            f"model code does not follow (ROADMAP queue 1 item 4e)")
+            f"model code does not follow (ROADMAP queue 1 item 4g)")
 
 
 def _prepend_stack_dim(spec: P) -> P:
@@ -497,8 +607,19 @@ def map_specs(fn, tree, specs, is_leaf=None):
     return fn(tree, specs)
 
 
+def _owned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and holding only its own bytes: a block cut along
+    a leading dim is a contiguous view that would keep the whole leaf's
+    storage alive, so it is copied too."""
+    t = t.contiguous()
+    if t.device.type == "meta" or t.untyped_storage().nbytes() == t.nbytes:
+        return t
+    return t.clone()
+
+
 def shard_tree(tree, specs, coords, sizes, full=None):
-    """``local_shard`` of every leaf of a full tree (contiguous copies).
+    """``local_shard`` of every leaf of a full tree (copies that hold only
+    their block's bytes, ``_owned``).
     With ``full`` (the tree of the full leaves, e.g. on the meta device) a
     leaf may also come cut already along some of its dims, or all (drawn
     so: ``lm.init_lm(..., mesh=)`` keeps only this rank's experts, whose
@@ -506,8 +627,9 @@ def shard_tree(tree, specs, coords, sizes, full=None):
     that holds this rank's block is kept; a dim of any other size
     raises."""
     if full is None:
-        return map_specs(lambda t, s: local_shard(t, s, coords, sizes)
-                         .contiguous(), tree, specs)
+        return map_specs(lambda t, s: _owned(local_shard(t, s, coords,
+                                                         sizes)),
+                         tree, specs)
 
     def cut(t, spec_shape):
         spec, shape = spec_shape
@@ -521,7 +643,7 @@ def shard_tree(tree, specs, coords, sizes, full=None):
             if n != w:                    # whole along dim: this block
                 idx, _ = shard_block(spec, dim, coords, sizes)
                 t = t.narrow(dim, idx * w, w)
-        return t.contiguous()
+        return _owned(t)
     return map_specs(cut, tree, map_specs(
         lambda f, spec: (spec, tuple(f.shape)), full, specs))
 

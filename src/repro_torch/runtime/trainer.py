@@ -27,8 +27,10 @@ Behaviours carried over from the reference:
     Each rank reads the global batch and keeps its rows
     (``batch_specs``; with microbatches the reference's resplit: rank r
     of D holds block r of every microbatch).  The model axis trains every
-    mixer kind, the dense FFN and the MoE's experts (``models.lm``),
-    where it divides each dim it splits
+    mixer kind, the dense FFN and the MoE's experts (``models.lm``) on
+    the placements the specs give, the moves of ``fit_spec`` included
+    (the vocabulary onto d_model or replicated, the experts onto d_ff,
+    query heads onto head_dim), where the model code follows them
     (``parallel.sharding.check_model_axis``);
   * checkpoint/restart: atomic async checkpoints every ``ckpt_every``;
     ``run()`` auto-resumes from the latest complete checkpoint, and an
@@ -302,8 +304,10 @@ class Trainer:
             raise ValueError(f"a training mesh has axes ('data', 'model'), "
                              f"got {tuple(sizes)} "
                              f"(launch.mesh.make_local_mesh)")
-        rules.check_model_axis(self.cfg, sizes["model"])
-        axes = self.axes = comm.MeshAxes(mesh)
+        self.fsdp = rules.needs_fsdp(self.cfg, mesh)
+        rules.check_model_axis(self.cfg, sizes["model"], None,
+                               sizes["data"], self.fsdp)
+        axes = self.axes = comm.MeshAxes(mesh, fsdp=self.fsdp)
         backends = {a.backend for a in axes.axes.values()}
         if "gloo" in backends and cuda_graphs:
             raise ValueError("a gloo mesh's collectives are host calls, "
@@ -312,7 +316,6 @@ class Trainer:
         if "nccl" in backends and self.device.type != "cuda":
             raise ValueError(f"an NCCL mesh trains on CUDA, not "
                              f"{self.device}")
-        self.fsdp = rules.needs_fsdp(self.cfg, mesh)
         B, mb, D = self.tc.global_batch, self.tc.microbatches, \
             axes.data.size
         if B % (mb * D):

@@ -38,8 +38,11 @@ on the same requests: the slot axis on "data" (streams bitwise the
 one-device engine's), and on "model" each kind's heads or width (GDN
 and SSD state heads, attention heads and the KV context, the RG-LRU
 width), the MLP, the MoE's experts and the vocab: every kind of the
-registry splits (``executor.check_model_axis`` refuses only a dim the
-axis does not divide).
+registry splits.  Where the axis does not divide such a dim the
+reference's ``fit_spec`` moves it onto another (the vocab onto d_model,
+the experts onto d_ff, query heads onto head_dim), and the model code
+follows those moves; ``executor.check_model_axis`` refuses only the
+moves it does not follow (ROADMAP queue 1 item 4g).
 """
 from __future__ import annotations
 

@@ -124,12 +124,15 @@ def _pow2_floor(n: int) -> int:
 MODEL_AXIS_KINDS = ("attn", "gdn", "gdn_naive", "rglru", "ssm", "swa")
 
 
-def check_model_axis(cfg: ArchConfig, model: int, max_len: int):
-    """Refuse a model axis of ``model`` > 1 that this port cannot serve: a
-    mixer kind outside ``MODEL_AXIS_KINDS`` (``NotImplementedError``), or
-    a dim the axis must divide (``ValueError``,
-    ``parallel.sharding.check_model_axis``: the dims the trainer splits,
-    and the KV context, ``max_len`` or a ``swa`` window's slots)."""
+def check_model_axis(cfg: ArchConfig, model: int, max_len: int,
+                     data: int = 1):
+    """Refuse a model axis of ``model`` > 1 (beside a data axis of
+    ``data``) that this port cannot serve: a mixer kind outside
+    ``MODEL_AXIS_KINDS`` (``NotImplementedError``), or a move of the axis
+    that the model code does not follow (``ValueError``,
+    ``parallel.sharding.check_model_axis``: the dims the axis must
+    divide, the KV context, ``max_len`` or a ``swa`` window's slots,
+    among them)."""
     if model == 1:
         return
     kinds = sorted(set(cfg.layer_kinds) - set(MODEL_AXIS_KINDS))
@@ -138,7 +141,7 @@ def check_model_axis(cfg: ArchConfig, model: int, max_len: int):
             f"the mesh's model axis has no split for mixer kind(s) {kinds} "
             f"(split kinds: {list(MODEL_AXIS_KINDS)}); the data axis "
             f"serves every kind")
-    rules.check_model_axis(cfg, model, max_len)
+    rules.check_model_axis(cfg, model, max_len, data)
 
 
 def _drop_data(specs):
@@ -396,7 +399,8 @@ class DeviceExecutor:
                              f"got {names} (launch.mesh.make_serving_mesh)")
         axes = self._axes = comm.MeshAxes(self.mesh)
         for cfg in (self.cfg,) + ((draft_cfg,) if draft_cfg else ()):
-            check_model_axis(cfg, axes.model.size, self.max_len)
+            check_model_axis(cfg, axes.model.size, self.max_len,
+                             axes.data.size)
         backends = {a.backend for a in axes.axes.values()}
         if "nccl" in backends and self.device.type != "cuda":
             raise ValueError(f"an NCCL mesh needs a CUDA executor, not "

@@ -1384,6 +1384,35 @@ def test_bmm_f32_vs_fp32_operands(cuda):
 
 
 @pytest.mark.cuda
+def test_bmm_f32_input_gradient_rounds_once(cuda):
+    """The input's gradient through ``bmm_f32`` over a long sum (an LM
+    head's vocabulary, minicpm-2b's 122,753) is its fp32 sum rounded to
+    bf16 once, with torch's bf16 reductions of split partial sums allowed
+    (the default): every element within one bf16 ulp of the fp64 product
+    of the bf16-rounded cotangent."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(32)
+    V = 122753
+    h = _normal(rng, 1, 64, 256).to(cuda, torch.bfloat16)
+    w = _normal(rng, 1, 256, V, scale=0.05).to(cuda, torch.bfloat16)
+    g = _normal(rng, 1, 64, V).to(cuda)
+    hr = h.clone().requires_grad_(True)
+    matmul = torch.backends.cuda.matmul
+    allowed = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        layers.bmm_f32(hr, w).backward(g)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = allowed
+    want = torch.bmm(g.to(torch.bfloat16).double(),
+                     w.double().transpose(1, 2))
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.clamp(want.abs(), min=1e-30))) - 7)
+    assert hr.grad.dtype == torch.bfloat16
+    assert bool(((hr.grad.double() - want).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
 def test_moe_graphs_streams_bitwise_equal_eager(cuda):
     """Reduced bf16 mixtral served twice by a CUDA-graph engine and an
     eager one, greedy and stochastic: the same streams (the MoE

@@ -18,10 +18,11 @@ step runs on the meta device: nothing is materialised at full width.
     formula of ``linalg.solve_triangular`` vs jax's transpose rule: the
     port 0.15% above); the prefill's products are equal;
   * the collectives of one full-width decode step at B 4 on a dry (1,2)
-    mesh: the counts the card's runs took on gloo ranks;
-  * every arch's decode_32k cell at (16,16): ok, or refused by
-    ``check_model_axis`` (ROADMAP queue 1 item 4e) for exactly
-    minicpm-2b, mamba2-1.3b, mixtral-8x7b and arctic-480b.
+    mesh: the counts the card's runs took on gloo ranks (minicpm-2b's
+    with its table and tied logits on d_model: phase 19 (a));
+  * every arch's decode_32k cell at (16,16) is counted: none is refused
+    since the model code follows ``fit_spec``'s moves (minicpm-2b,
+    mamba2-1.3b, mixtral-8x7b and arctic-480b were refused before).
 """
 import os
 import types
@@ -43,6 +44,7 @@ from repro_torch.launch import op_cost                      # noqa: E402
 from repro_torch.launch import steps as tsteps              # noqa: E402
 from repro_torch.models import lm as tlm                     # noqa: E402
 from repro_torch.parallel import comm                       # noqa: E402
+from repro_torch.parallel import sharding as tsharding      # noqa: E402
 from repro_torch.tree import leaves                         # noqa: E402
 
 ARCHS = sorted(tconfigs.ARCHS)
@@ -53,8 +55,11 @@ FLOPS_RTOL = 5e-3
 # collectives per decode step at (1,2), B 4 (PERF.md section 2, the card's
 # phase 13 (c) and phase 14 (b)-(d) counts on gloo ranks)
 COLLECTIVES_1x2 = {"qwen3-next-gdn": 134, "mamba2-1.3b": 146,
-                   "recurrentgemma-2b": 96, "mixtral-8x7b": 82}
-REFUSED_16 = {"minicpm-2b", "mamba2-1.3b", "mixtral-8x7b", "arctic-480b"}
+                   "recurrentgemma-2b": 96, "mixtral-8x7b": 82,
+                   "minicpm-2b": 202}
+# the archs whose (16,16) cells the model axis's moves reach (refused
+# before the model code followed them)
+MOVED_16 = {"minicpm-2b", "mamba2-1.3b", "mixtral-8x7b", "arctic-480b"}
 
 
 def _mesh(sizes):
@@ -232,18 +237,20 @@ def test_decode_collectives_on_dry_mesh(arch):
 
 
 def test_decode_cells_at_16x16():
-    refused = set()
+    moved = set()
     for arch in ARCHS:
         res = tdryrun.run_cell(arch, "decode_32k", False)
-        assert res["status"] in ("ok", "refused"), res
-        if res["status"] == "refused":
-            refused.add(arch)
-            assert "ROADMAP queue 1 item 4e" in res["reason"]
-            continue
+        assert res["status"] == "ok", res
+        dims = tsharding.model_dims(tconfigs.get_arch(arch),
+                                    MESHES["16x16"])
+        if dims.get("embed") != "vocab" or dims.get("logits") != "vocab" \
+                or dims.get("moe_in", "experts") != "experts" \
+                or dims.get("attn_q", "heads") != "heads":
+            moved.add(arch)
         assert res["flops_per_device"] > 0
         assert res["memory"]["peak_bytes"] >= \
             res["memory"]["argument_bytes"]["total"]
         assert res["roofline"]["dominant"] == "memory_s"
         assert 0 < res["memory_floor_s"] < res["roofline"]["memory_s"]
         assert res["fits_hbm_80g"]
-    assert refused == REFUSED_16
+    assert moved == MOVED_16

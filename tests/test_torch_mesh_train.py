@@ -17,7 +17,7 @@ mixtral on (2,1) with FSDP forced (its one 64-token capacity group
 spans both ranks' 32 tokens; ``aux`` and ``ce`` from the global batch),
 the elastic restore of (2,1)'s step-2 checkpoint into one device and
 into (1,2), the refusal of a model axis that does not divide ``ssm``'s
-d_state (``fit_spec`` would move it: ROADMAP item 4e), the gradients' mean
+d_state (``fit_spec`` would move it: ROADMAP item 4g), the gradients' mean
 over a data axis of 4 (``Axis.mean_flat``: FSDP's reduce-scatter against
 the all-reduce and the cut), and the train state's specs against the
 reference's ``Trainer._shardings``.
@@ -331,14 +331,14 @@ def test_mean_flat_is_the_cut_all_reduce(run):
 
 def test_model_axis_refused_for_ssm(run):
     """Every kind trains on a model axis (``test_torch_mesh_train_kinds``);
-    what is refused is an axis that does not divide a dim it splits, here
-    ssm's d_state of 33 at (1,2), naming the item that would follow
-    ``fit_spec``'s move."""
+    what is refused is an axis that does not divide a dim whose move the
+    model code does not follow, here ssm's d_state of 33 at (1,2), naming
+    the item that would follow ``fit_spec``'s move."""
     jobs, _, _ = run
     got = jobs["refuse_ssm"][0]
     assert got["type"] == "ValueError"
     assert "ssm_d_state" in got["message"]
-    assert "item 4e" in got["message"]
+    assert "item 4g" in got["message"]
 
 
 def _flat_specs(tree, jax_side):

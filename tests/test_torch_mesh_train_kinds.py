@@ -222,17 +222,19 @@ def test_mean_over_is_the_serving_mean(run):
 
 
 def test_every_arch_passes_the_model_axis_check():
-    """No kind is refused on a model axis of 2 that divides its dims: the
-    trainer's check passes for every registered arch's reduced config, and
-    at full width for every arch but minicpm-2b, whose vocab of 122,753 no
-    axis divides (ROADMAP item 4e)."""
+    """No registered arch is refused on a model axis of 2: the trainer's
+    check passes for every reduced config, and at full width for every
+    arch at 2, 4, 8 and 16, under the trainer's FSDP rule and without
+    it, minicpm-2b's vocab of 122,753 (which no axis divides) included:
+    its table moves onto d_model, or is replicated under FSDP."""
     from repro_torch import configs as tconfigs
     from repro_torch.parallel import sharding as trules
     for arch in tconfigs.ARCHS:
         trules.check_model_axis(tconfigs.get_arch(arch).reduced(), 2)
         full = tconfigs.get_arch(arch)
-        if arch == "minicpm-2b":
-            with pytest.raises(ValueError, match="vocab.*item 4e"):
-                trules.check_model_axis(full, 2)
-        else:
-            trules.check_model_axis(full, 2)
+        for model in (2, 4, 8, 16):
+            for fsdp in (False, True):
+                trules.check_model_axis(full, model, None, 1, fsdp)
+    dims = trules.model_dims(tconfigs.get_arch("minicpm-2b"),
+                             {"data": 1, "model": 2}, True)
+    assert dims["embed"] is None

@@ -47,6 +47,7 @@ from repro_torch.checkpoint import manager as tckpt        # noqa: E402
 from repro_torch.data import pipeline as tdata             # noqa: E402
 from repro_torch.models import lm as tlm                   # noqa: E402
 from repro_torch.optim import optimizers as topt           # noqa: E402
+from repro_torch.parallel import sharding as trules        # noqa: E402
 from repro_torch.runtime import trainer as ttrainer        # noqa: E402
 from repro_torch.runtime import graphs                     # noqa: E402
 from repro_torch.tree import leaves                        # noqa: E402
@@ -404,23 +405,26 @@ def test_trainer_microbatch_accumulation():
 
 
 def test_trainer_rejects_a_mesh():
-    """The refusal that remains: a model axis that does not divide a dim
-    the model code splits there, where the reference's ``fit_spec`` would
-    move it (ROADMAP item 4e), for every kind and the MoE (checked from
-    the mesh's shape before any process group is touched)."""
+    """The refusal that remains: a model axis that ``fit_spec`` moves
+    onto a dim whose move the model code does not follow (ROADMAP item
+    4g: here the SSD heads and the RG-LRU width), checked from the mesh's
+    shape before any process group is touched; the moves it follows
+    pass the check (query heads onto head_dim, the experts onto d_ff,
+    with and without FSDP)."""
     def mesh(model):
         return SimpleNamespace(axis_names=("data", "model"),
                                shape={"data": 1, "model": model})
     for arch, model, what in (("mamba2-1.3b", 3, "ssm_heads"),
-                              ("recurrentgemma-2b", 3, "rglru_width"),
-                              ("h2o-danube-1.8b", 8, "n_heads"),
-                              ("mixtral-8x7b", 8, "moe_experts"),
-                              ("arctic-480b", 8, "moe_experts")):
+                              ("recurrentgemma-2b", 3, "rglru_width")):
         cfg = tconfigs.get_arch(arch).reduced()
         with pytest.raises(ValueError,
-                           match=rf"{what}.*ROADMAP queue 1 item 4e"):
+                           match=rf"{what}.*ROADMAP queue 1 item 4g"):
             ttrainer.Trainer(cfg, ttrainer.TrainerConfig(),
                              mesh=mesh(model), device="cpu")
+    for arch in ("h2o-danube-1.8b", "mixtral-8x7b", "arctic-480b"):
+        cfg = tconfigs.get_arch(arch).reduced()
+        for fsdp in (False, True):
+            trules.check_model_axis(cfg, 8, None, 1, fsdp)
 
 
 @pytest.mark.parametrize("arch,schedule", [("minicpm-2b", "wsd"),

@@ -121,6 +121,18 @@ SSM_ODD = "mamba2-1.3b-dstate33"
 # qwen3-next-gdn's reduced config in bf16 activations (and parameters)
 BF16 = "qwen3-next-gdn-bf16"
 
+# reduced configs whose dims a model axis of 2 does not divide, so that
+# ``fit_spec`` moves it as it does at full width: minicpm-2b's vocabulary
+# (the tied table onto d_model, or replicated under FSDP), mamba2-1.3b's
+# (the table and the untied head onto d_model), mixtral-8x7b's experts
+# (onto d_ff; ``wo`` onto d_model, or d_ff under FSDP) and arctic-480b's
+# query and KV heads (onto head_dim; ``wo`` onto d_model, or head_dim
+# under FSDP)
+VOCAB_TIED = "minicpm-2b-v257"
+VOCAB_HEAD = "mamba2-1.3b-v257"
+EXPERTS3 = "mixtral-8x7b-e3"
+HEADS3 = "arctic-480b-h3"
+
 # the reduced configs that are no arch of the registry: name -> (arch,
 # ``replace`` settings), the same on the reference's side
 VARIANTS = {
@@ -130,6 +142,10 @@ VARIANTS = {
         pattern=("gdn_naive", "gdn_naive", "gdn_naive", "attn"))),
     SSM_ODD: ("mamba2-1.3b", dict(ssm_d_state=33)),
     BF16: ("qwen3-next-gdn", dict(act_dtype="bfloat16")),
+    VOCAB_TIED: ("minicpm-2b", dict(vocab=257)),
+    VOCAB_HEAD: ("mamba2-1.3b", dict(vocab=257)),
+    EXPERTS3: ("mixtral-8x7b", dict(moe_experts=3)),
+    HEADS3: ("arctic-480b", dict(n_heads=3, n_kv_heads=1)),
 }
 
 
@@ -394,10 +410,31 @@ def logits_job(job, shared, mesh):
         h1, _ = lm.prefill_chunk(local, cfg, caches, tokens=x["chunk1"])
         h2, _ = lm.prefill_chunk(local, cfg, caches, tokens=x["chunk2"],
                                  valid_len=x["valid"])
-        logits, _ = lm.decode_step(local, cfg, x["tok"], caches)
+        with _GatherLog() as sizes:
+            logits, _ = lm.decode_step(local, cfg, x["tok"], caches)
     return {"rows": (rows.start, rows.stop), "h1": h1.numpy(),
             "h2": h2.numpy(), "logits": logits.numpy(),
-            "collectives": comm.stats["calls"]}
+            "collectives": comm.stats["calls"], "decode_gathers": sizes}
+
+
+class _GatherLog:
+    """[(axis name, bytes gathered)] of every collective issued inside
+    (each goes through ``Axis.all_gather``: an all-reduce gathers, then
+    sums)."""
+
+    def __enter__(self):
+        self.real = comm.Axis.all_gather
+        sizes = self.sizes = []
+
+        def gather(axis, t, dim=0):
+            if axis.size > 1:
+                sizes.append((axis.name, t.nbytes * axis.size))
+            return self.real(axis, t, dim)
+        comm.Axis.all_gather = gather
+        return sizes
+
+    def __exit__(self, *exc):
+        comm.Axis.all_gather = self.real
 
 
 def swap_job(job, shared, mesh):
